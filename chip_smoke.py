@@ -1,0 +1,589 @@
+#!/usr/bin/env python3
+"""Drive the koifish_tpu_torch serving path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failed check exits non-zero before the last line:
+
+1. build   — compile every CUDA kernel of the path from ``koifish_tpu_torch/
+             csrc`` (one nvcc per source, in parallel) and print the times.
+2. card    — print the card's name and power limit (nvidia-smi) and turn
+             TF32 off for matmuls and cuDNN.
+3. kernels — each kernel against its plain PyTorch version on the card, at
+             the shapes of the serving path and at ragged ones, with the
+             tolerance stated; kernel, plain, library and bound times.
+4. slice   — Qwen3-0.6B at full width (configs/qwen3_0.6b.json, random
+             weights from a seed), INT4 RTN g128 weights, a layered INT8 KV
+             cache (B=32, S=1024): ``generate`` on 32 prompts of 128 tokens
+             (64 new tokens, decode_chunk 16, T 0.6 / top-k 50 / top-p 0.95),
+             three rounds, then a greedy B=1 call. Prints warm TTFT, decode
+             tok/s and ms/step (each round and the median), peak device
+             memory and each kernel's launches in that run, which must all
+             be > 0.
+             A torch.profiler window over a fresh prefill and one decode
+             chunk prints device time by kernel and the idle share. A tiny
+             model's card run is held against the CPU run of the same
+             weights.
+5. result  — one JSON line with every kernel's numbers, then the last line
+             ``{"ok": true, "device": {...}}``.
+
+It needs a CUDA device and the repository around it; without either it
+fails before printing any result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM published peaks (dense): bf16 tensor cores and HBM3 bandwidth
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke FAILED: {msg}", flush=True)
+    sys.exit(1)
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ms(torch, fn, iters: int = 20, warm: int = 3) -> float:
+    """Mean device time of one ``fn()`` call. ``iters`` calls are captured
+    in one CUDA graph and the replay is timed with CUDA events, so the
+    host's launch overhead (Python, the wrapper's checks, ctypes) is not
+    counted: a loop of eager launches of a kernel of a few microseconds
+    measures the host, not the kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warm):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()                       # warm replay
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    e1.synchronize()
+    del graph
+    return e0.elapsed_time(e1) / iters
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def check(name: str, err: float, tol: float) -> None:
+    ok = err <= tol
+    say(f"  check {name}: max_abs_err={err:.3e} tol={tol:.1e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def flash_phase(torch, gen):
+    from koifish_tpu_torch.ops.kernels import flash as kf
+    F = torch.nn.functional
+    say("[kernels] flash_fwd (koifish_tpu_torch/csrc/flash_fwd.cu)")
+    # o: bf16 outputs of O(1); the kernel's online softmax rounds p to bf16
+    # against the running max (the plain version: the final max), so the
+    # two differ by a few bf16 ulps. lse is f32 throughout.
+    tol_o, tol_lse = 2e-2, 1e-3
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    cases = [  # (label, B, T, Hq, Hkv, D, window, head-major view)
+        ("slice B32 T128 Hq16 Hkv8 D128", 32, 128, 16, 8, 128, 0, False),
+        ("head-major B2 T256 Hq16 Hkv8 D128", 2, 256, 16, 8, 128, 0, True),
+        ("ragged B3 T300 Hq8 Hkv2 D64 window100", 3, 300, 8, 2, 64, 100,
+         False),
+        ("ragged B1 T77 Hq4 Hkv4 D256", 1, 77, 4, 4, 256, 0, False),
+        ("long B1 T1500 Hq4 Hkv2 D128", 1, 1500, 4, 2, 128, 0, False),
+    ]
+    slice_err = None
+    for label, B, T, Hq, Hkv, D, win, hm in cases:
+        if hm:   # [B, H, T, D] storage seen as [B, T, H, D]
+            q = rnd(B, Hq, T, D).transpose(1, 2)
+            k = rnd(B, Hkv, T, D).transpose(1, 2)
+            v = rnd(B, Hkv, T, D).transpose(1, 2)
+        else:
+            q, k, v = rnd(B, T, Hq, D), rnd(B, T, Hkv, D), rnd(B, T, Hkv, D)
+        sc = 1.0 / D ** 0.5
+        o, lse = kf.flash_attention_fwd(q, k, v, scale=sc, window=win)
+        po, plse = kf.flash_attention_plain(q, k, v, scale=sc, window=win)
+        torch.cuda.synchronize()
+        e_o, e_l = max_err(o, po), max_err(lse, plse)
+        check(f"flash_fwd {label} o", e_o, tol_o)
+        check(f"flash_fwd {label} lse", e_l, tol_lse)
+        if slice_err is None:
+            slice_err = e_o
+            kms = time_ms(torch, lambda: kf.flash_attention_fwd(
+                q, k, v, scale=sc))
+            pms = time_ms(torch, lambda: kf.flash_attention_plain(
+                q, k, v, scale=sc), iters=5)
+            g = Hq // Hkv
+            qh = q.transpose(1, 2).contiguous()
+            kh = k.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+            vh = v.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+            lms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, scale=sc))
+            pairs = T * (T + 1) // 2
+            nbytes = 2 * (2 * B * T * Hq * D + 2 * B * T * Hkv * D) \
+                + 4 * B * Hq * T
+            bms, by = bound_ms(nbytes, 4.0 * B * Hq * pairs * D)
+            say(f"  time flash_fwd slice: kernel_ms={kms:.4f} "
+                f"plain_ms={pms:.4f} library_ms(SDPA)={lms:.4f} "
+                f"bound_ms={bms:.5f} ({by})")
+            res = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                       bound_by=by)
+    res["max_abs_err"] = slice_err
+    return res
+
+
+# the seven projections of one Qwen3-0.6B layer: (name, K, N)
+QWEN3_PROJ = [("q", 1024, 2048), ("k", 1024, 1024), ("v", 1024, 1024),
+              ("o", 2048, 1024), ("gate", 1024, 3072), ("up", 1024, 3072),
+              ("down", 3072, 1024)]
+
+
+def qmatmul_phase(torch, gen):
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.ops.kernels import matmul as km
+    from koifish_tpu_torch.quant.rtn import quantize
+    say("[kernels] qmatmul GEMM/GEMV (koifish_tpu_torch/csrc/qmatmul.cu)")
+
+    def tol(ref):
+        # bf16 outputs: the kernel and the plain version sum the same f32
+        # products in another order, then round; allow ~1 bf16 ulp of the
+        # largest output
+        return 1e-2 * float(ref.float().abs().max()) + 1e-3
+
+    def weight(K, N, fmt):
+        w = torch.randn((K, N), generator=gen, device="cuda") * 0.02
+        return quantize(w, fmt, group=128)
+
+    def act(m, K):
+        return torch.randn((m, K), generator=gen, device="cuda"
+                           ).to(torch.bfloat16)
+
+    # every format, both launch shapes, plus ragged shapes
+    for fmt in km.FORMATS:
+        for m, K, N in ((256, 1024, 1024), (32, 1024, 1024), (40, 384, 1000),
+                        (5, 256, 132), (1, 3072, 1024)):
+            w, x = weight(K, N, fmt), act(m, K)
+            y = km.qmatmul(x, w)
+            ref = km.qmatmul_plain(x, w.codes, w.scales, w.fmt, w.group)
+            torch.cuda.synchronize()
+            check(f"qmatmul {fmt.name} m{m} K{K} N{N}", max_err(y, ref),
+                  tol(ref))
+
+    out = {}
+    for kind, m in (("qmm", 4096), ("qmv", 32)):
+        # one layer's projections at the slice's m, INT4; 12 layers' worth
+        # of weights are cycled so the codes come from device memory
+        n_layers = 12
+        ws = [[weight(K, N, QFormat.INT4) for _, K, N in QWEN3_PROJ]
+              for _ in range(n_layers)]
+        xs = {K: act(m, K) for K in (1024, 2048, 3072)}
+        err = 0.0
+        for (pname, K, N), w in zip(QWEN3_PROJ, ws[0]):
+            y = km.qmatmul(xs[K], w)
+            ref = km.qmatmul_plain(xs[K], w.codes, w.scales, w.fmt, w.group)
+            torch.cuda.synchronize()
+            e = max_err(y, ref)
+            check(f"{kind} slice {pname} m{m} K{K} N{N} INT4", e, tol(ref))
+            err = max(err, e)
+        deq = [[w.dequantize(torch.bfloat16) for w in layer]
+               for layer in ws[:4]]
+
+        def run_kernel():
+            for layer in ws:
+                for (_, K, _n), w in zip(QWEN3_PROJ, layer):
+                    km.qmatmul(xs[K], w)
+
+        def run_plain():
+            for (_, K, _n), w in zip(QWEN3_PROJ, ws[0]):
+                km.qmatmul_plain(xs[K], w.codes, w.scales, w.fmt, w.group)
+
+        def run_lib():
+            for layer in deq:
+                for (_, K, _n), wd in zip(QWEN3_PROJ, layer):
+                    torch.matmul(xs[K], wd)
+
+        kms = time_ms(torch, run_kernel, iters=5) / n_layers
+        pms = time_ms(torch, run_plain, iters=3)
+        lms = time_ms(torch, run_lib, iters=5) / len(deq)
+        nbytes = sum(m * K * 2 + K * N // 2 + (K // 128) * N * 4 + m * N * 2
+                     for _, K, N in QWEN3_PROJ)
+        flops = sum(2.0 * m * K * N for _, K, N in QWEN3_PROJ)
+        bms, by = bound_ms(nbytes, flops)
+        say(f"  time {kind} one layer's 7 projections (m={m}, INT4): "
+            f"kernel_ms={kms:.4f} plain_ms={pms:.4f} "
+            f"library_ms(matmul on dequantized bf16)={lms:.4f} "
+            f"bound_ms={bms:.5f} ({by})")
+        out[kind] = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                         bound_by=by, max_abs_err=err)
+    return out
+
+
+def decode_attn_phase(torch, gen):
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.ops.kernels import decode_attn as kd
+    from koifish_tpu_torch.serve.kvcache import _quant_kv
+    F = torch.nn.functional
+    say("[kernels] decode_attn (koifish_tpu_torch/csrc/decode_attn.cu)")
+    # bf16 outputs of O(0.1-1); p·v_scale is rounded to bf16 against the
+    # running max in the kernel and the final max in the plain version
+    tol = 2e-2
+
+    def cache(B, Hkv, S, D, fmt):
+        x = torch.randn((B, Hkv, S, D), generator=gen, device="cuda")
+        return _quant_kv(x, fmt)
+
+    cases = [  # (label, B, Hq, Hkv, S, D, Dv, lengths)
+        ("slice B32 Hq16 Hkv8 S1024 D128 len129-192", 32, 16, 8, 1024, 128,
+         128, (129, 193)),
+        ("ragged B5 Hq16 Hkv8 S1024 D128 len1-1024", 5, 16, 8, 1024, 128,
+         128, (1, 1025)),
+        ("ragged B3 Hq64 Hkv4 S300 D64 len1-300", 3, 64, 4, 300, 64, 64,
+         (1, 301)),
+        ("mla B2 Hq8 Hkv8 S512 D192 Dv128", 2, 8, 8, 512, 192, 128,
+         (100, 513)),
+        ("B4 Hq28 Hkv4 S256 D256", 4, 28, 4, 256, 256, 256, (200, 257)),
+    ]
+    res = None
+    for fmt in (QFormat.INT8, QFormat.INT4):
+        for label, B, Hq, Hkv, S, D, Dv, (lo, hi) in cases:
+            kc, ks = cache(B, Hkv, S, D, fmt)
+            vc, vs = cache(B, Hkv, S, Dv, fmt)
+            q = torch.randn((B, Hq, D), generator=gen, device="cuda"
+                            ).to(torch.bfloat16)
+            lengths = torch.randint(lo, hi, (B,), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+            sc = 1.0 / D ** 0.5
+            o = kd.decode_attention_quant(q, kc, vc, ks, vs, lengths, sc)
+            ref = kd.decode_attention_plain(q, kc, vc, ks, vs, lengths, sc)
+            torch.cuda.synchronize()
+            err = max_err(o, ref)
+            check(f"decode_attn {fmt.name} {label}", err, tol)
+            if res is None and fmt is QFormat.INT8:
+                kms = time_ms(torch, lambda: kd.decode_attention_quant(
+                    q, kc, vc, ks, vs, lengths, sc), iters=50)
+                pms = time_ms(torch, lambda: kd.decode_attention_plain(
+                    q, kc, vc, ks, vs, lengths, sc), iters=10)
+                g = Hq // Hkv
+                kf = (kc.float() * ks[..., None]).to(torch.bfloat16)
+                vf = (vc.float() * vs[..., None]).to(torch.bfloat16)
+                kf = kf.repeat_interleave(g, dim=1)
+                vf = vf.repeat_interleave(g, dim=1)
+                mask = (torch.arange(S, device="cuda")[None, :]
+                        < lengths[:, None])[:, None, None, :]
+                q4 = q[:, :, None, :]
+                lms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q4, kf, vf, attn_mask=mask, scale=sc), iters=50)
+                live = int(lengths.sum())
+                nbytes = (B * Hq * D * 2 + live * Hkv * (D + Dv)
+                          + live * Hkv * 8 + B * Hq * Dv * 2)
+                bms, by = bound_ms(nbytes, 2.0 * Hq // Hkv * Hkv
+                                   * (D + Dv) * live)
+                say(f"  time decode_attn INT8 slice (one layer): "
+                    f"kernel_ms={kms:.4f} plain_ms={pms:.4f} "
+                    f"library_ms(SDPA on dequantized cache)={lms:.4f} "
+                    f"bound_ms={bms:.5f} ({by})")
+                res = dict(ms=kms, plain_ms=pms, library_ms=lms,
+                           bound_ms=bms, bound_by=by, max_abs_err=err)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the slice
+# ---------------------------------------------------------------------------
+
+def reference_check(torch):
+    """A tiny QWEN3 card: the card's run (kernels) against the CPU run of
+    the same weights (plain versions) — prefill logits and greedy tokens."""
+    from koifish_tpu_torch.config import ModelCard, QuantCard, SamplerCard
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.quant import quantize_params
+    from koifish_tpu_torch.serve import cache_for, generate, prefill
+    card = ModelCard.from_arch("QWEN3", vocab_size=256, n_layer=2,
+                               n_embd=128, n_head=2, n_kv_head=1,
+                               head_dim=64, n_ffn=256, n_ctx=64, max_pos=128)
+    qc = QuantCard.from_json({"self_attn": {"bits": 4}, "mlp": {"bits": 4},
+                              "group_size": 128})
+    p_cpu = quantize_params(init_params(card, device="cpu", seed=3), qc,
+                            card, device="cpu")
+    p_gpu = {"wte": p_cpu["wte"].to("cuda"), "ln_f": p_cpu["ln_f"].to("cuda"),
+             "layers": [{k: v.to("cuda") for k, v in lp.items()}
+                        for lp in p_cpu["layers"]]}
+    prompt = torch.randint(0, 256, (4, 70), generator=torch.Generator()
+                           .manual_seed(5))
+    out = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        c = cache_for(card, 4, 96, fmt=QFormat.INT8, layered=True,
+                      device=dev)
+        logits, _ = prefill(card, params, prompt.to(dev), c, fresh=True,
+                            device=dev)
+        c = cache_for(card, 4, 96, fmt=QFormat.INT8, layered=True,
+                      device=dev)
+        toks, _ = generate(card, params, prompt, c,
+                           sampler=SamplerCard(temperature=0.0),
+                           max_new_tokens=12, decode_chunk=4, device=dev)
+        out[dev] = (logits.cpu(), toks.cpu())
+    # f32 logits of O(1): bf16 activations rounded at other points on the
+    # two devices (cuBLAS vs CPU matmul, kernel sum order)
+    err = max_err(out["cpu"][0], out["cuda"][0])
+    check("tiny QWEN3 prefill logits, card vs CPU", err, 5e-2)
+    agree = float((out["cpu"][1] == out["cuda"][1]).float().mean())
+    say(f"  greedy tokens card vs CPU agree on {agree * 100:.1f}%")
+    if agree < 0.75:
+        fail("greedy tokens of the card and the CPU run diverge")
+
+
+def profile_window(torch, label: str, fn, steps: int = 1) -> None:
+    """Where ``fn``'s time goes: torch.profiler over one warm call — device
+    time by kernel and the device's idle share of the wall time, per step
+    of the ``steps`` that ``fn`` runs."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()                              # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [(e.key, e.self_device_time_total, e.count)
+           for e in prof.key_averages()
+           if getattr(e, "self_device_time_total", 0) > 0
+           and str(e.device_type).endswith("CUDA")]
+    busy_us = sum(t for _, t, _ in dev)
+    say(f"[profile] {label}: wall {wall * 1e3 / steps:.3f} ms/step "
+        f"(under the profiler)")
+    if busy_us <= 0:
+        say("  device time: not measured (the profiler saw no CUDA time)")
+        return
+    say(f"  device busy {busy_us / 1e3 / steps:.3f} ms/step, idle share "
+        f"{1 - busy_us / 1e6 / wall:.3f}")
+    for key, t, n in sorted(dev, key=lambda r: -r[1])[:10]:
+        say(f"  {t / 1e3 / steps:8.4f} ms/step  {n / steps:7.1f} launches/step"
+            f"  {key[:90]}")
+
+
+def profile_slice(torch, card, qp, prompts, lc, tok, sampler,
+                  steps: int = 16) -> None:
+    """Profile a fresh prefill of ``prompts`` and one decode chunk of
+    ``steps`` decode+sample steps (what ``generate`` runs per chunk)."""
+    from koifish_tpu_torch.ops.sampling import sample_logits
+    from koifish_tpu_torch.serve import decode_step_layered, prefill
+    from koifish_tpu_torch.serve.kvcache import cache_for
+    from koifish_tpu_torch.dtypes import QFormat
+    pc = cache_for(card, prompts.shape[0], lc.size, fmt=QFormat.INT8,
+                   layered=True)
+    profile_window(torch, f"fresh prefill B={prompts.shape[0]} "
+                   f"P={prompts.shape[1]}",
+                   lambda: prefill(card, qp, prompts, pc, fresh=True))
+    del pc
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+
+    def chunk():
+        c, t = lc, tok
+        for _ in range(steps):
+            logits, c = decode_step_layered(card, qp, t, c, streaming=False)
+            t = sample_logits(gen, logits, sampler.temperature,
+                              sampler.top_k, sampler.top_p)
+
+    profile_window(torch, f"decode chunk of {steps} steps "
+                   f"(B={tok.shape[0]})", chunk, steps)
+
+
+def slice_phase(torch):
+    from koifish_tpu_torch.config import CLIParams, SamplerCard
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.quant import quantize_params
+    from koifish_tpu_torch.serve import (cache_for, decode_step_layered,
+                                         generate, prefill)
+    from koifish_tpu_torch.utils import kernel_log
+    say("[slice] Qwen3-0.6B INT4 RTN g128 weights + INT8 KV")
+    p = CLIParams.load(os.path.join(ROOT, "configs", "qwen3_0.6b.json"))
+    card = p.model
+    say(f"  card: L={card.n_layer} E={card.n_embd} Hq={card.n_head} "
+        f"Hkv={card.n_kv_head} D={card.head_dim} F={card.n_ffn} "
+        f"V={card.vocab_size} tie={card.tie_embeddings}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(p.seed)
+    t0 = time.perf_counter()
+    params = init_params(card, gen)
+    qp = quantize_params(params, p.quant, card)
+    del params
+    torch.cuda.synchronize()
+    say(f"  init + quantize: {time.perf_counter() - t0:.2f} s; "
+        f"{type(qp['layers'][0]['q']).__name__} "
+        f"{qp['layers'][0]['q'].fmt.name} projections")
+    B, S, P, NEW = 32, 1024, 128, 64
+    sampler = SamplerCard(temperature=0.6, top_k=50, top_p=0.95)
+    prompts = torch.randint(0, card.vocab_size, (B, P), generator=gen,
+                            device="cuda", dtype=torch.int64)
+
+    def fresh(b=B):
+        c = cache_for(card, b, S, fmt=QFormat.INT8, layered=True)
+        torch.cuda.synchronize()
+        return c
+
+    # warm every path once (first launches load the kernels)
+    generate(card, qp, prompts, fresh(), sampler=sampler, max_new_tokens=17,
+             decode_chunk=16)
+    torch.cuda.synchronize()
+
+    # REPS rounds of (TTFT call, full call): the decode loop is host-bound
+    # and its time spreads from run to run, so report each and the median
+    REPS = 3
+    kernel_log.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ttfts, steps = [], []
+    for _ in range(REPS):
+        c = fresh()
+        t0 = time.perf_counter()
+        generate(card, qp, prompts, c, sampler=sampler, max_new_tokens=1)
+        torch.cuda.synchronize()
+        ttfts.append(time.perf_counter() - t0)
+        c = fresh()
+        t0 = time.perf_counter()
+        toks, c = generate(card, qp, prompts, c, sampler=sampler,
+                           max_new_tokens=NEW, decode_chunk=16)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0 - ttfts[-1]) / (NEW - 1))
+    greedy, _ = generate(card, qp, prompts[:1], fresh(1),
+                         sampler=SamplerCard(temperature=0.0),
+                         max_new_tokens=32, decode_chunk=16)
+    torch.cuda.synchronize()
+    counts = kernel_log.launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    ttft, step = sorted(ttfts)[REPS // 2], sorted(steps)[REPS // 2]
+    say(f"  warm TTFT (B={B}, P={P}, prefill + first sample): median "
+        f"{ttft * 1e3:.2f} ms; runs "
+        f"{[round(t * 1e3, 2) for t in ttfts]}")
+    say(f"  decode: median {step * 1e3:.3f} ms/step, {B / step:.1f} tok/s "
+        f"(B={B}, chunk 16, {NEW - 1} steps); runs "
+        f"{[round(B / s, 1) for s in steps]} tok/s")
+    say(f"  peak device memory: {peak / 2**30:.2f} GiB")
+    say(f"  launches in the main path ({REPS} x (TTFT call + {NEW}-token "
+        f"call) at B={B}, then one greedy B=1 call): {json.dumps(counts)}")
+    for name in ("flash_fwd", "qmm", "qmv", "decode_attn"):
+        if counts.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the main path")
+    if tuple(toks.shape) != (B, NEW) or tuple(greedy.shape) != (1, 32):
+        fail(f"generate returned {tuple(toks.shape)} / "
+             f"{tuple(greedy.shape)}")
+    if int(toks.min()) < 0 or int(toks.max()) >= card.vocab_size:
+        fail("generated token ids out of the vocabulary")
+    if int(c.pos[0]) != P + NEW - 1:
+        fail(f"cache position {int(c.pos[0])} != {P + NEW - 1}")
+    # finite logits from a prefill and one decode step at full width
+    c = fresh()
+    logits, c = prefill(card, qp, prompts, c, fresh=True)
+    dlogits, _ = decode_step_layered(card, qp, toks[:, 0].to(torch.int32), c,
+                                     streaming=False)
+    if not (bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(dlogits).all())):
+        fail("non-finite logits")
+    say(f"  logits finite: prefill {tuple(logits.shape)}, decode "
+        f"{tuple(dlogits.shape)}")
+    profile_slice(torch, card, qp, prompts, c, toks[:, 0].to(torch.int32),
+                  sampler)
+    reference_check(torch)
+    return counts
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    sys.path.insert(0, ROOT)
+    from koifish_tpu_torch.ops.kernels import _build
+
+    say("[build] nvcc " + " ".join(_build.ARCH))
+    t0 = time.perf_counter()
+    secs = _build.build()
+    say(f"  built {sorted(secs)} in {time.perf_counter() - t0:.1f} s "
+        f"(parallel; per library: "
+        f"{ {k: round(v, 1) for k, v in secs.items()} })")
+    for name in _build.SOURCES:
+        for ln in _build.ptxas_summary(name).splitlines():
+            if "Used" in ln or "spill" in ln:
+                say(f"  ptxas {name}: {ln}")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    say(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"[card] {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}; "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    flash = flash_phase(torch, gen)
+    qmm = qmatmul_phase(torch, gen)
+    dec = decode_attn_phase(torch, gen)
+    counts = slice_phase(torch)
+
+    src = "koifish_tpu_torch/csrc/"
+    rows = [
+        ("flash_fwd", "flash_fwd.cu", "koifish_tpu/ops/pallas/flash.py:844",
+         flash),
+        ("qmm", "qmatmul.cu", "koifish_tpu/ops/pallas/matmul.py:305",
+         qmm["qmm"]),
+        ("qmv", "qmatmul.cu", "koifish_tpu/ops/pallas/matmul.py:201",
+         qmm["qmv"]),
+        ("decode_attn", "decode_attn.cu",
+         "koifish_tpu/ops/pallas/decode_attn.py:179", dec),
+    ]
+    kernels = [dict(name=n, route="cuda", source=src + f, replaces=r,
+                    launches=counts.get(n, 0), max_abs_err=m["max_abs_err"],
+                    ms=m["ms"], plain_ms=m["plain_ms"],
+                    bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+                    library_ms=m["library_ms"])
+               for n, f, r, m in rows]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,299 @@
+// Dequant-fused GEMM / GEMV for Hopper: y = Σ_g (x_g @ codes_g) · s_g.
+//
+// Replaces the Pallas kernels of koifish_tpu/ops/pallas/matmul.py:
+// _qmm/_qmm_kernel (:305/:328, the GEMM, m > 32) and _qmv/_qmv_kernel
+// (:201/:224, the GEMV, m <= 32). Both launch shapes are one kernel
+// template here: 64 x 128 output tiles for the GEMM, 32 x 64 for the GEMV.
+//
+// Codes: [K/cpb, N] bytes (INT8: int8 [K, N]) in the group-local
+// block-split order of quant/packing.py — within each 128-row group, byte
+// row r holds rows r, r + 128/cpb, ... (lowest bits first). Decoding
+// follows _unpack_block (matmul.py:155-189): signed formats are stored
+// biased by 2^(bits-1), TERNARY is raw-1, BINARY is 2·raw-1, NF4/NF3 come
+// from the same constants, rounded to bf16. Integer codes are exact in bf16.
+// The group scale multiplies each group's f32 partial product, never the
+// weights.
+//
+// What bounds it on the H100: the decode GEMV (m = 32) does 2·32 flops per
+// weight against half a byte of INT4 codes — 128 flops per byte, under the
+// ~295 bf16 flops/byte ridge, so reading the codes once bounds it; the
+// prefill GEMM (m = 4096) is far above the ridge and bound by the tensor
+// cores. Design: one block of 4 warps per (output tile, K split). Per
+// 128-row group it stages the x tile and the group's codes, decoded to
+// bf16, in shared memory (each code byte is read from device memory once
+// per column tile); each warp multiplies its 32-row slice on the tensor
+// cores (mma.sync m16n8k16, bf16 in, f32 accumulate, operands through
+// ldmatrix) into a register partial, and adds partial · scale into its
+// register accumulators — no shared-memory round trip per group. When the
+// output tiles alone cannot fill the card (decode: m <= 32, N ~ 1-3K), K
+// is split across blocks into an f32 workspace that a second pass sums in
+// a fixed order and rounds to bf16.
+#include "common.cuh"
+
+namespace {
+
+constexpr int GROUP = 128;
+constexpr int NTHREADS = 128;   // 4 warps
+
+enum Fmt { INT8 = 0, INT4, NF4, INT3, NF3, INT2, TERNARY, BINARY };
+
+__constant__ float kNF4[16] = {
+    -1.0f, -0.6961928009986877f, -0.5250730514526367f, -0.39491748809814453f,
+    -0.28444138169288635f, -0.18477343022823334f, -0.09105003625154495f, 0.0f,
+    0.07958029955625534f, 0.16093020141124725f, 0.24611230194568634f, 0.33791524171829224f,
+    0.44070982933044434f, 0.5626170039176941f, 0.7229568362236023f, 1.0f};
+__constant__ float kNF3[8] = {-1.0f, -0.5350227355957031f, -0.2469314038753510f, 0.0f,
+                              0.1833375245332718f, 0.3819939494132996f, 0.6229856610298157f,
+                              1.0f};
+
+template <int FMT>
+struct Codes {
+  static constexpr int BITS = FMT == INT8 ? 8 : (FMT == INT2 || FMT == TERNARY) ? 2
+                                                : FMT == BINARY                 ? 1
+                                                                                : 4;
+  static constexpr int CPB = 8 / BITS;       // codes per byte
+  static constexpr int SUB = GROUP / CPB;    // byte rows per group
+  static __device__ __forceinline__ bf16 value(uint32_t raw) {
+    if (FMT == INT8) return __float2bfloat16(static_cast<float>(static_cast<int8_t>(raw)));
+    if (FMT == NF4) return __float2bfloat16(kNF4[raw]);
+    if (FMT == NF3) return __float2bfloat16(kNF3[raw]);
+    if (FMT == TERNARY) return __float2bfloat16(static_cast<float>(static_cast<int>(raw) - 1));
+    if (FMT == BINARY) return __float2bfloat16(static_cast<float>(2 * static_cast<int>(raw) - 1));
+    // INT4 / INT3 / INT2: biased by 2^(bits-1)
+    constexpr int bias = FMT == INT4 ? 8 : FMT == INT3 ? 4 : 2;
+    return __float2bfloat16(static_cast<float>(static_cast<int>(raw) - bias));
+  }
+};
+
+// Tile shape: BM x BN outputs per block, 4 warps as WM x WN, each warp
+// 32 rows (two m16 tiles) x WTN columns (NT n8 tiles).
+template <int BM, int BN>
+struct Tile {
+  static constexpr int WM = BM / 32;
+  static constexpr int WN = 4 / WM;
+  static constexpr int WTN = BN / WN;
+  static constexpr int MT = 2;
+  static constexpr int NT = WTN / 8;
+  // rows padded by 16 bytes: the 8 row addresses of an ldmatrix hit
+  // distinct banks
+  static constexpr int LDX = GROUP + 8;   // bf16 x tile [BM][LDX]
+  static constexpr int LDW = BN + 8;      // bf16 decoded codes [GROUP][LDW]
+  static constexpr size_t X = 0;
+  static constexpr size_t W = X + sizeof(bf16) * BM * LDX;
+  static constexpr size_t S = W + sizeof(bf16) * GROUP * LDW;
+  static constexpr size_t BYTES = S + sizeof(float) * BN;
+  static_assert(BM % 32 == 0 && WM * WN == 4 && NT % 2 == 0, "tile shape");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a · b for one m16n8k16 tile (bf16 in, f32 accumulate)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int FMT, int BM, int BN>
+__global__ void __launch_bounds__(NTHREADS)
+    qmm_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ codes,
+               const float* __restrict__ scales, bf16* __restrict__ out,
+               float* __restrict__ partial, int m, int K, int N, int groups_per_split) {
+  using C = Codes<FMT>;
+  using TL = Tile<BM, BN>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Xs = reinterpret_cast<bf16*>(smem + TL::X);
+  bf16* Ws = reinterpret_cast<bf16*>(smem + TL::W);
+  float* Ss = reinterpret_cast<float*>(smem + TL::S);
+
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
+  const int split = blockIdx.z;
+  const int ng = K / GROUP;
+  const int g_begin = split * groups_per_split;
+  const int g_end = min(ng, g_begin + groups_per_split);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wr = (warp / TL::WN) * 32;        // this warp's first row in the tile
+  const int wc = (warp % TL::WN) * TL::WTN;   // and first column
+
+  float acc[TL::MT][TL::NT][4];
+#pragma unroll
+  for (int i = 0; i < TL::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < TL::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int gi = g_begin; gi < g_end; ++gi) {
+    // x tile [BM, 128] (rows past m are zero), 16-byte chunks
+    for (int i = tid; i < BM * (GROUP / 8); i += NTHREADS) {
+      const int r = i / (GROUP / 8), c = (i % (GROUP / 8)) * 8;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (m0 + r < m)
+        val = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(m0 + r) * K +
+                                              gi * GROUP + c);
+      *reinterpret_cast<uint4*>(Xs + r * TL::LDX + c) = val;
+    }
+    // decode the group's codes: byte row r, code slot j -> weight row
+    // j·SUB + r; a 4-byte word holds 4 columns, stored as 4 packed bf16
+    for (int i = tid; i < C::SUB * (BN / 4); i += NTHREADS) {
+      const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
+      uint32_t word = 0;
+      if (n0 + c < N)   // N % 4 == 0: the 4 columns are all in or all out
+        word = *reinterpret_cast<const uint32_t*>(
+            codes + static_cast<size_t>(gi * C::SUB + r) * N + n0 + c);
+#pragma unroll
+      for (int j = 0; j < C::CPB; ++j) {
+        constexpr uint32_t mask = (1u << C::BITS) - 1u;
+        uint32_t v[4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          v[b] = __bfloat16_as_ushort(C::value((word >> (8 * b + C::BITS * j)) & mask));
+        *reinterpret_cast<uint2*>(Ws + (j * C::SUB + r) * TL::LDW + c) =
+            make_uint2(v[0] | (v[1] << 16), v[2] | (v[3] << 16));
+      }
+    }
+    if (tid < BN) Ss[tid] = n0 + tid < N ? scales[static_cast<size_t>(gi) * N + n0 + tid] : 0.f;
+    __syncthreads();
+
+    // partial = x_g @ codes_g for this warp's 32 x WTN slice
+    float part[TL::MT][TL::NT][4];
+#pragma unroll
+    for (int i = 0; i < TL::MT; ++i)
+#pragma unroll
+      for (int j = 0; j < TL::NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < GROUP; kk += 16) {
+      uint32_t a[TL::MT][4];
+#pragma unroll
+      for (int i = 0; i < TL::MT; ++i)
+        ldmatrix_x4(a[i], Xs + (wr + i * 16 + lane % 16) * TL::LDX + kk + (lane / 16) * 8);
+#pragma unroll
+      for (int j = 0; j < TL::NT; j += 2) {
+        uint32_t b[4];   // b0, b1 of n8 tile j, then of tile j + 1
+        ldmatrix_x4_trans(b, Ws + (kk + lane % 16) * TL::LDW + wc + j * 8 + (lane / 16) * 8);
+#pragma unroll
+        for (int i = 0; i < TL::MT; ++i) {
+          mma_bf16(part[i][j], a[i], b[0], b[1]);
+          mma_bf16(part[i][j + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+    // group scale on the partial sums; lane holds columns 2·(lane%4), +1
+#pragma unroll
+    for (int j = 0; j < TL::NT; ++j) {
+      const int c = wc + j * 8 + (lane % 4) * 2;
+      const float s0 = Ss[c], s1 = Ss[c + 1];
+#pragma unroll
+      for (int i = 0; i < TL::MT; ++i) {
+        acc[i][j][0] += part[i][j][0] * s0;
+        acc[i][j][1] += part[i][j][1] * s1;
+        acc[i][j][2] += part[i][j][2] * s0;
+        acc[i][j][3] += part[i][j][3] * s1;
+      }
+    }
+    __syncthreads();   // everyone is done with Xs / Ws / Ss
+  }
+
+  // lane holds rows lane/4 and lane/4 + 8 of each m16 tile, two columns
+#pragma unroll
+  for (int i = 0; i < TL::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < TL::NT; ++j) {
+      const int gn = n0 + wc + j * 8 + (lane % 4) * 2;
+      if (gn >= N) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gm = m0 + wr + i * 16 + lane / 4 + h * 8;
+        if (gm >= m) continue;
+        const size_t at = static_cast<size_t>(gm) * N + gn;
+        if (partial != nullptr)
+          *reinterpret_cast<float2*>(partial + static_cast<size_t>(split) * m * N + at) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(out + at) =
+              __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+}
+
+// Sum the K-split partials in split order and round to bf16.
+__global__ void splitk_reduce(const float* __restrict__ partial, bf16* __restrict__ out,
+                              int splits, size_t mn) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= mn) return;
+  float s = 0.f;
+  for (int k = 0; k < splits; ++k) s += partial[k * mn + i];
+  out[i] = __float2bfloat16(s);
+}
+
+template <int FMT, int BM, int BN>
+cudaError_t launch(const void* x, const void* codes, const void* scales, void* out, void* work,
+                   int m, int K, int N, int gps, cudaStream_t stream) {
+  using TL = Tile<BM, BN>;
+  static cudaError_t attr = set_smem(qmm_kernel<FMT, BM, BN>, TL::BYTES);
+  if (attr != cudaSuccess) return attr;
+  const int ng = K / GROUP;
+  const int splits = (ng + gps - 1) / gps;
+  dim3 grid((N + BN - 1) / BN, (m + BM - 1) / BM, splits);
+  float* partial = splits > 1 ? static_cast<float*>(work) : nullptr;
+  if (splits > 1 && partial == nullptr) return cudaErrorInvalidValue;
+  qmm_kernel<FMT, BM, BN><<<grid, NTHREADS, TL::BYTES, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const uint8_t*>(codes),
+      static_cast<const float*>(scales), static_cast<bf16*>(out), partial, m, K, N, gps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t mn = static_cast<size_t>(m) * N;
+  splitk_reduce<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, stream>>>(
+      partial, static_cast<bf16*>(out), splits, mn);
+  return cudaGetLastError();
+}
+
+// bm picks the launch shape: 32 -> the GEMV's 32 x 64 tiles, 64 -> the
+// GEMM's 64 x 128 tiles (ops/kernels/matmul.py::_plan)
+template <int FMT>
+cudaError_t launch_bm(const void* x, const void* codes, const void* scales, void* out, void* work,
+                      int m, int K, int N, int bm, int gps, cudaStream_t stream) {
+  if (bm == 32) return launch<FMT, 32, 64>(x, codes, scales, out, work, m, K, N, gps, stream);
+  if (bm == 64) return launch<FMT, 64, 128>(x, codes, scales, out, work, m, K, N, gps, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+KOIFISH_API int koifish_qmatmul(const void* x, const void* codes, const void* scales, void* out,
+                                void* work, int m, int K, int N, int fmt, int bm, int gps,
+                                void* stream) {
+  if (m < 1 || K % GROUP != 0 || N % 4 != 0 || gps < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (fmt) {
+    case INT8: return launch_bm<INT8>(x, codes, scales, out, work, m, K, N, bm, gps, s);
+    case INT4: return launch_bm<INT4>(x, codes, scales, out, work, m, K, N, bm, gps, s);
+    case NF4: return launch_bm<NF4>(x, codes, scales, out, work, m, K, N, bm, gps, s);
+    case INT3: return launch_bm<INT3>(x, codes, scales, out, work, m, K, N, bm, gps, s);
+    case NF3: return launch_bm<NF3>(x, codes, scales, out, work, m, K, N, bm, gps, s);
+    case INT2: return launch_bm<INT2>(x, codes, scales, out, work, m, K, N, bm, gps, s);
+    case TERNARY: return launch_bm<TERNARY>(x, codes, scales, out, work, m, K, N, bm, gps, s);
+    case BINARY: return launch_bm<BINARY>(x, codes, scales, out, work, m, K, N, bm, gps, s);
+    default: return cudaErrorInvalidValue;
+  }
+}

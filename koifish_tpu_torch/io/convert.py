@@ -1,0 +1,83 @@
+"""Carry parameters and KV caches across from the JAX package, via numpy.
+
+``params_from_numpy`` takes the JAX package's parameter tree with every leaf
+already a numpy array (``np.asarray`` on the JAX side) and every QTensor
+given as a dict of its numpy fields plus its metadata (``fmt`` as the
+format's string value, ``shape``, ``group``). ``cache_from_numpy`` does the
+same for a ``KVCache`` (stacked leaves) or a ``LayeredKVCache`` (per-layer
+lists). bf16 arrives as ``ml_dtypes.bfloat16``; it is carried as a
+``uint16`` view and reinterpreted as ``torch.bfloat16``, bit for bit. This
+module imports no JAX.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from koifish_tpu_torch.dtypes import QFormat
+from koifish_tpu_torch.quant.qtensor import QTensor
+from koifish_tpu_torch.serve.kvcache import KVCache
+from koifish_tpu_torch.serve.layered import LayeredKVCache
+from koifish_tpu_torch.utils.device import resolve_device
+
+_QT_FIELDS = ("codes", "scales", "zeros", "codebook", "row_scale")
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """One numpy array (bf16 as ml_dtypes.bfloat16) -> tensor on device."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def _fmt(f) -> QFormat:
+    return QFormat(getattr(f, "value", f))
+
+
+def qtensor_from_numpy(d: Dict[str, Any], device) -> QTensor:
+    fields = {k: (None if d.get(k) is None
+                  else tensor_from_numpy(d[k], device)) for k in _QT_FIELDS}
+    return QTensor(fmt=_fmt(d["fmt"]), shape=tuple(d["shape"]),
+                   group=int(d["group"]), **fields)
+
+
+def _leaf(x, device):
+    if isinstance(x, dict) and "codes" in x and "fmt" in x:
+        return qtensor_from_numpy(x, device)
+    if isinstance(x, dict):
+        return {k: _leaf(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_leaf(v, device) for v in x]
+    return tensor_from_numpy(x, device)
+
+
+def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """The JAX package's param tree (numpy leaves) -> the port's params."""
+    return _leaf(tree, resolve_device(device))
+
+
+def cache_from_numpy(tree: Dict[str, Any], device=None):
+    """A (layered) KV cache as numpy fields -> ``KVCache`` when ``k`` is one
+    stacked array, ``LayeredKVCache`` when it is a per-layer list."""
+    dev = resolve_device(device)
+    layered = isinstance(tree["k"], (list, tuple))
+
+    def conv(x):
+        if x is None:
+            return None
+        if layered:
+            return tuple(tensor_from_numpy(a, dev) for a in x)
+        return tensor_from_numpy(x, dev)
+
+    kw = dict(k=conv(tree["k"]), v=conv(tree["v"]),
+              k_scale=conv(tree.get("k_scale")),
+              v_scale=conv(tree.get("v_scale")),
+              pos=tensor_from_numpy(tree["pos"], dev),
+              fmt=_fmt(tree["fmt"]), sinks=int(tree.get("sinks", 2)))
+    if layered:
+        return LayeredKVCache(uniform=bool(tree.get("uniform", True)), **kw)
+    return KVCache(**kw)

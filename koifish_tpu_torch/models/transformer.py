@@ -1,0 +1,232 @@
+"""Dense decoder-only transformer (GPT2 / Qwen2.5 / Qwen3 / LLaMA flags).
+
+The forward of the JAX package's ``models/transformer.py`` for the dense
+decoder. Params are a plain dict of tensors with the JAX package's key
+names::
+
+    params = {
+      "wte": [V, E] tensor | QTensor[E, V] (head layout when quantized),
+      "wpe": [maxpos, E]                  (GPT2 learned positions),
+      "layers": [ { "ln1", ("ln1_b"), "q","k","v","o", ("q_b","k_b","v_b","o_b"),
+                    ("qn","kn"), "ln2", ("ln2_b"),
+                    "gate","up","down" | "fc","fc_b","proj","proj_b" }, ... ],
+      "ln_f", ("ln_f_b"), ("head": [E, V]),
+    }
+
+Any weight-matrix leaf may be a QTensor; ``ops/matmul`` dispatches. The
+model zoo of the JAX package (MoE, MLA, Mamba, GAU, BROWN, Guppy, EmbedVAE)
+is not ported yet and is refused by ``init_params``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from koifish_tpu_torch.config import ModelCard
+from koifish_tpu_torch.dtypes import QFormat
+from koifish_tpu_torch.ops.attention import causal_attention
+from koifish_tpu_torch.ops.matmul import linear, qmatmul
+from koifish_tpu_torch.ops.norms import layernorm, rmsnorm
+from koifish_tpu_torch.ops.rope import apply_rope, rope_freqs
+from koifish_tpu_torch.quant.packing import unpack_codes
+from koifish_tpu_torch.quant.qtensor import QTensor, codebook_for
+from koifish_tpu_torch.utils.device import resolve_device
+
+Params = Dict[str, Any]
+
+
+def _check_dense(card: ModelCard) -> None:
+    unported = (card.arch in ("MAMBA", "GUPPY", "LLAMA_VAE")
+                or card.attn == "mla" or card.n_experts > 0
+                or card.gau_layers or card.brown_layers)
+    if unported:
+        raise NotImplementedError(
+            f"{card.arch} (attn={card.attn}, experts={card.n_experts}) is not "
+            f"ported to koifish_tpu_torch yet: only the dense decoder is")
+
+
+def init_params(card: ModelCard, generator: Optional[torch.Generator] = None,
+                dtype=torch.bfloat16, device=None, seed: int = 0) -> Params:
+    """GPT2-style init: normal(0.02), residual-out projections scaled by
+    1/sqrt(2L). Random weights come from ``generator`` (a torch.Generator on
+    ``device``), or from one seeded with ``seed``."""
+    _check_dense(card)
+    dev = resolve_device(device)
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+    E, Hq, Hkv, D, F, L = (card.n_embd, card.n_head, card.n_kv_head,
+                           card.head_dim, card.n_ffn, card.n_layer)
+    std = 0.02
+    res_std = std / math.sqrt(2 * L)
+
+    def nrm(shape, s=std):
+        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (w * s).to(dtype)
+
+    def ones(n):
+        return torch.ones((n,), dtype=dtype, device=dev)
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=dtype, device=dev)
+
+    params: Params = {"wte": nrm((card.vocab_size, E)), "ln_f": ones(E)}
+    if card.pos_embed == "learned":
+        params["wpe"] = nrm((card.max_pos, E))
+    if card.norm == "layernorm":
+        params["ln_f_b"] = zeros(E)
+    if not card.tie_embeddings:
+        params["head"] = nrm((E, card.vocab_size))
+
+    layers: List[Params] = []
+    for _ in range(L):
+        lp = {"ln1": ones(E), "q": nrm((E, Hq * D)), "k": nrm((E, Hkv * D)),
+              "v": nrm((E, Hkv * D)), "o": nrm((Hq * D, E), res_std),
+              "ln2": ones(E)}
+        if card.norm == "layernorm":
+            lp["ln1_b"] = zeros(E)
+            lp["ln2_b"] = zeros(E)
+        if card.qkv_bias:
+            lp["q_b"] = zeros(Hq * D)
+            lp["k_b"] = zeros(Hkv * D)
+            lp["v_b"] = zeros(Hkv * D)
+        if card.qk_norm:
+            lp["qn"] = ones(D)
+            lp["kn"] = ones(D)
+        if card.act == "swiglu":
+            lp["gate"] = nrm((E, F))
+            lp["up"] = nrm((E, F))
+            lp["down"] = nrm((F, E), res_std)
+        else:  # gelu MLP (GPT2)
+            lp["fc"] = nrm((E, F))
+            lp["fc_b"] = zeros(F)
+            lp["proj"] = nrm((F, E), res_std)
+            lp["proj_b"] = zeros(E)
+        if card.norm == "layernorm" and card.act != "swiglu":
+            lp["o_b"] = zeros(E)
+        layers.append(lp)
+    params["layers"] = layers
+    return params
+
+
+def gather_embed(wte, tokens: torch.Tensor) -> torch.Tensor:
+    """Token-embedding lookup. Plain [V, E] row gather; quantized embeddings
+    are stored in head layout [E, V] and dequantized per column."""
+    if isinstance(wte, QTensor):
+        ids = tokens.reshape(-1).long()
+        cols = wte.codes[:, ids]                          # [E_packed, N]
+        raw = unpack_codes(cols, wte.fmt, wte.shape[0], group=wte.group)
+        if wte.fmt is QFormat.INT8:
+            vals = raw.to(torch.float32)
+        elif wte.fmt.is_codebook:
+            vals = codebook_for(wte.fmt, raw.device)[raw.long()]
+        else:
+            vals = raw.to(torch.float32) - float(1 << (wte.fmt.bits - 1))
+        s = wte.scales[:, ids].to(torch.float32)          # [E/g, N]
+        vals = vals.reshape(-1, wte.group, vals.shape[-1]) * s[:, None, :]
+        emb = vals.reshape(wte.shape[0], -1).T            # [N, E]
+        return emb.reshape(*tokens.shape, -1).to(torch.bfloat16)
+    return wte[tokens.long()]
+
+
+def embed_tokens(card: ModelCard, params: Params, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    return gather_embed(params["wte"], tokens)
+
+
+def _norm(card: ModelCard, x, w, b=None, residual=None):
+    if card.norm == "rmsnorm":
+        return rmsnorm(x, w, eps=card.norm_eps, residual=residual)
+    return layernorm(x, w, b, eps=card.norm_eps, residual=residual)
+
+
+def _linear_l(x: torch.Tensor, lp: Params, key: str) -> torch.Tensor:
+    """Linear through ``lp[key]`` + optional LoRA adapter ``lp[key+"_lora"]``."""
+    y = linear(x, lp[key], lp.get(key + "_b"))
+    lora = lp.get(key + "_lora")
+    if lora is not None:
+        y = y + (x @ lora["a"].to(x.dtype)) @ lora["b"].to(x.dtype)
+    return y
+
+
+def qkv_project(card: ModelCard, lp: Params, x: torch.Tensor, cos, sin,
+                positions) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x -> rotated q, k and v, shaped [B, T, H, D]."""
+    B, T, _ = x.shape
+    D = card.head_dim
+    q = _linear_l(x, lp, "q").reshape(B, T, card.n_head, D)
+    k = _linear_l(x, lp, "k").reshape(B, T, card.n_kv_head, D)
+    v = _linear_l(x, lp, "v").reshape(B, T, card.n_kv_head, D)
+    if card.qk_norm:  # per-head RMSNorm before RoPE (Qwen3)
+        q = rmsnorm(q, lp["qn"], eps=card.norm_eps)
+        k = rmsnorm(k, lp["kn"], eps=card.norm_eps)
+    if card.pos_embed == "rope":
+        q = apply_rope(q, cos, sin, positions)
+        k = apply_rope(k, cos, sin, positions)
+    return q, k, v
+
+
+def mlp(card: ModelCard, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    if card.act == "swiglu":
+        g = _linear_l(x, lp, "gate")
+        u = _linear_l(x, lp, "up")
+        h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
+        return _linear_l(h, lp, "down")
+    h = _linear_l(x, lp, "fc")
+    h = torch.nn.functional.gelu(h.to(torch.float32), approximate="tanh"
+                                 ).to(x.dtype)
+    return _linear_l(h, lp, "proj")
+
+
+def layer_forward(card: ModelCard, lp: Params, x: torch.Tensor, cos, sin,
+                  positions, window: int = 0) -> torch.Tensor:
+    """One transformer block over a full sequence (prefill / forward)."""
+    h = _norm(card, x, lp["ln1"], lp.get("ln1_b"))
+    q, k, v = qkv_project(card, lp, h, cos, sin, positions)
+    a = causal_attention(q, k, v, window=window, causal=card.causal)
+    B, T = x.shape[:2]
+    x = x + _linear_l(a.reshape(B, T, -1), lp, "o")
+    h = _norm(card, x, lp["ln2"], lp.get("ln2_b"))
+    return x + mlp(card, lp, h)
+
+
+def lm_head(card: ModelCard, params: Params, x: torch.Tensor,
+            out_dtype=torch.float32) -> torch.Tensor:
+    """Hidden states -> logits (tied or untied head). The tied bf16 head is
+    a plain ``torch.matmul`` against ``wte.T``."""
+    if not card.tie_embeddings:
+        return qmatmul(x, params["head"], out_dtype=out_dtype)
+    wte = params["wte"]
+    if isinstance(wte, QTensor):            # head layout [E, V]
+        return qmatmul(x, wte, out_dtype=out_dtype)
+    return qmatmul(x, wte.T, out_dtype=out_dtype)
+
+
+def model_forward(card: ModelCard, params: Params, tokens: torch.Tensor,
+                  positions: Optional[torch.Tensor] = None, window: int = 0,
+                  return_hidden: bool = False,
+                  logits_dtype=torch.float32) -> torch.Tensor:
+    """Full-sequence forward: tokens [B, T] -> logits [B, T, V]."""
+    _check_dense(card)
+    B, T = tokens.shape
+    dev = tokens.device
+    if positions is None:
+        positions = torch.arange(T, dtype=torch.int64, device=dev)
+    window = window or card.window
+    x = embed_tokens(card, params, tokens)
+    if card.pos_embed == "learned":
+        x = x + params["wpe"][positions.long()]
+    cos = sin = None
+    if card.pos_embed == "rope":
+        cos, sin = rope_freqs(card.head_dim, card.max_pos, card.rope_theta,
+                              card.rope_scaling_dict(), device=dev)
+    for lp in params["layers"]:
+        x = layer_forward(card, lp, x, cos, sin, positions.long(),
+                          window=window)
+    x = _norm(card, x, params["ln_f"], params.get("ln_f_b"))
+    if return_hidden:
+        return x
+    return lm_head(card, params, x, out_dtype=logits_dtype)

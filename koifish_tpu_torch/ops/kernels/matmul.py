@@ -1,0 +1,139 @@
+"""Dequant-fused GEMM / GEMV: the CUDA kernel's wrapper and plain version.
+
+The kernel (``csrc/qmatmul.cu``) replaces the JAX package's Pallas
+``_qmm``/``_qmm_kernel`` (GEMM, m > 32) and ``_qmv``/``_qmv_kernel`` (GEMV,
+m <= 32) in ``koifish_tpu/ops/pallas/matmul.py``: packed codes are decoded
+in the kernel and the per-group scale multiplies each group's partial
+product, ``y = Σ_g (x_g @ codes_g) · s_g`` with f32 accumulation. It takes
+every symmetric format — INT8, INT4, NF4, INT3, NF3, INT2, TERNARY, BINARY —
+at group size 128, any m >= 1, any K that is a multiple of 128 and any N
+that is a multiple of 4.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from koifish_tpu_torch.dtypes import QFormat
+from koifish_tpu_torch.ops.kernels import _build
+from koifish_tpu_torch.quant.packing import unpack_codes
+from koifish_tpu_torch.quant.qtensor import QTensor, code_values
+from koifish_tpu_torch.utils import kernel_log
+
+NAME = "qmatmul"
+GEMV = "qmv"           # launch counter of the m <= 32 shape
+GEMM = "qmm"           # launch counter of the m > 32 shape
+GEMV_MAX_M = 32
+GROUP = 128
+#: block tile (rows, columns) of each launch shape, keyed by its rows
+TILES = {32: (32, 64), 64: (64, 128)}
+#: format -> the kernel's format id (csrc/qmatmul.cu)
+FORMATS = {
+    QFormat.INT8: 0, QFormat.INT4: 1, QFormat.NF4: 2, QFormat.INT3: 3,
+    QFormat.NF3: 4, QFormat.INT2: 5, QFormat.TERNARY: 6, QFormat.BINARY: 7,
+}
+# enough blocks in flight to cover the card's 132 SMs twice
+_TARGET_BLOCKS = 264
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        lib = _build.load(NAME)
+        fn = lib.koifish_qmatmul
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = (lib, fn)
+    return _fn
+
+
+def takes(w: QTensor) -> bool:
+    """Whether the kernel covers ``w`` — the cases the JAX package sends to
+    Pallas: symmetric codes, no learned codebook, group 128."""
+    return (w.fmt in FORMATS and w.zeros is None and w.codebook is None
+            and w.group == GROUP)
+
+
+def qmatmul_plain(x2: torch.Tensor, codes: torch.Tensor,
+                  scales: torch.Tensor, fmt: QFormat,
+                  group: int = GROUP) -> torch.Tensor:
+    """Plain PyTorch version: x2 [m, K] -> [m, N] bf16, with the kernel's
+    arithmetic — code values rounded to bf16 (exact for integer codes), one
+    f32 product per group, the group scale on the partial sums."""
+    m, K = x2.shape
+    N = codes.shape[-1]
+    ng = K // group
+    raw = unpack_codes(codes, fmt, K, group) if fmt.is_sub_byte else codes
+    wv = code_values(raw, fmt).to(torch.bfloat16).to(torch.float32)
+    xg = x2.to(torch.bfloat16).to(torch.float32).reshape(m, ng, group)
+    part = torch.einsum("mgk,gkn->mgn", xg, wv.reshape(ng, group, N))
+    y = (part * scales.to(torch.float32)[None]).sum(dim=1)
+    return y.to(torch.bfloat16)
+
+
+def _plan(m: int, K: int, N: int):
+    """(bm, groups per split, splits): split K across blocks when the
+    output tiles alone cannot fill the card (decode GEMVs)."""
+    bm, bn = TILES[32 if m <= GEMV_MAX_M else 64]
+    ng = K // GROUP
+    tiles = -(-N // bn) * -(-m // bm)
+    splits = min(ng, max(1, -(-_TARGET_BLOCKS // tiles)))
+    gps = -(-ng // splits)
+    return bm, gps, -(-ng // gps)
+
+
+def _check(x2: torch.Tensor, w: QTensor):
+    m, K = x2.shape
+    N = w.out_features
+    shape = f"x{tuple(x2.shape)} w{tuple(w.shape)} {w.fmt.name}"
+    if not takes(w):
+        raise ValueError(f"qmatmul: {shape}: the kernel takes symmetric "
+                         f"codes at group {GROUP} only")
+    cpb = w.fmt.codes_per_byte if w.fmt.is_sub_byte else 1
+    if w.shape[0] != K or K % GROUP or N % 4 or m < 1:
+        raise ValueError(f"qmatmul: {shape}: need x [m>=1, K] with K = "
+                         f"w.in_features, K % {GROUP} == 0, N % 4 == 0")
+    if tuple(w.codes.shape) != (K // cpb, N) \
+            or w.codes.dtype != w.fmt.torch_dtype:
+        raise ValueError(f"qmatmul: {shape}: codes {tuple(w.codes.shape)} "
+                         f"{w.codes.dtype} do not match the format")
+    if tuple(w.scales.shape) != (K // GROUP, N) \
+            or w.scales.dtype != torch.float32:
+        raise ValueError(f"qmatmul: {shape}: need f32 scales "
+                         f"[{K // GROUP}, {N}]")
+    for name, t in (("x", x2), ("codes", w.codes), ("scales", w.scales)):
+        if t.device != x2.device or t.device.type != "cuda":
+            raise ValueError(f"qmatmul: {name} lies on {t.device}, need the "
+                             f"CUDA device of x ({x2.device})")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"qmatmul: {name} of {shape} must be contiguous "
+                             f"and 16-byte aligned")
+    if x2.dtype != torch.bfloat16:
+        raise ValueError(f"qmatmul: x is {x2.dtype}, need bf16")
+
+
+def qmatmul(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """``x2 [m, K] bf16 @ w`` -> [m, N] bf16 for a kernel-covered QTensor.
+    A CPU tensor takes the plain version; a CUDA tensor launches the GEMV
+    shape (m <= 32) or the GEMM shape (m > 32)."""
+    if x2.device.type == "cpu":
+        return qmatmul_plain(x2, w.codes, w.scales, w.fmt, w.group)
+    _check(x2, w)
+    m, K = x2.shape
+    N = w.out_features
+    bm, gps, splits = _plan(m, K, N)
+    out = torch.empty((m, N), dtype=torch.bfloat16, device=x2.device)
+    work = (torch.empty((splits, m, N), dtype=torch.float32,
+                        device=x2.device) if splits > 1 else None)
+    lib, fn = _kernel()
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    rc = fn(x2.data_ptr(), w.codes.data_ptr(), w.scales.data_ptr(),
+            out.data_ptr(), None if work is None else work.data_ptr(),
+            m, K, N, FORMATS[w.fmt], bm, gps, stream)
+    _build.check(lib, rc, f"qmatmul x{tuple(x2.shape)} {w.fmt.name}")
+    kernel_log.count(GEMV if bm == 32 else GEMM)
+    return out

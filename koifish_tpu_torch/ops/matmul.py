@@ -1,0 +1,62 @@
+"""Quantization-aware matmul — dispatch into the dequant-fused kernel.
+
+``qmatmul`` sends every QTensor the kernel covers (symmetric codes, no
+learned codebook, group 128 — the cases the JAX package sends to Pallas) to
+``ops/kernels/matmul.py``: the GEMV shape for m <= 32, the GEMM shape above.
+The JAX package's TPU-only gates (K % 1024, the 32 < m < 64 dead zone) do
+not carry over. Other QTensors take the plain dequantize-then-matmul path
+(logged through ``kernel_log``), and unquantized products stay
+``torch.matmul``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+import torch
+
+from koifish_tpu_torch.ops.kernels import matmul as kmm
+from koifish_tpu_torch.quant.qtensor import QTensor
+from koifish_tpu_torch.utils import kernel_log
+
+Weight = Union[torch.Tensor, QTensor]
+
+
+def _dense(x: torch.Tensor, w: torch.Tensor, out_dtype) -> torch.Tensor:
+    """``x @ w`` at the target dtype; an f32 result accumulates in f32."""
+    if torch.empty((), dtype=out_dtype).element_size() > 2:
+        return torch.matmul(x.to(torch.float32), w.to(torch.float32)
+                            ).to(out_dtype)
+    return torch.matmul(x, w.to(x.dtype)).to(out_dtype)
+
+
+def qmatmul(x: torch.Tensor, w: Weight, out_dtype=None) -> torch.Tensor:
+    """``x @ w`` with ``w`` possibly quantized. x: [..., in], w: [in, out]."""
+    out_dtype = out_dtype or x.dtype
+    if not isinstance(w, QTensor):
+        return _dense(x, w, out_dtype)
+    if w.row_scale is not None:
+        # Sinkhorn row factors fold into the activations:
+        # y = x @ (r . wq) = (x * r) @ wq
+        x = (x.to(torch.float32) * w.row_scale.to(torch.float32)).to(x.dtype)
+        w = dataclasses.replace(w, row_scale=None)
+    if kmm.takes(w):
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.bfloat16).contiguous()
+        y = kmm.qmatmul(x2, w)
+        return y.reshape(*lead, w.out_features).to(out_dtype)
+    kernel_log.fallback(
+        "qmatmul", f"k={w.shape[0]} n={w.shape[-1]} fmt={w.fmt.name} "
+        f"group={w.group} zeros={w.zeros is not None} "
+        f"codebook={w.codebook is not None}: the kernel takes symmetric "
+        f"codes at group {kmm.GROUP} -> torch dequant+matmul")
+    wd = w.dequantize(x.dtype)
+    return _dense(x, wd, out_dtype)
+
+
+def linear(x: torch.Tensor, w: Weight, b: Optional[torch.Tensor] = None,
+           out_dtype=None) -> torch.Tensor:
+    y = qmatmul(x, w, out_dtype=out_dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y

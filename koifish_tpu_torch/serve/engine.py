@@ -1,0 +1,150 @@
+"""Decode engine: batched prefill + chunked decode with sampling.
+
+The host loop of the JAX package's ``serve/engine.py`` (``prefill`` with the
+``fresh`` path, ``generate`` with ``decode_chunk``, the host eos check each
+chunk and the pre-wrap / streaming rule), run eagerly: a decode chunk is
+``decode_chunk`` steps of ``decode_step_layered`` + sampling with no host
+sync inside, and eos is checked on the host once per chunk.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from koifish_tpu_torch.config import ModelCard, SamplerCard
+from koifish_tpu_torch.models.transformer import (
+    Params, _linear_l, _norm, embed_tokens, lm_head, mlp, qkv_project)
+from koifish_tpu_torch.ops.attention import causal_attention
+from koifish_tpu_torch.ops.rope import rope_freqs
+from koifish_tpu_torch.ops.sampling import sample_logits
+from koifish_tpu_torch.serve import kvcache as kvc
+from koifish_tpu_torch.serve.layered import (LayeredKVCache,
+                                             decode_step_layered, join_cache,
+                                             split_cache)
+from koifish_tpu_torch.utils.device import check_on, resolve_device
+
+
+def _rope_tables(card: ModelCard, device):
+    if card.pos_embed != "rope":
+        return None, None
+    return rope_freqs(card.head_dim, card.max_pos, card.rope_theta,
+                      card.rope_scaling_dict(), device=device)
+
+
+def _sample(gen, logits, sampler: SamplerCard) -> torch.Tensor:
+    return sample_logits(gen, logits, sampler.temperature, sampler.top_k,
+                         sampler.top_p, sampler.min_p, sampler.approx_top_k,
+                         sampler.method)
+
+
+def _check_inputs(params: Params, tokens: torch.Tensor, cache, dev):
+    check_on(tokens, dev, "tokens")
+    check_on(cache.pos, dev, "cache")
+    wte = params["wte"]
+    check_on(wte if isinstance(wte, torch.Tensor) else wte.codes, dev,
+             "params")
+
+
+def prefill(card: ModelCard, params: Params, tokens: torch.Tensor, cache,
+            return_all_logits: bool = False, fresh: bool = False,
+            device=None):
+    """Run a [B, T] prompt chunk, filling the cache in place. Returns
+    last-position logits [B, V] f32 (or [B, T, V]) and the advanced cache.
+    Requires pos + T <= cache.size. ``fresh``: the cache is empty (pos == 0)
+    — attention runs in-chunk through the flash kernel."""
+    dev = resolve_device(device)
+    _check_inputs(params, tokens, cache, dev)
+    B, T = tokens.shape
+    start = int(cache.pos[0])                  # uniform-start batch
+    if start + T > cache.size:
+        raise ValueError(f"prefill of {T} tokens at pos {start} would wrap "
+                         f"the {cache.size}-slot cache")
+    positions = torch.clamp(
+        start + torch.arange(T, dtype=torch.int64, device=dev),
+        max=card.max_pos - 1)
+    cos, sin = _rope_tables(card, dev)
+    S = cache.size
+
+    x = embed_tokens(card, params, tokens)
+    if card.pos_embed == "learned":
+        x = x + params["wpe"][positions]
+
+    # slot s holds absolute position s in the un-wrapped region; q token i
+    # sits at start + i and attends slots s <= start + i
+    slot_ids = torch.arange(S, device=dev)[None, :]
+    qpos = (start + torch.arange(T, device=dev))[:, None]
+    allowed = slot_ids <= qpos                                  # [T, S]
+
+    for li, lp in enumerate(params["layers"]):
+        h = _norm(card, x, lp["ln1"], lp.get("ln1_b"))
+        q, k, v = qkv_project(card, lp, h, cos, sin, positions)
+        kvc.write_prefill(cache, li, k, v, start)
+        if fresh:   # empty cache: attention is purely in-chunk (flash)
+            a = causal_attention(q, k, v, window=card.window)
+        else:
+            kc, vc, _ = kvc.read_layer(cache, li, extra=T)
+            a = causal_attention(q, kc, vc, mask=allowed, causal=False)
+        x = x + _linear_l(a.reshape(B, T, -1), lp, "o")
+        h = _norm(card, x, lp["ln2"], lp.get("ln2_b"))
+        x = x + mlp(card, lp, h)
+
+    x = _norm(card, x, params["ln_f"], params.get("ln_f_b"))
+    if return_all_logits:
+        logits = lm_head(card, params, x)
+    else:
+        logits = lm_head(card, params, x[:, -1:])[:, 0]
+    return logits, kvc.advance(cache, T)
+
+
+def generate(card: ModelCard, params: Params, prompt: torch.Tensor, cache,
+             sampler: Optional[SamplerCard] = None, max_new_tokens: int = 64,
+             eos_id: int = -1, generator: Optional[torch.Generator] = None,
+             decode_params: Optional[Params] = None, decode_chunk: int = 1,
+             device=None) -> Tuple[torch.Tensor, object]:
+    """Prefill + chunked decode. Returns (generated tokens [B, <=max_new]
+    int32, cache) — NEW tokens only. ``decode_chunk``: decode+sample steps
+    between host eos checks. ``generator`` seeds sampling (default: one
+    seeded with ``sampler.seed``). Layer-stacked ``decode_params``
+    (``serve/stacked.py``) are not ported; pass None."""
+    if decode_params is not None:
+        raise NotImplementedError("layer-stacked decode_params "
+                                  "(serve/stacked.py) are not ported yet")
+    dev = resolve_device(device)
+    sampler = sampler or SamplerCard()
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(sampler.seed)
+    prompt = prompt.to(device=dev, dtype=torch.int64)
+    _check_inputs(params, prompt, cache, dev)
+
+    was_layered = isinstance(cache, LayeredKVCache)
+    pos_host = int(cache.pos[0])        # host mirror of the uniform pos
+    logits, cache = prefill(card, params, prompt, cache,
+                            fresh=pos_host == 0, device=dev)
+    pos_host += prompt.shape[1]
+    tok = _sample(generator, logits, sampler)
+    out = [tok]
+    done = tok == eos_id
+    lc = cache if was_layered else split_cache(cache, uniform=True)
+    remaining = max_new_tokens - 1
+    while remaining > 0:
+        if bool(done.all()):
+            break
+        k = min(decode_chunk, remaining)
+        # pre-wrap chunks (every step below the window) skip the re-rope
+        streaming = pos_host + k > lc.size
+        steps = []
+        t = tok
+        for _ in range(k):
+            step_logits, lc = decode_step_layered(card, params, t, lc,
+                                                  streaming)
+            t = _sample(generator, step_logits, sampler)
+            steps.append(t)
+        pos_host += k
+        for t in steps:
+            tok = torch.where(done, torch.full_like(t, eos_id), t)
+            done = done | (tok == eos_id)
+            out.append(tok)
+        remaining -= k
+    return torch.stack(out, dim=1), (lc if was_layered else join_cache(lc))

@@ -1,0 +1,212 @@
+"""Ring-buffer KV cache with StreamingLLM attention sinks + INT8/INT4 KV.
+
+The layout and slot policy of the JAX package's ``serve/kvcache.py``:
+head-major ``[L, B, H, S, D]`` buffers, per-(position, head) f32 scales,
+INT4 packed two codes per byte along D (byte i = element i low nibble,
+element i + D/2 high nibble). Positions ``0..sinks-1`` are pinned; later
+positions map to ``sinks + (pos - sinks) % (size - sinks)``. Keys are
+stored RoPE'd at their absolute position.
+
+Unlike the JAX package, writes update the cache buffers in place (the JAX
+caller donates the cache, so the observable behaviour is the same).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from koifish_tpu_torch.dtypes import QFormat
+from koifish_tpu_torch.ops.kernels.decode_attn import unpack_int4
+from koifish_tpu_torch.utils.device import resolve_device
+
+_unpack_int4 = unpack_int4
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Per-model cache: leading axis = layer. ``pos`` is the global position
+    counter per sequence (monotonic, may exceed ``size``)."""
+
+    k: torch.Tensor                      # [L,B,H,S,D] bf16 — or int8 codes
+    v: torch.Tensor                      # [L,B,H,S,D]
+    k_scale: Optional[torch.Tensor]      # [L,B,H,S] f32 (quantized KV only)
+    v_scale: Optional[torch.Tensor]
+    pos: torch.Tensor                    # [B] int32
+    fmt: QFormat = QFormat.BF16
+    sinks: int = 2
+
+    @property
+    def size(self) -> int:
+        return self.k.shape[3]
+
+    @property
+    def n_layers(self) -> int:
+        return self.k.shape[0]
+
+
+def _buffers(kshape, vshape, fmt: QFormat, dev):
+    """(k, v, k_scale, v_scale) zero buffers of one cache format."""
+    if fmt is QFormat.BF16:
+        return (torch.zeros(kshape, dtype=torch.bfloat16, device=dev),
+                torch.zeros(vshape, dtype=torch.bfloat16, device=dev),
+                None, None)
+    if fmt is QFormat.INT8:
+        k = torch.zeros(kshape, dtype=torch.int8, device=dev)
+        v = torch.zeros(vshape, dtype=torch.int8, device=dev)
+    elif fmt is QFormat.INT4:
+        if kshape[-1] % 2 or vshape[-1] % 2:
+            raise ValueError(f"INT4 KV needs even head dims, got "
+                             f"{kshape[-1]}/{vshape[-1]}")
+        k = torch.zeros(kshape[:-1] + (kshape[-1] // 2,), dtype=torch.uint8,
+                        device=dev)
+        v = torch.zeros(vshape[:-1] + (vshape[-1] // 2,), dtype=torch.uint8,
+                        device=dev)
+    else:
+        raise ValueError(f"unsupported KV format {fmt} (QJL is not ported "
+                         f"yet)")
+    return (k, v, torch.zeros(kshape[:-1], dtype=torch.float32, device=dev),
+            torch.zeros(vshape[:-1], dtype=torch.float32, device=dev))
+
+
+def init_cache(n_layers: int, batch: int, size: int, n_kv_head: int,
+               head_dim: int, fmt: QFormat = QFormat.BF16, sinks: int = 2,
+               v_head_dim: int = 0, device=None) -> KVCache:
+    dev = resolve_device(device)
+    vd = v_head_dim or head_dim
+    k, v, ks, vs = _buffers((n_layers, batch, n_kv_head, size, head_dim),
+                            (n_layers, batch, n_kv_head, size, vd), fmt, dev)
+    return KVCache(k=k, v=v, k_scale=ks, v_scale=vs,
+                   pos=torch.zeros((batch,), dtype=torch.int32, device=dev),
+                   fmt=fmt, sinks=sinks)
+
+
+def cache_for(card, batch: int, size: int, fmt: QFormat = QFormat.BF16,
+              sinks: int = 2, layered: bool = False, device=None):
+    """Cache sized from a ModelCard. ``layered=True`` builds the per-layer
+    form directly (``serve/layered.LayeredKVCache``)."""
+    if card.attn == "mla":
+        raise NotImplementedError("MLA caches are not ported yet")
+    if layered:
+        from koifish_tpu_torch.serve.layered import init_layered_cache
+        return init_layered_cache(card.n_layer, batch, size, card.n_kv_head,
+                                  card.head_dim, fmt=fmt, sinks=sinks,
+                                  device=device)
+    return init_cache(card.n_layer, batch, size, card.n_kv_head,
+                      card.head_dim, fmt=fmt, sinks=sinks, device=device)
+
+
+def ring_slot(pos: torch.Tensor, size: int, sinks: int) -> torch.Tensor:
+    """Map absolute position -> cache slot (sinks pinned, rest ring)."""
+    wrapped = sinks + torch.remainder(pos - sinks, size - sinks)
+    return torch.where(pos < size, pos, wrapped).to(torch.int32)
+
+
+def _quant_kv(x: torch.Tensor, fmt: QFormat
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) absmax quantization of a K/V vector [..., D].
+    Rounds half to even (``torch.round``, as ``jnp.round``). INT4 returns
+    block-split packed bytes [..., D//2]."""
+    qmax = 127.0 if fmt is QFormat.INT8 else 7.0
+    xf = x.to(torch.float32)
+    absmax = torch.amax(torch.abs(xf), dim=-1)
+    scale = torch.clamp(absmax / qmax, min=1e-12)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -qmax - 1, qmax
+                    ).to(torch.int8)
+    if fmt is QFormat.INT4:
+        d = q.shape[-1]
+        b = (q + 8).to(torch.uint8)
+        q = b[..., : d // 2] | (b[..., d // 2:] << 4)
+    return q, scale
+
+
+def advance(cache, n):
+    """Advance the position counter by ``n`` (writes never move it)."""
+    return dataclasses.replace(cache, pos=cache.pos + n)
+
+
+def _rotate_half_step(kf: torch.Tensor, inv_freq: torch.Tensor,
+                      steps: float = 1.0) -> torch.Tensor:
+    """Rotate roped keys forward by ``steps`` rope positions (rotate-half)."""
+    half = kf.shape[-1] // 2
+    ang = inv_freq * steps
+    c, s = torch.cos(ang), torch.sin(ang)
+    x1, x2 = kf[..., :half], kf[..., half:]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def rotate_sink_keys_layer(k_l: torch.Tensor, k_scale_l, fmt: QFormat,
+                           sinks: int, mask: torch.Tensor,
+                           inv_freq: Optional[torch.Tensor]):
+    """StreamingLLM sink re-rope: once the ring wraps, rotate the pinned
+    sink keys forward ONE rope position per generated token, in rows where
+    ``mask`` [B] is set. Quantized caches rotate through
+    dequant -> rotate -> requant. Updates ``k_l`` / ``k_scale_l`` in place
+    and returns them. The JAX package skips the rewrite with a ``lax.cond``
+    on ``any(mask)``; here the caller only asks for it in the streaming
+    regime and the rows are selected with ``torch.where`` (no host sync)."""
+    if sinks <= 0 or inv_freq is None:
+        return k_l, k_scale_l
+    m = mask[:, None, None, None]
+    sl = k_l[:, :, :sinks]                               # [B, H, sinks, Dc]
+    if fmt is QFormat.BF16:
+        rot = _rotate_half_step(sl.to(torch.float32), inv_freq)
+        k_l[:, :, :sinks] = torch.where(m, rot.to(k_l.dtype), sl)
+        return k_l, k_scale_l
+    ssc = k_scale_l[:, :, :sinks]                        # [B, H, sinks]
+    codes = unpack_int4(sl) if fmt is QFormat.INT4 else sl
+    kf = codes.to(torch.float32) * ssc[..., None]
+    q, sc = _quant_kv(_rotate_half_step(kf, inv_freq), fmt)
+    new_k = torch.where(m, q, sl)
+    new_s = torch.where(mask[:, None, None], sc, ssc)
+    k_l[:, :, :sinks] = new_k
+    k_scale_l[:, :, :sinks] = new_s
+    return k_l, k_scale_l
+
+
+def write_prefill(cache, layer: int, k_new: torch.Tensor,
+                  v_new: torch.Tensor, start: int):
+    """Write a [B, T, H, D] prefill chunk at absolute position ``start``
+    (a host int, the same for all sequences; start + T <= size). Does NOT
+    advance ``pos``. Accepts ``KVCache`` or ``LayeredKVCache``; the chosen
+    layer's buffers are written in place."""
+    T = k_new.shape[1]
+
+    def upd(buf, val):
+        # [B, T, H, ...] -> head-major [B, H, T, ...] into slots start..+T
+        buf[layer][:, :, start:start + T] = val.transpose(1, 2).to(
+            buf[layer].dtype)
+
+    if cache.fmt is QFormat.BF16:
+        upd(cache.k, k_new)
+        upd(cache.v, v_new)
+    elif cache.fmt in (QFormat.INT8, QFormat.INT4):
+        kq, ksc = _quant_kv(k_new, cache.fmt)
+        vq, vsc = _quant_kv(v_new, cache.fmt)
+        upd(cache.k, kq)
+        upd(cache.v, vq)
+        upd(cache.k_scale, ksc)
+        upd(cache.v_scale, vsc)
+    else:
+        raise ValueError(f"unsupported KV format {cache.fmt}")
+    return cache
+
+
+def read_layer(cache, layer: int, extra: int = 0
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(k, v, valid_mask) for a layer: k/v [B,S,H,D] bf16, mask [B,S].
+    ``extra`` counts tokens written this step but not yet in ``pos``.
+    Quantized caches are dequantized here (plain path)."""
+    S = cache.size
+    valid = (torch.arange(S, device=cache.pos.device)[None, :]
+             < torch.clamp(cache.pos + extra, max=S)[:, None])
+    k, v = cache.k[layer], cache.v[layer]          # [B, H, S, D]
+    if cache.fmt is QFormat.INT4:
+        k, v = unpack_int4(k), unpack_int4(v)
+    if cache.fmt is not QFormat.BF16:
+        k = (k.to(torch.float32) * cache.k_scale[layer][..., None]
+             ).to(torch.bfloat16)
+        v = (v.to(torch.float32) * cache.v_scale[layer][..., None]
+             ).to(torch.bfloat16)
+    return k.transpose(1, 2), v.transpose(1, 2), valid

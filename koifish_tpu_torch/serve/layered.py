@@ -1,0 +1,160 @@
+"""Per-layer decode cache and the decode step over it.
+
+The JAX package keeps the decode cache as a tuple of per-layer arrays so
+XLA can update each one in place; here each layer's buffers are plain
+tensors that the step writes in place. The one-token write of a uniform
+batch (every lane at the same position) is an in-place ``index_copy_`` of
+one slot into the layer's buffer (``layered.py:133-142`` of the JAX
+package); per-lane slots use an in-place ``index_put_``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from koifish_tpu_torch.config import ModelCard
+from koifish_tpu_torch.dtypes import QFormat
+from koifish_tpu_torch.models.transformer import (
+    Params, _linear_l, _norm, gather_embed, lm_head, mlp, qkv_project)
+from koifish_tpu_torch.ops.attention import decode_attention
+from koifish_tpu_torch.ops.kernels.decode_attn import decode_attention_quant
+from koifish_tpu_torch.ops.rope import rope_cos_sin_at, rope_inv_freq
+from koifish_tpu_torch.serve import kvcache as kvc
+from koifish_tpu_torch.serve.kvcache import KVCache
+
+
+@dataclasses.dataclass
+class LayeredKVCache:
+    """KVCache split into per-layer tensors (decode representation)."""
+    k: Tuple[torch.Tensor, ...]                   # L x [B, H, S, D(|/2)]
+    v: Tuple[torch.Tensor, ...]
+    k_scale: Optional[Tuple[torch.Tensor, ...]]   # L x [B, H, S]
+    v_scale: Optional[Tuple[torch.Tensor, ...]]
+    pos: torch.Tensor                             # [B] int32
+    fmt: QFormat = QFormat.BF16
+    sinks: int = 2
+    # True when every lane shares the same position (plain generate)
+    uniform: bool = True
+
+    @property
+    def size(self) -> int:
+        return self.k[0].shape[2]
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.k)
+
+
+def init_layered_cache(n_layers: int, batch: int, size: int, n_kv_head: int,
+                       head_dim: int, fmt: QFormat = QFormat.BF16,
+                       sinks: int = 2, v_head_dim: int = 0,
+                       uniform: bool = True, device=None) -> LayeredKVCache:
+    """Build the per-layer cache directly (no stacked [L, ...] copy)."""
+    layers = [kvc.init_cache(1, batch, size, n_kv_head, head_dim, fmt, sinks,
+                             v_head_dim, device=device)
+              for _ in range(n_layers)]
+    quant = fmt is not QFormat.BF16
+    return LayeredKVCache(
+        k=tuple(c.k[0] for c in layers), v=tuple(c.v[0] for c in layers),
+        k_scale=tuple(c.k_scale[0] for c in layers) if quant else None,
+        v_scale=tuple(c.v_scale[0] for c in layers) if quant else None,
+        pos=layers[0].pos, fmt=fmt, sinks=sinks, uniform=uniform)
+
+
+def split_cache(cache: KVCache, uniform: bool = True) -> LayeredKVCache:
+    """[L, ...] cache -> per-layer views (no copy: writes reach both)."""
+    L = cache.n_layers
+    tup = (lambda a: tuple(a[layer] for layer in range(L))
+           if a is not None else None)
+    return LayeredKVCache(k=tup(cache.k), v=tup(cache.v),
+                          k_scale=tup(cache.k_scale),
+                          v_scale=tup(cache.v_scale), pos=cache.pos,
+                          fmt=cache.fmt, sinks=cache.sinks, uniform=uniform)
+
+
+def join_cache(lc: LayeredKVCache) -> KVCache:
+    stk = lambda t: torch.stack(t) if t is not None else None
+    return KVCache(k=stk(lc.k), v=stk(lc.v), k_scale=stk(lc.k_scale),
+                   v_scale=stk(lc.v_scale), pos=lc.pos, fmt=lc.fmt,
+                   sinks=lc.sinks)
+
+
+def _write(buf: torch.Tensor, val: torch.Tensor, slots: torch.Tensor,
+           uniform: bool) -> None:
+    """One-token write of val [B, H, ...] into buf [B, H, S, ...] at
+    per-lane ``slots`` [B], in place."""
+    val = val.to(buf.dtype)
+    if uniform:
+        # every lane shares the slot: one in-place index write of the slot
+        buf.index_copy_(2, slots[:1].long(), val.unsqueeze(2))
+        return
+    lanes = torch.arange(buf.shape[0], device=buf.device)
+    buf[lanes, :, slots.long()] = val
+
+
+def decode_step_layered(card: ModelCard, params: Params, token: torch.Tensor,
+                        lc: LayeredKVCache, streaming: bool = True
+                        ) -> Tuple[torch.Tensor, LayeredKVCache]:
+    """One decode step over per-layer cache tensors: token [B] -> logits
+    [B, V] (bf16). ``streaming=False`` skips the per-step sink re-rope —
+    sound whenever no row's pos can reach the window in this step."""
+    B = token.shape[0]
+    dev = token.device
+    # unclamped positions with direct rope, so angles keep advancing past
+    # max_pos; inv_freq drives the per-step sink re-rope
+    positions = lc.pos[:, None]
+    cos = sin = inv_freq = None
+    if card.pos_embed == "rope":
+        scaling = card.rope_scaling_dict()
+        cos, sin = rope_cos_sin_at(card.head_dim, positions, card.rope_theta,
+                                   scaling)
+        inv_freq, _ = rope_inv_freq(card.head_dim, card.rope_theta, scaling,
+                                    dev)
+    stream_rows = lc.pos >= lc.size                         # [B]
+    x = gather_embed(params["wte"], token[:, None])
+    if card.pos_embed == "learned":
+        wpe_pos = torch.clamp(positions[:, 0], max=card.max_pos - 1).long()
+        x = x + params["wpe"][wpe_pos][:, None]
+
+    slots = kvc.ring_slot(lc.pos, lc.size, lc.sinks)        # [B]
+    lengths = torch.clamp(lc.pos + 1, max=lc.size).to(torch.int32)
+    quant = lc.fmt is not QFormat.BF16
+    att_scale = 1.0 / (card.head_dim ** 0.5)
+
+    for li, lp in enumerate(params["layers"]):
+        kl, vl = lc.k[li], lc.v[li]
+        ksl = lc.k_scale[li] if quant else None
+        if streaming and inv_freq is not None:
+            kvc.rotate_sink_keys_layer(kl, ksl, lc.fmt, lc.sinks,
+                                       stream_rows, inv_freq)
+        h = _norm(card, x, lp["ln1"], lp.get("ln1_b"))
+        q, k, v = qkv_project(card, lp, h, cos, sin, None)
+        k1, v1 = k[:, 0], v[:, 0]                           # [B, H, D]
+        if quant:
+            kq, ksc = kvc._quant_kv(k1, lc.fmt)
+            vq, vsc = kvc._quant_kv(v1, lc.fmt)
+            vsl = lc.v_scale[li]
+            _write(kl, kq, slots, lc.uniform)
+            _write(vl, vq, slots, lc.uniform)
+            _write(ksl, ksc, slots, lc.uniform)
+            _write(vsl, vsc, slots, lc.uniform)
+            # the fused kernel reads the INT8 / packed-INT4 codes directly
+            a = decode_attention_quant(q[:, 0], kl, vl, ksl, vsl, lengths,
+                                       att_scale)
+        else:
+            _write(kl, k1, slots, lc.uniform)
+            _write(vl, v1, slots, lc.uniform)
+            valid = (torch.arange(lc.size, device=dev)[None, :]
+                     < lengths[:, None])
+            a = decode_attention(q[:, 0], kl.transpose(1, 2),
+                                 vl.transpose(1, 2), valid)
+        x = x + _linear_l(a.reshape(B, 1, -1), lp, "o")
+        h = _norm(card, x, lp["ln2"], lp.get("ln2_b"))
+        x = x + mlp(card, lp, h)
+
+    x = _norm(card, x, params["ln_f"], params.get("ln_f_b"))
+    # bf16 logits: the sampler upcasts after its top-k cut
+    logits = lm_head(card, params, x, out_dtype=torch.bfloat16)[:, 0]
+    return logits, dataclasses.replace(lc, pos=lc.pos + 1)

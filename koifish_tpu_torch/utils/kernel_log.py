@@ -1,0 +1,90 @@
+"""Kernel-dispatch observability and launch counters.
+
+The same contract as the JAX package's ``utils/kernel_log.py``:
+
+- ``fallback(kernel, reason)``: a hand-written kernel was skipped for a
+  case the kernel does not cover (asymmetric codes, learned codebooks) and
+  the plain PyTorch path ran instead — logged ONCE per (kernel, reason) to
+  stderr. On by default when a CUDA device is present, silent otherwise.
+  ``KOIFISH_DUMP_KERNELS=0`` silences, ``=2`` forces on everywhere.
+- ``choice(kernel, desc)``: a kernel WAS taken (verbose mode only).
+
+Launch counters: every kernel wrapper calls ``count(name)`` exactly where
+it launches its CUDA kernel, so a run can show that its main path went
+through the kernels (``reset_launches`` / ``launches``).
+"""
+from __future__ import annotations
+
+import os
+import sys
+from typing import Dict, Optional, Set, Tuple
+
+_seen: Set[Tuple[str, str]] = set()
+_verbose: Optional[bool] = None   # None = read env lazily
+
+#: kernel name -> launches since the last reset (plain ints)
+LAUNCHES: Dict[str, int] = {}
+
+
+def _mode() -> int:
+    """0 = silent, 1 = fallbacks on the GPU, 2 = everything everywhere."""
+    env = os.environ.get("KOIFISH_DUMP_KERNELS", "1")
+    try:
+        lvl = int(env)
+    except ValueError:
+        lvl = 1
+    if lvl == 0:
+        return 0
+    return 2 if _verbose else lvl
+
+
+def set_verbose(on: bool) -> None:
+    """Also log positive kernel picks."""
+    global _verbose
+    _verbose = bool(on) or None
+
+
+def reset() -> None:
+    """Forget logged keys (tests)."""
+    _seen.clear()
+
+
+def _on_device() -> bool:
+    import torch
+    return torch.cuda.is_available()
+
+
+def _emit(tag: str, kernel: str, detail: str) -> None:
+    key = (kernel, detail)
+    if key in _seen:
+        return
+    _seen.add(key)
+    print(f"[koifish] {tag}: {kernel} {detail}", file=sys.stderr, flush=True)
+
+
+def fallback(kernel: str, reason: str) -> None:
+    """The hand-written ``kernel`` was skipped for ``reason``."""
+    mode = _mode()
+    if mode == 0 or (mode == 1 and not _on_device()):
+        return
+    _emit("kernel fallback -> torch", kernel, f"({reason})")
+
+
+def choice(kernel: str, desc: str) -> None:
+    """The hand-written ``kernel`` WAS dispatched (verbose mode only)."""
+    if _mode() < 2:
+        return
+    _emit("kernel choice", kernel, f"({desc})")
+
+
+def count(kernel: str) -> None:
+    """One launch of ``kernel`` (called by its wrapper at the launch)."""
+    LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def launches() -> Dict[str, int]:
+    return dict(LAUNCHES)

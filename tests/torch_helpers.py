@@ -1,0 +1,91 @@
+"""Helpers for the PyTorch-port tests: carry JAX values across via numpy.
+
+Inputs are made with numpy from a fixed seed and handed to both packages;
+JAX runs on the CPU (tests/conftest.py), the port with ``device="cpu"``.
+"""
+import functools
+
+import numpy as np
+import torch
+
+TINY_QWEN3 = dict(vocab_size=256, n_layer=2, n_embd=128, n_head=2,
+                  n_kv_head=1, head_dim=64, n_ffn=256, n_ctx=64, max_pos=128)
+INT4_RULES = {"self_attn": {"bits": 4}, "mlp": {"bits": 4},
+              "group_size": 128}
+
+# Logits of the tiny model are O(1) (max ~1.8). The two packages round bf16
+# activations at other points (XLA vs PyTorch matmuls; the port's kernel
+# math scales group partial sums where the JAX plain path rounds dequantized
+# weights to bf16): measured <= 0.01, about one bf16 ulp at |logit| ~ 1.6.
+LOGIT_TOL = 2e-2
+
+
+@functools.lru_cache(maxsize=None)
+def tiny_models():
+    """(JAX card, port card, JAX INT4 params, the same params in the port):
+    the tiny QWEN3 card from a JAX init, quantized by the JAX package and
+    carried across with ``params_from_numpy``."""
+    import jax
+    from koifish_tpu.config import ModelCard as JModelCard
+    from koifish_tpu.config import QuantCard as JQuantCard
+    from koifish_tpu.models import init_params as j_init_params
+    from koifish_tpu.quant.apply import quantize_params as j_quantize_params
+
+    from koifish_tpu_torch.config import ModelCard
+    from koifish_tpu_torch.io.convert import params_from_numpy
+    jcard = JModelCard.from_arch("QWEN3", **TINY_QWEN3)
+    card = ModelCard.from_arch("QWEN3", **TINY_QWEN3)
+    jp = j_quantize_params(j_init_params(jcard, jax.random.PRNGKey(0)),
+                           JQuantCard.from_json(INT4_RULES), jcard)
+    tp = params_from_numpy(jax_tree_to_numpy(jp), device="cpu")
+    return jcard, card, jp, tp
+
+
+def tiny_prompt(B: int, T: int, seed: int = 1) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, TINY_QWEN3["vocab_size"], size=(B, T)).astype(np.int32)
+
+
+def jax_tree_to_numpy(tree):
+    """A JAX param tree -> numpy leaves; a QTensor becomes a dict of its
+    numpy fields plus ``fmt`` (string value), ``shape`` and ``group``."""
+    from koifish_tpu.quant.qtensor import QTensor
+    if isinstance(tree, QTensor):
+        opt = lambda a: None if a is None else np.asarray(a)
+        return dict(codes=np.asarray(tree.codes), scales=np.asarray(tree.scales),
+                    zeros=opt(tree.zeros), codebook=opt(tree.codebook),
+                    row_scale=opt(tree.row_scale), fmt=tree.fmt.value,
+                    shape=tuple(tree.shape), group=tree.group)
+    if isinstance(tree, dict):
+        return {k: jax_tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [jax_tree_to_numpy(v) for v in tree]
+    return np.asarray(tree)
+
+
+def jax_cache_to_numpy(cache):
+    """A JAX KVCache / LayeredKVCache -> the dict ``cache_from_numpy`` takes."""
+    conv = lambda x: (None if x is None else
+                      [np.asarray(a) for a in x] if isinstance(x, tuple)
+                      else np.asarray(x))
+    out = dict(k=conv(cache.k), v=conv(cache.v), k_scale=conv(cache.k_scale),
+               v_scale=conv(cache.v_scale), pos=np.asarray(cache.pos),
+               fmt=cache.fmt.value, sinks=cache.sinks)
+    if hasattr(cache, "uniform"):
+        out["uniform"] = cache.uniform
+    return out
+
+
+def f32(x) -> np.ndarray:
+    """A JAX array or torch tensor (bf16 included) as an f32 numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).cpu().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def bf16_pair(a: np.ndarray):
+    """The same bf16 values for both packages: (jnp bf16, torch bf16)."""
+    import jax.numpy as jnp
+    j = jnp.asarray(a, dtype=jnp.bfloat16)
+    t = torch.from_numpy(np.asarray(j, dtype=np.float32)).to(torch.bfloat16)
+    return j, t
