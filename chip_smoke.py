@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Drive the koifish_tpu_torch serving path on one NVIDIA GPU and check it.
+"""Drive the koifish_tpu_torch serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
 Phases, in order; any failed check exits non-zero before the last line:
 
-1. build   — compile every CUDA kernel of the path from ``koifish_tpu_torch/
-             csrc`` (one nvcc per source, in parallel) and print the times.
+1. build   — compile every CUDA kernel of both paths from
+             ``koifish_tpu_torch/csrc`` (one nvcc per source, in parallel)
+             and print the times.
 2. card    — print the card's name and power limit (nvidia-smi) and turn
              TF32 off for matmuls and cuDNN.
 3. kernels — each kernel against its plain PyTorch version on the card, at
-             the shapes of the serving path and at ragged ones, with the
-             tolerance stated; kernel, plain, library and bound times.
-4. slice   — Qwen3-0.6B at full width (configs/qwen3_0.6b.json, random
+             the shapes of its path and at ragged ones, with the tolerance
+             stated; kernel, plain, library and bound times. Serving: flash
+             forward, dequant-fused GEMM/GEMV, quantized-KV decode attention.
+             Training: flash backward (dK/dV and dQ kernels) and the fused
+             classifier CE (forward, dx, dw).
+4. serving — Qwen3-0.6B at full width (configs/qwen3_0.6b.json, random
              weights from a seed), INT4 RTN g128 weights, a layered INT8 KV
              cache (B=32, S=1024): ``generate`` on 32 prompts of 128 tokens
              (64 new tokens, decode_chunk 16, T 0.6 / top-k 50 / top-p 0.95),
@@ -24,7 +29,23 @@ Phases, in order; any failed check exits non-zero before the last line:
              chunk prints device time by kernel and the idle share. A tiny
              model's card run is held against the CPU run of the same
              weights.
-5. result  — one JSON line with every kernel's numbers, then the last line
+5. training — a tiny QWEN3 ``make_train_step`` on the card against the CPU
+             (loss, every gradient norm, updated params; SR off). Then
+             ``train_loop`` at ``bench.py``'s train settings (lr 6e-4,
+             warmup 10, AdamW, no remat, SR and fused CE auto) on one fixed
+             random batch of 1024-token rows: Qwen3-0.6B at full width and
+             depth, B=8, then GPT2-124M (configs/gpt2_124m.json), B=32, 8
+             steps each. Prints per-step losses, median ms/step and tok/s
+             over the steps after the first two, MFU, peak device memory and
+             kernel launches; fails unless every loss is finite, the last is
+             below the first, Qwen3's first loss is within 0.5 of ln 151936,
+             and flash_fwd, flash_bwd_dkv, flash_bwd_dq and (Qwen3)
+             fused_ce_fwd/_dx/_dw were launched. A torch.profiler window
+             over one step of each model prints device time by kernel and
+             the idle share.
+6. result  — one JSON line with every kernel's numbers (launches from its
+             path's run: the serving run for the serving kernels, the Qwen3
+             train_loop for the training kernels), then the last line
              ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the repository around it; without either it
@@ -34,6 +55,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -321,6 +343,194 @@ def decode_attn_phase(torch, gen):
     return res
 
 
+def event_ms(torch, fn, iters: int = 5, warm: int = 2) -> float:
+    """Mean time of one ``fn()`` call from CUDA events around an eager loop:
+    for calls that autograd runs (a graph capture cannot hold them) and that
+    take milliseconds, where the host's launch overhead is small."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def causal_pairs(T: int, window: int) -> int:
+    """(query, key) pairs a causal (+ window) attention row set computes."""
+    if window <= 0 or window >= T:
+        return T * (T + 1) // 2
+    return window * (window + 1) // 2 + (T - window) * window
+
+
+def flash_bwd_phase(torch, gen):
+    """flash_bwd_dkv and flash_bwd_dq against the plain backward on the card,
+    from the forward kernel's o and lse; times at the Qwen3 slice shape."""
+    from koifish_tpu_torch.ops.kernels import flash as kf
+    F = torch.nn.functional
+    say("[kernels] flash_bwd_dkv / flash_bwd_dq "
+        "(koifish_tpu_torch/csrc/flash_bwd.cu)")
+    # bf16 grads: kernel and plain sum the same products in another order
+    # and may round a p or ds entry to the neighbouring bf16 value; allow
+    # 1 % of the largest gradient entry (a bf16 ulp is 0.4-0.8 %)
+    rel = 1e-2
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    cases = [  # (label, B, T, Hq, Hkv, D, window, head-major view)
+        ("slice B8 T1024 Hq16 Hkv8 D128", 8, 1024, 16, 8, 128, 0, False),
+        ("gpt2 B32 T1024 Hq12 Hkv12 D64", 32, 1024, 12, 12, 64, 0, False),
+        ("ragged B1 T1500 Hq4 Hkv2 D128 window256", 1, 1500, 4, 2, 128, 256,
+         False),
+        ("head-major B2 T300 Hq8 Hkv2 D64 window100", 2, 300, 8, 2, 64, 100,
+         True),
+        ("ragged B1 T77 Hq4 Hkv4 D256", 1, 77, 4, 4, 256, 0, False),
+    ]
+    out = {}
+    for label, B, T, Hq, Hkv, D, win, hm in cases:
+        if hm:
+            q = rnd(B, Hq, T, D).transpose(1, 2)
+            k = rnd(B, Hkv, T, D).transpose(1, 2)
+            v = rnd(B, Hkv, T, D).transpose(1, 2)
+        else:
+            q, k, v = rnd(B, T, Hq, D), rnd(B, T, Hkv, D), rnd(B, T, Hkv, D)
+        do = rnd(B, T, Hq, D)
+        sc = 1.0 / D ** 0.5
+        o, lse = kf.flash_attention_fwd(q, k, v, scale=sc, window=win)
+        dk, dv = kf.flash_bwd_dkv(q, k, v, o, lse, do, scale=sc, window=win)
+        dq = kf.flash_bwd_dq(q, k, v, o, lse, do, scale=sc, window=win)
+        pq, pk, pv = kf.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                  scale=sc, window=win)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, ref in (("dq", dq, pq), ("dk", dk, pk), ("dv", dv, pv)):
+            errs[name] = max_err(a, ref)
+            check(f"flash_bwd {label} {name}", errs[name],
+                  rel * float(ref.float().abs().max()) + 1e-3)
+        if out:
+            continue
+        # timing at the Qwen3 slice shape
+        dkv_ms = time_ms(torch, lambda: kf.flash_bwd_dkv(
+            q, k, v, o, lse, do, scale=sc), iters=10)
+        dq_ms = time_ms(torch, lambda: kf.flash_bwd_dq(
+            q, k, v, o, lse, do, scale=sc), iters=10)
+        pms = event_ms(torch, lambda: kf.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, scale=sc), iters=3)
+        g = Hq // Hkv
+        qh = q.transpose(1, 2).detach().clone().requires_grad_(True)
+        kh = k.transpose(1, 2).repeat_interleave(g, dim=1).detach() \
+            .requires_grad_(True)
+        vh = v.transpose(1, 2).repeat_interleave(g, dim=1).detach() \
+            .requires_grad_(True)
+        oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                            scale=sc)
+        doh = do.transpose(1, 2)
+        lms = event_ms(torch, lambda: torch.autograd.grad(
+            oh, (qh, kh, vh), doh, retain_graph=True), iters=10)
+        pairs = B * Hq * causal_pairs(T, win)
+        in_bytes = 2 * (3 * B * T * Hq * D + 2 * B * T * Hkv * D) \
+            + 4 * B * Hq * T
+        b_dkv = bound_ms(in_bytes + 2 * 2 * B * T * Hkv * D,
+                         4 * 2.0 * D * pairs)
+        b_dq = bound_ms(in_bytes + 2 * B * T * Hq * D, 3 * 2.0 * D * pairs)
+        say(f"  time flash_bwd slice: dkv kernel_ms={dkv_ms:.4f} "
+            f"bound_ms={b_dkv[0]:.5f} ({b_dkv[1]}); dq kernel_ms={dq_ms:.4f} "
+            f"bound_ms={b_dq[0]:.5f} ({b_dq[1]}); plain_ms(whole backward)="
+            f"{pms:.4f} library_ms(SDPA backward)={lms:.4f}")
+        common = dict(plain_ms=pms, library_ms=lms)
+        out["flash_bwd_dkv"] = dict(common, ms=dkv_ms, bound_ms=b_dkv[0],
+                                    bound_by=b_dkv[1],
+                                    max_abs_err=max(errs["dk"], errs["dv"]))
+        out["flash_bwd_dq"] = dict(common, ms=dq_ms, bound_ms=b_dq[0],
+                                   bound_by=b_dq[1], max_abs_err=errs["dq"])
+        del qh, kh, vh, oh
+    return out
+
+
+def fused_ce_phase(torch, gen):
+    """fused_ce_fwd / _dx / _dw against their plain versions on the card;
+    times at the Qwen3 slice shape (m = 8192, tied [V, E] head)."""
+    from koifish_tpu_torch.ops.kernels import fused_ce as kc
+    say("[kernels] fused_ce_fwd / fused_ce_dx / fused_ce_dw "
+        "(koifish_tpu_torch/csrc/fused_ce.cu)")
+    # lse and gold are f32 (|lse| ~ 12): only the f32 summation order
+    # differs; dx and dw are bf16: 1 % of the largest entry (about one ulp)
+    tol_f32, rel = 2e-3, 1e-2
+    cases = [  # (label, m, E, V, tied [V, E] storage, masked)
+        ("slice m8192 E1024 V151936 tied", 8192, 1024, 151936, True, False),
+        ("ragged m1000 E768 V50304 untied masked", 1000, 768, 50304, False,
+         True),
+        ("ragged m100 E64 V333 tied masked", 100, 64, 333, True, True),
+    ]
+    out = {}
+    for label, m, E, V, tied, masked in cases:
+        x = torch.randn((m, E), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        if tied:
+            w = (torch.randn((V, E), generator=gen, device="cuda") * 0.02
+                 ).to(torch.bfloat16).T
+        else:
+            w = (torch.randn((E, V), generator=gen, device="cuda") * 0.02
+                 ).to(torch.bfloat16)
+        tgt = torch.randint(0, V, (m,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        mask = torch.ones((m,), device="cuda")
+        if masked:
+            mask[torch.rand((m,), generator=gen, device="cuda") < 0.3] = 0.0
+        wtok = (mask / mask.sum().clamp_min(1.0)).contiguous()
+        lse, gold = kc.fused_ce_fwd(x, w, tgt)
+        plse, pgold = kc.fused_ce_fwd_plain(x, w, tgt)
+        dx = kc.fused_ce_dx(x, w, tgt, plse, wtok)
+        dw = kc.fused_ce_dw(x, w, tgt, plse, wtok)
+        pdx = kc.fused_ce_dx_plain(x, w, tgt, plse, wtok)
+        pdw = kc.fused_ce_dw_plain(x, w, tgt, plse, wtok)
+        torch.cuda.synchronize()
+        errs = dict(fwd=max(max_err(lse, plse), max_err(gold, pgold)),
+                    dx=max_err(dx, pdx), dw=max_err(dw, pdw))
+        check(f"fused_ce_fwd {label} lse/gold", errs["fwd"], tol_f32)
+        check(f"fused_ce_dx {label}", errs["dx"],
+              rel * float(pdx.float().abs().max()) + 1e-8)
+        check(f"fused_ce_dw {label}", errs["dw"],
+              rel * float(pdw.float().abs().max()) + 1e-8)
+        if out:
+            continue
+        dlog = kc._dlogits(x, w, tgt, plse, wtok)        # [m, V] bf16
+        xE = 2 * m * E + 2 * E * V + 4 * m
+        flops = 2.0 * m * E * V
+        rows = (
+            ("fused_ce_fwd", lambda: kc.fused_ce_fwd(x, w, tgt),
+             lambda: kc.fused_ce_fwd_plain(x, w, tgt),
+             lambda: torch.matmul(x, w), xE + 8 * m, flops,
+             "matmul x·w"),
+            ("fused_ce_dx", lambda: kc.fused_ce_dx(x, w, tgt, plse, wtok),
+             lambda: kc.fused_ce_dx_plain(x, w, tgt, plse, wtok),
+             lambda: torch.matmul(dlog, w.T), xE + 8 * m + 2 * m * E,
+             2 * flops, "matmul dlogits·wᵀ"),
+            ("fused_ce_dw", lambda: kc.fused_ce_dw(x, w, tgt, plse, wtok),
+             lambda: kc.fused_ce_dw_plain(x, w, tgt, plse, wtok),
+             lambda: torch.matmul(x.T, dlog), xE + 8 * m + 2 * E * V,
+             2 * flops, "matmul xᵀ·dlogits"),
+        )
+        for name, kern, plain, lib, nbytes, fl, what in rows:
+            kms = time_ms(torch, kern, iters=3, warm=1)
+            pms = event_ms(torch, plain, iters=2, warm=1)
+            lms = time_ms(torch, lib, iters=3, warm=1)
+            bms, by = bound_ms(nbytes, fl)
+            say(f"  time {name} slice: kernel_ms={kms:.4f} plain_ms={pms:.4f}"
+                f" library_ms({what})={lms:.4f} bound_ms={bms:.5f} ({by})")
+            key = name.rsplit("_", 1)[1]
+            out[name] = dict(ms=kms, plain_ms=pms, library_ms=lms,
+                             bound_ms=bms, bound_by=by, max_abs_err=errs[key])
+        del dlog
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the slice
 # ---------------------------------------------------------------------------
@@ -525,6 +735,166 @@ def slice_phase(torch):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training
+# ---------------------------------------------------------------------------
+
+def train_reference_check(torch):
+    """A tiny QWEN3 card, one ``make_train_step`` on the card (flash and
+    fused-CE kernels) against the same step on the CPU (plain versions),
+    SR off: the loss, every gradient's norm and the updated parameters."""
+    from koifish_tpu_torch.config import ModelCard, TrainCard
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.train import init_train_state, make_train_step
+    from koifish_tpu_torch.utils.tree import leaves
+    card = ModelCard.from_arch("QWEN3", vocab_size=512, n_layer=2, n_embd=128,
+                               n_head=2, n_kv_head=1, head_dim=64, n_ffn=256,
+                               n_ctx=64, max_pos=128)
+    lr = 1e-3
+    tcard = TrainCard(batch=4, lr=lr, warmup=0, scheduler="static",
+                      fused_ce=True, stochastic_round=False,
+                      check_tensor_norm=True)
+    base = init_params(card, device="cpu", seed=7)
+    tokens = torch.randint(0, 512, (1, 4, 65),
+                           generator=torch.Generator().manual_seed(8))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        # a fresh copy per device: the step updates its params in place
+        params = {k: ([{n: t.to(dev, copy=True) for n, t in lp.items()}
+                       for lp in v] if k == "layers"
+                      else v.to(dev, copy=True))
+                  for k, v in base.items()}
+        state = init_train_state(card, tcard, params=params)
+        step = make_train_step(card, tcard, total_steps=10)
+        state, metrics = step(state, {"tokens": tokens.to(dev)})
+        res[dev] = (float(metrics["loss"]), metrics["leaf_norms"].cpu(),
+                    [p.detach().float().cpu()
+                     for p in leaves(state.params)])
+    # f32 loss of O(6): bf16 activations rounded at other points (cuBLAS
+    # vs the CPU, kernel sum orders)
+    check("tiny QWEN3 train step loss, card vs CPU",
+          abs(res["cpu"][0] - res["cuda"][0]), 1e-2)
+    # per-leaf grad norms: 2 % relative (bf16 grads, other sum orders)
+    n_cpu, n_gpu = res["cpu"][1], res["cuda"][1]
+    check("tiny QWEN3 grad norms, card vs CPU (relative)",
+          float(((n_gpu - n_cpu).abs() / n_cpu.clamp_min(1e-6)).max()), 2e-2)
+    # updated params: AdamW's first step moves each weight by about lr times
+    # the sign of its gradient, so a gradient entry near 0 may move the
+    # weight either way on the two devices (2·lr), plus one bf16 ulp
+    worst, moved = 0.0, 0
+    for a, b in zip(res["cpu"][2], res["cuda"][2]):
+        d = (a - b).abs()
+        worst = max(worst, float((d - (2 * lr + a.abs() * 2 ** -7)).max()))
+        moved += int((d > 0).sum())
+    total = sum(a.numel() for a in res["cpu"][2])
+    say(f"  updated params differ in {moved} of {total} entries")
+    check("tiny QWEN3 updated params, card vs CPU (excess over 2·lr + "
+          "1 ulp)", max(worst, 0.0), 0.0)
+    # the SR hash runs on wrapping int32 arithmetic: the card must give
+    # the CPU's bits (which the CPU tests hold to the JAX package's)
+    from koifish_tpu_torch.train.optimizer import stochastic_round
+    x = torch.randn((3_000_017,), generator=torch.Generator().manual_seed(9))
+    sr_cpu = stochastic_round(x, 0xDEADBEEF, torch.bfloat16)
+    sr_gpu = stochastic_round(x.to("cuda"), 0xDEADBEEF, torch.bfloat16).cpu()
+    check("stochastic_round card vs CPU (entries whose bits differ)",
+          float((sr_cpu.view(torch.int16) != sr_gpu.view(torch.int16)).sum()),
+          0.0)
+
+
+def train_model(torch, label, config, B, steps=8, profile=False):
+    """``train_loop`` for ``steps`` steps of one fixed random batch
+    [1, B, 1025] at ``bench.py``'s settings; returns the kernel launches."""
+    from koifish_tpu_torch.config import CLIParams, TrainCard
+    from koifish_tpu_torch.train import (init_train_state, make_train_step,
+                                         train_loop)
+    from koifish_tpu_torch.utils import kernel_log, mfu
+    p = CLIParams.load(os.path.join(ROOT, "configs", config))
+    card = p.model
+    T = 1024
+    say(f"[train] {label}: L={card.n_layer} E={card.n_embd} Hq={card.n_head} "
+        f"Hkv={card.n_kv_head} D={card.head_dim} F={card.n_ffn} "
+        f"V={card.vocab_size} tie={card.tie_embeddings}; B={B} T={T}")
+    tcard = TrainCard(batch=B, lr=6e-4, warmup=10, optimizer="adamw",
+                      remat=False, seed=p.seed, dump_every=1)
+    t0 = time.perf_counter()
+    state = init_train_state(card, tcard)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(p.seed)
+    batch = {"tokens": torch.randint(0, card.vocab_size, (1, B, T + 1),
+                                     generator=gen, device="cuda")}
+    torch.cuda.synchronize()
+    say(f"  init: {time.perf_counter() - t0:.2f} s; "
+        f"{mfu.matmul_params(card) / 1e6:.1f} M matmul parameters")
+    lines = []
+    kernel_log.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    state, infos = train_loop(card, tcard, state, iter([batch] * steps),
+                              total_steps=1000, log_fn=lines.append)
+    torch.cuda.synchronize()
+    counts = kernel_log.launches()
+    peak = torch.cuda.max_memory_allocated()
+    for ln in lines:
+        say("  " + ln)
+    losses = infos.losses
+    dts = sorted(r[3] for r in infos.rows[2:])
+    dt = dts[len(dts) // 2]
+    peak_flops = mfu.chip_peak_flops()
+    say(f"  losses: {[round(x, 4) for x in losses]}")
+    say(f"  median {dt * 1e3:.2f} ms/step over steps 2..{steps - 1} "
+        f"(runs {[round(r[3] * 1e3, 2) for r in infos.rows]}), "
+        f"{B * T / dt:.1f} tok/s, MFU "
+        f"{mfu.step_mfu(card, B * T, dt, peak_flops):.4f} "
+        f"(peak {peak_flops / 1e12:.0f} TFLOP/s bf16)")
+    say(f"  peak device memory: {peak / 2**30:.2f} GiB")
+    say(f"  launches in the {steps}-step train_loop: {json.dumps(counts)}")
+    if not all(torch.isfinite(torch.tensor(losses))):
+        fail(f"{label}: non-finite loss")
+    if not losses[-1] < losses[0]:
+        fail(f"{label}: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    # the optimizer alone: one AdamW + SR update of every leaf
+    from koifish_tpu_torch.train.optimizer import apply_updates
+    from koifish_tpu_torch.utils.tree import leaves, tree_map
+    grads = tree_map(lambda p: torch.full_like(p, 1e-3), state.params)
+    seeds = list(range(len(leaves(state.params))))
+    opt_ms = event_ms(torch, lambda: apply_updates(
+        state.params, grads, state.opt, optimizer="adamw", lr=1e-6,
+        sr_seeds=seeds), iters=3, warm=1)
+    say(f"  optimizer: one apply_updates (AdamW + SR, {len(seeds)} leaves) "
+        f"{opt_ms:.2f} ms (CUDA events around eager calls)")
+    del grads
+    if profile:
+        step = make_train_step(card, tcard, total_steps=1000)
+
+        def one():
+            nonlocal state
+            state, metrics = step(state, batch)
+            float(metrics["loss"])
+        profile_window(torch, f"{label} train step (B={B}, T={T})", one)
+    del state, batch
+    torch.cuda.empty_cache()
+    return losses, counts
+
+
+def train_phase(torch):
+    import math
+    train_reference_check(torch)
+    q_losses, counts = train_model(torch, "Qwen3-0.6B", "qwen3_0.6b.json", 8,
+                                   profile=True)
+    if abs(q_losses[0] - math.log(151936)) > 0.5:
+        fail(f"first Qwen3 loss {q_losses[0]} is not within 0.5 of "
+             f"ln 151936 = {math.log(151936):.4f}")
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "fused_ce_fwd",
+                 "fused_ce_dx", "fused_ce_dw"):
+        if counts.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched by the Qwen3 train_loop")
+    _, g_counts = train_model(torch, "GPT2-124M", "gpt2_124m.json", 32,
+                              profile=True)
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        if g_counts.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched by the GPT2 train_loop")
+    return counts
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -539,9 +909,12 @@ def main() -> None:
         f"(parallel; per library: "
         f"{ {k: round(v, 1) for k, v in secs.items()} })")
     for name in _build.SOURCES:
-        for ln in _build.ptxas_summary(name).splitlines():
-            if "Used" in ln or "spill" in ln:
-                say(f"  ptxas {name}: {ln}")
+        log = _build.ptxas_summary(name)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", log))
+        say(f"  ptxas {name}: {len(regs)} kernels, "
+            f"{min(regs, default=0)}-{max(regs, default=0)} registers, "
+            f"{spill} bytes of spill stores in all")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -560,25 +933,43 @@ def main() -> None:
     flash = flash_phase(torch, gen)
     qmm = qmatmul_phase(torch, gen)
     dec = decode_attn_phase(torch, gen)
-    counts = slice_phase(torch)
+    bwd = flash_bwd_phase(torch, gen)
+    fce = fused_ce_phase(torch, gen)
+    serve_counts = slice_phase(torch)
+    train_counts = train_phase(torch)
 
     src = "koifish_tpu_torch/csrc/"
-    rows = [
+    rows = [  # (name, source, TPU kernel, numbers, launches on its path)
         ("flash_fwd", "flash_fwd.cu", "koifish_tpu/ops/pallas/flash.py:844",
-         flash),
+         flash, serve_counts),
         ("qmm", "qmatmul.cu", "koifish_tpu/ops/pallas/matmul.py:305",
-         qmm["qmm"]),
+         qmm["qmm"], serve_counts),
         ("qmv", "qmatmul.cu", "koifish_tpu/ops/pallas/matmul.py:201",
-         qmm["qmv"]),
+         qmm["qmv"], serve_counts),
         ("decode_attn", "decode_attn.cu",
-         "koifish_tpu/ops/pallas/decode_attn.py:179", dec),
+         "koifish_tpu/ops/pallas/decode_attn.py:179", dec, serve_counts),
+        ("flash_bwd_dkv", "flash_bwd.cu",
+         "koifish_tpu/ops/pallas/flash.py:932", bwd["flash_bwd_dkv"],
+         train_counts),
+        ("flash_bwd_dq", "flash_bwd.cu",
+         "koifish_tpu/ops/pallas/flash.py:1077", bwd["flash_bwd_dq"],
+         train_counts),
+        ("fused_ce_fwd", "fused_ce.cu",
+         "koifish_tpu/ops/pallas/fused_ce.py:126", fce["fused_ce_fwd"],
+         train_counts),
+        ("fused_ce_dx", "fused_ce.cu",
+         "koifish_tpu/ops/pallas/fused_ce.py:217", fce["fused_ce_dx"],
+         train_counts),
+        ("fused_ce_dw", "fused_ce.cu",
+         "koifish_tpu/ops/pallas/fused_ce.py:302", fce["fused_ce_dw"],
+         train_counts),
     ]
     kernels = [dict(name=n, route="cuda", source=src + f, replaces=r,
-                    launches=counts.get(n, 0), max_abs_err=m["max_abs_err"],
+                    launches=c.get(n, 0), max_abs_err=m["max_abs_err"],
                     ms=m["ms"], plain_ms=m["plain_ms"],
                     bound_ms=m["bound_ms"], bound_by=m["bound_by"],
                     library_ms=m["library_ms"])
-               for n, f, r, m in rows]
+               for n, f, r, m, c in rows]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

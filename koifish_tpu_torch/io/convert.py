@@ -5,7 +5,7 @@ already a numpy array (``np.asarray`` on the JAX side) and every QTensor
 given as a dict of its numpy fields plus its metadata (``fmt`` as the
 format's string value, ``shape``, ``group``). ``cache_from_numpy`` does the
 same for a ``KVCache`` (stacked leaves) or a ``LayeredKVCache`` (per-layer
-lists). bf16 arrives as ``ml_dtypes.bfloat16``; it is carried as a
+lists), and ``opt_state_from_numpy`` for an optimizer state. bf16 arrives as ``ml_dtypes.bfloat16``; it is carried as a
 ``uint16`` view and reinterpreted as ``torch.bfloat16``, bit for bit. This
 module imports no JAX.
 """
@@ -81,3 +81,16 @@ def cache_from_numpy(tree: Dict[str, Any], device=None):
     if layered:
         return LayeredKVCache(uniform=bool(tree.get("uniform", True)), **kw)
     return KVCache(**kw)
+
+
+def opt_state_from_numpy(tree: Dict[str, Any], device=None):
+    """The JAX package's ``OptState`` as numpy fields — ``m`` and ``v``
+    trees of the params' structure, ``step`` and ``spikes`` scalars — ->
+    the port's ``train.optimizer.OptState`` (moments keep their dtype)."""
+    from koifish_tpu_torch.train.optimizer import OptState
+    dev = resolve_device(device)
+    return OptState(m=_leaf(tree["m"], dev),
+                    v=None if tree.get("v") is None else _leaf(tree["v"], dev),
+                    step=int(np.asarray(tree["step"])),
+                    spikes=torch.tensor(int(np.asarray(tree["spikes"])),
+                                        dtype=torch.int32, device=dev))

@@ -13,16 +13,21 @@ names::
       "ln_f", ("ln_f_b"), ("head": [E, V]),
     }
 
-Any weight-matrix leaf may be a QTensor; ``ops/matmul`` dispatches. The
-model zoo of the JAX package (MoE, MLA, Mamba, GAU, BROWN, Guppy, EmbedVAE)
+Any weight-matrix leaf may be a QTensor; ``ops/matmul`` dispatches.
+Training differentiates ``model_forward`` with autograd (bf16 leaves with
+``requires_grad``); ``remat`` recomputes blocks in the backward through
+``torch.utils.checkpoint``. The model zoo of the JAX package (MoE, MLA, Mamba, GAU, BROWN, Guppy, EmbedVAE)
 is not ported yet and is refused by ``init_params``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from koifish_tpu_torch.config import ModelCard
 from koifish_tpu_torch.dtypes import QFormat
@@ -205,11 +210,40 @@ def lm_head(card: ModelCard, params: Params, x: torch.Tensor,
     return qmatmul(x, wte.T, out_dtype=out_dtype)
 
 
+# matmuls without batch dims: the ops ``remat="dots"`` keeps resident, as
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable does
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_block(remat, window: int):
+    """``layer_forward`` wrapped for activation recompute: ``True``
+    recomputes the whole block in the backward; ``"dots"`` keeps the
+    projections' outputs and recomputes the elementwise chain (norms, rope,
+    activations) — the JAX package's ``jax.checkpoint`` policies."""
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+
+    def block(card, lp, x, cos, sin, positions):
+        return checkpoint(layer_forward, card, lp, x, cos, sin, positions,
+                          window, use_reentrant=False, **kw)
+    return block
+
+
 def model_forward(card: ModelCard, params: Params, tokens: torch.Tensor,
                   positions: Optional[torch.Tensor] = None, window: int = 0,
-                  return_hidden: bool = False,
+                  return_hidden: bool = False, remat=False,
                   logits_dtype=torch.float32) -> torch.Tensor:
-    """Full-sequence forward: tokens [B, T] -> logits [B, T, V]."""
+    """Full-sequence forward: tokens [B, T] -> logits [B, T, V] in
+    ``logits_dtype`` (training takes bf16), or the final-norm hidden states
+    [B, T, E] with ``return_hidden``. ``remat``: False, True (recompute
+    each block in the backward) or "dots" (keep the matmul outputs)."""
     _check_dense(card)
     B, T = tokens.shape
     dev = tokens.device
@@ -223,9 +257,12 @@ def model_forward(card: ModelCard, params: Params, tokens: torch.Tensor,
     if card.pos_embed == "rope":
         cos, sin = rope_freqs(card.head_dim, card.max_pos, card.rope_theta,
                               card.rope_scaling_dict(), device=dev)
+    if remat:
+        block = _remat_block(remat, window)
+    else:
+        block = functools.partial(layer_forward, window=window)
     for lp in params["layers"]:
-        x = layer_forward(card, lp, x, cos, sin, positions.long(),
-                          window=window)
+        x = block(card, lp, x, cos, sin, positions.long())
     x = _norm(card, x, params["ln_f"], params.get("ln_f_b"))
     if return_hidden:
         return x

@@ -1,10 +1,12 @@
 """Attention ops — causal prefill and single-token decode (plain paths).
 
 Shapes: q [B, T, Hq, D]; k/v [B, S, Hkv, D]; GQA via a head-group reshape,
-no repeated K. ``causal_attention`` sends the fresh-prefill case
-(``mask is None and causal``, tq == tk, dv == d) to the flash kernel
-(``ops/kernels/flash.py``), as the JAX package's ``ops/attention.py:79-83``
-sends it to Pallas; every other case runs the plain path below.
+no repeated K. ``causal_attention`` sends the self-attention case
+(``mask is None and causal``, tq == tk, dv == d, d in 64/128/256) through
+``FlashAttention`` (``ops/kernels/flash.py``: the flash kernels forward and
+backward on the card), as the JAX package's ``ops/attention.py:79-83``
+sends it to Pallas; every other case runs the plain, autograd-
+differentiated path below.
 """
 from __future__ import annotations
 
@@ -42,8 +44,7 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if (backend != "ref" and mask is None and causal and tq == tk
             and v.shape[-1] == d and d in kflash.HEAD_DIMS
             and hq % k.shape[2] == 0):
-        out, _ = kflash.flash_attention_fwd(q, k, v, scale=scale,
-                                            window=window)
+        out = kflash.FlashAttention.apply(q, k, v, scale, window)
         return out.to(q.dtype)
 
     logits = _gqa_scores(q, k) * scale              # [B,Hkv,G,Tq,Tk]

@@ -1,0 +1,274 @@
+"""The training step and loop (the JAX package's ``train/trainer.py``;
+the reference's ``Optimizer::Search``, Optimizer.cpp:580-680).
+
+One step is (loss → grad → clip → update) over A micro-batches: autograd
+computes each micro-batch's bf16 gradients, they are summed in f32 and
+averaged, and ``apply_updates`` writes the parameters and moments in
+place. PyTorch runs eagerly, so there is no jit and no donation; the
+reference's auxiliary behaviours stay: NaN/inf loss and grad detection
+with an emergency checkpoint, the loss-validity assert (0 < loss < 100),
+the spike-guard counters, and the loss curve as CSV.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+
+import torch
+
+from koifish_tpu_torch.config import ModelCard, TrainCard
+from koifish_tpu_torch.models.transformer import model_forward
+from koifish_tpu_torch.ops.cross_entropy import (cross_entropy_loss,
+                                                 fused_ce_loss)
+from koifish_tpu_torch.quant.qtensor import QTensor
+from koifish_tpu_torch.train.optimizer import (OptState, _is_float,
+                                               apply_updates, init_opt_state)
+from koifish_tpu_torch.train.schedule import lr_at
+from koifish_tpu_torch.utils import kernel_log
+from koifish_tpu_torch.utils.tree import leaves, unflatten_like
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Any
+    opt: OptState
+    gen: torch.Generator      # host generator: the per-step SR seeds
+
+
+def compute_loss(card: ModelCard, params, tokens, loss_mask=None,
+                 remat=False, qcard=None, fused_ce=None):
+    """Next-token CE over [B, T+1] tokens (targets = tokens shifted):
+    (mean_loss, per_token [B, T]). ``fused_ce``: None = auto (the logits-
+    free fused classifier for vocab >= 64k), True/False force it."""
+    if qcard is not None and qcard.rules and qcard.train_target != "gama":
+        raise NotImplementedError(
+            "QAT (fake-quant training) is not ported yet (slice 4)")
+    if card.arch in ("SALMON", "GUPPY"):
+        raise NotImplementedError(
+            f"{card.arch} training is not ported yet (slice 5, model zoo)")
+    targets = tokens[:, 1:]
+    mask = loss_mask[:, 1:] if loss_mask is not None else None
+    head = params.get("head", params["wte"])
+    use_fused = fused_ce if fused_ce is not None else card.vocab_size >= 65536
+    if use_fused and not isinstance(head, QTensor):
+        hidden = model_forward(card, params, tokens[:, :-1], remat=remat,
+                               return_hidden=True)
+        head_w = head if "head" in params else head.T
+        return fused_ce_loss(hidden, head_w, targets, mask)
+    logits = model_forward(card, params, tokens[:, :-1], remat=remat,
+                           logits_dtype=torch.bfloat16)
+    return cross_entropy_loss(logits, targets, mask)
+
+
+def _sr_on(tcard: TrainCard) -> bool:
+    cfg = getattr(tcard, "stochastic_round", "auto")
+    if isinstance(cfg, str):
+        return cfg.lower() in ("auto", "on", "true", "1")
+    return bool(cfg)
+
+
+def make_train_step(card: ModelCard, tcard: TrainCard, total_steps: int,
+                    qcard=None, trainable=None, sp=None) -> Callable:
+    """The (state, batch) -> (state, metrics) step. ``batch["tokens"]`` is
+    [A, B, T+1] (A micro-batches), ``batch.get("loss_mask")`` likewise.
+
+    trainable: a tree of bools of the params' structure; frozen leaves get
+               empty-stub grads and are left untouched by the optimizer.
+    Metrics: ``loss``, ``lr``, ``grad_norm``, ``spikes`` and, with
+    ``check_tensor_norm``, ``leaf_norms`` (per-leaf grad norms)."""
+    if tcard.int8_matmul:
+        raise NotImplementedError(
+            "int8_matmul training is not ported yet (slice 4)")
+    if sp is not None:
+        raise NotImplementedError(
+            "sequence-parallel training is not ported yet (slice 6)")
+    if getattr(tcard, "kernel_choices", False):
+        kernel_log.set_verbose(True)
+    sr_on = _sr_on(tcard)
+    frozen = ([not t for t in leaves(trainable)] if trainable is not None
+              else None)
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        tokens = batch["tokens"]
+        loss_mask = batch.get("loss_mask")
+        accum = tokens.shape[0]
+        flat = leaves(state.params)
+        diff = [i for i, p in enumerate(flat)
+                if _is_float(p) and (frozen is None or not frozen[i])]
+        acc = None
+        loss_sum = 0.0
+        for a in range(accum):
+            loss, _ = compute_loss(
+                card, state.params, tokens[a],
+                loss_mask[a] if loss_mask is not None else None,
+                remat=tcard.remat, qcard=qcard,
+                fused_ce=getattr(tcard, "fused_ce", None))
+            gs = torch.autograd.grad(loss, [flat[i] for i in diff],
+                                     allow_unused=True)
+            gs = [torch.zeros_like(flat[i]) if g is None else g
+                  for i, g in zip(diff, gs)]
+            loss_sum = loss_sum + loss.detach()
+            if accum == 1:
+                acc = gs
+            elif acc is None:
+                acc = [g.to(torch.float32) for g in gs]
+            else:
+                for x, g in zip(acc, gs):
+                    x += g.to(torch.float32)
+        grads = [torch.zeros((0,), dtype=torch.float32, device=p.device)
+                 for p in flat]
+        for i, g in zip(diff, acc):
+            grads[i] = g / accum
+        grads = unflatten_like(state.params, grads)
+        loss = loss_sum / accum
+
+        lr = lr_at(state.opt.step, kind=tcard.scheduler, base_lr=tcard.lr,
+                   total_steps=total_steps, warmup=tcard.warmup,
+                   min_ratio=tcard.lr_min_ratio,
+                   epoch_steps=tcard.epoch_iters)
+        # stochastic rounding: one uint32 seed per leaf, drawn each step
+        seeds = (torch.randint(0, 2 ** 32, (len(flat),), generator=state.gen,
+                               dtype=torch.int64).tolist() if sr_on else None)
+        params, opt, metrics = apply_updates(
+            state.params, grads, state.opt, optimizer=tcard.optimizer, lr=lr,
+            beta1=tcard.beta1, beta2=tcard.beta2, eps=tcard.eps,
+            weight_decay=tcard.weight_decay, muon_momentum=tcard.muon_momentum,
+            grad_clip=tcard.grad_clip,
+            lars_ratio=getattr(tcard, "lars_ratio", 0.0),
+            muon_ortho=getattr(tcard, "muon_ortho", "ns"), sr_seeds=seeds)
+        metrics = dict(metrics, loss=loss, lr=lr)
+        if tcard.check_tensor_norm:
+            metrics["leaf_norms"] = torch.stack([
+                torch.linalg.norm(g.to(torch.float32)) if g.numel()
+                else torch.zeros((), device=g.device)
+                for g in leaves(grads)])
+        return TrainState(params=params, opt=opt, gen=state.gen), metrics
+
+    return step
+
+
+@dataclasses.dataclass
+class StepInfo:
+    """Loss-curve recorder -> CSV (``StepInfos``, DataLoader.hpp:43-71)."""
+    rows: list = dataclasses.field(default_factory=list)
+
+    def add(self, it: int, loss: float, lr: float, dt: float, tps: float):
+        self.rows.append((it, loss, lr, dt, tps))
+
+    def save_csv(self, path: str):
+        with open(path, "w") as f:
+            f.write("iter,loss,lr,step_time,tokens_per_sec\n")
+            for r in self.rows:
+                f.write(",".join(f"{x:.6g}" for x in r) + "\n")
+
+    @property
+    def losses(self):
+        return [r[1] for r in self.rows]
+
+
+class TrainingInstability(RuntimeError):
+    pass
+
+
+def train_loop(
+    card: ModelCard,
+    tcard: TrainCard,
+    state: TrainState,
+    batches: Iterator[Dict[str, torch.Tensor]],
+    total_steps: int,
+    log_fn: Optional[Callable[[str], None]] = print,
+    eval_fn: Optional[Callable[[TrainState, int], Dict[str, float]]] = None,
+    save_fn: Optional[Callable[[TrainState, int, str], None]] = None,
+    qcard=None,
+    trainable=None,
+    hook_fn: Optional[Callable[[TrainState, int, float],
+                               Optional[TrainState]]] = None,
+    sp=None,
+) -> Tuple[TrainState, StepInfo]:
+    """The host loop around the step, with the reference's instability
+    handling (emergency checkpoint, then abort; Optimizer.cpp:176-179).
+    ``hook_fn(state, it, loss)`` runs after each step and may return a
+    replacement state. A step's time is taken on the host clock around
+    the step and the loss's transfer to the host, which waits for the
+    device."""
+    if tcard.graph_dump:
+        raise NotImplementedError(
+            "graph_dump writes the traced XLA step; eager PyTorch has no "
+            "step graph to write")
+    step = make_train_step(card, tcard, total_steps, qcard=qcard,
+                           trainable=trainable, sp=sp)
+    infos = StepInfo()
+    tokens_per_batch = None
+    leaf_paths = None
+    loop_t0 = time.perf_counter()
+    for it, batch in enumerate(batches):
+        if 0 <= tcard.most_iter <= it or it >= total_steps:
+            break
+        if tcard.time_most > 0 and \
+                time.perf_counter() - loop_t0 > tcard.time_most:
+            if log_fn:
+                log_fn(f"[{it}] time budget {tcard.time_most}s exhausted "
+                       f"(DEBUG.Time_most) — stopping")
+            break
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+        dt = time.perf_counter() - t0
+        if tokens_per_batch is None:
+            tokens_per_batch = int(batch["tokens"].numel())
+        tps = tokens_per_batch / dt
+        infos.add(it, loss, float(metrics["lr"]), dt, tps)
+
+        gnorm = float(metrics["grad_norm"])
+        if not (0.0 < loss < 100.0) or not torch.isfinite(
+                torch.tensor(gnorm)):
+            if save_fn:
+                save_fn(state, it, "emergency")
+            raise TrainingInstability(f"iter {it}: loss={loss} "
+                                      f"grad_norm={gnorm}")
+
+        if log_fn and tcard.dump_every and it % tcard.dump_every == 0:
+            from koifish_tpu_torch.utils.mfu import step_mfu
+            mfu = step_mfu(card, tokens_per_batch, dt)
+            extra = f" mfu={mfu:.1%}" if mfu is not None else ""
+            if "leaf_norms" in metrics:      # check_tensor_norm watch
+                if leaf_paths is None:
+                    from koifish_tpu_torch.utils.dump import _path_str
+                    from koifish_tpu_torch.utils.tree import flatten_with_path
+                    leaf_paths = [_path_str(p) for p, _ in
+                                  flatten_with_path(state.params)]
+                norms = metrics["leaf_norms"]
+                wi = int(torch.argmax(norms))
+                extra += f" worst_leaf={leaf_paths[wi]}:{float(norms[wi]):.3f}"
+            log_fn(f"[{it}] loss={loss:.4f} lr={float(metrics['lr']):.2e} "
+                   f"gnorm={gnorm:.3f} T={dt:.2f}s {tps / 1e3:.1f}K tok/s"
+                   + extra)
+        if hook_fn is not None:
+            new_state = hook_fn(state, it, loss)
+            if new_state is not None:
+                state = new_state
+        if eval_fn and tcard.eval_every and it and it % tcard.eval_every == 0:
+            eval_fn(state, it)
+        if save_fn and tcard.save_every and it and it % tcard.save_every == 0:
+            save_fn(state, it, "periodic")
+    return state, infos
+
+
+def init_train_state(card: ModelCard, tcard: TrainCard, params=None,
+                     device=None) -> TrainState:
+    """Params (random from ``tcard.seed`` unless given) with
+    ``requires_grad`` on every float leaf, zero moments, and the host
+    generator for the SR seeds, seeded with ``tcard.seed``."""
+    if params is None:
+        from koifish_tpu_torch.models import init_params
+        params = init_params(card, device=device, seed=tcard.seed)
+    for p in leaves(params):
+        if _is_float(p):
+            p.requires_grad_(True)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(tcard.seed)
+    return TrainState(params=params,
+                      opt=init_opt_state(params, tcard.optimizer,
+                                         tcard.moment_dtype),
+                      gen=gen)

@@ -5,22 +5,27 @@ the port runs on a CPU tensor — is held against the Pallas kernel it
 replaces, run in the interpreter as tests/test_pallas.py runs it, at shapes
 the Pallas kernel accepts; shapes the JAX package never sends to Pallas are
 held against its plain path. Inputs come from numpy with a fixed seed."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from koifish_tpu.dtypes import QFormat as JQFormat
+from koifish_tpu.ops import cross_entropy as jce
 from koifish_tpu.ops.pallas import decode_attn as pda
 from koifish_tpu.ops.pallas import flash as pfl
+from koifish_tpu.ops.pallas import fused_ce as pfce
 from koifish_tpu.ops.pallas import matmul as pmm
 from koifish_tpu.quant.rtn import quantize as j_quantize
 from koifish_tpu.serve.kvcache import _quant_kv as j_quant_kv
 
 from koifish_tpu_torch.dtypes import QFormat
+from koifish_tpu_torch.ops import cross_entropy as tce
 from koifish_tpu_torch.ops.attention import causal_attention
 from koifish_tpu_torch.ops.kernels import decode_attn as kd
 from koifish_tpu_torch.ops.kernels import flash as kf
+from koifish_tpu_torch.ops.kernels import fused_ce as kc
 from koifish_tpu_torch.ops.kernels import matmul as km
 from koifish_tpu_torch.ops.matmul import qmatmul
 from koifish_tpu_torch.quant.rtn import quantize
@@ -31,12 +36,12 @@ from torch_helpers import bf16_pair, f32
 @pytest.fixture
 def interpret():
     """Pallas kernels eligible + interpreted; reset afterwards."""
-    for mod in (pfl, pmm, pda):
+    for mod in (pfl, pmm, pda, pfce):
         mod.set_interpret(True)
     try:
         yield
     finally:
-        for mod in (pfl, pmm, pda):
+        for mod in (pfl, pmm, pda, pfce):
             mod.set_interpret(False)
 
 
@@ -159,6 +164,190 @@ def test_causal_attention_dispatch_matches_ref_path():
     assert float((a.float() - b.float()).abs().max()) <= TOL_O
 
 
+# bf16 gradients of O(1-5): the Pallas kernels and the plain backward sum
+# the same products in other orders (and the twopass kernels in other
+# tiles), and a p or ds entry may round to the neighbouring bf16 value:
+# 1 % of the largest entry (measured <= 0.21 %, in the twopass cases)
+TOL_GRAD_REL = 1e-2
+
+
+def _flash_grads_pair(B, T, Hq, Hkv, D, window, seed):
+    """(JAX grads through flash_attention_or_none, port grads through
+    FlashAttention) of sum(o · dO), same bf16 inputs."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(B, T, Hq, Hkv, D, seed)
+    jdo, tdo = bf16_pair(np.random.default_rng(seed + 1).standard_normal(
+        (B, T, Hq, D)).astype(np.float32))
+    sc = 1.0 / D ** 0.5
+
+    def jloss(q, k, v):
+        out = pfl.flash_attention_or_none(q, k, v, scale=sc, window=window)
+        assert out is not None
+        return jnp.sum(out.astype(jnp.float32) * jdo.astype(jnp.float32))
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    ts = [t.requires_grad_(True) for t in (tq, tk, tv)]
+    o = kf.FlashAttention.apply(*ts, sc, window)
+    tg = torch.autograd.grad(o, ts, tdo)
+    return jg, tg
+
+
+def _assert_grads_close(jg, tg):
+    for name, j, t in zip("qkv", jg, tg):
+        assert t.dtype == torch.bfloat16 and t.shape == j.shape
+        ref = f32(j)
+        err = np.abs(f32(t) - ref).max()
+        assert err <= TOL_GRAD_REL * np.abs(ref).max(), (name, err)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,D,window", [
+    (1, 4, 2, 64, 0),      # column layout, single tile (_bwd_cols_fused)
+    (2, 4, 2, 128, 48),    # the same with a window
+    (1, 4, 2, 64, 48),
+    (2, 3, 1, 64, 0),      # head-major single tile (_bwd_fused)
+])
+def test_flash_bwd_matches_pallas(interpret, B, Hq, Hkv, D, window):
+    """FlashAttention's backward (the plain version on the CPU) against
+    jax.grad through the Pallas kernels at T = 128, GQA g = 2 or 3."""
+    _assert_grads_close(*_flash_grads_pair(B, 128, Hq, Hkv, D, window,
+                                           seed=10 + D + window))
+
+
+@pytest.mark.parametrize("Hq,Hkv,window", [(4, 2, 0), (3, 1, 96)])
+def test_flash_bwd_matches_pallas_twopass(interpret, monkeypatch, Hq, Hkv,
+                                          window):
+    """T = 256 with the Pallas tiles cut to 128: the dK/dV sweep + dQ sweep
+    kernels run (_bwd_cols_twopass for g = 2, _bwd_twopass head-major for
+    g = 3). B = 3 keeps these traces apart from other tests' shapes."""
+    monkeypatch.setattr(pfl, "BQ", 128)
+    monkeypatch.setattr(pfl, "BK", 128)
+    assert pfl._tiles(256) == (128, 128)
+    _assert_grads_close(*_flash_grads_pair(3, 256, Hq, Hkv, 64, window,
+                                           seed=30 + window))
+
+
+def _ce_inputs(E, masked, seed, B=2, T=128, V=2304):
+    rng = np.random.default_rng(seed)
+    jh, th = bf16_pair(rng.standard_normal((B, T, E)).astype(np.float32))
+    jw, tw = bf16_pair((rng.standard_normal((E, V)) * 0.05).astype(np.float32))
+    tgt = rng.integers(0, V, (B, T)).astype(np.int32)
+    mask = ((rng.random((B, T)) > 0.3).astype(np.float32) if masked
+            else None)
+    return jh, th, jw, tw, tgt, mask
+
+
+def _ce_port(th, tw, tgt, mask, tied, **kw):
+    """Port loss, per-token loss and (dhidden, dhead) — the head given as
+    [E, V] storage or as the wte.T view of [V, E] storage."""
+    h = th.clone().requires_grad_(True)
+    w_store = (tw.T.contiguous() if tied else tw.clone()).requires_grad_(True)
+    w = w_store.T if tied else w_store
+    loss, per_tok = tce.fused_ce_loss(
+        h, w, torch.from_numpy(tgt),
+        None if mask is None else torch.from_numpy(mask), **kw)
+    dh, dw = torch.autograd.grad(loss, (h, w_store))
+    return loss, per_tok, dh, (dw.T if tied else dw)
+
+
+def _ce_close(port, ref, rel=1e-2):
+    loss, per_tok, dh, dw = port
+    jloss, jtok, jdh, jdw = ref
+    assert abs(float(loss.detach()) - float(jloss)) \
+        <= 1e-5 * abs(float(jloss))
+    assert np.abs(f32(per_tok) - f32(jtok)).max() <= 1e-4
+    for t, j in ((dh, jdh), (dw, jdw)):
+        err = np.abs(f32(t) - f32(j)).max()
+        assert err <= rel * np.abs(f32(j)).max(), err
+
+
+@pytest.mark.parametrize("E,masked,tied", [(64, False, True),
+                                           (128, True, False),
+                                           (128, False, True)])
+def test_fused_ce_matches_pallas(interpret, E, masked, tied):
+    """fused_ce_fwd/dx/dw (plain, through FusedCE) against the Pallas
+    kernels in interpret mode at m = 256, V = 2304 (a ragged 256-wide tail
+    of the 1024 tile). lse/gold f32 (1e-5 relative on the loss, measured
+    ~1e-7); dx, dw bf16 (1 % of the largest entry, measured <= 0.24 %)."""
+    jh, th, jw, tw, tgt, mask = _ce_inputs(E, masked, seed=E)
+    jm = None if mask is None else jnp.asarray(mask)
+
+    def jfn(h, w):
+        out = pfce.fused_ce_pallas_or_none(h, w, jnp.asarray(tgt), jm)
+        assert out is not None
+        return out[0], out[1]
+
+    (jloss, jtok), jvjp = jax.vjp(jfn, jh, jw)
+    jdh, jdw = jvjp((jnp.float32(1.0), jnp.zeros_like(jtok)))
+    assert kc.takes(256, E, 2304)
+    _ce_close(_ce_port(th, tw, tgt, mask, tied),
+              (jloss, jtok, jdh, jdw))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_fused_ce_scan_matches_jax_scan(masked):
+    """The chunk scan (use_pallas=False, chunk 1000 < V so the clamped tail
+    chunk overlaps) against the JAX package's scan, and the kernel route
+    against the scan. The scan's gradients come from autograd through the
+    checkpointed chunks in f32, the kernel route's from bf16 dlogits: 2 %
+    of the largest entry (port scan vs JAX scan measured 2e-5, kernel route
+    vs scan <= 0.57 %)."""
+    jh, th, jw, tw, tgt, mask = _ce_inputs(64, masked, seed=5)
+    jm = None if mask is None else jnp.asarray(mask)
+
+    def jfn(h, w):
+        return jce.fused_ce_loss(h, w, jnp.asarray(tgt), jm, chunk=1000,
+                                 use_pallas=False)
+
+    (jloss, jtok), jvjp = jax.vjp(jfn, jh, jw)
+    jdh, jdw = jvjp((jnp.float32(1.0), jnp.zeros_like(jtok)))
+    scan = _ce_port(th, tw, tgt, mask, False, chunk=1000, use_pallas=False)
+    _ce_close(scan, (jloss, jtok, jdh, jdw), rel=2e-2)
+    kern = _ce_port(th, tw, tgt, mask, False)
+    _ce_close(kern, tuple(t.detach() for t in scan), rel=2e-2)
+
+
+@pytest.mark.parametrize("D,window,mask,dv,route", [
+    (64, 0, False, None, True),
+    (128, 7, False, None, True),
+    (256, 0, False, None, True),
+    (96, 0, False, None, False),     # head dim the kernels do not take
+    (64, 0, True, None, False),      # explicit mask
+    (64, 0, False, 32, False),       # dv != d
+])
+def test_causal_attention_grads_go_through_flash_function(D, window, mask,
+                                                          dv, route):
+    """On the kernel route causal_attention's output comes from
+    FlashAttention (its grad_fn), the very Function the card runs; its
+    gradients equal autograd through flash_attention_plain (1 % of the
+    largest entry: the Function's plain backward rounds ds to bf16 where
+    autograd does not, measured <= 0.4 %). Other shapes keep the plain,
+    autograd-differentiated path."""
+    B, T, Hq, Hkv = 2, 40, 4, 2
+    rng = np.random.default_rng(D + window)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(torch.bfloat16).requires_grad_(True)
+
+    q, k = t(B, T, Hq, D), t(B, T, Hkv, D)
+    v = t(B, T, Hkv, dv or D)
+    m = torch.ones((B, T, T), dtype=torch.bool) if mask else None
+    out = causal_attention(q, k, v, mask=m, window=window)
+    is_flash = type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    assert is_flash == route
+    do = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32)
+                          ).to(torch.bfloat16)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    if not route:
+        assert all(g is not None and torch.isfinite(g).all() for g in got)
+        return
+    o_ref, _ = kf.flash_attention_plain(q, k, v, scale=D ** -0.5,
+                                        window=window)
+    ref = torch.autograd.grad(o_ref, (q, k, v), do)
+    for g, r in zip(got, ref):
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= 1e-2 * float(r.float().abs().max()), err
+
+
 def _quant_cache(B, Hkv, S, D, fmt, seed):
     x = np.random.default_rng(seed).standard_normal((B, Hkv, S, D)
                                                     ).astype(np.float32)
@@ -201,3 +390,15 @@ def test_wrappers_refuse_cuda_shapes_they_do_not_take():
         km._check(torch.zeros((2, 256), dtype=torch.bfloat16), w)
     assert km._plan(32, 1024, 1024) == (32, 1, 8)      # decode: split K
     assert km._plan(4096, 1024, 1024) == (64, 8, 1)    # prefill: no split
+    # the backward kernels are CUDA-only entry points: a CPU tensor raises
+    o = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 8))
+    with pytest.raises(ValueError, match="lies on cpu"):
+        kf.flash_bwd_dkv(o, o[:, :, :1], o[:, :, :1], o, lse, o, scale=1.0)
+    x = torch.zeros((4, 96), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="E=96"):
+        kc._check(x, torch.zeros((96, 10), dtype=torch.bfloat16),
+                  torch.zeros((4,), dtype=torch.int32))
+    assert not kc.takes(8, 2048, 100) and kc.takes(8, 1024, 100)
+    wte = torch.zeros((100, 64), dtype=torch.bfloat16)
+    assert kc._w_strides(wte.T) == (1, 64)              # tied head in place

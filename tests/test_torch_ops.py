@@ -163,6 +163,8 @@ def test_entry_points_raise_without_a_gpu():
     from koifish_tpu_torch.models import init_params
     from koifish_tpu_torch.quant import quantize_params
     from koifish_tpu_torch.serve import cache_for, generate, prefill
+    from koifish_tpu_torch.train import init_train_state
+    from koifish_tpu_torch.config import TrainCard
     card = ModelCard.from_arch("QWEN3", vocab_size=64, n_layer=1, n_embd=128,
                                n_head=2, n_kv_head=1, head_dim=64, n_ffn=128)
     p = init_params(card, device="cpu")
@@ -172,7 +174,8 @@ def test_entry_points_raise_without_a_gpu():
              lambda: quantize_params(p, QuantCard(), card),
              lambda: cache_for(card, 1, 8),
              lambda: prefill(card, p, tok, cache),
-             lambda: generate(card, p, tok, cache)]
+             lambda: generate(card, p, tok, cache),
+             lambda: init_train_state(card, TrainCard())]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -202,7 +205,8 @@ def test_port_imports_no_jax():
     """koifish_tpu_torch and chip_smoke.py import neither JAX nor the JAX
     package, in a fresh interpreter and in their sources."""
     code = ("import sys, koifish_tpu_torch.serve, koifish_tpu_torch.io.convert,"
-            " koifish_tpu_torch.quant, koifish_tpu_torch.ops.kernels._build;"
+            " koifish_tpu_torch.quant, koifish_tpu_torch.ops.kernels._build,"
+            " koifish_tpu_torch.train, koifish_tpu_torch.ops.cross_entropy;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'koifish_tpu')]; print(bad); sys.exit(bool(bad))")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
