@@ -16,7 +16,9 @@ Phases, in order; any failed check exits non-zero before the last line:
              stated; kernel, plain, library and bound times. Serving: flash
              forward, dequant-fused GEMM/GEMV, quantized-KV decode attention.
              Training: flash backward (dK/dV and dQ kernels) and the fused
-             classifier CE (forward, dx, dw).
+             classifier CE (forward, dx, dw). Multi-request serving: the
+             KV slot and page writes (bit for bit) and the learned-codebook
+             GEMV/GEMM (k-means and MINI books, NF4 and NF3).
 4. serving — Qwen3-0.6B at full width (configs/qwen3_0.6b.json, random
              weights from a seed), INT4 RTN g128 weights, a layered INT8 KV
              cache (B=32, S=1024): ``generate`` on 32 prompts of 128 tokens
@@ -29,6 +31,16 @@ Phases, in order; any failed check exits non-zero before the last line:
              chunk prints device time by kernel and the idle share. A tiny
              model's card run is held against the CPU run of the same
              weights.
+   batcher — the same model with k-means NF4 weights behind a
+             ContinuousBatcher (INT8 KV, 32 slots of 1024, decode_chunk 8)
+             serving 96 seeded requests (prompts 16-512, 16-128 new tokens):
+             requests completed, aggregate decode tok/s, warm TTFT p50/p90,
+             launches (the book GEMV/GEMM, slot write, flash forward and
+             decode attention must all be > 0), and the idle share over one
+             decode chunk. Then ``generate_paged`` on the same params (B=32,
+             128-token prompts, 64 new): tok/s, page-pool growth, page-write
+             launches. A tiny k-means model's batcher and paged runs on the
+             card are held against the CPU.
 5. training — a tiny QWEN3 ``make_train_step`` on the card against the CPU
              (loss, every gradient norm, updated params; SR off). Then
              ``train_loop`` at ``bench.py``'s train settings (lr 6e-4,
@@ -44,8 +56,10 @@ Phases, in order; any failed check exits non-zero before the last line:
              over one step of each model prints device time by kernel and
              the idle share.
 6. result  — one JSON line with every kernel's numbers (launches from its
-             path's run: the serving run for the serving kernels, the Qwen3
-             train_loop for the training kernels), then the last line
+             path's run: the serving run for the slice-1 kernels, the Qwen3
+             train_loop for the training kernels, the batcher run for the
+             slot write and book kernels, the paged run for the page
+             write), then the last line
              ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the repository around it; without either it
@@ -109,6 +123,19 @@ def time_ms(torch, fn, iters: int = 20, warm: int = 3) -> float:
     e1.synchronize()
     del graph
     return e0.elapsed_time(e1) / iters
+
+
+def host_us(torch, fn, iters: int = 200) -> float:
+    """Host time of one eager ``fn()`` call: a loop of ``iters`` calls ends in
+    a synchronise, so for calls whose device work is a few microseconds the
+    wall time per call is the host's (Python, checks, the launch)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e6
 
 
 def max_err(a, b) -> float:
@@ -531,6 +558,219 @@ def fused_ce_phase(torch, gen):
     return out
 
 
+def slotwrite_phase(torch, gen):
+    """slot_write and page_write against their plain versions (bit for bit)
+    at the batcher's shapes; times of one layer's writes in one launch."""
+    from koifish_tpu_torch.ops.kernels import slotwrite as ks
+    say("[kernels] slot_write / page_write "
+        "(koifish_tpu_torch/csrc/slotwrite.cu)")
+    B, H, S, D, P = 32, 8, 1024, 128, 128
+    dev = "cuda"
+
+    def codes(shape, dtype):
+        if dtype == torch.bfloat16:
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        if dtype == torch.float32:
+            return torch.rand(shape, generator=gen, device=dev)
+        return torch.randint(0, 120, shape, generator=gen, device=dev
+                             ).to(dtype)
+
+    edges = torch.tensor([0, 31, 32, 63, 64, 95, 96, 1023] * 4,
+                         dtype=torch.int32, device=dev)
+    same = torch.tensor([5] * 16 + [511] * 16, dtype=torch.int32, device=dev)
+    rand = torch.randint(0, S, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    err = 0.0
+    # int8 codes, packed-INT4 bytes, bf16, and the f32 scales [B, H, S]
+    for label, shape, dtype in (("int8", (B, H, S, D), torch.int8),
+                                ("int4 bytes", (B, H, S, D // 2),
+                                 torch.uint8),
+                                ("bf16", (B, H, S, D), torch.bfloat16),
+                                ("f32 scales", (B, H, S), torch.float32)):
+        buf = codes(shape, dtype)
+        val = codes((B, H) + shape[3:], dtype)
+        for pname, slots in (("block edges", edges), ("same slots", same),
+                             ("random", rand)):
+            got = buf.clone()
+            ks.slot_write(got, val, slots)
+            want = ks.slot_write_plain(buf, val, slots)
+            torch.cuda.synchronize()
+            e = max_err(got, want)
+            check(f"slot_write {label} B{B} H{H} S{S} {pname}", e, 0.0)
+            err = max(err, e)
+    # a decode layer's four writes in one launch (INT8 KV: codes + scales)
+    kc, vc = codes((B, H, S, D), torch.int8), codes((B, H, S, D), torch.int8)
+    ksc, vsc = codes((B, H, S), torch.float32), codes((B, H, S),
+                                                      torch.float32)
+    kv, vv = codes((B, H, D), torch.int8), codes((B, H, D), torch.int8)
+    ksv, vsv = codes((B, H), torch.float32), codes((B, H), torch.float32)
+    four = [(kc, kv), (vc, vv), (ksc, ksv), (vsc, vsv)]
+    snap = [b.clone() for b, _ in four]
+    ks.slot_write_many(four, rand)
+    torch.cuda.synchronize()
+    for (b, v), old in zip(four, snap):
+        e = max_err(b, ks.slot_write_plain(old, v, rand))
+        check(f"slot_write 4 buffers in one launch {tuple(b.shape)}", e, 0.0)
+        err = max(err, e)
+    del snap
+    lanes = torch.arange(B, device=dev)
+    sl = rand.long()
+
+    def lib_slot():
+        for b, v in four:
+            b[lanes, :, sl] = v
+    sms = time_ms(torch, lambda: ks.slot_write_many(four, rand), iters=50)
+    spms = time_ms(torch, lambda: [ks.slot_write_plain(b, v, rand)
+                                   for b, v in four], iters=10)
+    slms = time_ms(torch, lib_slot, iters=50)
+    nbytes = 2 * 2 * (B * H * D + B * H * 4) + B * 4
+    sbms, sby = bound_ms(nbytes, 0.0)
+    say(f"  time slot_write one layer (4 buffers, INT8 KV, one launch): "
+        f"kernel_ms={sms:.5f} plain_ms={spms:.4f} "
+        f"library_ms(index_put_)={slms:.5f} bound_ms={sbms:.6f} ({sby})")
+    say(f"  host per eager call: slot_write_many (4 buffers) "
+        f"{host_us(torch, lambda: ks.slot_write_many(four, rand)):.1f} us, "
+        f"4 x index_put_ {host_us(torch, lib_slot):.1f} us")
+    slot = dict(ms=sms, plain_ms=spms, library_ms=slms, bound_ms=sbms,
+                bound_by=sby, max_abs_err=err)
+
+    # page write: pages [H, NP, P, D] bf16, distinct page ids, K and V
+    NP = 2 * B
+    kp = codes((H, NP, P, D), torch.bfloat16)
+    vp = codes((H, NP, P, D), torch.bfloat16)
+    kval, vval = codes((B, H, D), torch.bfloat16), codes((B, H, D),
+                                                         torch.bfloat16)
+    pids = torch.randperm(NP, generator=gen, device=dev)[:B].to(torch.int32)
+    rows = torch.randint(0, P, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    rows[0], rows[1] = 0, P - 1
+    perr = 0.0
+    for dtype in (torch.bfloat16, torch.int8, torch.float32):
+        pg = kp.to(dtype) if dtype != torch.int8 else codes((H, NP, P, D),
+                                                            dtype)
+        val = kval.to(dtype) if dtype != torch.int8 else codes((B, H, D),
+                                                               dtype)
+        got = pg.clone()
+        ks.page_write(got, val, pids, rows)
+        want = ks.page_write_plain(pg, val, pids, rows)
+        torch.cuda.synchronize()
+        e = max_err(got, want)
+        check(f"page_write {dtype} H{H} NP{NP} P{P} D{D}", e, 0.0)
+        perr = max(perr, e)
+    pl_ = pids.long()
+    rl = rows.long()
+
+    def lib_page():
+        kp[:, pl_, rl] = kval.transpose(0, 1)
+        vp[:, pl_, rl] = vval.transpose(0, 1)
+    pair = [(kp, kval), (vp, vval)]
+    pms = time_ms(torch, lambda: ks.page_write_many(pair, pids, rows),
+                  iters=50)
+    ppms = time_ms(torch, lambda: [ks.page_write_plain(p, v, pids, rows)
+                                   for p, v in pair], iters=10)
+    plms = time_ms(torch, lib_page, iters=50)
+    pbms, pby = bound_ms(2 * 2 * B * H * D * 2 + 2 * B * 4, 0.0)
+    say(f"  time page_write one layer (K and V, one launch): "
+        f"kernel_ms={pms:.5f} plain_ms={ppms:.4f} "
+        f"library_ms(index_put_)={plms:.5f} bound_ms={pbms:.6f} ({pby})")
+    page = dict(ms=pms, plain_ms=ppms, library_ms=plms, bound_ms=pbms,
+                bound_by=pby, max_abs_err=perr)
+    return {"slot_write": slot, "page_write": page}
+
+
+# the book kernels' checks: Qwen3-0.6B's (K, N), GEMV and GEMM rows
+BOOK_SHAPES = ((1024, 2048), (1024, 1024), (1024, 3072), (3072, 1024))
+BOOK_MS = (1, 32, 128, 512, 4096)
+
+
+def book_phase(torch, gen):
+    """The learned-codebook GEMV/GEMM against qmatmul_book_plain at
+    Qwen3-0.6B's projection shapes: per-tensor (k-means) and per-row (MINI)
+    books, NF4 and NF3; times of one layer's 7 k-means NF4 projections."""
+    from koifish_tpu_torch.ops.kernels import matmul as km
+    from koifish_tpu_torch.quant.cluster import quantize_kmeans, quantize_mini
+    say("[kernels] qmv_book / qmm_book (koifish_tpu_torch/csrc/qmatmul.cu)")
+
+    def tol(ref):   # the qmatmul phase's: ~1 bf16 ulp of the largest output
+        return 1e-2 * float(ref.float().abs().max()) + 1e-3
+
+    def weight(K, N, kind, bits):
+        w = torch.randn((K, N), generator=gen, device="cuda") * 0.02
+        q = quantize_kmeans if kind == "kmeans" else quantize_mini
+        return q(w, bits=bits, group=128)
+
+    def act(m, K):
+        return torch.randn((m, K), generator=gen, device="cuda"
+                           ).to(torch.bfloat16)
+
+    def run(x, w):
+        return km.qmatmul(x, w), km.qmatmul_book_plain(
+            x, w.codes, w.scales, w.codebook, w.fmt, w.group)
+
+    errs = {"qmv_book": 0.0, "qmm_book": 0.0}
+    for K, N in BOOK_SHAPES:
+        for kind in ("kmeans", "mini"):
+            for bits in (4, 3):
+                w = weight(K, N, kind, bits)
+                for m in BOOK_MS:
+                    x = act(m, K)
+                    y, ref = run(x, w)
+                    torch.cuda.synchronize()
+                    e = max_err(y, ref)
+                    check(f"book {kind} NF{bits} m{m} K{K} N{N}", e, tol(ref))
+                    name = "qmv_book" if m <= km.GEMV_MAX_M else "qmm_book"
+                    errs[name] = max(errs[name], e)
+    out = {}
+    for kind, m in (("qmm_book", 4096), ("qmv_book", 32)):
+        n_layers = 12
+        ws = [[weight(K, N, "kmeans", 4) for _, K, N in QWEN3_PROJ]
+              for _ in range(n_layers)]
+        xs = {K: act(m, K) for _, K, _n in QWEN3_PROJ}
+        deq = [[w.dequantize(torch.bfloat16) for w in layer]
+               for layer in ws[:4]]
+
+        def run_kernel():
+            for layer in ws:
+                for (_, K, _n), w in zip(QWEN3_PROJ, layer):
+                    km.qmatmul(xs[K], w)
+
+        def run_plain():
+            for (_, K, _n), w in zip(QWEN3_PROJ, ws[0]):
+                km.qmatmul_book_plain(xs[K], w.codes, w.scales, w.codebook,
+                                      w.fmt, w.group)
+
+        def run_lib():
+            for layer in deq:
+                for (_, K, _n), wd in zip(QWEN3_PROJ, layer):
+                    torch.matmul(xs[K], wd)
+
+        kms = time_ms(torch, run_kernel, iters=5) / n_layers
+        pms = time_ms(torch, run_plain, iters=3)
+        lms = time_ms(torch, run_lib, iters=5) / len(deq)
+        nbytes = sum(m * K * 2 + K * N // 2 + (K // 128) * N * 4 + 16 * 4
+                     + m * N * 2 for _, K, N in QWEN3_PROJ)
+        flops = sum(2.0 * m * K * N for _, K, N in QWEN3_PROJ)
+        bms, by = bound_ms(nbytes, flops)
+        say(f"  time {kind} one layer's 7 projections (m={m}, k-means "
+            f"NF4): kernel_ms={kms:.4f} plain_ms={pms:.4f} "
+            f"library_ms(matmul on dequantized bf16)={lms:.4f} "
+            f"bound_ms={bms:.5f} ({by})")
+        if m <= km.GEMV_MAX_M:   # the decode wrappers' host cost per call
+            from koifish_tpu_torch.quant.rtn import quantize
+            w0 = ws[0][0]
+            rtn = quantize(w0.dequantize(torch.float32), w0.fmt)
+            x0 = xs[w0.shape[0]]
+            say(f"  host per eager call (m={m}, K={w0.shape[0]}, "
+                f"N={w0.shape[1]}): qmv_book "
+                f"{host_us(torch, lambda: km.qmatmul(x0, w0)):.1f} us, "
+                f"qmv (NF4 constants) "
+                f"{host_us(torch, lambda: km.qmatmul(x0, rtn)):.1f} us")
+        out[kind] = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                         bound_by=by, max_abs_err=errs[kind])
+        del ws, deq
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the slice
 # ---------------------------------------------------------------------------
@@ -575,6 +815,87 @@ def reference_check(torch):
     say(f"  greedy tokens card vs CPU agree on {agree * 100:.1f}%")
     if agree < 0.75:
         fail("greedy tokens of the card and the CPU run diverge")
+
+
+KMEANS_RULES = {"self_attn": {"quant_method": "KMEANS", "bits": 4},
+                "mlp": {"quant_method": "KMEANS", "bits": 4}}
+
+
+def _tiny_card():
+    from koifish_tpu_torch.config import ModelCard
+    return ModelCard.from_arch("QWEN3", vocab_size=256, n_layer=2,
+                               n_embd=128, n_head=2, n_kv_head=1,
+                               head_dim=64, n_ffn=256, n_ctx=64, max_pos=128)
+
+
+def _agree(label: str, a, b) -> None:
+    agree = float((a == b).float().mean())
+    say(f"  {label}: greedy tokens card vs CPU agree on {agree * 100:.1f}%")
+    if agree < 0.75:
+        fail(f"{label}: greedy tokens of the card and the CPU run diverge")
+
+
+def reference_check_slice3(torch):
+    """A tiny QWEN3 card with k-means NF4 weights (quantized on the CPU,
+    copied to the card): its card run (book GEMV/GEMM, slot/page writes,
+    flash, decode attention) against the CPU run (plain versions) — prefill
+    logits and ContinuousBatcher greedy tokens (INT8 KV, 2 slots, 5
+    requests); the paged step's logits after a prompt feed and
+    generate_paged greedy tokens. The thresholds of ``reference_check``."""
+    from koifish_tpu_torch.config import QuantCard, SamplerCard
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.quant import quantize_params
+    from koifish_tpu_torch.serve import (ContinuousBatcher, Request,
+                                         cache_for, generate_paged, prefill)
+    from koifish_tpu_torch.serve.paged import (decode_step_paged,
+                                               init_paged_cache)
+    card = _tiny_card()
+    p_cpu = quantize_params(init_params(card, device="cpu", seed=4),
+                            QuantCard.from_json(KMEANS_RULES), card,
+                            device="cpu")
+    p_gpu = {"wte": p_cpu["wte"].to("cuda"), "ln_f": p_cpu["ln_f"].to("cuda"),
+             "layers": [{k: v.to("cuda") for k, v in lp.items()}
+                        for lp in p_cpu["layers"]]}
+    say(f"  tiny k-means card: {type(p_cpu['layers'][0]['q']).__name__} "
+        f"{p_cpu['layers'][0]['q'].fmt.name}, book "
+        f"{tuple(p_cpu['layers'][0]['q'].codebook.shape)}")
+    g = torch.Generator().manual_seed(6)
+    prompt = torch.randint(0, 256, (4, 70), generator=g)
+    lens = torch.randint(3, 40, (5,), generator=g).tolist()
+    reqs = [torch.randint(0, 256, (n,), generator=g).tolist() for n in lens]
+    greedy = SamplerCard(temperature=0.0)
+    out = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        c = cache_for(card, 4, 96, fmt=QFormat.INT8, layered=True,
+                      device=dev)
+        logits, _ = prefill(card, params, prompt.to(dev), c, fresh=True,
+                            device=dev)
+        eng = ContinuousBatcher(card, params, n_slots=2, cache_size=96,
+                                kv_fmt=QFormat.INT8, sampler=greedy,
+                                decode_chunk=4, device=dev)
+        for i, ids in enumerate(reqs):
+            eng.submit(Request(rid=i, prompt=ids, max_new=10))
+        res = eng.run()
+        btoks = torch.tensor([res[i].tokens for i in range(len(reqs))])
+        pc, alloc = init_paged_cache(card.n_layer, 4, card.n_kv_head,
+                                     card.head_dim, max_pages=4, device=dev)
+        pc = alloc.ensure(pc, 20)
+        for t in range(20):
+            plog, pc = decode_step_paged(card, params, prompt[:, t].to(dev),
+                                         pc)
+        ptoks = generate_paged(card, params, prompt[:, :100], sampler=greedy,
+                               max_new_tokens=40, decode_chunk=8,
+                               max_pages=4, device=dev)
+        out[dev] = (logits.cpu(), btoks, plog.float().cpu(), ptoks.cpu())
+    check("tiny k-means QWEN3 prefill logits, card vs CPU",
+          max_err(out["cpu"][0], out["cuda"][0]), 5e-2)
+    _agree("ContinuousBatcher (k-means, INT8 KV)", out["cpu"][1],
+           out["cuda"][1])
+    check("tiny k-means QWEN3 paged-step logits, card vs CPU",
+          max_err(out["cpu"][2], out["cuda"][2]), 5e-2)
+    _agree("generate_paged (k-means, across a page boundary)", out["cpu"][3],
+           out["cuda"][3])
 
 
 def profile_window(torch, label: str, fn, steps: int = 1) -> None:
@@ -732,6 +1053,146 @@ def slice_phase(torch):
     profile_slice(torch, card, qp, prompts, c, toks[:, 0].to(torch.int32),
                   sampler)
     reference_check(torch)
+    return counts
+
+
+def batcher_phase(torch):
+    """Slice 3 at full width: Qwen3-0.6B with k-means NF4 weights behind a
+    ContinuousBatcher (INT8 KV, 32 slots of 1024, decode_chunk 8) serving
+    96 requests of seeded lengths. Returns (kernel launches, the quantized
+    params and card for the paged phase)."""
+    from koifish_tpu_torch.config import CLIParams, QuantCard, SamplerCard
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.quant import quantize_params
+    from koifish_tpu_torch.serve import ContinuousBatcher, Request
+    from koifish_tpu_torch.utils import kernel_log
+    N_REQ, SLOTS, S, CHUNK = 96, 32, 1024, 8
+    say(f"[batcher] Qwen3-0.6B k-means NF4 weights + INT8 KV: "
+        f"ContinuousBatcher({SLOTS} slots, S={S}, decode_chunk={CHUNK}), "
+        f"{N_REQ} requests")
+    p = CLIParams.load(os.path.join(ROOT, "configs", "qwen3_0.6b.json"))
+    card = p.model
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(p.seed)
+    t0 = time.perf_counter()
+    params = init_params(card, gen)
+    qp = quantize_params(params, QuantCard.from_json(KMEANS_RULES), card)
+    del params
+    torch.cuda.synchronize()
+    w = qp["layers"][0]["q"]
+    say(f"  init + k-means quantize: {time.perf_counter() - t0:.2f} s; "
+        f"{w.fmt.name} codes, book {tuple(w.codebook.shape)} per tensor")
+    g = torch.Generator().manual_seed(p.seed)
+    lens = torch.randint(16, 513, (N_REQ,), generator=g).tolist()
+    news = torch.randint(16, 129, (N_REQ,), generator=g).tolist()
+    reqs = [Request(rid=i, prompt=torch.randint(
+        0, card.vocab_size, (n,), generator=g).tolist(), max_new=m, eos_id=-1)
+        for i, (n, m) in enumerate(zip(lens, news))]
+    sampler = SamplerCard(temperature=0.6, top_k=50, top_p=0.95)
+    eng = ContinuousBatcher(card, qp, n_slots=SLOTS, cache_size=S,
+                            kv_fmt=QFormat.INT8, sampler=sampler,
+                            decode_chunk=CHUNK)
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    say(f"  warmup (a prefill of each bucket 16..512, one decode chunk): "
+        f"{time.perf_counter() - t0:.2f} s")
+    # count the decode dispatches (each runs CHUNK steps over all slots)
+    dispatches = [0]
+    decode = eng._decode
+
+    def counted(*args):
+        dispatches[0] += 1
+        return decode(*args)
+    eng._decode = counted
+    kernel_log.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_log.launches()
+    peak = torch.cuda.max_memory_allocated()
+    eng._decode = decode
+    done = [results[r.rid] for r in reqs if r.rid in results]
+    ttfts = sorted(r.ttft_s for r in done)
+    pct = lambda q: ttfts[min(len(ttfts) - 1, int(q * len(ttfts)))]
+    say(f"  completed {len(done)} of {N_REQ} requests in {wall:.2f} s; "
+        f"{sum(lens)} prompt tokens, {eng.decoded_tokens} decoded tokens")
+    steps = dispatches[0] * CHUNK
+    say(f"  aggregate decode: {eng.aggregate_tokens_per_sec:.1f} tok/s over "
+        f"{eng.decode_wall_s:.2f} s of decode dispatches; {steps} decode "
+        f"steps, {eng.decode_wall_s / steps * 1e3:.3f} ms/step, lanes busy "
+        f"{eng.decoded_tokens / (steps * SLOTS):.3f} of the slot-steps")
+    say(f"  warm TTFT (one request's bucketed prefill + first sample): p50 "
+        f"{pct(0.5) * 1e3:.2f} ms, p90 {pct(0.9) * 1e3:.2f} ms; cold: "
+        f"{sum(r.ttft_cold for r in done)}")
+    say(f"  peak device memory: {peak / 2**30:.2f} GiB")
+    say(f"  launches in the batcher run: {json.dumps(counts)}")
+    if len(done) != N_REQ:
+        fail(f"{N_REQ - len(done)} requests did not complete")
+    for r in done:
+        if len(r.tokens) != r.max_new:
+            fail(f"request {r.rid}: {len(r.tokens)} tokens, max_new "
+                 f"{r.max_new}")
+        if min(r.tokens) < 0 or max(r.tokens) >= card.vocab_size:
+            fail(f"request {r.rid}: token ids out of the vocabulary")
+    for name in ("qmv_book", "qmm_book", "slot_write", "flash_fwd",
+                 "decode_attn"):
+        if counts.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched by the batcher run")
+    # one decode chunk of the host loop with every slot busy
+    for i in range(SLOTS):
+        eng.submit(Request(rid=1000 + i, prompt=reqs[i].prompt[:128],
+                           max_new=4 * CHUNK))
+    eng._admit()
+    profile_window(torch, f"batcher decode chunk ({CHUNK} steps, "
+                   f"{SLOTS} busy slots)", eng.step, CHUNK)
+    return counts, card, qp
+
+
+def paged_phase(torch, card, qp):
+    """generate_paged on the batcher's params: B=32 prompts of 128 tokens
+    fed through the paged step, 64 new tokens, decode_chunk 8."""
+    from koifish_tpu_torch.config import SamplerCard
+    from koifish_tpu_torch.serve import generate_paged
+    from koifish_tpu_torch.serve.paged import PAGE
+    from koifish_tpu_torch.utils import kernel_log
+    B, T, NEW = 32, 128, 64
+    say(f"[paged] generate_paged: B={B}, {T}-token prompts, {NEW} new, "
+        f"decode_chunk 8, page {PAGE}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    prompts = torch.randint(0, card.vocab_size, (B, T), generator=gen,
+                            device="cuda")
+    sampler = SamplerCard(temperature=0.6, top_k=50, top_p=0.95)
+    kernel_log.reset_launches()
+    t0 = time.perf_counter()
+    toks, cache = generate_paged(card, qp, prompts, sampler=sampler,
+                                 max_new_tokens=NEW, decode_chunk=8,
+                                 max_pages=4, return_cache=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_log.launches()
+    steps = T + NEW - 1
+    say(f"  {wall:.2f} s for {steps} paged steps at B={B}: "
+        f"{B * steps / wall:.1f} tok/s through the paged step "
+        f"({B * NEW / wall:.1f} generated tok/s, prompt feed included)")
+    kv_bytes = (2 * card.n_layer * cache.n_pages * PAGE * card.n_kv_head
+                * card.head_dim * 2)
+    say(f"  page pool: {B} -> {cache.n_pages} pages of {PAGE} positions "
+        f"({kv_bytes / 2**20:.0f} MiB of bf16 K+V over {card.n_layer} "
+        f"layers)")
+    say(f"  launches in the paged run: {json.dumps(counts)}")
+    if tuple(toks.shape) != (B, NEW):
+        fail(f"generate_paged returned {tuple(toks.shape)}")
+    if int(toks.min()) < 0 or int(toks.max()) >= card.vocab_size:
+        fail("paged token ids out of the vocabulary")
+    if counts.get("page_write", 0) <= 0:
+        fail("kernel page_write was not launched by generate_paged")
     return counts
 
 
@@ -935,7 +1396,14 @@ def main() -> None:
     dec = decode_attn_phase(torch, gen)
     bwd = flash_bwd_phase(torch, gen)
     fce = fused_ce_phase(torch, gen)
+    sw = slotwrite_phase(torch, gen)
+    book = book_phase(torch, gen)
     serve_counts = slice_phase(torch)
+    batch_counts, card, qp = batcher_phase(torch)
+    paged_counts = paged_phase(torch, card, qp)
+    del qp
+    torch.cuda.empty_cache()
+    reference_check_slice3(torch)
     train_counts = train_phase(torch)
 
     src = "koifish_tpu_torch/csrc/"
@@ -963,6 +1431,16 @@ def main() -> None:
         ("fused_ce_dw", "fused_ce.cu",
          "koifish_tpu/ops/pallas/fused_ce.py:302", fce["fused_ce_dw"],
          train_counts),
+        ("slot_write", "slotwrite.cu",
+         "koifish_tpu/ops/pallas/slotwrite.py:87", sw["slot_write"],
+         batch_counts),
+        ("page_write", "slotwrite.cu",
+         "koifish_tpu/ops/pallas/slotwrite.py:140", sw["page_write"],
+         paged_counts),
+        ("qmv_book", "qmatmul.cu", "koifish_tpu/ops/pallas/matmul.py:389",
+         book["qmv_book"], batch_counts),
+        ("qmm_book", "qmatmul.cu", "koifish_tpu/ops/pallas/matmul.py:451",
+         book["qmm_book"], batch_counts),
     ]
     kernels = [dict(name=n, route="cuda", source=src + f, replaces=r,
                     launches=c.get(n, 0), max_abs_err=m["max_abs_err"],

@@ -2,8 +2,11 @@
 //
 // Replaces the Pallas kernels of koifish_tpu/ops/pallas/matmul.py:
 // _qmm/_qmm_kernel (:305/:328, the GEMM, m > 32) and _qmv/_qmv_kernel
-// (:201/:224, the GEMV, m <= 32). Both launch shapes are one kernel
-// template here: 64 x 128 output tiles for the GEMM, 32 x 64 for the GEMV.
+// (:201/:224, the GEMV, m <= 32), and their learned-codebook variants
+// _qmm_book/_qmm_book_kernel (:451/:480) and _qmv_book/_qmv_book_kernel
+// (:389/:419). All launch shapes are one kernel template here: 64 x 128
+// output tiles for the GEMM, 32 x 64 for the GEMV; the BOOK flag swaps the
+// constant NF decode for a lookup in the tensor's own book.
 //
 // Codes: [K/cpb, N] bytes (INT8: int8 [K, N]) in the group-local
 // block-split order of quant/packing.py — within each 128-row group, byte
@@ -12,7 +15,13 @@
 // biased by 2^(bits-1), TERNARY is raw-1, BINARY is 2·raw-1, NF4/NF3 come
 // from the same constants, rounded to bf16. Integer codes are exact in bf16.
 // The group scale multiplies each group's f32 partial product, never the
-// weights.
+// weights. Learned codebooks (BOOK, NF4/NF3 code layouts only): code c of
+// weight row k decodes to bf16(book[k][c]) from an f32 book of 2^bits
+// entries per row ([K, 2^bits], MINI) or one book for all rows ([2^bits],
+// k-means: per_row = 0). A block stages the group's book rows (or the one
+// book, once) in shared memory beside the codes, so the lookup costs a
+// shared load per code and the tiling, the products and the K split are
+// those of the constant formats.
 //
 // What bounds it on the H100: the decode GEMV (m = 32) does 2·32 flops per
 // weight against half a byte of INT4 codes — 128 flops per byte, under the
@@ -111,17 +120,28 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int FMT, int BM, int BN>
+// entries of a learned book of a format (2^bits), and the shared memory a
+// block keeps for the book rows of one group
+template <int FMT, bool BOOK>
+struct Book {
+  static constexpr int NB = FMT == NF3 ? 8 : 16;
+  static constexpr size_t BYTES = BOOK ? sizeof(float) * GROUP * NB : 0;
+};
+
+template <int FMT, int BM, int BN, bool BOOK>
 __global__ void __launch_bounds__(NTHREADS)
     qmm_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ codes,
-               const float* __restrict__ scales, bf16* __restrict__ out,
-               float* __restrict__ partial, int m, int K, int N, int groups_per_split) {
+               const float* __restrict__ scales, const float* __restrict__ book, int per_row,
+               bf16* __restrict__ out, float* __restrict__ partial, int m, int K, int N,
+               int groups_per_split) {
   using C = Codes<FMT>;
   using TL = Tile<BM, BN>;
+  constexpr int NB = Book<FMT, BOOK>::NB;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Xs = reinterpret_cast<bf16*>(smem + TL::X);
   bf16* Ws = reinterpret_cast<bf16*>(smem + TL::W);
   float* Ss = reinterpret_cast<float*>(smem + TL::S);
+  float* Bs = reinterpret_cast<float*>(smem + TL::BYTES);   // BOOK only
 
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
@@ -141,7 +161,29 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
+  if constexpr (BOOK) {
+    if (!per_row) {   // one book for every row: stage it once
+      for (int i = tid; i < NB; i += NTHREADS) Bs[i] = book[i];
+      __syncthreads();
+    }
+  }
+
   for (int gi = g_begin; gi < g_end; ++gi) {
+    if constexpr (BOOK) {
+      if (per_row) {   // the group's 128 book rows, [128, NB] contiguous
+        for (int i = tid; i < GROUP * NB; i += NTHREADS)
+          Bs[i] = book[static_cast<size_t>(gi) * GROUP * NB + i];
+        __syncthreads();
+      }
+    }
+    // code value of raw code c at group-local weight row `row`, as bf16 bits
+    auto value = [&](uint32_t c, int row) -> uint32_t {
+      if constexpr (BOOK)
+        return __bfloat16_as_ushort(
+            __float2bfloat16(Bs[(per_row ? row * NB : 0) + (c & (NB - 1))]));
+      else
+        return __bfloat16_as_ushort(C::value(c));
+    };
     // x tile [BM, 128] (rows past m are zero), 16-byte chunks
     for (int i = tid; i < BM * (GROUP / 8); i += NTHREADS) {
       const int r = i / (GROUP / 8), c = (i % (GROUP / 8)) * 8;
@@ -165,7 +207,7 @@ __global__ void __launch_bounds__(NTHREADS)
         uint32_t v[4];
 #pragma unroll
         for (int b = 0; b < 4; ++b)
-          v[b] = __bfloat16_as_ushort(C::value((word >> (8 * b + C::BITS * j)) & mask));
+          v[b] = value((word >> (8 * b + C::BITS * j)) & mask, j * C::SUB + r);
         *reinterpret_cast<uint2*>(Ws + (j * C::SUB + r) * TL::LDW + c) =
             make_uint2(v[0] | (v[1] << 16), v[2] | (v[3] << 16));
       }
@@ -246,20 +288,23 @@ __global__ void splitk_reduce(const float* __restrict__ partial, bf16* __restric
   out[i] = __float2bfloat16(s);
 }
 
-template <int FMT, int BM, int BN>
-cudaError_t launch(const void* x, const void* codes, const void* scales, void* out, void* work,
-                   int m, int K, int N, int gps, cudaStream_t stream) {
+template <int FMT, int BM, int BN, bool BOOK>
+cudaError_t launch(const void* x, const void* codes, const void* scales, const void* book,
+                   int per_row, void* out, void* work, int m, int K, int N, int gps,
+                   cudaStream_t stream) {
   using TL = Tile<BM, BN>;
-  static cudaError_t attr = set_smem(qmm_kernel<FMT, BM, BN>, TL::BYTES);
+  constexpr size_t bytes = TL::BYTES + Book<FMT, BOOK>::BYTES;
+  static cudaError_t attr = set_smem(qmm_kernel<FMT, BM, BN, BOOK>, bytes);
   if (attr != cudaSuccess) return attr;
   const int ng = K / GROUP;
   const int splits = (ng + gps - 1) / gps;
   dim3 grid((N + BN - 1) / BN, (m + BM - 1) / BM, splits);
   float* partial = splits > 1 ? static_cast<float*>(work) : nullptr;
   if (splits > 1 && partial == nullptr) return cudaErrorInvalidValue;
-  qmm_kernel<FMT, BM, BN><<<grid, NTHREADS, TL::BYTES, stream>>>(
+  qmm_kernel<FMT, BM, BN, BOOK><<<grid, NTHREADS, bytes, stream>>>(
       static_cast<const bf16*>(x), static_cast<const uint8_t*>(codes),
-      static_cast<const float*>(scales), static_cast<bf16*>(out), partial, m, K, N, gps);
+      static_cast<const float*>(scales), static_cast<const float*>(book), per_row,
+      static_cast<bf16*>(out), partial, m, K, N, gps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const size_t mn = static_cast<size_t>(m) * N;
@@ -270,11 +315,16 @@ cudaError_t launch(const void* x, const void* codes, const void* scales, void* o
 
 // bm picks the launch shape: 32 -> the GEMV's 32 x 64 tiles, 64 -> the
 // GEMM's 64 x 128 tiles (ops/kernels/matmul.py::_plan)
-template <int FMT>
+template <int FMT, bool BOOK = false>
 cudaError_t launch_bm(const void* x, const void* codes, const void* scales, void* out, void* work,
-                      int m, int K, int N, int bm, int gps, cudaStream_t stream) {
-  if (bm == 32) return launch<FMT, 32, 64>(x, codes, scales, out, work, m, K, N, gps, stream);
-  if (bm == 64) return launch<FMT, 64, 128>(x, codes, scales, out, work, m, K, N, gps, stream);
+                      int m, int K, int N, int bm, int gps, cudaStream_t stream,
+                      const void* book = nullptr, int per_row = 0) {
+  if (bm == 32)
+    return launch<FMT, 32, 64, BOOK>(x, codes, scales, book, per_row, out, work, m, K, N, gps,
+                                     stream);
+  if (bm == 64)
+    return launch<FMT, 64, 128, BOOK>(x, codes, scales, book, per_row, out, work, m, K, N, gps,
+                                      stream);
   return cudaErrorInvalidValue;
 }
 
@@ -294,6 +344,26 @@ KOIFISH_API int koifish_qmatmul(const void* x, const void* codes, const void* sc
     case INT2: return launch_bm<INT2>(x, codes, scales, out, work, m, K, N, bm, gps, s);
     case TERNARY: return launch_bm<TERNARY>(x, codes, scales, out, work, m, K, N, bm, gps, s);
     case BINARY: return launch_bm<BINARY>(x, codes, scales, out, work, m, K, N, bm, gps, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Learned-codebook codes (NF4 or NF3 layouts): book is f32 [K, 2^bits]
+// (per_row = 1) or [2^bits] (per_row = 0), contiguous.
+KOIFISH_API int koifish_qmatmul_book(const void* x, const void* codes, const void* scales,
+                                     const void* book, void* out, void* work, int m, int K,
+                                     int N, int fmt, int per_row, int bm, int gps,
+                                     void* stream) {
+  if (m < 1 || K % GROUP != 0 || N % 4 != 0 || gps < 1 || book == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (fmt) {
+    case NF4:
+      return launch_bm<NF4, true>(x, codes, scales, out, work, m, K, N, bm, gps, s, book,
+                                  per_row);
+    case NF3:
+      return launch_bm<NF3, true>(x, codes, scales, out, work, m, K, N, bm, gps, s, book,
+                                  per_row);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -34,6 +34,7 @@ SOURCES = {
     "decode_attn": "decode_attn.cu",
     "flash_bwd": "flash_bwd.cu",
     "fused_ce": "fused_ce.cu",
+    "slotwrite": "slotwrite.cu",
 }
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

@@ -8,6 +8,13 @@ product, ``y = Σ_g (x_g @ codes_g) · s_g`` with f32 accumulation. It takes
 every symmetric format — INT8, INT4, NF4, INT3, NF3, INT2, TERNARY, BINARY —
 at group size 128, any m >= 1, any K that is a multiple of 128 and any N
 that is a multiple of 4.
+
+Its book flavour replaces ``_qmv_book``/``_qmv_book_kernel`` (GEMV) and
+``_qmm_book``/``_qmm_book_kernel`` (GEMM) of the same file: learned-codebook
+tensors (k-means ``[2^bits]`` books, MINI ``[K, 2^bits]`` books, NF4/NF3 code
+layouts) decode code c of row k to ``bf16(book[k, c])`` and otherwise share
+the tiling, the ``_plan`` and the arithmetic. The per-tensor book is read
+with a row stride of 0 instead of the JAX package's broadcast copy.
 """
 from __future__ import annotations
 
@@ -24,6 +31,8 @@ from koifish_tpu_torch.utils import kernel_log
 NAME = "qmatmul"
 GEMV = "qmv"           # launch counter of the m <= 32 shape
 GEMM = "qmm"           # launch counter of the m > 32 shape
+BOOK_GEMV = "qmv_book"  # the same two shapes with a learned codebook
+BOOK_GEMM = "qmm_book"
 GEMV_MAX_M = 32
 GROUP = 128
 #: block tile (rows, columns) of each launch shape, keyed by its rows
@@ -33,6 +42,8 @@ FORMATS = {
     QFormat.INT8: 0, QFormat.INT4: 1, QFormat.NF4: 2, QFormat.INT3: 3,
     QFormat.NF3: 4, QFormat.INT2: 5, QFormat.TERNARY: 6, QFormat.BINARY: 7,
 }
+#: the code layouts a learned codebook rides
+BOOK_FORMATS = (QFormat.NF4, QFormat.NF3)
 # enough blocks in flight to cover the card's 132 SMs twice
 _TARGET_BLOCKS = 264
 
@@ -47,15 +58,28 @@ def _kernel():
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = (lib, fn)
+        book = lib.koifish_qmatmul_book
+        book.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                         + [ctypes.c_void_p])
+        book.restype = ctypes.c_int
+        _fn = (lib, fn, book)
     return _fn
 
 
+def _book_ok(w: QTensor) -> bool:
+    """A learned book the kernel reads: f32-castable, [2^bits] or
+    [K, 2^bits], on an NF4/NF3 code layout."""
+    b = w.codebook
+    nb = 1 << w.fmt.bits
+    return (w.fmt in BOOK_FORMATS and b.shape[-1] == nb
+            and (b.dim() == 1 or (b.dim() == 2 and b.shape[0] == w.shape[0])))
+
+
 def takes(w: QTensor) -> bool:
-    """Whether the kernel covers ``w`` — the cases the JAX package sends to
-    Pallas: symmetric codes, no learned codebook, group 128."""
-    return (w.fmt in FORMATS and w.zeros is None and w.codebook is None
-            and w.group == GROUP)
+    """Whether the kernel covers ``w``: symmetric codes at group 128, with
+    the format's constant code values or a learned codebook."""
+    return (w.fmt in FORMATS and w.zeros is None and w.group == GROUP
+            and (w.codebook is None or _book_ok(w)))
 
 
 def qmatmul_plain(x2: torch.Tensor, codes: torch.Tensor,
@@ -69,6 +93,25 @@ def qmatmul_plain(x2: torch.Tensor, codes: torch.Tensor,
     ng = K // group
     raw = unpack_codes(codes, fmt, K, group) if fmt.is_sub_byte else codes
     wv = code_values(raw, fmt).to(torch.bfloat16).to(torch.float32)
+    xg = x2.to(torch.bfloat16).to(torch.float32).reshape(m, ng, group)
+    part = torch.einsum("mgk,gkn->mgn", xg, wv.reshape(ng, group, N))
+    y = (part * scales.to(torch.float32)[None]).sum(dim=1)
+    return y.to(torch.bfloat16)
+
+
+def qmatmul_book_plain(x2: torch.Tensor, codes: torch.Tensor,
+                       scales: torch.Tensor, book: torch.Tensor, fmt: QFormat,
+                       group: int = GROUP) -> torch.Tensor:
+    """Plain PyTorch version of the book flavour: x2 [m, K] -> [m, N] bf16.
+    Code c of row k takes ``bf16(book[k, c])`` (``book[c]`` for a per-tensor
+    book), then the arithmetic of ``qmatmul_plain``."""
+    m, K = x2.shape
+    N = codes.shape[-1]
+    ng = K // group
+    raw = unpack_codes(codes, fmt, K, group).long()
+    bk = book.to(torch.float32)
+    wv = bk[raw] if bk.dim() == 1 else torch.gather(bk, 1, raw)
+    wv = wv.to(torch.bfloat16).to(torch.float32)
     xg = x2.to(torch.bfloat16).to(torch.float32).reshape(m, ng, group)
     part = torch.einsum("mgk,gkn->mgn", xg, wv.reshape(ng, group, N))
     y = (part * scales.to(torch.float32)[None]).sum(dim=1)
@@ -92,7 +135,8 @@ def _check(x2: torch.Tensor, w: QTensor):
     shape = f"x{tuple(x2.shape)} w{tuple(w.shape)} {w.fmt.name}"
     if not takes(w):
         raise ValueError(f"qmatmul: {shape}: the kernel takes symmetric "
-                         f"codes at group {GROUP} only")
+                         f"codes at group {GROUP} only, with a learned book "
+                         f"[2^bits] or [K, 2^bits] on NF4/NF3 layouts")
     cpb = w.fmt.codes_per_byte if w.fmt.is_sub_byte else 1
     if w.shape[0] != K or K % GROUP or N % 4 or m < 1:
         raise ValueError(f"qmatmul: {shape}: need x [m>=1, K] with K = "
@@ -105,7 +149,12 @@ def _check(x2: torch.Tensor, w: QTensor):
             or w.scales.dtype != torch.float32:
         raise ValueError(f"qmatmul: {shape}: need f32 scales "
                          f"[{K // GROUP}, {N}]")
-    for name, t in (("x", x2), ("codes", w.codes), ("scales", w.scales)):
+    tensors = [("x", x2), ("codes", w.codes), ("scales", w.scales)]
+    if w.codebook is not None:
+        if w.codebook.dtype != torch.float32:
+            raise ValueError(f"qmatmul: {shape}: need an f32 codebook")
+        tensors.append(("codebook", w.codebook))
+    for name, t in tensors:
         if t.device != x2.device or t.device.type != "cuda":
             raise ValueError(f"qmatmul: {name} lies on {t.device}, need the "
                              f"CUDA device of x ({x2.device})")
@@ -120,7 +169,11 @@ def qmatmul(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
     """``x2 [m, K] bf16 @ w`` -> [m, N] bf16 for a kernel-covered QTensor.
     A CPU tensor takes the plain version; a CUDA tensor launches the GEMV
     shape (m <= 32) or the GEMM shape (m > 32)."""
+    book = w.codebook
     if x2.device.type == "cpu":
+        if book is not None:
+            return qmatmul_book_plain(x2, w.codes, w.scales, book, w.fmt,
+                                      w.group)
         return qmatmul_plain(x2, w.codes, w.scales, w.fmt, w.group)
     _check(x2, w)
     m, K = x2.shape
@@ -129,11 +182,18 @@ def qmatmul(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
     out = torch.empty((m, N), dtype=torch.bfloat16, device=x2.device)
     work = (torch.empty((splits, m, N), dtype=torch.float32,
                         device=x2.device) if splits > 1 else None)
-    lib, fn = _kernel()
+    lib, fn, fn_book = _kernel()
     stream = torch.cuda.current_stream(x2.device).cuda_stream
-    rc = fn(x2.data_ptr(), w.codes.data_ptr(), w.scales.data_ptr(),
-            out.data_ptr(), None if work is None else work.data_ptr(),
-            m, K, N, FORMATS[w.fmt], bm, gps, stream)
-    _build.check(lib, rc, f"qmatmul x{tuple(x2.shape)} {w.fmt.name}")
-    kernel_log.count(GEMV if bm == 32 else GEMM)
+    ptrs = (x2.data_ptr(), w.codes.data_ptr(), w.scales.data_ptr())
+    wk = None if work is None else work.data_ptr()
+    if book is None:
+        rc = fn(*ptrs, out.data_ptr(), wk, m, K, N, FORMATS[w.fmt], bm, gps,
+                stream)
+        name = GEMV if bm == 32 else GEMM
+    else:
+        rc = fn_book(*ptrs, book.data_ptr(), out.data_ptr(), wk, m, K, N,
+                     FORMATS[w.fmt], int(book.dim() == 2), bm, gps, stream)
+        name = BOOK_GEMV if bm == 32 else BOOK_GEMM
+    _build.check(lib, rc, f"{name} x{tuple(x2.shape)} {w.fmt.name}")
+    kernel_log.count(name)
     return out

@@ -1,12 +1,14 @@
 """Quantization-aware matmul — dispatch into the dequant-fused kernel.
 
-``qmatmul`` sends every QTensor the kernel covers (symmetric codes, no
-learned codebook, group 128 — the cases the JAX package sends to Pallas) to
-``ops/kernels/matmul.py``: the GEMV shape for m <= 32, the GEMM shape above.
-The JAX package's TPU-only gates (K % 1024, the 32 < m < 64 dead zone) do
-not carry over. Other QTensors take the plain dequantize-then-matmul path
-(logged through ``kernel_log``), and unquantized products stay
-``torch.matmul``.
+``qmatmul`` sends every QTensor the kernel covers (symmetric codes at group
+128, with the format's constant code values or a learned k-means/MINI
+codebook on an NF4/NF3 layout) to ``ops/kernels/matmul.py``: the GEMV shape
+for m <= 32, the GEMM shape above. The JAX package's TPU-only gates (K %
+1024, the 32 < m < 64 dead zone) do not carry over, and codebook tensors
+take the book kernel where the JAX model path dequantizes them. Other
+QTensors (zero points, another group size) take the plain
+dequantize-then-matmul path (logged through ``kernel_log``), and unquantized
+products stay ``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -49,7 +51,8 @@ def qmatmul(x: torch.Tensor, w: Weight, out_dtype=None) -> torch.Tensor:
         "qmatmul", f"k={w.shape[0]} n={w.shape[-1]} fmt={w.fmt.name} "
         f"group={w.group} zeros={w.zeros is not None} "
         f"codebook={w.codebook is not None}: the kernel takes symmetric "
-        f"codes at group {kmm.GROUP} -> torch dequant+matmul")
+        f"codes at group {kmm.GROUP} (books on NF4/NF3 layouts) -> torch "
+        f"dequant+matmul")
     wd = w.dequantize(x.dtype)
     return _dense(x, wd, out_dtype)
 

@@ -11,6 +11,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from koifish_tpu_torch.config import ModelCard, QuantCard
+from koifish_tpu_torch.quant.cluster import (quantize_kmeans, quantize_mini,
+                                             quantize_sinkhorn)
 from koifish_tpu_torch.quant.rtn import quantize_jit
 from koifish_tpu_torch.utils.device import check_on, resolve_device
 
@@ -23,11 +25,6 @@ _KEY_PATH = {
     "fc": "mlp.c_fc", "proj": "mlp.c_proj",
     "wte": "embed_tokens", "head": "lm_head",
 }
-
-# learned-codebook / Sinkhorn quantizers live in quant/cluster.py of the
-# JAX package, which is not ported yet
-_UNPORTED_METHODS = ("CLUSTER", "KMEANS", "MINI", "MINI_GBDT", "SNQ",
-                     "SINKHORN")
 
 
 def param_path(layer_idx: Optional[int], key: str) -> str:
@@ -53,10 +50,12 @@ def quantize_params(params: Dict[str, Any], qcard: QuantCard,
         mat = w.T if head_layout else w       # embeddings -> head layout [E,V]
         if mat.shape[0] % rule.group:
             return w
-        if rule.method in _UNPORTED_METHODS:
-            raise NotImplementedError(
-                f"quant method {rule.method} (quant/cluster.py) is not "
-                f"ported to koifish_tpu_torch yet")
+        if rule.method in ("CLUSTER", "KMEANS"):
+            return quantize_kmeans(mat, bits=rule.fmt.bits, group=rule.group)
+        if rule.method in ("MINI", "MINI_GBDT"):
+            return quantize_mini(mat, bits=rule.fmt.bits, group=rule.group)
+        if rule.method in ("SNQ", "SINKHORN"):
+            return quantize_sinkhorn(mat, rule.fmt, group=rule.group)
         return quantize_jit(mat, rule.fmt, group=rule.group,
                             symmetric=rule.symmetric)
 

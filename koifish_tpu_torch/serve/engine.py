@@ -1,13 +1,18 @@
 """Decode engine: batched prefill + chunked decode with sampling.
 
 The host loop of the JAX package's ``serve/engine.py`` (``prefill`` with the
-``fresh`` path, ``generate`` with ``decode_chunk``, the host eos check each
-chunk and the pre-wrap / streaming rule), run eagerly: a decode chunk is
-``decode_chunk`` steps of ``decode_step_layered`` + sampling with no host
-sync inside, and eos is checked on the host once per chunk.
+``fresh`` path, ``prefill_chunked``, ``decode_step`` over a ``KVCache``,
+``generate`` with ``decode_chunk`` and layer-stacked ``decode_params``, the
+host eos check each chunk and the pre-wrap / streaming rule), run eagerly: a
+decode chunk is ``decode_chunk`` steps of ``decode_step_layered`` + sampling
+with no host sync inside, and eos is checked on the host once per chunk.
+The JAX package's jitted decode+sample executables are plain functions here
+(``decode_sample``, ``decode_sample_layered``, ``decode_sample_layered_k``,
+``decode_sample_k``); a ``torch.Generator`` takes the place of the rng key.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -19,9 +24,11 @@ from koifish_tpu_torch.ops.attention import causal_attention
 from koifish_tpu_torch.ops.rope import rope_freqs
 from koifish_tpu_torch.ops.sampling import sample_logits
 from koifish_tpu_torch.serve import kvcache as kvc
+from koifish_tpu_torch.serve.kvcache import KVCache
 from koifish_tpu_torch.serve.layered import (LayeredKVCache,
                                              decode_step_layered, join_cache,
                                              split_cache)
+from koifish_tpu_torch.serve.stacked import unstack_layers
 from koifish_tpu_torch.utils.device import check_on, resolve_device
 
 
@@ -97,6 +104,97 @@ def prefill(card: ModelCard, params: Params, tokens: torch.Tensor, cache,
     return logits, kvc.advance(cache, T)
 
 
+def decode_step(card: ModelCard, params: Params, token: torch.Tensor,
+                cache: KVCache, streaming: bool = True
+                ) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step over a ``KVCache`` ([L, ...] leaves): token [B] ->
+    logits [B, V] f32 and the cache (written in place, ``pos`` advanced).
+    Takes per-layer-list or layer-stacked params (``stack_layers``). Each
+    lane writes its own slot: the step runs ``decode_step_layered`` on
+    per-layer views of the cache with per-lane writes. ``streaming=False``
+    skips the sink re-rope — sound when no lane reaches the window in this
+    step."""
+    lc = split_cache(cache, uniform=False)
+    logits, lc = decode_step_layered(card, params, token, lc, streaming,
+                                     logits_dtype=torch.float32)
+    return logits, dataclasses.replace(cache, pos=lc.pos)
+
+
+def prefill_chunked(card: ModelCard, params: Params, tokens: torch.Tensor,
+                    cache, chunk: int = 512, device=None):
+    """Prefill an arbitrarily long prompt in fixed-size chunks (bounded
+    activation memory); every chunk attends the whole cache. The tail chunk
+    is right-padded with its last token to the chunk size and ``pos``
+    rolled back past the padding, as the JAX package does to keep one
+    executable per chunk size; the logits are those of the last real
+    token."""
+    dev = resolve_device(device)
+    B, T = tokens.shape
+    logits = None
+    for s in range(0, T, chunk):
+        piece = tokens[:, s: s + chunk]
+        if piece.shape[1] < chunk and s > 0:
+            pad = chunk - piece.shape[1]
+            piece = torch.cat([piece, piece[:, -1:].expand(B, pad)], dim=1)
+            all_l, cache = prefill(card, params, piece, cache,
+                                   return_all_logits=True, device=dev)
+            logits = all_l[:, chunk - pad - 1]
+            cache = kvc.advance(cache, -pad)
+        else:
+            logits, cache = prefill(card, params, piece, cache, device=dev)
+    return logits, cache
+
+
+def decode_sample(card: ModelCard, params: Params, token: torch.Tensor,
+                  cache: KVCache, gen: Optional[torch.Generator],
+                  sampler: SamplerCard, streaming: bool = True):
+    """``decode_step`` + sampling -> (next token [B], cache, generator);
+    the JAX package's ``jit_decode_sample``."""
+    logits, cache = decode_step(card, params, token, cache, streaming)
+    return _sample(gen, logits, sampler), cache, gen
+
+
+def decode_sample_layered(card: ModelCard, params: Params,
+                          token: torch.Tensor, lc: LayeredKVCache,
+                          gen: Optional[torch.Generator],
+                          sampler: SamplerCard, streaming: bool = True):
+    """``decode_step_layered`` + sampling -> (next token [B], cache,
+    generator); the JAX package's ``jit_decode_sample_layered``."""
+    logits, lc = decode_step_layered(card, params, token, lc, streaming)
+    return _sample(gen, logits, sampler), lc, gen
+
+
+def decode_sample_layered_k(card: ModelCard, params: Params,
+                            token: torch.Tensor, lc: LayeredKVCache,
+                            gen: Optional[torch.Generator],
+                            sampler: SamplerCard, k: int,
+                            streaming: bool = True):
+    """``k`` layered decode+sample steps with no host sync -> (tokens
+    [k, B], cache, generator); the JAX package's
+    ``jit_decode_sample_layered_k``."""
+    params = unstack_layers(card, params)
+    toks = []
+    for _ in range(k):
+        token, lc, gen = decode_sample_layered(card, params, token, lc, gen,
+                                               sampler, streaming)
+        toks.append(token)
+    return torch.stack(toks), lc, gen
+
+
+def decode_sample_k(card: ModelCard, params: Params, token: torch.Tensor,
+                    cache: KVCache, gen: Optional[torch.Generator],
+                    sampler: SamplerCard, k: int, streaming: bool = True):
+    """``k`` decode+sample steps over a ``KVCache`` with no host sync ->
+    (tokens [k, B], cache, generator); the JAX package's
+    ``jit_decode_sample_k``."""
+    toks = []
+    for _ in range(k):
+        token, cache, gen = decode_sample(card, params, token, cache, gen,
+                                          sampler, streaming)
+        toks.append(token)
+    return torch.stack(toks), cache, gen
+
+
 def generate(card: ModelCard, params: Params, prompt: torch.Tensor, cache,
              sampler: Optional[SamplerCard] = None, max_new_tokens: int = 64,
              eos_id: int = -1, generator: Optional[torch.Generator] = None,
@@ -105,12 +203,11 @@ def generate(card: ModelCard, params: Params, prompt: torch.Tensor, cache,
     """Prefill + chunked decode. Returns (generated tokens [B, <=max_new]
     int32, cache) — NEW tokens only. ``decode_chunk``: decode+sample steps
     between host eos checks. ``generator`` seeds sampling (default: one
-    seeded with ``sampler.seed``). Layer-stacked ``decode_params``
-    (``serve/stacked.py``) are not ported; pass None."""
-    if decode_params is not None:
-        raise NotImplementedError("layer-stacked decode_params "
-                                  "(serve/stacked.py) are not ported yet")
+    seeded with ``sampler.seed``). ``decode_params``: params for the decode
+    steps, e.g. layer-stacked (``serve/stacked.stack_layers``)."""
     dev = resolve_device(device)
+    dparams = unstack_layers(card, decode_params if decode_params is not None
+                             else params)
     sampler = sampler or SamplerCard()
     if generator is None:
         generator = torch.Generator(device=dev)
@@ -134,13 +231,8 @@ def generate(card: ModelCard, params: Params, prompt: torch.Tensor, cache,
         k = min(decode_chunk, remaining)
         # pre-wrap chunks (every step below the window) skip the re-rope
         streaming = pos_host + k > lc.size
-        steps = []
-        t = tok
-        for _ in range(k):
-            step_logits, lc = decode_step_layered(card, params, t, lc,
-                                                  streaming)
-            t = _sample(generator, step_logits, sampler)
-            steps.append(t)
+        steps, lc, generator = decode_sample_layered_k(
+            card, dparams, tok, lc, generator, sampler, k, streaming)
         pos_host += k
         for t in steps:
             tok = torch.where(done, torch.full_like(t, eos_id), t)

@@ -8,7 +8,9 @@ positions map to ``sinks + (pos - sinks) % (size - sinks)``. Keys are
 stored RoPE'd at their absolute position.
 
 Unlike the JAX package, writes update the cache buffers in place (the JAX
-caller donates the cache, so the observable behaviour is the same).
+caller donates the cache, so the observable behaviour is the same). The
+one-token write at per-lane slots (``ring_write``, ``write_token``) goes
+through the slot-write kernel (``ops/kernels/slotwrite.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from koifish_tpu_torch.dtypes import QFormat
 from koifish_tpu_torch.ops.kernels.decode_attn import unpack_int4
+from koifish_tpu_torch.ops.kernels.slotwrite import slot_write_many
 from koifish_tpu_torch.utils.device import resolve_device
 
 _unpack_int4 = unpack_int4
@@ -119,6 +122,47 @@ def _quant_kv(x: torch.Tensor, fmt: QFormat
         b = (q + 8).to(torch.uint8)
         q = b[..., : d // 2] | (b[..., d // 2:] << 4)
     return q, scale
+
+
+def ring_write(buf: torch.Tensor, val: torch.Tensor,
+               slots: torch.Tensor) -> torch.Tensor:
+    """One-token ring write ``buf [B, H, S, ...] <- val [B, H, ...]`` at
+    per-lane ``slots [B]``, in place through the slot-write kernel (the
+    masked select of the JAX package on a CPU tensor). Returns ``buf``."""
+    slot_write_many([(buf, val)], slots)
+    return buf
+
+
+def _token_pairs(k_l, v_l, ks_l, vs_l, fmt: QFormat, k_new, v_new):
+    """(buffer, value) pairs of one token's K/V write in a cache format:
+    quantized formats write codes and per-(token, head) scales."""
+    if fmt is QFormat.BF16:
+        return [(k_l, k_new), (v_l, v_new)]
+    if fmt not in (QFormat.INT8, QFormat.INT4):
+        raise ValueError(f"unsupported KV format {fmt}")
+    kq, ksc = _quant_kv(k_new, fmt)
+    vq, vsc = _quant_kv(v_new, fmt)
+    return [(k_l, kq), (v_l, vq), (ks_l, ksc), (vs_l, vsc)]
+
+
+def write_token(cache, layer: int, k_new: torch.Tensor, v_new: torch.Tensor,
+                rope_inv_freq: Optional[torch.Tensor] = None):
+    """Write one token's K/V ([B, H, D]) of ``layer`` at each lane's own
+    position, in place (one slot-write launch for the K and V codes and
+    their scales). Does NOT advance ``pos``.
+    ``rope_inv_freq`` turns on the StreamingLLM sink re-rope for rows past
+    the window (``rotate_sink_keys_layer``). Accepts ``KVCache`` or
+    ``LayeredKVCache``; returns the cache."""
+    slots = ring_slot(cache.pos, cache.size, cache.sinks)      # [B]
+    quant = cache.fmt is not QFormat.BF16
+    ks_l = cache.k_scale[layer] if quant else None
+    vs_l = cache.v_scale[layer] if quant else None
+    if rope_inv_freq is not None:
+        rotate_sink_keys_layer(cache.k[layer], ks_l, cache.fmt, cache.sinks,
+                               cache.pos >= cache.size, rope_inv_freq)
+    slot_write_many(_token_pairs(cache.k[layer], cache.v[layer], ks_l, vs_l,
+                                 cache.fmt, k_new, v_new), slots)
+    return cache
 
 
 def advance(cache, n):

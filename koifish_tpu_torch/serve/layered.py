@@ -5,7 +5,9 @@ XLA can update each one in place; here each layer's buffers are plain
 tensors that the step writes in place. The one-token write of a uniform
 batch (every lane at the same position) is an in-place ``index_copy_`` of
 one slot into the layer's buffer (``layered.py:133-142`` of the JAX
-package); per-lane slots use an in-place ``index_put_``.
+package); per-lane slots (the continuous batcher's pool, and ``KVCache``
+views for ``engine.decode_step``) go through the slot-write kernel: one
+launch for the layer's K and V codes and scales.
 """
 from __future__ import annotations
 
@@ -20,9 +22,11 @@ from koifish_tpu_torch.models.transformer import (
     Params, _linear_l, _norm, gather_embed, lm_head, mlp, qkv_project)
 from koifish_tpu_torch.ops.attention import decode_attention
 from koifish_tpu_torch.ops.kernels.decode_attn import decode_attention_quant
+from koifish_tpu_torch.ops.kernels.slotwrite import slot_write_many
 from koifish_tpu_torch.ops.rope import rope_cos_sin_at, rope_inv_freq
 from koifish_tpu_torch.serve import kvcache as kvc
 from koifish_tpu_torch.serve.kvcache import KVCache
+from koifish_tpu_torch.serve.stacked import unstack_layers
 
 
 @dataclasses.dataclass
@@ -81,25 +85,28 @@ def join_cache(lc: LayeredKVCache) -> KVCache:
                    sinks=lc.sinks)
 
 
-def _write(buf: torch.Tensor, val: torch.Tensor, slots: torch.Tensor,
-           uniform: bool) -> None:
-    """One-token write of val [B, H, ...] into buf [B, H, S, ...] at
+def _write(pairs, slots: torch.Tensor, uniform: bool) -> None:
+    """One-token write of each (buf [B, H, S, ...], val [B, H, ...]) pair at
     per-lane ``slots`` [B], in place."""
-    val = val.to(buf.dtype)
-    if uniform:
-        # every lane shares the slot: one in-place index write of the slot
-        buf.index_copy_(2, slots[:1].long(), val.unsqueeze(2))
+    if not uniform:
+        slot_write_many(pairs, slots)
         return
-    lanes = torch.arange(buf.shape[0], device=buf.device)
-    buf[lanes, :, slots.long()] = val
+    for buf, val in pairs:
+        # every lane shares the slot: one in-place index write of the slot
+        buf.index_copy_(2, slots[:1].long(), val.to(buf.dtype).unsqueeze(2))
 
 
 def decode_step_layered(card: ModelCard, params: Params, token: torch.Tensor,
-                        lc: LayeredKVCache, streaming: bool = True
+                        lc: LayeredKVCache, streaming: bool = True,
+                        logits_dtype=torch.bfloat16
                         ) -> Tuple[torch.Tensor, LayeredKVCache]:
     """One decode step over per-layer cache tensors: token [B] -> logits
-    [B, V] (bf16). ``streaming=False`` skips the per-step sink re-rope —
-    sound whenever no row's pos can reach the window in this step."""
+    [B, V] in ``logits_dtype`` (bf16: the sampler upcasts after its top-k
+    cut; ``engine.decode_step`` takes f32). Params may hold a per-layer list
+    or layer-stacked leaves (``serve/stacked.py``), which are taken apart
+    here. ``streaming=False`` skips the per-step sink re-rope — sound
+    whenever no row's pos can reach the window in this step."""
+    params = unstack_layers(card, params)
     B = token.shape[0]
     dev = token.device
     # unclamped positions with direct rope, so angles keep advancing past
@@ -131,21 +138,14 @@ def decode_step_layered(card: ModelCard, params: Params, token: torch.Tensor,
                                        stream_rows, inv_freq)
         h = _norm(card, x, lp["ln1"], lp.get("ln1_b"))
         q, k, v = qkv_project(card, lp, h, cos, sin, None)
-        k1, v1 = k[:, 0], v[:, 0]                           # [B, H, D]
+        vsl = lc.v_scale[li] if quant else None
+        _write(kvc._token_pairs(kl, vl, ksl, vsl, lc.fmt, k[:, 0], v[:, 0]),
+               slots, lc.uniform)
         if quant:
-            kq, ksc = kvc._quant_kv(k1, lc.fmt)
-            vq, vsc = kvc._quant_kv(v1, lc.fmt)
-            vsl = lc.v_scale[li]
-            _write(kl, kq, slots, lc.uniform)
-            _write(vl, vq, slots, lc.uniform)
-            _write(ksl, ksc, slots, lc.uniform)
-            _write(vsl, vsc, slots, lc.uniform)
             # the fused kernel reads the INT8 / packed-INT4 codes directly
             a = decode_attention_quant(q[:, 0], kl, vl, ksl, vsl, lengths,
                                        att_scale)
         else:
-            _write(kl, k1, slots, lc.uniform)
-            _write(vl, v1, slots, lc.uniform)
             valid = (torch.arange(lc.size, device=dev)[None, :]
                      < lengths[:, None])
             a = decode_attention(q[:, 0], kl.transpose(1, 2),
@@ -155,6 +155,5 @@ def decode_step_layered(card: ModelCard, params: Params, token: torch.Tensor,
         x = x + mlp(card, lp, h)
 
     x = _norm(card, x, params["ln_f"], params.get("ln_f_b"))
-    # bf16 logits: the sampler upcasts after its top-k cut
-    logits = lm_head(card, params, x, out_dtype=torch.bfloat16)[:, 0]
+    logits = lm_head(card, params, x, out_dtype=logits_dtype)[:, 0]
     return logits, dataclasses.replace(lc, pos=lc.pos + 1)

@@ -3,7 +3,7 @@
 The same contract as the JAX package's ``utils/kernel_log.py``:
 
 - ``fallback(kernel, reason)``: a hand-written kernel was skipped for a
-  case the kernel does not cover (asymmetric codes, learned codebooks) and
+  case the kernel does not cover (asymmetric codes, other group sizes) and
   the plain PyTorch path ran instead — logged ONCE per (kernel, reason) to
   stderr. On by default when a CUDA device is present, silent otherwise.
   ``KOIFISH_DUMP_KERNELS=0`` silences, ``=2`` forces on everywhere.

@@ -17,6 +17,8 @@ from koifish_tpu.ops.pallas import decode_attn as pda
 from koifish_tpu.ops.pallas import flash as pfl
 from koifish_tpu.ops.pallas import fused_ce as pfce
 from koifish_tpu.ops.pallas import matmul as pmm
+from koifish_tpu.ops.pallas import slotwrite as psw
+from koifish_tpu.quant import cluster as jcl
 from koifish_tpu.quant.rtn import quantize as j_quantize
 from koifish_tpu.serve.kvcache import _quant_kv as j_quant_kv
 
@@ -27,21 +29,24 @@ from koifish_tpu_torch.ops.kernels import decode_attn as kd
 from koifish_tpu_torch.ops.kernels import flash as kf
 from koifish_tpu_torch.ops.kernels import fused_ce as kc
 from koifish_tpu_torch.ops.kernels import matmul as km
+from koifish_tpu_torch.ops.kernels import slotwrite as ksw
 from koifish_tpu_torch.ops.matmul import qmatmul
 from koifish_tpu_torch.quant.rtn import quantize
 
-from torch_helpers import bf16_pair, f32
+from koifish_tpu_torch.io.convert import qtensor_from_numpy
+
+from torch_helpers import bf16_pair, f32, jax_tree_to_numpy
 
 
 @pytest.fixture
 def interpret():
     """Pallas kernels eligible + interpreted; reset afterwards."""
-    for mod in (pfl, pmm, pda, pfce):
+    for mod in (pfl, pmm, pda, pfce, psw):
         mod.set_interpret(True)
     try:
         yield
     finally:
-        for mod in (pfl, pmm, pda, pfce):
+        for mod in (pfl, pmm, pda, pfce, psw):
             mod.set_interpret(False)
 
 
@@ -402,3 +407,168 @@ def test_wrappers_refuse_cuda_shapes_they_do_not_take():
     assert not kc.takes(8, 2048, 100) and kc.takes(8, 1024, 100)
     wte = torch.zeros((100, 64), dtype=torch.bfloat16)
     assert kc._w_strides(wte.T) == (1, 64)              # tied head in place
+
+
+def _book_tensors(kind: str, K: int, N: int, seed: int):
+    """A learned-codebook (or Sinkhorn) QTensor from the JAX quantizer and
+    the same tensor in the port, from heavy-tailed numpy weights."""
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((K, N)) * (1 + 5 * rng.random((K, N)))
+         ).astype(np.float32)
+    jw = {"kmeans": lambda a: jcl.quantize_kmeans(a, bits=4),
+          "kmeans3": lambda a: jcl.quantize_kmeans(a, bits=3),
+          "mini": lambda a: jcl.quantize_mini(a, bits=4),
+          "mini3": lambda a: jcl.quantize_mini(a, bits=3),
+          "sinkhorn": lambda a: jcl.quantize_sinkhorn(a, JQFormat.INT4),
+          }[kind](jnp.asarray(w))
+    return jw, qtensor_from_numpy(jax_tree_to_numpy(jw), "cpu")
+
+
+@pytest.mark.parametrize("kind", ["kmeans", "mini", "mini3"])
+@pytest.mark.parametrize("m", [8, 256])
+def test_book_matmul_matches_pallas(interpret, kind, m):
+    """m = 8 reaches _qmv_book, m = 256 _qmm_book (K = 1024), with a
+    per-tensor k-means book or per-row MINI books. Both decode bf16(book),
+    sum exact bf16 products per group in f32 and scale the partial sums;
+    only the f32 summation order differs before the final bf16 rounding —
+    tolerance: 1 bf16 ulp of the largest output."""
+    K, N = 1024, 128
+    jw, tw = _book_tensors(kind, K, N, seed=m)
+    assert km.takes(tw)
+    xa = np.random.default_rng(m + 1).standard_normal((m, K)
+                                                      ).astype(np.float32)
+    jx, tx = bf16_pair(xa)
+    ref = f32(pmm.qmatmul_pallas_or_ref(jx, jw, jnp.bfloat16))
+    out = f32(qmatmul(tx, tw))
+    plain = f32(km.qmatmul_book_plain(tx, tw.codes, tw.scales, tw.codebook,
+                                      tw.fmt))
+    np.testing.assert_array_equal(out, plain)
+    assert out.shape == ref.shape == (m, N)
+    assert np.abs(out - ref).max() <= 2.0 ** -7 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("kind", ["kmeans", "kmeans3", "mini", "sinkhorn"])
+def test_book_qmatmul_matches_jax_model_path(kind):
+    """The JAX model path (ops/matmul.qmatmul) dequantizes codebook tensors
+    to bf16 and takes one dot; the port sends them to the book kernel,
+    which scales f32 group partial sums (ROADMAP queue 3) — 2 % of the
+    largest output. Sinkhorn row factors fold into the activations in both;
+    m = 40 and K = 384 are off the JAX package's Pallas shapes."""
+    from koifish_tpu.ops.matmul import qmatmul as j_qmatmul
+    K, N, m = 384, 128, 40
+    jw, tw = _book_tensors(kind, K, N, seed=21)
+    xa = np.random.default_rng(22).standard_normal((m, K)).astype(np.float32)
+    jx, tx = bf16_pair(xa)
+    ref = f32(j_qmatmul(jx, jw, out_dtype=jnp.float32))
+    out = f32(qmatmul(tx, tw, out_dtype=torch.float32))
+    assert np.abs(out - ref).max() <= 2e-2 * np.abs(ref).max()
+
+
+def _codes_np(shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    if dtype in ("bfloat16", "float32"):
+        return rng.standard_normal(shape).astype(np.float32)
+    return rng.integers(0, 120, size=shape).astype(dtype)
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values for both packages in ``dtype``."""
+    if dtype == "bfloat16":
+        return bf16_pair(a)
+    return jnp.asarray(a.astype(dtype)), torch.from_numpy(a.astype(dtype))
+
+
+@pytest.mark.parametrize("dtype,dc", [("int8", 128), ("uint8", 64),
+                                      ("bfloat16", 128), ("float32", 128)])
+def test_slot_write_matches_pallas(interpret, dtype, dc):
+    """slot_write (in place) and slot_write_plain against the Pallas slot
+    writer in interpret mode, bit for bit, with tests/test_pallas.py's
+    cases: slots straddling 32-row blocks and lanes at the same slot."""
+    B, H, S = 4, 8, 128
+    jbuf, tbuf = _pair(_codes_np((B, H, S, dc), dtype, 0), dtype)
+    jval, tval = _pair(_codes_np((B, H, dc), dtype, 1), dtype)
+    for slots in ([0, 31, 32, 127], [5, 5, 64, 99]):
+        sl = np.asarray(slots, np.int32)
+        want = psw.slot_write_or_none(jbuf, jval, jnp.asarray(sl))
+        assert want is not None
+        want = f32(want)
+        plain = ksw.slot_write_plain(tbuf, tval, torch.from_numpy(sl))
+        got = ksw.slot_write(tbuf.clone(), tval, torch.from_numpy(sl))
+        np.testing.assert_array_equal(f32(plain), want)
+        np.testing.assert_array_equal(f32(got), want)
+
+
+def test_slot_write_scales_and_many_match_jax_ring_write():
+    """The port's ring_write of [B, H, S] f32 scale buffers (the slot
+    write's Dc = 1 case) against the JAX package's masked-select ring_write,
+    and one launch of four buffers (a layer's K/V codes and scales) against
+    four single writes."""
+    from koifish_tpu.serve.kvcache import ring_write as j_ring_write
+    from koifish_tpu_torch.serve.kvcache import ring_write
+    B, H, S, D = 3, 2, 64, 16
+    sl = np.asarray([0, 63, 63], np.int32)
+    jsc, tsc = _pair(_codes_np((B, H, S), "float32", 2), "float32")
+    jv, tv = _pair(_codes_np((B, H), "float32", 3), "float32")
+    want = f32(j_ring_write(jsc, jv, jnp.asarray(sl)))
+    np.testing.assert_array_equal(
+        f32(ring_write(tsc.clone(), tv, torch.from_numpy(sl))), want)
+    bufs = [torch.from_numpy(_codes_np((B, H, S, D), "int8", 4)),
+            torch.from_numpy(_codes_np((B, H, S, D), "int8", 5)),
+            tsc.clone(), tsc.clone() * 2]
+    vals = [torch.from_numpy(_codes_np((B, H, D), "int8", 6)),
+            torch.from_numpy(_codes_np((B, H, D), "int8", 7)), tv, tv * 3]
+    wants = [ksw.slot_write_plain(b, v, torch.from_numpy(sl))
+             for b, v in zip(bufs, vals)]
+    ksw.slot_write_many(list(zip(bufs, vals)), torch.from_numpy(sl))
+    for b, w in zip(bufs, wants):
+        assert torch.equal(b, w)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_page_write_matches_pallas(interpret, dtype):
+    """page_write (in place) and page_write_plain against the Pallas page
+    writer in interpret mode and the JAX package's _page_write_ref, bit for
+    bit, with tests/test_paged.py's case (distinct page ids, rows at both
+    page edges)."""
+    from koifish_tpu.serve.paged import PAGE, _page_write_ref
+    H, NP, D, B = 4, 8, 64, 4
+    jp_, tp_ = _pair(_codes_np((H, NP, PAGE, D), dtype, 8), dtype)
+    jv, tv = _pair(_codes_np((B, H, D), dtype, 9), dtype)
+    pids = np.asarray([0, 3, 5, 7], np.int32)
+    rows = np.asarray([5, 0, 9, PAGE - 1], np.int32)
+    want = psw.page_write_or_none(jp_, jv, jnp.asarray(pids),
+                                  jnp.asarray(rows))
+    assert want is not None
+    want = f32(want)
+    np.testing.assert_array_equal(
+        f32(_page_write_ref(jp_, jv, jnp.asarray(pids), jnp.asarray(rows))),
+        want)
+    tpid, trow = torch.from_numpy(pids), torch.from_numpy(rows)
+    np.testing.assert_array_equal(
+        f32(ksw.page_write_plain(tp_, tv, tpid, trow)), want)
+    np.testing.assert_array_equal(
+        f32(ksw.page_write(tp_.clone(), tv, tpid, trow)), want)
+
+
+def test_book_and_slot_wrappers_refuse_what_they_do_not_take():
+    """The book kernel takes [2^bits] or [K, 2^bits] f32 books on NF4/NF3
+    layouts at group 128; other codebook tensors keep the logged plain
+    path. The slot-write checks run before any launch and name what they
+    refuse."""
+    import dataclasses
+    from koifish_tpu_torch.quant.cluster import quantize_kmeans, quantize_mini
+    w = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (256, 8)).astype(np.float32))
+    km_w, mini_w = quantize_kmeans(w), quantize_mini(w, bits=3)
+    assert km.takes(km_w) and km.takes(mini_w)
+    assert not km.takes(dataclasses.replace(km_w, codebook=torch.zeros(8)))
+    assert not km.takes(dataclasses.replace(mini_w,
+                                            codebook=torch.zeros((8, 8))))
+    assert not km.takes(dataclasses.replace(km_w, group=64))
+    assert not km.takes(dataclasses.replace(
+        quantize(w, QFormat.INT4), codebook=torch.zeros(16)))
+    buf = torch.zeros((2, 1, 8, 4), dtype=torch.int8)
+    val = torch.zeros((2, 1, 4), dtype=torch.int8)
+    with pytest.raises(ValueError, match="on the card"):
+        ksw._check("slot_write", [(buf, val)],
+                   (torch.zeros(2, dtype=torch.int32),), (2, 1))

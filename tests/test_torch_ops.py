@@ -206,7 +206,10 @@ def test_port_imports_no_jax():
     package, in a fresh interpreter and in their sources."""
     code = ("import sys, koifish_tpu_torch.serve, koifish_tpu_torch.io.convert,"
             " koifish_tpu_torch.quant, koifish_tpu_torch.ops.kernels._build,"
-            " koifish_tpu_torch.train, koifish_tpu_torch.ops.cross_entropy;"
+            " koifish_tpu_torch.train, koifish_tpu_torch.ops.cross_entropy,"
+            " koifish_tpu_torch.serve.batching, koifish_tpu_torch.serve.paged,"
+            " koifish_tpu_torch.serve.stacked, koifish_tpu_torch.quant.cluster,"
+            " koifish_tpu_torch.ops.kernels.slotwrite;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'koifish_tpu')]; print(bad); sys.exit(bool(bad))")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
