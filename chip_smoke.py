@@ -16,7 +16,10 @@ Phases, in order; any failed check exits non-zero before the last line:
              stated; kernel, plain, library and bound times. Serving: flash
              forward, dequant-fused GEMM/GEMV, quantized-KV decode attention.
              Training: flash backward (dK/dV and dQ kernels) and the fused
-             classifier CE (forward, dx, dw). Multi-request serving: the
+             classifier CE (forward, dx, dw). Int8 training, at GPT2-774M's
+             shapes: rowquant/colquant (bit for bit), the per-tile int8
+             dgrad and the int8 fused CE (and the bf16 one at E 1280).
+             Multi-request serving: the
              KV slot and page writes (bit for bit) and the learned-codebook
              GEMV/GEMM (k-means and MINI books, NF4 and NF3).
 4. serving — Qwen3-0.6B at full width (configs/qwen3_0.6b.json, random
@@ -55,11 +58,20 @@ Phases, in order; any failed check exits non-zero before the last line:
              fused_ce_fwd/_dx/_dw were launched. A torch.profiler window
              over one step of each model prints device time by kernel and
              the idle share.
+             Int8: a tiny GPT2 int8 step (tile dgrad, int8 fused CE) and a
+             tiny QAT step on the card against the CPU; then GPT2-774M from
+             configs/gpt2_774m.json at full width and depth (36 layers, E
+             1280, B=16 x 1024), its train card as shipped with warmup 10:
+             (a) int8 as shipped, 8 steps and a profiled step, (b)
+             int8_dgrad "tile", (c) int8_matmul off; fails unless the losses
+             are finite, (a)'s fall from within 0.5 of ln 50304, bench.py's
+             gate holds and each run's kernels launched.
 6. result  — one JSON line with every kernel's numbers (launches from its
              path's run: the serving run for the slice-1 kernels, the Qwen3
              train_loop for the training kernels, the batcher run for the
              slot write and book kernels, the paged run for the page
-             write), then the last line
+             write, GPT2-774M run (a) for the int8 fused CE and the
+             quantizers, run (b) for qdgrad), then the last line
              ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the repository around it; without either it
@@ -76,8 +88,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (dense): bf16 tensor cores and HBM3 bandwidth
+# H100 SXM published peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 
@@ -90,9 +103,11 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, int8_ops: float = 0.0):
+    """The larger of the bytes' and the operations' time (bf16 flops and
+    int8 operations each at their peak), and which one it is."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -555,6 +570,171 @@ def fused_ce_phase(torch, gen):
             out[name] = dict(ms=kms, plain_ms=pms, library_ms=lms,
                              bound_ms=bms, bound_by=by, max_abs_err=errs[key])
         del dlog
+    return out
+
+
+# GPT2-774M (configs/gpt2_774m.json) at B = 16 x T = 1024
+G774_M, G774_E, G774_F, G774_V = 16384, 1280, 5120, 50304
+
+
+def int8_phase(torch, gen):
+    """The int8 training kernels against their plain versions on the card
+    at GPT2-774M's shapes: quantize (bit for bit), qdgrad (the fc dgrad),
+    the int8 fused CE and the bf16 fused CE at E 1280; kernel, plain,
+    library and bound times."""
+    from koifish_tpu_torch.ops.kernels import fused_ce as kc
+    from koifish_tpu_torch.ops.kernels import qdgrad as kqd
+    from koifish_tpu_torch.ops.kernels import quantize as kq
+    say("[kernels] rowquant / colquant (koifish_tpu_torch/csrc/quantize.cu), "
+        "qdgrad_int8_tile (csrc/qdgrad.cu), fused_ce_*_int8 "
+        "(csrc/fused_ce_int8.cu) at GPT2-774M's shapes")
+    M, E, F, V = G774_M, G774_E, G774_F, G774_V
+    out = {}
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * s
+                ).to(torch.bfloat16)
+
+    # quantize: codes and scales bit for bit, every layout the path sends
+    x = rnd(M, E)
+    h = rnd(M, F)
+    w_fc = rnd(E, F, s=0.02)
+    wte = rnd(V, E, s=0.02)
+    cases = [("rowquant x", x, 1), ("rowquant fc out", h, 1),
+             ("colquant fc w", w_fc, 0), ("colquant proj w", w_fc.T.contiguous(), 0),
+             ("colquant tied head wte.T", wte.T, 0),
+             ("rowquant of a transposed view", w_fc.T, 1)]
+    for label, t, dim in cases:
+        for rounding in ("jit", "pallas"):
+            q, sc = kq.quantize(t, dim, rounding)
+            pq_, psc = kq.quantize_plain(t, dim, rounding)
+            torch.cuda.synchronize()
+            err = float((q != pq_).sum()) + float((sc != psc).sum())
+            check(f"quantize {label} ({rounding}) differing codes+scales",
+                  err, 0.0)
+    for name, t, dim in (("rowquant", x, 1), ("colquant", wte.T, 0)):
+        kms = time_ms(torch, lambda: kq.quantize(t, dim, "jit"))
+        pms = time_ms(torch, lambda: kq.quantize_plain(t, dim, "jit"),
+                      iters=5)
+        n = t.numel()
+        lines = t.shape[0] if dim == 1 else t.shape[1]
+        bms, by = bound_ms(2 * n + n + 4 * lines, 0.0)
+        say(f"  time {name} {tuple(t.shape)}: kernel_ms={kms:.4f} "
+            f"plain_ms={pms:.4f} library_ms=null (no single PyTorch call "
+            f"quantizes) bound_ms={bms:.5f} ({by})")
+        out[name] = dict(ms=kms, plain_ms=pms, library_ms=None, bound_ms=bms,
+                         bound_by=by, max_abs_err=0.0)
+    fc_ms = time_ms(torch, lambda: kq.quantize(w_fc, 0, "jit"))
+    say(f"  time colquant fc w {tuple(w_fc.shape)} (72 a step): "
+        f"kernel_ms={fc_ms:.4f}")
+    del h
+
+    # qdgrad: the fc dgrad, dy [M, F], wq [E, F]
+    dy = rnd(M, F)
+    wq, sw = kq.quantize(w_fc, 0, "jit")
+    dx = kqd.dgrad_int8_tile(dy, wq, sw.reshape(-1))
+    pdx = kqd.dgrad_int8_tile_plain(dy, wq, sw)
+    torch.cuda.synchronize()
+    err = max_err(dx, pdx)
+    check("qdgrad_int8_tile fc M16384 N5120 K1280", err,
+          1e-2 * float(pdx.float().abs().max()) + 1e-3)
+    wd = (wq.float() * sw).to(torch.bfloat16)
+    sw1 = sw.reshape(-1).contiguous()
+    kms = time_ms(torch, lambda: kqd.dgrad_int8_tile(dy, wq, sw1), iters=10)
+    pms = event_ms(torch, lambda: kqd.dgrad_int8_tile_plain(dy, wq, sw),
+                   iters=2, warm=1)
+    lms = time_ms(torch, lambda: torch.matmul(dy, wd.T), iters=10)
+    bms, by = bound_ms(2 * M * F + E * F + 4 * F + 2 * M * E, 0.0,
+                       2.0 * M * F * E)
+    say(f"  time qdgrad_int8_tile fc: kernel_ms={kms:.4f} plain_ms={pms:.4f}"
+        f" library_ms(bf16 dy·wdᵀ)={lms:.4f} bound_ms={bms:.5f} ({by})")
+    out["qdgrad_int8_tile"] = dict(ms=kms, plain_ms=pms, library_ms=lms,
+                                   bound_ms=bms, bound_by=by,
+                                   max_abs_err=err)
+    del dy, dx, pdx, wd
+
+    # fused CE at E 1280, tied head: int8 and bf16 flavours
+    xs = rnd(M, E)
+    w = wte.T
+    tgt = torch.randint(0, V, (M,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    wtok = torch.full((M,), 1.0 / M, device="cuda")
+    xq, sx = kq.rowquant(xs, "jit")
+    wq, sw = kq.colquant(w, "jit")
+    sx, sw = sx.reshape(-1).contiguous(), sw.reshape(-1).contiguous()
+    lse, gold = kc.fused_ce_fwd_int8(xq, sx, wq, sw, tgt)
+    plse, pgold = kc.fused_ce_fwd_int8_plain(xq, sx, wq, sw, tgt)
+    dx = kc.fused_ce_dx_int8(xq, sx, wq, sw, tgt, plse, wtok)
+    dw = kc.fused_ce_dw_int8(xs, xq, sx, wq, sw, tgt, plse, wtok)
+    pdx = kc.fused_ce_dx_int8_plain(xq, sx, wq, sw, tgt, plse, wtok)
+    pdw = kc.fused_ce_dw_int8_plain(xs, xq, sx, wq, sw, tgt, plse, wtok)
+    torch.cuda.synchronize()
+    # lse / gold f32 of O(10): the int32 logits are exact, only the order
+    # of the exp sums differs; dx / dw bf16: 1 % of the largest entry
+    errs8 = dict(fwd=max(max_err(lse, plse), max_err(gold, pgold)),
+                 dx=max_err(dx, pdx), dw=max_err(dw, pdw))
+    check("fused_ce_fwd_int8 E1280 lse/gold (1e-5 relative)", errs8["fwd"],
+          1e-5 * float(plse.abs().max()))
+    check("fused_ce_dx_int8 E1280", errs8["dx"],
+          1e-2 * float(pdx.float().abs().max()) + 1e-8)
+    check("fused_ce_dw_int8 E1280", errs8["dw"],
+          1e-2 * float(pdw.float().abs().max()) + 1e-8)
+    del dx, dw, pdx, pdw
+    blse, bgold = kc.fused_ce_fwd(xs, w, tgt)
+    pblse, pbgold = kc.fused_ce_fwd_plain(xs, w, tgt)
+    bdx = kc.fused_ce_dx(xs, w, tgt, pblse, wtok)
+    bdw = kc.fused_ce_dw(xs, w, tgt, pblse, wtok)
+    pbdx = kc.fused_ce_dx_plain(xs, w, tgt, pblse, wtok)
+    pbdw = kc.fused_ce_dw_plain(xs, w, tgt, pblse, wtok)
+    torch.cuda.synchronize()
+    errs16 = dict(fwd=max(max_err(blse, pblse), max_err(bgold, pbgold)),
+                  dx=max_err(bdx, pbdx), dw=max_err(bdw, pbdw))
+    check("fused_ce_fwd E1280 lse/gold (1e-5 relative)", errs16["fwd"],
+          1e-5 * float(pblse.abs().max()))
+    check("fused_ce_dx E1280", errs16["dx"],
+          1e-2 * float(pbdx.float().abs().max()) + 1e-8)
+    check("fused_ce_dw E1280", errs16["dw"],
+          1e-2 * float(pbdw.float().abs().max()) + 1e-8)
+    del bdx, bdw, pbdx, pbdw
+    wq_c = wq.contiguous()                     # [E, V] codes, row-major
+    lib8 = lambda: torch._int_mm(xq, wq_c)
+    flops = 2.0 * M * E * V
+    cols = 4 * M * 3
+    rows8 = (
+        ("fused_ce_fwd_int8", lambda: kc.fused_ce_fwd_int8(xq, sx, wq, sw, tgt),
+         lambda: kc.fused_ce_fwd_int8_plain(xq, sx, wq, sw, tgt),
+         M * E + E * V + 4 * V + cols, 0.0, flops),
+        ("fused_ce_dx_int8", lambda: kc.fused_ce_dx_int8(
+            xq, sx, wq, sw, tgt, plse, wtok),
+         lambda: kc.fused_ce_dx_int8_plain(xq, sx, wq, sw, tgt, plse, wtok),
+         M * E + E * V + 4 * V + cols + 2 * M * E, flops, flops),
+        ("fused_ce_dw_int8", lambda: kc.fused_ce_dw_int8(
+            xs, xq, sx, wq, sw, tgt, plse, wtok),
+         lambda: kc.fused_ce_dw_int8_plain(xs, xq, sx, wq, sw, tgt, plse,
+                                           wtok),
+         3 * M * E + E * V + 4 * V + cols + 2 * E * V, flops, flops),
+    )
+    for name, kern, plain, nbytes, fl, i8 in rows8:
+        kms = time_ms(torch, kern, iters=3, warm=1)
+        pms = event_ms(torch, plain, iters=1, warm=1)
+        lms = time_ms(torch, lib8, iters=3, warm=1)
+        bms, by = bound_ms(nbytes, fl, i8)
+        say(f"  time {name} E1280: kernel_ms={kms:.4f} plain_ms={pms:.4f} "
+            f"library_ms(_int_mm logits)={lms:.4f} bound_ms={bms:.5f} ({by})")
+        out[name] = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                         bound_by=by, max_abs_err=errs8[name.split("_")[2]])
+    for name, kern in (
+            ("fused_ce_fwd", lambda: kc.fused_ce_fwd(xs, w, tgt)),
+            ("fused_ce_dx", lambda: kc.fused_ce_dx(xs, w, tgt, pblse, wtok)),
+            ("fused_ce_dw", lambda: kc.fused_ce_dw(xs, w, tgt, pblse, wtok))):
+        kms = time_ms(torch, kern, iters=3, warm=1)
+        fl = flops if name.endswith("fwd") else 2 * flops
+        bms, by = bound_ms(2 * M * E + 2 * E * V + cols, fl)
+        say(f"  time {name} (bf16) E1280 M{M} V{V}: kernel_ms={kms:.4f} "
+            f"bound_ms={bms:.5f} ({by}) max_abs_err="
+            f"{errs16[name.split('_')[2]]:.3e}")
+    del xs, wte, w, xq, wq, wq_c
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1200,24 +1380,17 @@ def paged_phase(torch, card, qp):
 # phase 5: training
 # ---------------------------------------------------------------------------
 
-def train_reference_check(torch):
-    """A tiny QWEN3 card, one ``make_train_step`` on the card (flash and
-    fused-CE kernels) against the same step on the CPU (plain versions),
-    SR off: the loss, every gradient's norm and the updated parameters."""
-    from koifish_tpu_torch.config import ModelCard, TrainCard
+def _step_card_vs_cpu(torch, label, card, tcard, vocab, tol_loss, tol_norm,
+                      qcard=None, seed=7):
+    """One ``make_train_step`` of ``card`` on the card (kernels) against the
+    same step on the CPU (plain versions), SR off: the loss, every
+    gradient's norm and the updated parameters."""
     from koifish_tpu_torch.models import init_params
     from koifish_tpu_torch.train import init_train_state, make_train_step
     from koifish_tpu_torch.utils.tree import leaves
-    card = ModelCard.from_arch("QWEN3", vocab_size=512, n_layer=2, n_embd=128,
-                               n_head=2, n_kv_head=1, head_dim=64, n_ffn=256,
-                               n_ctx=64, max_pos=128)
-    lr = 1e-3
-    tcard = TrainCard(batch=4, lr=lr, warmup=0, scheduler="static",
-                      fused_ce=True, stochastic_round=False,
-                      check_tensor_norm=True)
-    base = init_params(card, device="cpu", seed=7)
-    tokens = torch.randint(0, 512, (1, 4, 65),
-                           generator=torch.Generator().manual_seed(8))
+    base = init_params(card, device="cpu", seed=seed)
+    tokens = torch.randint(0, vocab, (1, 4, 65),
+                           generator=torch.Generator().manual_seed(seed + 1))
     res = {}
     for dev in ("cpu", "cuda"):
         # a fresh copy per device: the step updates its params in place
@@ -1226,22 +1399,21 @@ def train_reference_check(torch):
                       else v.to(dev, copy=True))
                   for k, v in base.items()}
         state = init_train_state(card, tcard, params=params)
-        step = make_train_step(card, tcard, total_steps=10)
+        step = make_train_step(card, tcard, total_steps=10, qcard=qcard)
         state, metrics = step(state, {"tokens": tokens.to(dev)})
         res[dev] = (float(metrics["loss"]), metrics["leaf_norms"].cpu(),
                     [p.detach().float().cpu()
                      for p in leaves(state.params)])
-    # f32 loss of O(6): bf16 activations rounded at other points (cuBLAS
-    # vs the CPU, kernel sum orders)
-    check("tiny QWEN3 train step loss, card vs CPU",
-          abs(res["cpu"][0] - res["cuda"][0]), 1e-2)
-    # per-leaf grad norms: 2 % relative (bf16 grads, other sum orders)
+    check(f"{label} loss, card vs CPU",
+          abs(res["cpu"][0] - res["cuda"][0]), tol_loss)
     n_cpu, n_gpu = res["cpu"][1], res["cuda"][1]
-    check("tiny QWEN3 grad norms, card vs CPU (relative)",
-          float(((n_gpu - n_cpu).abs() / n_cpu.clamp_min(1e-6)).max()), 2e-2)
+    check(f"{label} grad norms, card vs CPU (relative)",
+          float(((n_gpu - n_cpu).abs() / n_cpu.clamp_min(1e-6)).max()),
+          tol_norm)
     # updated params: AdamW's first step moves each weight by about lr times
     # the sign of its gradient, so a gradient entry near 0 may move the
     # weight either way on the two devices (2·lr), plus one bf16 ulp
+    lr = tcard.lr
     worst, moved = 0.0, 0
     for a, b in zip(res["cpu"][2], res["cuda"][2]):
         d = (a - b).abs()
@@ -1249,8 +1421,25 @@ def train_reference_check(torch):
         moved += int((d > 0).sum())
     total = sum(a.numel() for a in res["cpu"][2])
     say(f"  updated params differ in {moved} of {total} entries")
-    check("tiny QWEN3 updated params, card vs CPU (excess over 2·lr + "
+    check(f"{label} updated params, card vs CPU (excess over 2·lr + "
           "1 ulp)", max(worst, 0.0), 0.0)
+
+
+def train_reference_check(torch):
+    """A tiny QWEN3 card, one ``make_train_step`` on the card (flash and
+    fused-CE kernels) against the same step on the CPU (plain versions),
+    SR off: the loss, every gradient's norm and the updated parameters."""
+    from koifish_tpu_torch.config import ModelCard, TrainCard
+    card = ModelCard.from_arch("QWEN3", vocab_size=512, n_layer=2, n_embd=128,
+                               n_head=2, n_kv_head=1, head_dim=64, n_ffn=256,
+                               n_ctx=64, max_pos=128)
+    tcard = TrainCard(batch=4, lr=1e-3, warmup=0, scheduler="static",
+                      fused_ce=True, stochastic_round=False,
+                      check_tensor_norm=True)
+    # f32 loss of O(6): bf16 activations rounded at other points (cuBLAS
+    # vs the CPU, kernel sum orders); per-leaf grad norms 2 % relative
+    _step_card_vs_cpu(torch, "tiny QWEN3 train step", card, tcard, 512,
+                      1e-2, 2e-2)
     # the SR hash runs on wrapping int32 arithmetic: the card must give
     # the CPU's bits (which the CPU tests hold to the JAX package's)
     from koifish_tpu_torch.train.optimizer import stochastic_round
@@ -1262,9 +1451,37 @@ def train_reference_check(torch):
           0.0)
 
 
-def train_model(torch, label, config, B, steps=8, profile=False):
+def reference_check_int8(torch):
+    """A tiny GPT2 int8 step (every weight int8, the fc dgrad through the
+    tile kernel, the int8 fused CE) and a tiny QAT step (INT4 g128 rules),
+    card against CPU. Tolerances: the bf16 step's, widened as far as int8
+    codes flipping at rounding edges require (a bf16 activation an ulp
+    apart moves a code by one step of 1/127 of its row's range): loss 2e-2,
+    grad norms 5 %; the updated params keep the 2·lr + 1 ulp rule."""
+    from koifish_tpu_torch.config import ModelCard, QuantCard, TrainCard
+    card = ModelCard.from_arch("GPT2", vocab_size=2048, n_layer=2, n_embd=128,
+                               n_head=2, n_kv_head=2, head_dim=64, n_ffn=1024,
+                               n_ctx=64, max_pos=128)
+    tcard = TrainCard(batch=4, lr=1e-3, warmup=0, scheduler="static",
+                      fused_ce=True, stochastic_round=False,
+                      check_tensor_norm=True, int8_matmul=True,
+                      int8_min_kn=0, int8_dgrad="tile")
+    _step_card_vs_cpu(torch, "tiny GPT2 int8 train step", card, tcard, 2048,
+                      2e-2, 5e-2)
+    qcard = QuantCard.from_json({"self_attn": {"bits": 4},
+                                 "mlp": {"bits": 4}, "group_size": 128})
+    tcard = TrainCard(batch=4, lr=1e-3, warmup=0, scheduler="static",
+                      fused_ce=True, stochastic_round=False,
+                      check_tensor_norm=True)
+    _step_card_vs_cpu(torch, "tiny GPT2 QAT train step", card, tcard, 2048,
+                      2e-2, 5e-2, qcard=qcard)
+
+
+def train_model(torch, label, config, B, steps=8, profile=False, tcard=None):
     """``train_loop`` for ``steps`` steps of one fixed random batch
-    [1, B, 1025] at ``bench.py``'s settings; returns the kernel launches."""
+    [1, B, 1025] at ``bench.py``'s settings (or ``tcard``); with
+    ``profile`` it also times the optimizer and profiles a step. Returns
+    the losses and the kernel launches."""
     from koifish_tpu_torch.config import CLIParams, TrainCard
     from koifish_tpu_torch.train import (init_train_state, make_train_step,
                                          train_loop)
@@ -1275,8 +1492,9 @@ def train_model(torch, label, config, B, steps=8, profile=False):
     say(f"[train] {label}: L={card.n_layer} E={card.n_embd} Hq={card.n_head} "
         f"Hkv={card.n_kv_head} D={card.head_dim} F={card.n_ffn} "
         f"V={card.vocab_size} tie={card.tie_embeddings}; B={B} T={T}")
-    tcard = TrainCard(batch=B, lr=6e-4, warmup=10, optimizer="adamw",
-                      remat=False, seed=p.seed, dump_every=1)
+    if tcard is None:
+        tcard = TrainCard(batch=B, lr=6e-4, warmup=10, optimizer="adamw",
+                          remat=False, seed=p.seed, dump_every=1)
     t0 = time.perf_counter()
     state = init_train_state(card, tcard)
     gen = torch.Generator(device="cuda")
@@ -1315,14 +1533,15 @@ def train_model(torch, label, config, B, steps=8, profile=False):
     # the optimizer alone: one AdamW + SR update of every leaf
     from koifish_tpu_torch.train.optimizer import apply_updates
     from koifish_tpu_torch.utils.tree import leaves, tree_map
-    grads = tree_map(lambda p: torch.full_like(p, 1e-3), state.params)
-    seeds = list(range(len(leaves(state.params))))
-    opt_ms = event_ms(torch, lambda: apply_updates(
-        state.params, grads, state.opt, optimizer="adamw", lr=1e-6,
-        sr_seeds=seeds), iters=3, warm=1)
-    say(f"  optimizer: one apply_updates (AdamW + SR, {len(seeds)} leaves) "
-        f"{opt_ms:.2f} ms (CUDA events around eager calls)")
-    del grads
+    if profile:
+        grads = tree_map(lambda p: torch.full_like(p, 1e-3), state.params)
+        seeds = list(range(len(leaves(state.params))))
+        opt_ms = event_ms(torch, lambda: apply_updates(
+            state.params, grads, state.opt, optimizer="adamw", lr=1e-6,
+            sr_seeds=seeds), iters=3, warm=1)
+        say(f"  optimizer: one apply_updates (AdamW + SR, {len(seeds)} "
+            f"leaves) {opt_ms:.2f} ms (CUDA events around eager calls)")
+        del grads
     if profile:
         step = make_train_step(card, tcard, total_steps=1000)
 
@@ -1354,6 +1573,59 @@ def train_phase(torch):
         if g_counts.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched by the GPT2 train_loop")
     return counts
+
+
+def train_774m_phase(torch):
+    """GPT2-774M from configs/gpt2_774m.json at full width and depth, its
+    train card as shipped (int8 matmuls >= 4M weights, int8 fused CE, bf16
+    moments, no remat, B 16) with warmup 10 as ``bench.py`` runs it: (a) as
+    shipped, 8 steps and a profiled step; (b) int8_dgrad "tile", 4 steps;
+    (c) int8_matmul off (the bf16 fused CE at E 1280), 4 steps. Fails
+    unless the losses are finite, (a)'s fall from within 0.5 of ln 50304,
+    ``bench.py``'s gate holds (loss < 11.5, no climb above the third step's
+    + 0.05) and each run's kernels launched. Returns (a)'s and (b)'s
+    launches."""
+    import dataclasses
+    import math
+    from koifish_tpu_torch.config import CLIParams
+    p = CLIParams.load(os.path.join(ROOT, "configs", "gpt2_774m.json"))
+    base = dataclasses.replace(p.train, warmup=10, dump_every=1, seed=p.seed)
+    say(f"[train] GPT2-774M card from configs/gpt2_774m.json: "
+        f"int8_matmul={base.int8_matmul} int8_min_kn={base.int8_min_kn} "
+        f"int8_dgrad={base.int8_dgrad} fused_ce={base.fused_ce} "
+        f"moment_dtype={base.moment_dtype} remat={base.remat} "
+        f"batch={base.batch} lr={base.lr}")
+    runs = (("GPT2-774M int8 as shipped", {}, 8, True,
+             ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "fused_ce_fwd_int8",
+              "fused_ce_dx_int8", "fused_ce_dw_int8", "rowquant",
+              "colquant")),
+            ("GPT2-774M int8_dgrad tile", {"int8_dgrad": "tile"}, 4, False,
+             ("qdgrad_int8_tile", "fused_ce_fwd_int8")),
+            ("GPT2-774M bf16 (int8_matmul off)", {"int8_matmul": False}, 4,
+             False, ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw")))
+    out = []
+    for label, over, steps, prof, need in runs:
+        tcard = dataclasses.replace(base, **over)
+        losses, counts = train_model(torch, label, "gpt2_774m.json",
+                                     tcard.batch, steps=steps, profile=prof,
+                                     tcard=tcard)
+        if not all(0.0 < x < 11.5 for x in losses):
+            fail(f"{label}: a loss outside bench.py's gate (0, 11.5): "
+                 f"{losses}")
+        if losses[-1] > losses[2] + 0.05:
+            fail(f"{label}: the loss climbed {losses[2]} -> {losses[-1]}")
+        for name in need:
+            if counts.get(name, 0) <= 0:
+                fail(f"kernel {name} was not launched by the {label} run")
+        if prof:   # run (a)
+            if abs(losses[0] - math.log(50304)) > 0.5:
+                fail(f"first GPT2-774M loss {losses[0]} is not within 0.5 "
+                     f"of ln 50304 = {math.log(50304):.4f}")
+            if not losses[-1] < losses[0]:
+                fail(f"{label}: the loss did not fall ({losses[0]} -> "
+                     f"{losses[-1]})")
+        out.append(counts)
+    return out[0], out[1]
 
 
 def main() -> None:
@@ -1396,6 +1668,7 @@ def main() -> None:
     dec = decode_attn_phase(torch, gen)
     bwd = flash_bwd_phase(torch, gen)
     fce = fused_ce_phase(torch, gen)
+    i8 = int8_phase(torch, gen)
     sw = slotwrite_phase(torch, gen)
     book = book_phase(torch, gen)
     serve_counts = slice_phase(torch)
@@ -1405,6 +1678,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     reference_check_slice3(torch)
     train_counts = train_phase(torch)
+    reference_check_int8(torch)
+    g774_counts, tile_counts = train_774m_phase(torch)
 
     src = "koifish_tpu_torch/csrc/"
     rows = [  # (name, source, TPU kernel, numbers, launches on its path)
@@ -1441,6 +1716,21 @@ def main() -> None:
          book["qmv_book"], batch_counts),
         ("qmm_book", "qmatmul.cu", "koifish_tpu/ops/pallas/matmul.py:451",
          book["qmm_book"], batch_counts),
+        ("fused_ce_fwd_int8", "fused_ce_int8.cu",
+         "koifish_tpu/ops/pallas/fused_ce.py:126", i8["fused_ce_fwd_int8"],
+         g774_counts),
+        ("fused_ce_dx_int8", "fused_ce_int8.cu",
+         "koifish_tpu/ops/pallas/fused_ce.py:217", i8["fused_ce_dx_int8"],
+         g774_counts),
+        ("fused_ce_dw_int8", "fused_ce_int8.cu",
+         "koifish_tpu/ops/pallas/fused_ce.py:302", i8["fused_ce_dw_int8"],
+         g774_counts),
+        ("qdgrad_int8_tile", "qdgrad.cu", "koifish_tpu/ops/pallas/qdgrad.py:61",
+         i8["qdgrad_int8_tile"], tile_counts),
+        ("rowquant", "quantize.cu", "koifish_tpu/ops/pallas/quantize.py:53",
+         i8["rowquant"], g774_counts),
+        ("colquant", "quantize.cu", "koifish_tpu/ops/pallas/quantize.py:101",
+         i8["colquant"], g774_counts),
     ]
     kernels = [dict(name=n, route="cuda", source=src + f, replaces=r,
                     launches=c.get(n, 0), max_abs_err=m["max_abs_err"],

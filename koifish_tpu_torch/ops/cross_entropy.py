@@ -16,7 +16,9 @@ from typing import Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from koifish_tpu_torch.ops.int8_train import int8_matmul
 from koifish_tpu_torch.ops.kernels import fused_ce as kfce
+from koifish_tpu_torch.ops.tracectx import current_int8
 
 _NEG_INF = -1e30
 _ROW_ELEMS = 1 << 28     # f32 elements per row chunk of the [.., V] math
@@ -96,11 +98,16 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     return _CE.apply(logits, targets, mask)
 
 
-def _chunk_step(x2, w_c, tgt, m_run, s_run, gold, lo: int, start: int):
+def _chunk_step(x2, w_c, tgt, m_run, s_run, gold, lo: int, start: int,
+                int8: bool = False):
     """One vocab chunk of the scan: columns [start, start + chunk) of the
-    head, of which those below ``lo`` were counted by the previous chunk."""
+    head, of which those below ``lo`` were counted by the previous chunk.
+    ``int8``: the chunk's logits through ``int8_matmul`` (bf16 grads)."""
     chunk = w_c.shape[1]
-    logits = x2.to(torch.float32) @ w_c.to(torch.float32)
+    if int8:
+        logits = int8_matmul(x2, w_c, False).to(torch.float32)
+    else:
+        logits = x2.to(torch.float32) @ w_c.to(torch.float32)
     vpos = start + torch.arange(chunk, device=x2.device)
     logits = torch.where(vpos[None, :] >= lo, logits, _NEG_INF)
     m_new = torch.maximum(m_run, logits.amax(-1))
@@ -124,17 +131,20 @@ def fused_ce_loss(hidden: torch.Tensor, head_w: torch.Tensor,
     them; other shapes (logged through ``kernel_log`` as a fallback), or
     ``use_pallas=False``, run the vocab-chunk scan, whose chunks are
     checkpointed so no chunk's logits are kept for the backward.
-    ``use_int8=True`` (int8 logits dots) is not ported yet."""
-    if use_int8:
-        raise NotImplementedError(
-            "fused_ce_loss(use_int8=True): the int8 fused-CE flavour is not "
-            "ported yet (slice 4, int8 training)")
+
+    ``use_int8``: the chunk scan's dots run as ``int8_matmul`` (None: when
+    the ambient ``Int8Policy`` passes the whole [E, V] head). The kernel
+    route ignores it and follows the policy, as the JAX package's Pallas
+    route does (ROADMAP "Known quirks")."""
     if use_pallas is not False:
         out = kfce.fused_ce_kernel_or_none(hidden, head_w, targets, mask)
         if out is not None:
             return out
     B, T, E = hidden.shape
     V = head_w.shape[-1]
+    if use_int8 is None:
+        pol = current_int8()
+        use_int8 = pol is not None and pol.applies((E, V))
     chunk = min(chunk, V)
     n_chunks = -(-V // chunk)
     w = head_w.to(torch.bfloat16)
@@ -149,7 +159,7 @@ def fused_ce_loss(hidden: torch.Tensor, head_w: torch.Tensor,
         start = min(ci * chunk, max(V - chunk, 0))
         m_run, s_run, gold = checkpoint(
             _chunk_step, x2, w[:, start:start + chunk], tgt, m_run, s_run,
-            gold, ci * chunk, start, use_reentrant=False)
+            gold, ci * chunk, start, bool(use_int8), use_reentrant=False)
     lse = m_run + torch.log(s_run.clamp_min(1e-30))
     per_tok = (lse - gold).reshape(B, T)
     if mask is None:

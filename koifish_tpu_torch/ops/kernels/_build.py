@@ -35,6 +35,9 @@ SOURCES = {
     "flash_bwd": "flash_bwd.cu",
     "fused_ce": "fused_ce.cu",
     "slotwrite": "slotwrite.cu",
+    "fused_ce_int8": "fused_ce_int8.cu",
+    "quantize": "quantize.cu",
+    "qdgrad": "qdgrad.cu",
 }
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

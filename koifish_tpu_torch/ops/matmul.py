@@ -7,8 +7,10 @@ for m <= 32, the GEMM shape above. The JAX package's TPU-only gates (K %
 1024, the 32 < m < 64 dead zone) do not carry over, and codebook tensors
 take the book kernel where the JAX model path dequantizes them. Other
 QTensors (zero points, another group size) take the plain
-dequantize-then-matmul path (logged through ``kernel_log``), and unquantized
-products stay ``torch.matmul``.
+dequantize-then-matmul path (logged through ``kernel_log``). Unquantized
+products stay ``torch.matmul``, except under an int8 training policy
+(``ops/tracectx.py``): weights that pass its size gate take
+``ops/int8_train.int8_matmul``.
 """
 from __future__ import annotations
 
@@ -17,7 +19,9 @@ from typing import Optional, Union
 
 import torch
 
+from koifish_tpu_torch.ops.int8_train import int8_matmul
 from koifish_tpu_torch.ops.kernels import matmul as kmm
+from koifish_tpu_torch.ops.tracectx import current_int8
 from koifish_tpu_torch.quant.qtensor import QTensor
 from koifish_tpu_torch.utils import kernel_log
 
@@ -36,6 +40,9 @@ def qmatmul(x: torch.Tensor, w: Weight, out_dtype=None) -> torch.Tensor:
     """``x @ w`` with ``w`` possibly quantized. x: [..., in], w: [in, out]."""
     out_dtype = out_dtype or x.dtype
     if not isinstance(w, QTensor):
+        pol = current_int8()
+        if pol is not None and pol.applies(w.shape):
+            return int8_matmul(x, w, pol.wgrad, pol.dgrad).to(out_dtype)
         return _dense(x, w, out_dtype)
     if w.row_scale is not None:
         # Sinkhorn row factors fold into the activations:

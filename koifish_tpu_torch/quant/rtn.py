@@ -120,3 +120,12 @@ def _quantize(w, fmt, group, symmetric, scale_dtype, compiled):
         shape=orig_shape if len(orig_shape) == 2 else (w2.shape[0], w2.shape[1]),
         group=group,
     )
+
+
+def fake_quant(w: torch.Tensor, fmt: QFormat, group: int = DEFAULT_GROUP
+               ) -> torch.Tensor:
+    """quantize -> dequantize in the weight's dtype (the QAT forward; the
+    JAX package's ``fake_quant``), in ``quantize_jit``'s rounding: the QAT
+    forward runs inside the jitted JAX train step."""
+    return quantize_jit(w, fmt, group=group).dequantize(w.dtype).reshape(
+        w.shape)

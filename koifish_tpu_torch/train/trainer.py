@@ -21,6 +21,7 @@ from koifish_tpu_torch.config import ModelCard, TrainCard
 from koifish_tpu_torch.models.transformer import model_forward
 from koifish_tpu_torch.ops.cross_entropy import (cross_entropy_loss,
                                                  fused_ce_loss)
+from koifish_tpu_torch.ops.tracectx import Int8Policy, int8_scope
 from koifish_tpu_torch.quant.qtensor import QTensor
 from koifish_tpu_torch.train.optimizer import (OptState, _is_float,
                                                apply_updates, init_opt_state)
@@ -40,10 +41,15 @@ def compute_loss(card: ModelCard, params, tokens, loss_mask=None,
                  remat=False, qcard=None, fused_ce=None):
     """Next-token CE over [B, T+1] tokens (targets = tokens shifted):
     (mean_loss, per_token [B, T]). ``fused_ce``: None = auto (the logits-
-    free fused classifier for vocab >= 64k), True/False force it."""
-    if qcard is not None and qcard.rules and qcard.train_target != "gama":
-        raise NotImplementedError(
-            "QAT (fake-quant training) is not ported yet (slice 4)")
+    free fused classifier for vocab >= 64k), True/False force it.
+    ``qcard`` with rules: fake-quant QAT (straight-through) in the forward;
+    scale-only ("gama") training is not ported yet."""
+    if qcard is not None and qcard.rules:
+        if qcard.train_target == "gama":
+            raise NotImplementedError(
+                "gama (scale-only) training is not ported yet")
+        from koifish_tpu_torch.quant.qat import apply_qat
+        params = apply_qat(params, qcard, card)
     if card.arch in ("SALMON", "GUPPY"):
         raise NotImplementedError(
             f"{card.arch} training is not ported yet (slice 5, model zoo)")
@@ -76,10 +82,15 @@ def make_train_step(card: ModelCard, tcard: TrainCard, total_steps: int,
     trainable: a tree of bools of the params' structure; frozen leaves get
                empty-stub grads and are left untouched by the optimizer.
     Metrics: ``loss``, ``lr``, ``grad_norm``, ``spikes`` and, with
-    ``check_tensor_norm``, ``leaf_norms`` (per-leaf grad norms)."""
-    if tcard.int8_matmul:
-        raise NotImplementedError(
-            "int8_matmul training is not ported yet (slice 4)")
+    ``check_tensor_norm``, ``leaf_norms`` (per-leaf grad norms).
+
+    ``tcard.int8_matmul``: an ``Int8Policy`` (int8_wgrad, int8_dgrad,
+    int8_min_kn) is in force for the whole step, forward and backward;
+    what the backward recomputes captures it at the forward
+    (``ops/tracectx.py``)."""
+    int8_pol = (Int8Policy(wgrad=tcard.int8_wgrad, dgrad=tcard.int8_dgrad,
+                           min_weight_elems=tcard.int8_min_kn)
+                if tcard.int8_matmul else None)
     if sp is not None:
         raise NotImplementedError(
             "sequence-parallel training is not ported yet (slice 6)")
@@ -90,6 +101,10 @@ def make_train_step(card: ModelCard, tcard: TrainCard, total_steps: int,
               else None)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        with int8_scope(int8_pol):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: Dict[str, torch.Tensor]):
         tokens = batch["tokens"]
         loss_mask = batch.get("loss_mask")
         accum = tokens.shape[0]

@@ -4,6 +4,7 @@ The port's losses, schedules, optimizer, remat and train loop are held
 against the JAX package's on the same inputs, made with numpy from fixed
 seeds; the JAX side runs its XLA paths on the CPU. Each tolerance is stated
 with the value measured beside it (on this CPU)."""
+import dataclasses
 import math
 
 import jax
@@ -20,7 +21,7 @@ from koifish_tpu.train import schedule as jsched
 from koifish_tpu.train import trainer as jtrainer
 from koifish_tpu.utils import mfu as jmfu
 
-from koifish_tpu_torch.config import ModelCard, TrainCard
+from koifish_tpu_torch.config import ModelCard, QuantCard, TrainCard
 from koifish_tpu_torch.io.convert import (opt_state_from_numpy,
                                           params_from_numpy)
 from koifish_tpu_torch.models import init_params
@@ -281,16 +282,21 @@ def test_remat_gives_the_same_grads(remat):
 
 
 def test_compute_loss_raises_for_unported_paths():
+    """What the port still refuses: sequence-parallel steps (slice 6),
+    SALMON / GUPPY training (slice 5) and scale-only (gama) QAT."""
     card = ModelCard.from_arch("QWEN3", n_kv_head=1, **TINY)
     params = init_params(card, device="cpu")
-    h = torch.zeros((1, 4, 128), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tce.fused_ce_loss(h, params["wte"].T,
-                          torch.zeros((1, 4), dtype=torch.long), use_int8=True)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        ttrainer.make_train_step(card, TrainCard(int8_matmul=True), 10)
+    tok = torch.zeros((1, 5), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="slice 6"):
         ttrainer.make_train_step(card, TrainCard(), 10, sp=object())
+    for arch in ("SALMON", "GUPPY"):
+        zoo = dataclasses.replace(card, arch=arch)
+        with pytest.raises(NotImplementedError, match="slice 5"):
+            ttrainer.compute_loss(zoo, params, tok)
+    gama = QuantCard.from_json({"self_attn": {"bits": 4},
+                                "train_target": "gama"})
+    with pytest.raises(NotImplementedError, match="gama"):
+        ttrainer.compute_loss(card, params, tok, qcard=gama)
 
 
 # ---------------------------------------------------------------------------
