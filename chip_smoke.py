@@ -21,7 +21,9 @@ Phases, in order; any failed check exits non-zero before the last line:
              dgrad and the int8 fused CE (and the bf16 one at E 1280).
              Multi-request serving: the
              KV slot and page writes (bit for bit) and the learned-codebook
-             GEMV/GEMM (k-means and MINI books, NF4 and NF3).
+             GEMV/GEMM (k-means and MINI books, NF4 and NF3). Chat: the int8
+             GEMV with in-kernel activation quantization (row 5) at Qwen3's
+             projections, m = 1, 5 and 32, beside the row-4 GEMV.
 4. serving — Qwen3-0.6B at full width (configs/qwen3_0.6b.json, random
              weights from a seed), INT4 RTN g128 weights, a layered INT8 KV
              cache (B=32, S=1024): ``generate`` on 32 prompts of 128 tokens
@@ -44,6 +46,18 @@ Phases, in order; any failed check exits non-zero before the last line:
              128-token prompts, 64 new): tok/s, page-pool growth, page-write
              launches. A tiny k-means model's batcher and paged runs on the
              card are held against the CPU.
+   chat    — a Qwen3-0.6B HF folder (the config's dims, seeded bf16 weights,
+             a byte-level tokenizer) written under build/ and served
+             through ``koifish_tpu_torch.cli.bubble.main`` with --bits 8
+             --kv-bits 8 and the "mxu" INT8 GEMV: three chat prompts, 64
+             greedy tokens each, plain and with a bf16 self-draft
+             (speculative, k = 4). Fails unless qmv_int8 launched in both
+             runs, flash_fwd, qmm and decode_attn in the plain one, no
+             qmatmul fallback was logged and the speculative tokens agree
+             with the plain ones at >= 75 % of positions. Then a profiled
+             B=1 chat turn (device time by kernel, idle share), the INT8
+             decode A/B ("mxu" vs "dot", B=32 x 128, 64 new) and a tiny
+             folder's bubble run on the card against the CPU.
 5. training — a tiny QWEN3 ``make_train_step`` on the card against the CPU
              (loss, every gradient norm, updated params; SR off). Then
              ``train_loop`` at ``bench.py``'s train settings (lr 6e-4,
@@ -71,7 +85,8 @@ Phases, in order; any failed check exits non-zero before the last line:
              train_loop for the training kernels, the batcher run for the
              slot write and book kernels, the paged run for the page
              write, GPT2-774M run (a) for the int8 fused CE and the
-             quantizers, run (b) for qdgrad), then the last line
+             quantizers, run (b) for qdgrad, the plain bubble run for the
+             int8 GEMV), then the last line
              ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the repository around it; without either it
@@ -951,6 +966,86 @@ def book_phase(torch, gen):
     return out
 
 
+def qmv_int8_phase(torch, gen):
+    """The int8 GEMV (row 5) against qmv_int8_plain at Qwen3-0.6B's seven
+    projections at m = 1, 5 and 32 and a ragged shape; times of one layer's
+    7 INT8 projections at m = 32, beside the row-4 GEMV on the same INT8
+    weights."""
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.ops.kernels import matmul as km
+    from koifish_tpu_torch.ops.kernels import qmv_int8 as kq
+    from koifish_tpu_torch.quant.rtn import quantize
+    say("[kernels] qmv_int8 (koifish_tpu_torch/csrc/qmv_int8.cu)")
+
+    def tol(ref):
+        # the same int8 codes and exact int32 group sums on both sides, the
+        # f32 epilogue in the kernel's order (its K split): only a rare
+        # double rounding of the f64-emulated FMA can move a bf16 output
+        return 1e-3 * float(ref.float().abs().max())
+
+    def weight(K, N):
+        w = torch.randn((K, N), generator=gen, device="cuda") * 0.02
+        return quantize(w, QFormat.INT8, group=128)
+
+    def act(m, K):
+        return torch.randn((m, K), generator=gen, device="cuda"
+                           ).to(torch.bfloat16)
+
+    def plain(x, w):
+        gps, _ = kq._plan(x.shape[0], w.shape[0], w.shape[1])
+        return kq.qmv_int8_plain(x, w.codes, w.scales, gps=gps)
+
+    err = 0.0
+    shapes = [(n, K, N) for n, K, N in QWEN3_PROJ] + [("ragged", 384, 100)]
+    for pname, K, N in shapes:
+        w = weight(K, N)
+        for m in (1, 5, 32):
+            x = act(m, K)
+            y, ref = kq.qmv_int8(x, w.codes, w.scales), plain(x, w)
+            torch.cuda.synchronize()
+            e = max_err(y, ref)
+            check(f"qmv_int8 {pname} m{m} K{K} N{N}", e, tol(ref))
+            err = max(err, e)
+
+    m, n_layers = 32, 12
+    ws = [[weight(K, N) for _, K, N in QWEN3_PROJ] for _ in range(n_layers)]
+    xs = {K: act(m, K) for _, K, _n in QWEN3_PROJ}
+    deq = [[w.dequantize(torch.bfloat16) for w in layer] for layer in ws[:4]]
+
+    def run(fn):
+        def go():
+            for layer in ws:
+                for (_, K, _n), w in zip(QWEN3_PROJ, layer):
+                    fn(xs[K], w)
+        return go
+
+    def run_plain():
+        for (_, K, _n), w in zip(QWEN3_PROJ, ws[0]):
+            plain(xs[K], w)
+
+    def run_lib():
+        for layer in deq:
+            for (_, K, _n), wd in zip(QWEN3_PROJ, layer):
+                torch.matmul(xs[K], wd)
+
+    kms = time_ms(torch, run(lambda x, w: kq.qmv_int8(x, w.codes, w.scales)),
+                  iters=5) / n_layers
+    row4 = time_ms(torch, run(km.qmatmul), iters=5) / n_layers
+    pms = time_ms(torch, run_plain, iters=3)
+    lms = time_ms(torch, run_lib, iters=5) / len(deq)
+    nbytes = sum(m * K * 2 + K * N + (K // 128) * N * 4 + m * N * 2
+                 for _, K, N in QWEN3_PROJ)
+    ops = sum(2.0 * m * K * N for _, K, N in QWEN3_PROJ)
+    bms, by = bound_ms(nbytes, 0.0, ops)
+    say(f"  time qmv_int8 one layer's 7 projections (m={m}, INT8): "
+        f"kernel_ms={kms:.4f} plain_ms={pms:.4f} "
+        f"library_ms(matmul on dequantized bf16)={lms:.4f} "
+        f"bound_ms={bms:.5f} ({by}); row-4 GEMV (qmv) on the same INT8 "
+        f"weights {row4:.4f} ms")
+    return dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                bound_by=by, max_abs_err=err, row4_ms=row4)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the slice
 # ---------------------------------------------------------------------------
@@ -1377,6 +1472,275 @@ def paged_phase(torch, card, qp):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the chat entry point (slice 5)
+# ---------------------------------------------------------------------------
+
+SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>")
+CHAT_PROMPTS = [
+    "Write a short story about a lighthouse keeper who finds a message in "
+    "a bottle.",
+    "Explain in plain words why the sky is blue during the day and red at "
+    "sunset.",
+    "List five things to pack for a week of hiking in the mountains in "
+    "autumn.",
+]
+
+
+def write_hf_dir(torch, path: str, card, seed: int) -> float:
+    """A HF Qwen3 folder at ``card``'s dims, as the JAX package's tests make
+    one: seeded bf16 weights (normal, 0.02; norms 1) written by the port's
+    safetensors writer, its ``config.json`` keys and a byte-level
+    ``tokenizer.json`` with the three chat specials. Returns the GB
+    written."""
+    from koifish_tpu_torch.data.tokenizer import _bytes_to_unicode
+    from koifish_tpu_torch.io.safetensors import write_safetensors
+    os.makedirs(path, exist_ok=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    E, D, F = card.n_embd, card.head_dim, card.n_ffn
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda") * 0.02
+                ).to(torch.bfloat16).cpu()
+
+    def ones(n):
+        return torch.ones((n,), dtype=torch.bfloat16)
+
+    ts = {"model.embed_tokens.weight": w(card.vocab_size, E),
+          "model.norm.weight": ones(E)}
+    for i in range(card.n_layer):
+        pre = f"model.layers.{i}."
+        ts.update({
+            pre + "input_layernorm.weight": ones(E),
+            pre + "self_attn.q_proj.weight": w(card.n_head * D, E),
+            pre + "self_attn.k_proj.weight": w(card.n_kv_head * D, E),
+            pre + "self_attn.v_proj.weight": w(card.n_kv_head * D, E),
+            pre + "self_attn.o_proj.weight": w(E, card.n_head * D),
+            pre + "self_attn.q_norm.weight": ones(D),
+            pre + "self_attn.k_norm.weight": ones(D),
+            pre + "post_attention_layernorm.weight": ones(E),
+            pre + "mlp.gate_proj.weight": w(F, E),
+            pre + "mlp.up_proj.weight": w(F, E),
+            pre + "mlp.down_proj.weight": w(E, F)})
+    write_safetensors(os.path.join(path, "model.safetensors"), ts)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({
+            "model_type": "qwen3", "vocab_size": card.vocab_size,
+            "num_hidden_layers": card.n_layer, "hidden_size": E,
+            "num_attention_heads": card.n_head,
+            "num_key_value_heads": card.n_kv_head, "head_dim": D,
+            "intermediate_size": F, "rope_theta": 1e6, "rms_norm_eps": 1e-6,
+            "tie_word_embeddings": True,
+            "max_position_embeddings": card.max_pos}, f)
+    b2u = _bytes_to_unicode()
+    vocab = {b2u[b]: b for b in range(256)}
+    u = lambda s: "".join(b2u[c] for c in s.encode())
+    merges = [(u("h"), u("e")), (u("l"), u("l")), (u("he"), u("ll")),
+              (u("hell"), u("o")), (u(" "), u("w"))]
+    for a, b in merges:
+        vocab[a + b] = len(vocab)
+    added = [{"content": s, "id": len(vocab) + i}
+             for i, s in enumerate(SPECIALS)]
+    with open(os.path.join(path, "tokenizer.json"), "w") as f:
+        json.dump({"model": {"type": "BPE", "vocab": vocab,
+                             "merges": [f"{a} {b}" for a, b in merges]},
+                   "added_tokens": added,
+                   "pre_tokenizer": {"type": "ByteLevel"}}, f)
+    return sum(t.numel() * t.element_size() for t in ts.values()) / 1e9
+
+
+def _chat(torch, argv, label):
+    """One ``bubble.main`` run, its kernel launches and fallbacks counted
+    from 0; returns (turn records, launches)."""
+    from koifish_tpu_torch.cli import bubble
+    from koifish_tpu_torch.utils import kernel_log
+    turns = []
+    torch.cuda.synchronize()
+    kernel_log.reset_launches()
+    t0 = time.perf_counter()
+    rc = bubble.main(argv, turns=turns)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, falls = kernel_log.launches(), kernel_log.fallbacks()
+    say(f"  {label}: rc={rc}, {wall:.2f} s for {len(turns)} turns; "
+        f"launches {json.dumps(counts)}; fallbacks {json.dumps(falls)}")
+    if rc != 0 or len(turns) != len(CHAT_PROMPTS):
+        fail(f"{label}: bubble returned {rc} after {len(turns)} turns")
+    for t in turns:
+        say(f"    turn: {len(t['prompt_ids'])} prompt tokens, "
+            f"{len(t['tokens'])} new, {t['tk_s']:.2f} tk/s"
+            + (f", rounds {t['stats']['rounds']}, accept_rate "
+               f"{t['stats']['accept_rate']:.3f}" if t["stats"] else ""))
+    if falls.get("qmatmul", 0):
+        fail(f"{label}: a qmatmul fallback was logged")
+    return turns, counts
+
+
+def _agreement(a, b) -> float:
+    """Share of ``a``'s positions where ``b`` has the same token."""
+    return sum(x == y for x, y in zip(a, b)) / max(len(a), 1)
+
+
+def int8_decode_ab(torch, card, qp) -> None:
+    """``generate`` at B = 32 x 128-token prompts, 64 new tokens, on the
+    INT8 params with an INT8 KV cache, under the "mxu" (row 5) and "dot"
+    (row 4) INT8 GEMV flavours in turns (mxu, dot, dot, mxu)."""
+    from koifish_tpu_torch.config import SamplerCard
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.ops import matmul as tmm
+    from koifish_tpu_torch.serve import cache_for, generate
+    B, P, NEW, S = 32, 128, 64, 1024
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    prompts = torch.randint(0, card.vocab_size, (B, P), generator=gen,
+                            device="cuda")
+    sampler = SamplerCard(temperature=0.6, top_k=50, top_p=0.95)
+
+    def run(max_new):
+        c = cache_for(card, B, S, fmt=QFormat.INT8, layered=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate(card, qp, prompts, c, sampler=sampler, max_new_tokens=max_new,
+                 decode_chunk=16)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    res = {"mxu": [], "dot": []}
+    for flavour in ("mxu", "dot", "dot", "mxu"):
+        tmm.INT8_GEMV = flavour
+        run(17)                                   # warm
+        ttft, full = run(1), run(NEW)
+        res[flavour].append((full - ttft) / (NEW - 1))
+    tmm.INT8_GEMV = "dot"
+    for flavour, steps in res.items():
+        say(f"  INT8 decode A/B, {flavour!r} flavour (B={B}, P={P}, {NEW} new,"
+            f" chunk 16): ms/step {[round(s * 1e3, 3) for s in steps]}, "
+            f"tok/s {[round(B / s, 1) for s in steps]}")
+
+
+def profile_chat_turn(torch, card, qp, prompt_len: int) -> None:
+    """Where a chat turn's time goes: a B = 1 greedy ``generate`` of 17
+    tokens (prefill + 16 decode steps, decode_chunk 8, stacked decode
+    params) on the INT8 params with an INT8 KV cache and the "mxu" GEMV,
+    as ``bubble`` runs a turn."""
+    from koifish_tpu_torch.config import SamplerCard
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.ops import matmul as tmm
+    from koifish_tpu_torch.serve import cache_for, generate, stack_layers
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    prompt = torch.randint(0, card.vocab_size, (1, prompt_len), generator=gen,
+                           device="cuda")
+    dparams = stack_layers(qp)
+
+    def turn():
+        c = cache_for(card, 1, 1024, fmt=QFormat.INT8)
+        generate(card, qp, prompt, c, SamplerCard(temperature=0.0),
+                 max_new_tokens=17, decode_params=dparams, decode_chunk=8)
+
+    tmm.INT8_GEMV = "mxu"
+    profile_window(torch, f"chat turn B=1 (prefill {prompt_len} + 16 decode "
+                   f"steps, INT8 + INT8 KV, 'mxu'), per generated token",
+                   turn, 17)
+    tmm.INT8_GEMV = "dot"
+
+
+def reference_check_bubble(torch) -> None:
+    """A tiny Qwen3 folder through ``bubble.main`` (INT8 weights, INT8 KV,
+    greedy, "mxu") on the card against the CPU run of the same folder."""
+    import dataclasses
+    import shutil
+    from koifish_tpu_torch.cli import bubble
+    from koifish_tpu_torch.ops import matmul as tmm
+    path = os.path.join(ROOT, "build", "bubble_tiny")
+    # the byte-level tokenizer's ids reach 263; chat prompts ~130 tokens
+    write_hf_dir(torch, path, dataclasses.replace(
+        _tiny_card(), vocab_size=300, max_pos=512), seed=8)
+    tmm.INT8_GEMV = "mxu"
+    out = {}
+    for dev in ("cpu", "cuda"):
+        turns = []
+        bubble.main(["--hf", path, "--prompts", CHAT_PROMPTS[0], "--bits", "8",
+                     "--kv-bits", "8", "--max-new", "24", "--temperature",
+                     "0", "--ctx", "256", "--csv", "", "--device", dev],
+                    turns=turns)
+        out[dev] = turns[0]["tokens"]
+    tmm.INT8_GEMV = "dot"
+    shutil.rmtree(path)
+    agree = _agreement(out["cpu"], out["cuda"])
+    say(f"  tiny bubble (INT8, INT8 KV, greedy): card vs CPU tokens agree on "
+        f"{agree * 100:.1f}%")
+    if agree < 0.75:
+        fail("tiny bubble: greedy tokens of the card and the CPU run diverge")
+
+
+def bubble_phase(torch):
+    """Slice 5 at full width: a Qwen3-0.6B HF folder (configs/qwen3_0.6b.json
+    dims, seeded bf16 weights) served through ``bubble.main`` with INT8
+    weights at load, an INT8 KV cache and the "mxu" INT8 GEMV (row 5), plain
+    and with a bf16 self-draft (k = 4); then a profiled chat turn, the
+    "mxu"/"dot" decode A/B at B = 32 and a tiny folder card vs CPU. Returns
+    the plain run's launches."""
+    import shutil
+    from koifish_tpu_torch.config import CLIParams, QuantCard
+    from koifish_tpu_torch.io.hf_loader import load_hf_model
+    from koifish_tpu_torch.ops import matmul as tmm
+    from koifish_tpu_torch.quant import quantize_params
+    card = CLIParams.load(os.path.join(ROOT, "configs", "qwen3_0.6b.json")
+                          ).model
+    path = os.path.join(ROOT, "build", "bubble_qwen3")
+    say(f"[bubble] Qwen3-0.6B HF folder (L={card.n_layer} E={card.n_embd} "
+        f"Hq={card.n_head} Hkv={card.n_kv_head} D={card.head_dim} "
+        f"F={card.n_ffn} V={card.vocab_size}), --bits 8 --kv-bits 8, "
+        f"INT8 GEMV 'mxu'")
+    t0 = time.perf_counter()
+    gb = write_hf_dir(torch, path, card, seed=5)
+    say(f"  wrote {gb:.2f} GB of bf16 weights in "
+        f"{time.perf_counter() - t0:.1f} s")
+    base = ["--hf", path, "--prompts", *CHAT_PROMPTS, "--bits", "8",
+            "--kv-bits", "8", "--max-new", "64", "--temperature", "0",
+            "--csv", os.path.join(ROOT, "build", "bubble_chat.csv")]
+    tmm.INT8_GEMV = "mxu"
+    torch.cuda.reset_peak_memory_stats()
+    plain, counts = _chat(torch, base, "bubble plain")
+    spec, spec_counts = _chat(torch, base + ["--draft-hf", path],
+                              "bubble --draft-hf (bf16 self-draft, k=4)")
+    tmm.INT8_GEMV = "dot"
+    say(f"  peak device memory: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name in ("qmv_int8", "flash_fwd", "qmm", "decode_attn"):
+        if counts.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched by the plain bubble run")
+    if spec_counts.get("qmv_int8", 0) <= 0:
+        fail("kernel qmv_int8 was not launched by the speculative run")
+    for a, b in zip(plain, spec):
+        if len(a["prompt_ids"]) <= 32:
+            fail(f"a prompt of {len(a['prompt_ids'])} tokens does not reach "
+                 f"the GEMM shape")
+        ids = a["tokens"] + b["tokens"]
+        if min(ids) < 0 or max(ids) >= card.vocab_size:
+            fail("bubble token ids out of the vocabulary")
+        agree = _agreement(a["tokens"], b["tokens"])
+        say(f"  plain tokens   {a['tokens']}\n  speculative    {b['tokens']}\n"
+            f"  greedy agreement speculative vs plain: {agree * 100:.1f}%")
+        if agree < 0.75:
+            fail("speculative greedy tokens disagree with plain greedy")
+
+    # the INT8 params bubble serves, for the B=32 decode A/B
+    card, params = load_hf_model(path)
+    qp = quantize_params(params, QuantCard.from_json(
+        {"self_attn": {"bits": 8}, "mlp": {"bits": 8}}), card)
+    del params
+    shutil.rmtree(path)
+    profile_chat_turn(torch, card, qp, len(plain[0]["prompt_ids"]))
+    int8_decode_ab(torch, card, qp)
+    del qp
+    torch.cuda.empty_cache()
+    reference_check_bubble(torch)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training
 # ---------------------------------------------------------------------------
 
@@ -1671,12 +2035,14 @@ def main() -> None:
     i8 = int8_phase(torch, gen)
     sw = slotwrite_phase(torch, gen)
     book = book_phase(torch, gen)
+    q8 = qmv_int8_phase(torch, gen)
     serve_counts = slice_phase(torch)
     batch_counts, card, qp = batcher_phase(torch)
     paged_counts = paged_phase(torch, card, qp)
     del qp
     torch.cuda.empty_cache()
     reference_check_slice3(torch)
+    chat_counts = bubble_phase(torch)
     train_counts = train_phase(torch)
     reference_check_int8(torch)
     g774_counts, tile_counts = train_774m_phase(torch)
@@ -1731,6 +2097,8 @@ def main() -> None:
          i8["rowquant"], g774_counts),
         ("colquant", "quantize.cu", "koifish_tpu/ops/pallas/quantize.py:101",
          i8["colquant"], g774_counts),
+        ("qmv_int8", "qmv_int8.cu", "koifish_tpu/ops/pallas/matmul.py:257",
+         q8, chat_counts),
     ]
     kernels = [dict(name=n, route="cuda", source=src + f, replaces=r,
                     launches=c.get(n, 0), max_abs_err=m["max_abs_err"],

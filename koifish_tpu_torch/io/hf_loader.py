@@ -1,0 +1,133 @@
+"""HF checkpoint -> the port's param tree.
+
+The JAX package's ``io/hf_loader.py``: HF linears store [out, in] and the
+canonical layout is [in, out] (y = x @ w), so matrices transpose on load;
+GPT2 uses Conv1D ([in, out] already) and a fused c_attn, split here. AWQ
+folders are unpacked to asymmetric INT4 QTensors at load
+(``quant/awq.py``). Tensors are moved to the device before the transpose,
+so the copy runs there.
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional
+
+import torch
+
+from koifish_tpu_torch.config import ModelCard
+from koifish_tpu_torch.io.safetensors import iter_hf_folder
+from koifish_tpu_torch.quant.awq import convert_awq_weights, is_awq_checkpoint
+from koifish_tpu_torch.quant.qtensor import QTensor
+from koifish_tpu_torch.utils.device import resolve_device
+
+
+def load_hf_model(folder: str, card: Optional[ModelCard] = None,
+                  dtype=torch.bfloat16, device=None):
+    """Returns (card, params) from a HF model directory, on ``device``
+    (``None`` means CUDA)."""
+    dev = resolve_device(device)
+    if card is None:
+        with open(os.path.join(folder, "config.json")) as f:
+            card = ModelCard.from_hf(json.load(f))
+    raw = dict(iter_hf_folder(folder))
+    if is_awq_checkpoint(raw):
+        raw = convert_awq_weights(raw)
+    if card.arch == "GPT2":
+        params = _map_gpt2(card, raw, dtype, dev)
+    else:
+        params = _map_llama_family(card, raw, dtype, dev)
+    return card, params
+
+
+def load_kun_model(path: str, dtype=torch.bfloat16, device=None):
+    """A reference ``.kun`` single-file model needs ``io/kun.py``, which is
+    not ported yet."""
+    raise NotImplementedError(
+        f"{path}: .kun/.ckp models need io/kun.py, which is not ported yet "
+        f"(ROADMAP.md queue 1 item 12); export the model as a HF folder")
+
+
+def _t(a, dtype, dev, transpose: bool = False):
+    if isinstance(a, QTensor):
+        return a.to(dev)      # AWQ import: already [in, out] packed
+    a = a.to(dev)
+    return (a.T if transpose else a).to(dtype).contiguous()
+
+
+def _map_llama_family(card: ModelCard, raw: Dict[str, Any], dtype, dev
+                      ) -> Dict[str, Any]:
+    """Qwen2/Qwen3/LLaMA/Mistral naming: model.layers.N.self_attn.q_proj..."""
+    p: Dict[str, Any] = {
+        "wte": _t(raw["model.embed_tokens.weight"], dtype, dev),
+        "ln_f": _t(raw["model.norm.weight"], dtype, dev),
+    }
+    if not card.tie_embeddings:
+        head = raw.get("lm_head.weight")
+        if head is None:  # some exports tie implicitly
+            head = raw["model.embed_tokens.weight"]
+        p["head"] = _t(head, dtype, dev, transpose=True)    # [V,E] -> [E,V]
+    layers = []
+    for i in range(card.n_layer):
+        pre = f"model.layers.{i}."
+
+        def w(name, transpose=True):
+            return _t(raw[pre + name], dtype, dev, transpose)
+
+        lp: Dict[str, Any] = {
+            "ln1": w("input_layernorm.weight", False),
+            "q": w("self_attn.q_proj.weight"),
+            "k": w("self_attn.k_proj.weight"),
+            "v": w("self_attn.v_proj.weight"),
+            "o": w("self_attn.o_proj.weight"),
+            "ln2": w("post_attention_layernorm.weight", False),
+        }
+        if (pre + "mlp.gate.weight") in raw:
+            raise NotImplementedError(
+                "MoE checkpoints need models/moe.py, which is not ported yet "
+                "(ROADMAP.md queue 1 item 14)")
+        lp["gate"] = w("mlp.gate_proj.weight")
+        lp["up"] = w("mlp.up_proj.weight")
+        lp["down"] = w("mlp.down_proj.weight")
+        if card.qkv_bias:
+            for key in ("q", "k", "v"):
+                lp[key + "_b"] = w(f"self_attn.{key}_proj.bias", False)
+        if card.qk_norm:
+            lp["qn"] = w("self_attn.q_norm.weight", False)
+            lp["kn"] = w("self_attn.k_norm.weight", False)
+        layers.append(lp)
+    p["layers"] = layers
+    return p
+
+
+def _map_gpt2(card: ModelCard, raw: Dict[str, Any], dtype, dev
+              ) -> Dict[str, Any]:
+    """GPT2 naming (Conv1D = [in, out] already; fused c_attn split 3-way)."""
+    def g(name):  # some exports prefix "transformer."
+        a = raw.get(name, raw.get("transformer." + name))
+        return _t(a, dtype, dev)
+
+    E = card.n_embd
+    p: Dict[str, Any] = {"wte": g("wte.weight"), "wpe": g("wpe.weight"),
+                         "ln_f": g("ln_f.weight"), "ln_f_b": g("ln_f.bias")}
+    layers = []
+    for i in range(card.n_layer):
+        pre = f"h.{i}."
+        ca_w = g(pre + "attn.c_attn.weight")     # [E, 3E]
+        ca_b = g(pre + "attn.c_attn.bias")
+        lp = {
+            "ln1": g(pre + "ln_1.weight"), "ln1_b": g(pre + "ln_1.bias"),
+            "q": ca_w[:, :E].contiguous(), "k": ca_w[:, E:2 * E].contiguous(),
+            "v": ca_w[:, 2 * E:].contiguous(),
+            "q_b": ca_b[:E].contiguous(), "k_b": ca_b[E:2 * E].contiguous(),
+            "v_b": ca_b[2 * E:].contiguous(),
+            "o": g(pre + "attn.c_proj.weight"),
+            "o_b": g(pre + "attn.c_proj.bias"),
+            "ln2": g(pre + "ln_2.weight"), "ln2_b": g(pre + "ln_2.bias"),
+            "fc": g(pre + "mlp.c_fc.weight"), "fc_b": g(pre + "mlp.c_fc.bias"),
+            "proj": g(pre + "mlp.c_proj.weight"),
+            "proj_b": g(pre + "mlp.c_proj.bias"),
+        }
+        layers.append(lp)
+    p["layers"] = layers
+    return p

@@ -38,6 +38,7 @@ SOURCES = {
     "fused_ce_int8": "fused_ce_int8.cu",
     "quantize": "quantize.cu",
     "qdgrad": "qdgrad.cu",
+    "qmv_int8": "qmv_int8.cu",
 }
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

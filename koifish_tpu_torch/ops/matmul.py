@@ -11,21 +11,32 @@ dequantize-then-matmul path (logged through ``kernel_log``). Unquantized
 products stay ``torch.matmul``, except under an int8 training policy
 (``ops/tracectx.py``): weights that pass its size gate take
 ``ops/int8_train.int8_matmul``.
+
+INT8 weights at decode widths (m <= 32) take one of two kernels, chosen by
+the module-level ``INT8_GEMV`` flavour (initialised from
+``KOIFISH_INT8_GEMV`` with the JAX package's default ``"dot"`` and read at
+each call): ``"dot"`` keeps the dequant-fused GEMV, ``"mxu"`` the int8 GEMV
+that quantizes the activations in the kernel (``ops/kernels/qmv_int8.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Union
 
 import torch
 
 from koifish_tpu_torch.ops.int8_train import int8_matmul
 from koifish_tpu_torch.ops.kernels import matmul as kmm
+from koifish_tpu_torch.ops.kernels import qmv_int8 as kq8
 from koifish_tpu_torch.ops.tracectx import current_int8
 from koifish_tpu_torch.quant.qtensor import QTensor
 from koifish_tpu_torch.utils import kernel_log
 
 Weight = Union[torch.Tensor, QTensor]
+
+#: INT8 decode-GEMV flavour: "dot" (dequant-fused GEMV) or "mxu" (int8 GEMV)
+INT8_GEMV = os.environ.get("KOIFISH_INT8_GEMV", "dot")
 
 
 def _dense(x: torch.Tensor, w: torch.Tensor, out_dtype) -> torch.Tensor:
@@ -52,7 +63,11 @@ def qmatmul(x: torch.Tensor, w: Weight, out_dtype=None) -> torch.Tensor:
     if kmm.takes(w):
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).to(torch.bfloat16).contiguous()
-        y = kmm.qmatmul(x2, w)
+        if (INT8_GEMV == "mxu" and x2.shape[0] <= kq8.MAX_M
+                and kq8.takes(w)):
+            y = kq8.qmv_int8(x2, w.codes, w.scales)
+        else:
+            y = kmm.qmatmul(x2, w)
         return y.reshape(*lead, w.out_features).to(out_dtype)
     kernel_log.fallback(
         "qmatmul", f"k={w.shape[0]} n={w.shape[-1]} fmt={w.fmt.name} "

@@ -8,7 +8,8 @@ decode chunk is ``decode_chunk`` steps of ``decode_step_layered`` + sampling
 with no host sync inside, and eos is checked on the host once per chunk.
 The JAX package's jitted decode+sample executables are plain functions here
 (``decode_sample``, ``decode_sample_layered``, ``decode_sample_layered_k``,
-``decode_sample_k``); a ``torch.Generator`` takes the place of the rng key.
+``decode_sample_k``, and ``decode_probs_k`` for speculative decoding); a
+``torch.Generator`` takes the place of the rng key.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from koifish_tpu_torch.models.transformer import (
     Params, _linear_l, _norm, embed_tokens, lm_head, mlp, qkv_project)
 from koifish_tpu_torch.ops.attention import causal_attention
 from koifish_tpu_torch.ops.rope import rope_freqs
-from koifish_tpu_torch.ops.sampling import sample_logits
+from koifish_tpu_torch.ops.sampling import (_categorical, filtered_probs,
+                                             sample_logits)
 from koifish_tpu_torch.serve import kvcache as kvc
 from koifish_tpu_torch.serve.kvcache import KVCache
 from koifish_tpu_torch.serve.layered import (LayeredKVCache,
@@ -179,6 +181,28 @@ def decode_sample_layered_k(card: ModelCard, params: Params,
                                                sampler, streaming)
         toks.append(token)
     return torch.stack(toks), lc, gen
+
+
+def decode_probs_k(card: ModelCard, params: Params, token: torch.Tensor,
+                   lc: LayeredKVCache, gen: Optional[torch.Generator],
+                   sampler: SamplerCard, k: int, streaming: bool = True):
+    """``k`` layered decode steps with no host sync that return both the
+    sampled tokens and the dense filtered distribution each was drawn from
+    (what speculative rejection sampling needs) -> (tokens [k, B], qs
+    [k, B, V] f32, cache, generator); the JAX package's
+    ``jit_decode_probs_k``. Each token is drawn from log(max(q, 1e-30))."""
+    params = unstack_layers(card, params)
+    toks, qs = [], []
+    for _ in range(k):
+        logits, lc = decode_step_layered(card, params, token, lc, streaming)
+        q = filtered_probs(logits, sampler.temperature, sampler.top_k,
+                           sampler.top_p, sampler.min_p, sampler.approx_top_k,
+                           sampler.method)
+        token = _categorical(gen, torch.log(torch.clamp(q, min=1e-30))
+                             ).to(torch.int32)
+        toks.append(token)
+        qs.append(q)
+    return torch.stack(toks), torch.stack(qs), lc, gen
 
 
 def decode_sample_k(card: ModelCard, params: Params, token: torch.Tensor,

@@ -16,7 +16,9 @@ through the kernels (``reset_launches`` / ``launches``). The names:
 ``qmm_book``, ``qmv_book``, ``decode_attn``, ``slot_write``,
 ``page_write``, ``fused_ce_fwd``, ``fused_ce_dx``, ``fused_ce_dw``, their
 int8 flavour ``fused_ce_fwd_int8``, ``fused_ce_dx_int8``,
-``fused_ce_dw_int8``, ``qdgrad_int8_tile``, ``rowquant`` and ``colquant``.
+``fused_ce_dw_int8``, ``qdgrad_int8_tile``, ``rowquant``, ``colquant`` and
+``qmv_int8``. ``fallbacks`` counts the fallbacks of each kernel since the
+same reset, whether or not they were printed.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ _verbose: Optional[bool] = None   # None = read env lazily
 
 #: kernel name -> launches since the last reset (plain ints)
 LAUNCHES: Dict[str, int] = {}
+#: kernel name -> fallbacks to the plain path since the last reset
+FALLBACKS: Dict[str, int] = {}
 
 
 def _mode() -> int:
@@ -69,6 +73,7 @@ def _emit(tag: str, kernel: str, detail: str) -> None:
 
 def fallback(kernel: str, reason: str) -> None:
     """The hand-written ``kernel`` was skipped for ``reason``."""
+    FALLBACKS[kernel] = FALLBACKS.get(kernel, 0) + 1
     mode = _mode()
     if mode == 0 or (mode == 1 and not _on_device()):
         return
@@ -89,7 +94,12 @@ def count(kernel: str) -> None:
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    FALLBACKS.clear()
 
 
 def launches() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def fallbacks() -> Dict[str, int]:
+    return dict(FALLBACKS)

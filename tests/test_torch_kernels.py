@@ -29,7 +29,10 @@ from koifish_tpu_torch.ops.kernels import decode_attn as kd
 from koifish_tpu_torch.ops.kernels import flash as kf
 from koifish_tpu_torch.ops.kernels import fused_ce as kc
 from koifish_tpu_torch.ops.kernels import matmul as km
+from koifish_tpu_torch.ops.kernels import qmv_int8 as kq8
+from koifish_tpu_torch.ops.kernels.quantize import quantize_plain
 from koifish_tpu_torch.ops.kernels import slotwrite as ksw
+from koifish_tpu_torch.ops import matmul as tmm
 from koifish_tpu_torch.ops.matmul import qmatmul
 from koifish_tpu_torch.quant.rtn import quantize
 
@@ -105,6 +108,98 @@ def test_qmatmul_all_formats_plain_vs_dequant():
         err = float((y - ref).abs().max())
         assert err <= 2e-2 * float(ref.abs().max()), (fmt, err)
 
+
+
+@jax.jit
+def _j_q8(xg):
+    """The Pallas kernel's activation quantizer (matmul.py:287-289), as XLA
+    compiles it in interpret mode."""
+    sx = jnp.max(jnp.abs(xg), axis=1, keepdims=True) / 127.0
+    sx = jnp.maximum(sx, 1e-12)
+    return jnp.clip(jnp.round(xg / sx), -127, 127).astype(jnp.int8), sx
+
+
+@pytest.mark.parametrize("m,K,N", [(1, 1024, 256), (5, 1024, 512),
+                                   (32, 3072, 256), (17, 256, 128)])
+def test_qmv_int8_matches_pallas(interpret, m, K, N):
+    """Row 5: qmv_int8_plain against the interpreted Pallas qmv_int8_mxu.
+    The activation codes and scales equal the kernel's quantizer bit for
+    bit (XLA multiplies by f32(1/127) and divides by sx); the int32 group
+    sums are exact, and the f32 epilogue may round an output to the other
+    neighbouring bf16 value: tolerance 1 bf16 ulp of each entry, and at most
+    0.5 % of the entries differ at all."""
+    jw, tw = _weights(K, N, "int8", seed=11)
+    rng = np.random.default_rng(12)
+    xa = (rng.standard_normal((m, K)) * rng.uniform(0.1, 4, (m, 1))
+          ).astype(np.float32)
+    jx, tx = bf16_pair(xa)
+    for g in range(K // 128):
+        xg = tx[:, g * 128:(g + 1) * 128]
+        q, sx = quantize_plain(xg, 1, "jit")
+        jq, jsx = _j_q8(jnp.asarray(xg.float().numpy()))
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(sx.numpy(), np.asarray(jsx))
+    bm = max(8, -(-m // 8) * 8)     # the JAX dispatch pads rows to 8
+    jxp = jnp.pad(jx, ((0, bm - m), (0, 0)))
+    ref = f32(pmm.qmv_int8_mxu(jxp, jw.codes, jw.scales, group=128,
+                               k=K))[:m]
+    out = f32(kq8.qmv_int8(tx, tw.codes, tw.scales))
+    assert out.shape == (m, N)
+    np.testing.assert_allclose(out, ref, rtol=2.0 ** -7, atol=1e-6)
+    assert (out != ref).mean() <= 5e-3
+    # the kernel's K split order (chip_smoke.py holds the kernel to it):
+    # the same codes, f32 sums in another order
+    gps, splits = kq8._plan(m, K, N)
+    split = f32(kq8.qmv_int8_plain(tx, tw.codes, tw.scales, gps=gps))
+    np.testing.assert_allclose(split, ref, rtol=2.0 ** -7, atol=1e-6)
+
+
+@pytest.mark.parametrize("flavour", ["mxu", "dot"])
+def test_int8_gemv_dispatch_follows_the_flavour(interpret, monkeypatch,
+                                                flavour):
+    """``qmatmul`` sends an INT8 QTensor at m <= 32 to row 5 under
+    ``"mxu"`` and to the row-4 GEMV under ``"dot"`` (read at each call);
+    m > 32 and INT4 always take rows 3/4. Under each flavour the output
+    agrees with the JAX dispatch under the same flavour."""
+    calls = []
+    real_q8, real_km = kq8.qmv_int8, km.qmatmul
+    monkeypatch.setattr(kq8, "qmv_int8",
+                        lambda *a: calls.append("row5") or real_q8(*a))
+    monkeypatch.setattr(km, "qmatmul",
+                        lambda *a: calls.append("rows34") or real_km(*a))
+    monkeypatch.setattr(tmm, "INT8_GEMV", flavour)
+    monkeypatch.setattr(pmm, "_INT8_GEMV", flavour)
+    K, N = 1024, 256
+    jw, tw = _weights(K, N, "int8", seed=13)
+    rng = np.random.default_rng(14)
+    for m, want in ((5, "row5" if flavour == "mxu" else "rows34"),
+                    (32, "row5" if flavour == "mxu" else "rows34"),
+                    (40, "rows34")):
+        jx, tx = bf16_pair(rng.standard_normal((m, K)).astype(np.float32))
+        calls.clear()
+        out = f32(qmatmul(tx, tw))
+        assert calls == [want], (m, calls)
+        if m <= 32:
+            ref = f32(pmm.qmatmul_pallas_or_ref(jx, jw, jnp.bfloat16))
+            assert np.abs(out - ref).max() <= 2.0 ** -7 * np.abs(ref).max()
+    _, w4 = _weights(K, N, "int4", seed=15)
+    calls.clear()
+    qmatmul(torch.zeros((3, K), dtype=torch.bfloat16), w4)
+    assert calls == ["rows34"]
+
+
+def test_qmv_int8_refuses_what_it_does_not_take():
+    codes = torch.zeros((256, 64), dtype=torch.int8)
+    scales = torch.zeros((2, 64))
+    with pytest.raises(ValueError, match="x \\[1..32, K\\]"):
+        kq8._check(torch.zeros((33, 256), dtype=torch.bfloat16), codes, scales)
+    with pytest.raises(ValueError, match="lies on cpu"):
+        kq8._check(torch.zeros((2, 256), dtype=torch.bfloat16), codes, scales)
+    assert kq8._plan(1, 1024, 1024) == (1, 8)     # decode: split K
+    assert kq8._plan(32, 3072, 1024) == (2, 12)
+    assert kq8._plan(5, 1024, 3072) == (2, 4)
+    assert kq8.takes(quantize(torch.zeros((256, 8)), QFormat.INT8))
+    assert not kq8.takes(quantize(torch.zeros((256, 8)), QFormat.INT4))
 
 def _qkv(B, T, Hq, Hkv, D, seed):
     rng = np.random.default_rng(seed)

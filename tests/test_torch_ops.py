@@ -203,15 +203,20 @@ def test_kernel_log_contract(monkeypatch, capsys):
 
 def test_port_imports_no_jax():
     """koifish_tpu_torch and chip_smoke.py import neither JAX nor the JAX
-    package, in a fresh interpreter and in their sources."""
+    package (nor ``regex`` or ``ml_dtypes``, which the card's machine does
+    not have), in a fresh interpreter and in their sources."""
     code = ("import sys, koifish_tpu_torch.serve, koifish_tpu_torch.io.convert,"
             " koifish_tpu_torch.quant, koifish_tpu_torch.ops.kernels._build,"
             " koifish_tpu_torch.train, koifish_tpu_torch.ops.cross_entropy,"
             " koifish_tpu_torch.serve.batching, koifish_tpu_torch.serve.paged,"
             " koifish_tpu_torch.serve.stacked, koifish_tpu_torch.quant.cluster,"
-            " koifish_tpu_torch.ops.kernels.slotwrite;"
+            " koifish_tpu_torch.ops.kernels.slotwrite, koifish_tpu_torch.io,"
+            " koifish_tpu_torch.data, koifish_tpu_torch.cli.bubble,"
+            " koifish_tpu_torch.serve.speculative,"
+            " koifish_tpu_torch.ops.kernels.qmv_int8;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
-            " ('jax', 'jaxlib', 'koifish_tpu')]; print(bad); sys.exit(bool(bad))")
+            " ('jax', 'jaxlib', 'koifish_tpu', 'regex', 'ml_dtypes')];"
+            " print(bad); sys.exit(bool(bad))")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True)
     assert r.returncode == 0, r.stdout + r.stderr
