@@ -15,15 +15,22 @@ Phases, in order; any failed check exits non-zero before the last line:
              the shapes of its path and at ragged ones, with the tolerance
              stated; kernel, plain, library and bound times. Serving: flash
              forward, dequant-fused GEMM/GEMV, quantized-KV decode attention.
-             Training: flash backward (dK/dV and dQ kernels) and the fused
-             classifier CE (forward, dx, dw). Int8 training, at GPT2-774M's
+             Training: flash backward (dK/dV and dQ kernels, at the Qwen3
+             and GPT2 shapes, ragged T and windows; times at both) and the
+             fused classifier CE (forward, dx, dw). Int8 training, at GPT2-774M's
              shapes: rowquant/colquant (bit for bit), the per-tile int8
              dgrad and the int8 fused CE (and the bf16 one at E 1280).
              Multi-request serving: the
              KV slot and page writes (bit for bit) and the learned-codebook
              GEMV/GEMM (k-means and MINI books, NF4 and NF3). Chat: the int8
              GEMV with in-kernel activation quantization (row 5) at Qwen3's
-             projections, m = 1, 5 and 32, beside the row-4 GEMV.
+             projections, m = 1, 5 and 32, beside the row-4 GEMV. The
+             GEMM shape (m > 32) also at m and N off its 128 x 128 tiles
+             (m = 33, 65, 129, 4097; N = 132, 200, 520, 1000).
+   grad    — dx through a kernel-covered QTensor (GEMM and GEMV shapes, RTN
+             INT4/INT8, k-means and MINI books) against the gradient through
+             the dequantized weight; a scale or a book that requires a
+             gradient must raise, and so must row 5 with x requiring one.
 4. serving — Qwen3-0.6B at full width (configs/qwen3_0.6b.json, random
              weights from a seed), INT4 RTN g128 weights, a layered INT8 KV
              cache (B=32, S=1024): ``generate`` on 32 prompts of 128 tokens
@@ -255,7 +262,8 @@ def qmatmul_phase(torch, gen):
     from koifish_tpu_torch.dtypes import QFormat
     from koifish_tpu_torch.ops.kernels import matmul as km
     from koifish_tpu_torch.quant.rtn import quantize
-    say("[kernels] qmatmul GEMM/GEMV (koifish_tpu_torch/csrc/qmatmul.cu)")
+    say("[kernels] qmatmul GEMM/GEMV (koifish_tpu_torch/csrc/qmm.cu, "
+        "qmatmul.cu)")
 
     def tol(ref):
         # bf16 outputs: the kernel and the plain version sum the same f32
@@ -271,10 +279,12 @@ def qmatmul_phase(torch, gen):
         return torch.randn((m, K), generator=gen, device="cuda"
                            ).to(torch.bfloat16)
 
-    # every format, both launch shapes, plus ragged shapes
+    # every format, both launch shapes, plus ragged shapes: m and N off the
+    # GEMM's 128 x 128 tiles (N = 520 takes its 4-byte code loads)
     for fmt in km.FORMATS:
         for m, K, N in ((256, 1024, 1024), (32, 1024, 1024), (40, 384, 1000),
-                        (5, 256, 132), (1, 3072, 1024)):
+                        (5, 256, 132), (1, 3072, 1024), (33, 256, 200),
+                        (65, 384, 132), (129, 1024, 1000), (4097, 1024, 520)):
             w, x = weight(K, N, fmt), act(m, K)
             y = km.qmatmul(x, w)
             ref = km.qmatmul_plain(x, w.codes, w.scales, w.fmt, w.group)
@@ -328,6 +338,11 @@ def qmatmul_phase(torch, gen):
             f"bound_ms={bms:.5f} ({by})")
         out[kind] = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
                          bound_by=by, max_abs_err=err)
+    # the GEMM wrapper's host cost at a batcher bucket (m = 128), where the
+    # device time is a few microseconds (its TMA map is encoded each call)
+    w0, x0 = weight(1024, 1024, QFormat.INT4), act(128, 1024)
+    say(f"  host per eager call (m=128, K=1024, N=1024, INT4): qmm "
+        f"{host_us(torch, lambda: km.qmatmul(x0, w0)):.1f} us")
     return out
 
 
@@ -448,6 +463,10 @@ def flash_bwd_phase(torch, gen):
         ("head-major B2 T300 Hq8 Hkv2 D64 window100", 2, 300, 8, 2, 64, 100,
          True),
         ("ragged B1 T77 Hq4 Hkv4 D256", 1, 77, 4, 4, 256, 0, False),
+        # T off the 128-row kv tiles and 64/128-row q tiles of the kernels
+        ("ragged B2 T77 Hq4 Hkv1 D128", 2, 77, 4, 1, 128, 0, False),
+        ("ragged B1 T200 Hq6 Hkv2 D64 window64", 1, 200, 6, 2, 64, 64, False),
+        ("ragged B1 T1 Hq2 Hkv1 D128", 1, 1, 2, 1, 128, 0, False),
     ]
     out = {}
     for label, B, T, Hq, Hkv, D, win, hm in cases:
@@ -470,13 +489,29 @@ def flash_bwd_phase(torch, gen):
             errs[name] = max_err(a, ref)
             check(f"flash_bwd {label} {name}", errs[name],
                   rel * float(ref.float().abs().max()) + 1e-3)
+        if label.startswith("gpt2"):   # the GPT2-124M shape (D 64): times only
+            dl = kf._bwd_launch(0, q, k, v, o, lse, do, sc, win)[1]
+            g_dkv = time_ms(torch, lambda: kf.flash_bwd_dkv(
+                q, k, v, o, lse, do, scale=sc), iters=10)
+            g_dq = time_ms(torch, lambda: kf.flash_bwd_dq(
+                q, k, v, o, lse, do, scale=sc, delta=dl), iters=10)
+            say(f"  time flash_bwd gpt2 (B32 T1024 Hq12 D64): dkv "
+                f"kernel_ms={g_dkv:.4f} dq kernel_ms={g_dq:.4f}")
         if out:
             continue
-        # timing at the Qwen3 slice shape
+        # timing at the Qwen3 slice shape: dkv with its delta pass, dq on
+        # the delta dkv made (as flash_attention_bwd runs them)
+        dl = kf._bwd_launch(0, q, k, v, o, lse, do, sc, win)[1]
         dkv_ms = time_ms(torch, lambda: kf.flash_bwd_dkv(
             q, k, v, o, lse, do, scale=sc), iters=10)
         dq_ms = time_ms(torch, lambda: kf.flash_bwd_dq(
-            q, k, v, o, lse, do, scale=sc), iters=10)
+            q, k, v, o, lse, do, scale=sc, delta=dl), iters=10)
+        small = [t[:1, :128].contiguous() for t in (q, k, v, o)] \
+            + [lse[:1, :, :128].contiguous(), do[:1, :128].contiguous()]
+        h_dkv = host_us(torch, lambda: kf.flash_bwd_dkv(*small, scale=sc))
+        h_dq = host_us(torch, lambda: kf.flash_bwd_dq(*small, scale=sc))
+        say(f"  host per eager call (B1 T128 Hq16 D128): flash_bwd_dkv "
+            f"{h_dkv:.1f} us, flash_bwd_dq {h_dq:.1f} us")
         pms = event_ms(torch, lambda: kf.flash_attention_bwd_plain(
             q, k, v, o, lse, do, scale=sc), iters=3)
         g = Hq // Hkv
@@ -873,9 +908,11 @@ def slotwrite_phase(torch, gen):
     return {"slot_write": slot, "page_write": page}
 
 
-# the book kernels' checks: Qwen3-0.6B's (K, N), GEMV and GEMM rows
-BOOK_SHAPES = ((1024, 2048), (1024, 1024), (1024, 3072), (3072, 1024))
-BOOK_MS = (1, 32, 128, 512, 4096)
+# the book kernels' checks: Qwen3-0.6B's (K, N) and one N off the GEMM's
+# 128-column tiles, GEMV and GEMM rows (m off its 128-row tiles too)
+BOOK_SHAPES = ((1024, 2048), (1024, 1024), (1024, 3072), (3072, 1024),
+               (384, 200))
+BOOK_MS = (1, 32, 33, 128, 129, 512, 4096, 4097)
 
 
 def book_phase(torch, gen):
@@ -884,7 +921,8 @@ def book_phase(torch, gen):
     books, NF4 and NF3; times of one layer's 7 k-means NF4 projections."""
     from koifish_tpu_torch.ops.kernels import matmul as km
     from koifish_tpu_torch.quant.cluster import quantize_kmeans, quantize_mini
-    say("[kernels] qmv_book / qmm_book (koifish_tpu_torch/csrc/qmatmul.cu)")
+    say("[kernels] qmv_book / qmm_book (koifish_tpu_torch/csrc/qmatmul.cu, "
+        "qmm.cu)")
 
     def tol(ref):   # the qmatmul phase's: ~1 bf16 ulp of the largest output
         return 1e-2 * float(ref.float().abs().max()) + 1e-3
@@ -1044,6 +1082,97 @@ def qmv_int8_phase(torch, gen):
         f"weights {row4:.4f} ms")
     return dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
                 bound_by=by, max_abs_err=err, row4_ms=row4)
+
+
+def _reaches(node, name: str, depth: int = 4) -> bool:
+    """Whether an autograd node named ``name`` is ``node`` or lies within
+    ``depth`` steps below it."""
+    if node is None:
+        return False
+    if name in type(node).__name__:
+        return True
+    return depth > 0 and any(_reaches(n, name, depth - 1)
+                             for n, _ in node.next_functions)
+
+
+def qmatmul_grad_phase(torch, gen) -> None:
+    """The quantized products' gradient on the card: x.grad through a
+    kernel-covered QTensor (the GEMM and GEMV shapes; RTN INT4 and INT8,
+    k-means NF4 and MINI NF3 books) against the gradient through the
+    dequantized bf16 weight. A scale or a book that requires a gradient
+    raises, and so does row 5 with an x that requires one. Fails the run
+    otherwise."""
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.ops import matmul as om
+    from koifish_tpu_torch.ops.kernels import matmul as km
+    from koifish_tpu_torch.ops.kernels import qmv_int8 as kq
+    from koifish_tpu_torch.quant.cluster import quantize_kmeans, quantize_mini
+    from koifish_tpu_torch.quant.rtn import quantize
+    say("[grad] dx through the quantized matmul "
+        "(koifish_tpu_torch/ops/kernels/matmul.py::QMatmul)")
+    K, N = 1024, 3072
+    base = torch.randn((K, N), generator=gen, device="cuda") * 0.02
+
+    def make():
+        return {"INT4": quantize(base, QFormat.INT4, group=128),
+                "INT8": quantize(base, QFormat.INT8, group=128),
+                "k-means NF4": quantize_kmeans(base, bits=4, group=128),
+                "MINI NF3": quantize_mini(base, bits=3, group=128)}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda"
+                           ).to(torch.bfloat16)
+
+    for name, w in make().items():
+        wd = w.dequantize(torch.bfloat16)
+        for m in (32, 4096):
+            x, dy = rnd(m, K), rnd(m, N)
+            xk = x.clone().requires_grad_(True)
+            y = om.qmatmul(xk, w)
+            if not _reaches(y.grad_fn, "QMatmul"):
+                fail(f"qmatmul {name} m{m}: the product's graph has no "
+                     f"QMatmul node ({y.grad_fn})")
+            y.backward(dy)
+            xr = x.clone().requires_grad_(True)
+            torch.matmul(xr, wd).backward(dy)
+            torch.cuda.synchronize()
+            # both take dy·deq(w)ᵀ in bf16 with f32 accumulation: at most a
+            # bf16 ulp of the largest entry apart
+            ref = xr.grad
+            check(f"grad {name} m{m} dx", max_err(xk.grad, ref),
+                  1e-2 * float(ref.float().abs().max()) + 1e-3)
+
+    def raises(label, fn, match):
+        try:
+            fn()
+        except NotImplementedError as e:
+            if match not in str(e):
+                fail(f"{label}: raised without naming {match!r}: {e}")
+            say(f"  check {label}: raises NotImplementedError ok")
+            return
+        fail(f"{label}: did not raise")
+
+    ws = make()
+    x = rnd(64, K).requires_grad_(True)
+    ws["INT4"].scales.requires_grad_(True)
+    raises("scale requiring a gradient",
+           lambda: km.qmatmul(x, ws["INT4"]), "queue 1 item 2")
+    ws["k-means NF4"].codebook.requires_grad_(True)
+    raises("codebook requiring a gradient",
+           lambda: km.qmatmul(x, ws["k-means NF4"]), "queue 1 item 2")
+    w8, x8 = ws["INT8"], rnd(8, K).requires_grad_(True)
+    raises("qmv_int8 with x requiring a gradient",
+           lambda: kq.qmv_int8(x8, w8.codes, w8.scales), 'INT8_GEMV = "dot"')
+    flavour, om.INT8_GEMV = om.INT8_GEMV, "mxu"
+    try:
+        raises("ops.matmul under INT8_GEMV = mxu with x requiring a gradient",
+               lambda: om.qmatmul(x8, w8), 'INT8_GEMV = "dot"')
+    finally:
+        om.INT8_GEMV = flavour
+    with torch.no_grad():   # without a gradient to carry, no raise
+        kq.qmv_int8(x8, w8.codes, w8.scales)
+        km.qmatmul(x, ws["INT4"])
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -2036,6 +2165,7 @@ def main() -> None:
     sw = slotwrite_phase(torch, gen)
     book = book_phase(torch, gen)
     q8 = qmv_int8_phase(torch, gen)
+    qmatmul_grad_phase(torch, gen)
     serve_counts = slice_phase(torch)
     batch_counts, card, qp = batcher_phase(torch)
     paged_counts = paged_phase(torch, card, qp)
@@ -2051,7 +2181,7 @@ def main() -> None:
     rows = [  # (name, source, TPU kernel, numbers, launches on its path)
         ("flash_fwd", "flash_fwd.cu", "koifish_tpu/ops/pallas/flash.py:844",
          flash, serve_counts),
-        ("qmm", "qmatmul.cu", "koifish_tpu/ops/pallas/matmul.py:305",
+        ("qmm", "qmm.cu", "koifish_tpu/ops/pallas/matmul.py:305",
          qmm["qmm"], serve_counts),
         ("qmv", "qmatmul.cu", "koifish_tpu/ops/pallas/matmul.py:201",
          qmm["qmv"], serve_counts),
@@ -2080,7 +2210,7 @@ def main() -> None:
          paged_counts),
         ("qmv_book", "qmatmul.cu", "koifish_tpu/ops/pallas/matmul.py:389",
          book["qmv_book"], batch_counts),
-        ("qmm_book", "qmatmul.cu", "koifish_tpu/ops/pallas/matmul.py:451",
+        ("qmm_book", "qmm.cu", "koifish_tpu/ops/pallas/matmul.py:451",
          book["qmm_book"], batch_counts),
         ("fused_ce_fwd_int8", "fused_ce_int8.cu",
          "koifish_tpu/ops/pallas/fused_ce.py:126", i8["fused_ce_fwd_int8"],

@@ -151,6 +151,14 @@ def main(argv=None, turns: Optional[List[dict]] = None) -> int:
             print(f"[bubble] speculative: {stats['rounds']} rounds, "
                   f"accept_rate={stats['accept_rate']:.2f}")
         else:
+            if cache is not None and int(cache.pos[0]) + len(ids) > cache.size:
+                # the carried conversation cannot take this prompt: answer
+                # it on a fresh cache (the JAX package's clamped write
+                # would overwrite the last turn's slots; ROADMAP queue 3)
+                print(f"[bubble] context full ({int(cache.pos[0])} + "
+                      f"{len(ids)} > {cache.size} slots): this turn starts "
+                      f"a fresh context")
+                cache = None
             if cache is None:
                 cache = cache_for(card, 1, size, fmt=kv_fmt, device=dev)
             toks, cache = generate(card, params, prompt_t, cache, sampler,

@@ -437,7 +437,7 @@ class TrainCard:
     int8_matmul: bool = False        # int8 fwd matmuls (FP8-GEMM analog)
     int8_wgrad: bool = False         # experimental: int8 wgrad too
     # int8 dgrad: False | True/'fold' (scale-folded dy) | 'tile'
-    # (per-tile quant kernel — not ported yet)
+    # (the per-tile int8 dgrad kernel, csrc/qdgrad.cu)
     int8_dgrad: Any = False
     fused_ce: Optional[bool] = None  # None: auto (vocab >= 64k). True
                                      # forces the chunked logits-free CE;

@@ -6,41 +6,54 @@
 // the four variants exist for layout and tiling only; here they are one
 // strided pair: q, o, dO [B,T,Hq,D] and k, v [B,T,Hkv,D] bf16 through their
 // strides (unit stride on D), lse [B,Hq,T] f32 from the forward, outputs
-// dq [B,T,Hq,D] and dk, dv [B,T,Hkv,D] bf16, contiguous.
+// dq [B,T,Hq,D] and dk, dv [B,T,Hkv,D] bf16, contiguous. No atomics: dk and
+// dv sum over the GQA group in f32 inside one block and round once.
 //
-//   flash_bwd_dkv: one block per (kv tile, kv head, batch). It loops over
-//     the g q heads of the group and, for each, over the live q tiles (from
-//     the causal diagonal on, inside the window). Each warp owns 16 kv rows
-//     and computes the transposed tiles Sᵀ = K·qsᵀ, dPᵀ = V·dOᵀ, then
-//     dV += bf16(Pᵀ)·dO and dK += bf16(dSᵀ)·q into f32 accumulators: dk and
-//     dv sum over the whole group in f32 and round to bf16 once, as the
-//     Pallas kernels do, with no atomics. For D <= 128 the accumulators are
-//     register fragments and the next step's q and dO tiles load by
-//     cp.async during this one (flash_bwd_dkv_reg_kernel); D = 256 needs
-//     twice the registers, so its accumulators stay in shared memory
-//     (flash_bwd_dkv_kernel).
-//   flash_bwd_dq: one block per (q tile, q head, batch), looping over the
-//     live kv tiles: S = qs·Kᵀ, dP = dO·Vᵀ, dQ += bf16(dS)·K, with dQ in
-//     registers and the next K/V tiles loading by cp.async.
+// Rounding follows the Pallas kernels: qs = bf16(q·scale); p = exp(s − lse)
+// with masked entries giving p = 0; bf16(p) feeds dV; delta =
+// rowsum(f32(dO)·f32(O)); ds = p·(dp − delta)·scale rounds to bf16 before
+// dK (against the unscaled q) and dQ.
 //
-// Both recompute delta = rowsum(f32(dO)·f32(O)) for the q rows they visit,
-// as the TPU kernels do, so there is no extra launch or buffer. Rounding
-// follows the Pallas kernels: qs = bf16(q·scale); p = exp(s − lse) with
-// masked logits giving p = 0; bf16(p) feeds dV; ds = p·(dp − delta)·scale
-// rounds to bf16 before dK (against the unscaled q) and dQ.
+// What bounds them on the H100: at T = 1024, D = 128 the seven products
+// (S and dP in both kernels, dV, dK, dQ) are ~600 flops per byte of q, k,
+// v, o, dO read and dq, dk, dv written, above the card's ~295 bf16
+// flops/byte ridge: the tensor cores bound them in principle, and p, ds (an
+// exp and a handful of flops per score, twice) are the second cost.
 //
-// What bounds them on the H100: at T = 1024, D = 128 the work is about
-// 64-128 flops per byte of q, k, v, o, dO moved, under the card's ridge of
-// ~295 bf16 flops/byte only at short T; at training lengths the products
-// dominate and the card's tensor cores bound them in principle. In this
-// design the bound is the recompute of S and P in both kernels (five
-// products for dkv+dq where a fused single pass needs four), the round
-// trips of S, dP, P and dS through shared memory between WMMA products
-// (16x16x16, bf16 in, f32 accumulate), and one 4-warp block per SM; no
-// wgmma or TMA yet.
-#include "common.cuh"
+// D = 64 and 128 (the training paths): warp-specialised wgmma kernels.
+//   flash_bwd_delta: delta for every row, once, into an f32 [B,Hq,T]
+//     buffer (launched by the dkv entry, or the dq entry when it is not
+//     given one): the Pallas kernels recompute it per q tile, which here
+//     would read O again for every kv tile.
+//   flash_bwd_dkv: one block per (128 kv rows, kv head, batch); consumer
+//     warpgroup w owns kv rows 64w..64w+63. The producer warpgroup streams
+//     each step's (q head of the group, live q tile of 64 rows from the
+//     causal diagonal, inside the window) q, dO, lse and delta by cp.async
+//     through 3 stages, and writes qs = bf16(q·scale) beside q once its own
+//     copies landed. The consumers compute Sᵀ = K·qsᵀ and dPᵀ = V·dOᵀ by
+//     wgmma into registers, turn Pᵀ and dSᵀ into bf16 register fragments,
+//     and issue dV += Pᵀ·dO and dK += dSᵀ·q with those fragments as the A
+//     operand (dO and q read MN-major from the same swizzled tiles): S, P,
+//     dP and dS never touch shared memory, and dK, dV stay in registers.
+//     At D = 128 the q tile is taken in four parts of 16 columns, so that
+//     S, dP and their fragments fit beside the 128 accumulator registers.
+//   flash_bwd_dq: one block per (128 q rows, q head, batch); the live kv
+//     tiles of 64 rows stream through 2 stages; S = qs·Kᵀ and dP = dO·Vᵀ by
+//     wgmma, dS as the register A operand of dQ += dS·K.
+//   Tiles with no masked entry skip the mask arithmetic; dead tiles (above
+//   the diagonal, outside the window) are skipped; the blocks with the most
+//   live tiles are launched first (the grid's slowest index), so the last
+//   wave is short.
+//
+// D = 256 keeps the WMMA kernels (flash_bwd_dkv_kernel, flash_bwd_dq_kernel
+// below): a warpgroup's dK and dV accumulators for 64 rows of D = 256 are
+// 256 registers a thread, more than a thread has. They recompute delta per
+// q tile and stage S, dP, P and dS through shared memory.
+#include "sm90.cuh"
 
 #include <mma.h>
+
+#include <type_traits>
 
 using namespace nvcuda;
 
@@ -363,143 +376,6 @@ __global__ void __launch_bounds__(32 * NW)
 }
 
 // ---------------------------------------------------------------------------
-// dK / dV for D <= 128: accumulators in registers, q tiles double-buffered
-// ---------------------------------------------------------------------------
-// The same work as flash_bwd_dkv_kernel with dK and dV held as D/16 16x16
-// register fragments a warp (its 16 kv rows): the shared memory they free
-// holds a second (q, dO) stage, so the next (q head, q tile) step's tiles
-// load by cp.async while this one is computed.
-
-template <int D>
-struct DkvRegLayout {
-  static constexpr int BK = 64, BQ = 64;
-  static constexpr int LDH = D + 8;
-  static constexpr int LDS = BQ + 4;
-  static constexpr int LDP = BQ + 8;
-  static constexpr size_t TILE = align128(sizeof(bf16) * 64 * LDH);
-  static constexpr size_t K = 0;
-  static constexpr size_t V = K + TILE;
-  static constexpr size_t STAGES = V + TILE;        // 2 x (q tile, dO tile)
-  static constexpr size_t QS = STAGES + 4 * TILE;
-  static constexpr size_t ST = QS + TILE;
-  static constexpr size_t DPT = ST + align128(sizeof(float) * BK * LDS);
-  static constexpr size_t PT = DPT + align128(sizeof(float) * BK * LDS);
-  static constexpr size_t DST = PT + align128(sizeof(bf16) * BK * LDP);
-  static constexpr size_t LSE = DST + align128(sizeof(bf16) * BK * LDP);
-  static constexpr size_t DELTA = LSE + align128(sizeof(float) * BQ);
-  static constexpr size_t BYTES = DELTA + align128(sizeof(float) * BQ);
-  static_assert(BYTES <= 232448, "flash_bwd_dkv: shared memory");
-};
-
-template <int D>
-__global__ void __launch_bounds__(128)
-    flash_bwd_dkv_reg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, const bf16* __restrict__ o,
-                             const bf16* __restrict__ dO, const float* __restrict__ lse,
-                             bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int Hq,
-                             int Hkv, Strides s, float scale, int window) {
-  using LY = DkvRegLayout<D>;
-  constexpr int BK = LY::BK, BQ = LY::BQ, NT = 128;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem + LY::K);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + LY::V);
-  bf16* QSs = reinterpret_cast<bf16*>(smem + LY::QS);
-  float* St = reinterpret_cast<float*>(smem + LY::ST);
-  float* DPt = reinterpret_cast<float*>(smem + LY::DPT);
-  bf16* Pt = reinterpret_cast<bf16*>(smem + LY::PT);
-  bf16* DSt = reinterpret_cast<bf16*>(smem + LY::DST);
-  float* Ls = reinterpret_cast<float*>(smem + LY::LSE);
-  float* Dl = reinterpret_cast<float*>(smem + LY::DELTA);
-
-  const int k0 = blockIdx.x * BK;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int g = Hq / Hkv;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = warp * 16;   // this warp's kv rows in the tile
-
-  // live q tiles: rows q >= k0 (causal) and q < k_last + window
-  const int k_last = min(k0 + BK, T) - 1;
-  const int i_lo = k0 / BQ;
-  int i_hi = (T - 1) / BQ;
-  if (window > 0) i_hi = min(i_hi, (k_last + window - 1) / BQ);
-  const int n_it = i_hi - i_lo + 1;
-  const int n_steps = g * n_it;   // (q head of the group, q tile)
-  auto qtile = [&](int st) {
-    return reinterpret_cast<bf16*>(smem + LY::STAGES + (st % 2) * 2 * LY::TILE);
-  };
-  auto dotile = [&](int st) {
-    return reinterpret_cast<bf16*>(smem + LY::STAGES + (st % 2) * 2 * LY::TILE + LY::TILE);
-  };
-  auto prefetch = [&](int st) {
-    if (st < n_steps) {
-      const int h = hk * g + st / n_it, q0 = (i_lo + st % n_it) * BQ;
-      load_rows_async<D, BQ, LY::LDH, NT>(qtile(st), q + b * s.qsb + h * s.qsh, s.qst, q0, T);
-      load_rows_async<D, BQ, LY::LDH, NT>(dotile(st), dO + b * s.dsb + h * s.dsh, s.dst, q0,
-                                          T);
-    }
-    cp_async_commit();
-  };
-
-  load_rows_async<D, BK, LY::LDH, NT>(Ks, k + b * s.ksb + hk * s.ksh, s.kst, k0, T);
-  load_rows_async<D, BK, LY::LDH, NT>(Vs, v + b * s.vsb + hk * s.vsh, s.vst, k0, T);
-  cp_async_commit();
-  prefetch(0);
-
-  FragC dka[D / 16], dva[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(dka[n], 0.f);
-    wmma::fill_fragment(dva[n], 0.f);
-  }
-  for (int st = 0; st < n_steps; ++st) {
-    const int h = hk * g + st / n_it, q0 = (i_lo + st % n_it) * BQ;
-    __syncthreads();   // everyone is done with step st - 1 (its stage, QS, stats)
-    prefetch(st + 1);
-    cp_async_wait<1>();
-    __syncthreads();   // step st's q and dO tiles (and K/V) landed
-    const bf16* Qs = qtile(st);
-    const bf16* DOs = dotile(st);
-    scale_rows<D, BQ, LY::LDH, NT>(QSs, Qs, scale);
-    row_stats<D, BQ, 4, LY::LDH>(Dl, Ls, DOs, o + b * s.osb + h * s.osh, s.ost,
-                                 lse + (static_cast<long long>(b) * Hq + h) * T, q0, T);
-    __syncthreads();
-
-    // this warp's 16 kv rows: Sᵀ = K·qsᵀ and dPᵀ = V·dOᵀ
-    rows_by_rows_t<D, BQ / 16>(St + row0 * LY::LDS, LY::LDS, Ks + row0 * LY::LDH, LY::LDH, QSs,
-                               LY::LDH);
-    rows_by_rows_t<D, BQ / 16>(DPt + row0 * LY::LDS, LY::LDS, Vs + row0 * LY::LDH, LY::LDH, DOs,
-                               LY::LDH);
-    __syncwarp();
-    for (int i = 0; i < 16; ++i) {
-      const int r = row0 + i;
-      const int kpos = k0 + r;
-      for (int c = lane; c < BQ; c += 32) {
-        const int qpos = q0 + c;
-        bool ok = kpos <= qpos && qpos < T;
-        if (window > 0) ok = ok && kpos > qpos - window;
-        const float p = ok ? expf(St[r * LY::LDS + c] - Ls[c]) : 0.f;
-        const float ds = p * (DPt[r * LY::LDS + c] - Dl[c]) * scale;
-        Pt[r * LY::LDP + c] = __float2bfloat16(p);
-        DSt[r * LY::LDP + c] = __float2bfloat16(ds);
-      }
-    }
-    __syncwarp();
-    // dV += bf16(Pᵀ)·dO; dK += bf16(dSᵀ)·q
-    accumulate_regs<D, BQ>(dva, Pt + row0 * LY::LDP, LY::LDP, DOs, LY::LDH);
-    accumulate_regs<D, BQ>(dka, DSt + row0 * LY::LDP, LY::LDP, Qs, LY::LDH);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  // dk, dv [B,T,Hkv,D] contiguous: each warp writes its own rows
-  float* scratch = St + warp * 256;
-  const int rows = min(16, T - (k0 + row0));
-  const long long at = ((static_cast<long long>(b) * T + k0 + row0) * Hkv + hk) * D;
-  write_rows<D>(dka, scratch, dk + at, static_cast<long long>(Hkv) * D, rows);
-  write_rows<D>(dva, scratch, dv + at, static_cast<long long>(Hkv) * D, rows);
-}
-
-// ---------------------------------------------------------------------------
 // dQ: block = (64 q rows, q head, batch); kv tiles of BK rows
 // ---------------------------------------------------------------------------
 // dQ lives in registers (D/16 fragments a warp); the K/V tiles of the next
@@ -635,22 +511,6 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dkv_reg(const void* q, const void* k, const void* v, const void* o,
-                           const void* dO, const void* lse, void* dk, void* dv, int B, int T,
-                           int Hq, int Hkv, const Strides& s, float scale, int window,
-                           cudaStream_t stream) {
-  using LY = DkvRegLayout<D>;
-  static cudaError_t attr = set_smem(flash_bwd_dkv_reg_kernel<D>, LY::BYTES);
-  if (attr != cudaSuccess) return attr;
-  dim3 grid((T + LY::BK - 1) / LY::BK, Hkv, B);
-  flash_bwd_dkv_reg_kernel<D><<<grid, 128, LY::BYTES, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dO), static_cast<const float*>(lse),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, Hq, Hkv, s, scale, window);
-  return cudaGetLastError();
-}
-
 template <int D, int BK>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dO,
                       const void* lse, void* dq, int B, int T, int Hq, int Hkv, const Strides& s,
@@ -666,26 +526,535 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// D = 64, 128: warp-specialised wgmma kernels
+// ---------------------------------------------------------------------------
+// Each block has three warpgroups: 0 and 1 consume (wgmma, 64 rows each),
+// 2 produces (its 128 threads stream tiles by cp.async into a ring of
+// STAGES buffers in B128-swizzled shared memory; each buffer has a "full"
+// mbarrier that the copies complete and an "empty" one that the 8 consumer
+// warps release). The producer gives its registers to the consumers
+// (setmaxnreg), which hold S, dP and the accumulators in registers.
+
+constexpr int WS_THREADS = 384;
+
+constexpr uint32_t align1024(uint32_t x) { return (x + 1023u) / 1024u * 1024u; }
+
+// delta[b, h, t] = Σ_d f32(dO)·f32(O), one warp a row, rows in [B,Hq,T] order
+template <int D>
+__global__ void __launch_bounds__(256)
+    flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dO,
+                           float* __restrict__ delta, int T, int Hq, long long rows, Strides s) {
+  const long long row = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  const int t = static_cast<int>(row % T);
+  const long long bh = row / T;
+  const int h = static_cast<int>(bh % Hq), b = static_cast<int>(bh / Hq);
+  constexpr int PER = D / 32;   // 2 or 4 values a lane
+  const bf16* orow = o + b * s.osb + t * s.ost + h * s.osh + lane * PER;
+  const bf16* drow = dO + b * s.dsb + t * s.dst + h * s.dsh + lane * PER;
+  float acc = 0.f;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) acc += __bfloat162float(drow[k]) * __bfloat162float(orow[k]);
+  acc = warp_sum(acc);
+  if (lane == 0) delta[row] = acc;
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// p = exp(s − lse) (as 2^(s·log2 e − lse·log2 e)) on live entries, else 0;
+// ds = p·(dp − delta)·scale — written back over s and dp. lse2 = lse·log2 e.
+__device__ __forceinline__ void p_and_ds(float& s, float& dp, bool ok, float lse2, float dl,
+                                         float scale) {
+  const float p = ok ? exp2f(fmaf(s, LOG2E, -lse2)) : 0.f;
+  dp = p * (dp - dl) * scale;
+  s = p;
+}
+
+// the k16 register fragments of a 64 x N accumulator (bf16, k = N)
+template <int N>
+__device__ __forceinline__ void acc_to_frags(uint32_t (&f)[N / 16][4], const float (&d)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// d (64 x N, f32) = A(64 rows of a K-major tile from row r0) · B(N rows of a
+// K-major tile from row b0)ᵀ over D
+template <int D, int N>
+__device__ __forceinline__ void qk_t(float (&d)[N / 2], uint32_t a, int ra, int r0, uint32_t b,
+                                     int rb, int b0 = 0) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    if constexpr (N == 16)
+      wgmma_ss_n16<0>(d, desc_k(a, ra, r0, kk), desc_k(b, rb, b0, kk), kk > 0);
+    else
+      wgmma_ss_n64<0>(d, desc_k(a, ra, r0, kk), desc_k(b, rb, b0, kk), kk > 0);
+  }
+}
+
+// d (64 x D) += frags(64 x 16·KS) · B(rows k0 .. k0 + 16·KS of an MN-major
+// tile of rb rows x D)
+template <int D, int KS>
+__device__ __forceinline__ void pv(float (&d)[D / 2], const uint32_t (&f)[KS][4], uint32_t b,
+                                   int rb, int k0 = 0) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    if constexpr (D == 64)
+      wgmma_rs_n64<1>(d, f[kk], desc_mn(b + k0 * 128, rb, kk), 1);
+    else
+      wgmma_rs_n128<1>(d, f[kk], desc_mn(b + k0 * 128, rb, kk), 1);
+  }
+}
+
+// Copy rows [r0, r0 + R) of one head of a [B,T,H,D] tensor (row stride st)
+// into a swizzled tile of R rows; rows past T are zero. Thread i of NT.
+template <int D, int R, int NT>
+__device__ __forceinline__ void copy_rows(unsigned char* tile, const bf16* src, long long st,
+                                          int r0, int T, int i0) {
+  constexpr int CH = D / 8;
+  for (int i = i0; i < R * CH; i += NT) {
+    const int r = i / CH, c = i % CH;
+    const bool in = r0 + r < T;
+    cp_async16(tile + sw128(r, c, R), in ? src + (r0 + r) * st + c * 8 : src, in ? 16 : 0);
+  }
+}
+
+// n floats from[r0 ...] (zero past T) by 4-byte copies, thread i0 of NT
+template <int N, int NT>
+__device__ __forceinline__ void copy_floats(unsigned char* dst, const float* src, int r0, int T,
+                                            int i0) {
+  for (int i = i0; i < N; i += NT) {
+    const bool in = r0 + i < T;
+    cp_async4(dst + 4 * i, in ? src + r0 + i : src, in ? 4 : 0);
+  }
+}
+
+// rows [r_lo, r_lo + n) of a swizzled tile of R rows: dst = bf16(f32(src)·scale)
+template <int D, int R>
+__device__ __forceinline__ void scale_tile(unsigned char* dst, const unsigned char* src, int r_lo,
+                                           int n, float scale, int i0, int nt) {
+  constexpr int CH = D / 8;
+  for (int i = i0; i < n * CH; i += nt) {
+    const int r = r_lo + i / CH, c = i % CH;
+    const uint32_t off = sw128(r, c, R);
+    uint4 val = *reinterpret_cast<const uint4*>(src + off);
+    bf16* e = reinterpret_cast<bf16*>(&val);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) e[k] = __float2bfloat16(__bfloat162float(e[k]) * scale);
+    *reinterpret_cast<uint4*>(dst + off) = val;
+  }
+}
+
+// rows (lane/4, +8) of this warp's 16 of a 64 x D accumulator -> bf16 rows
+// of a [.., D] output with row stride ld (rows at or past `rows` skipped)
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* out, long long ld, const float (&d)[D / 2],
+                                          int rows) {
+  const int lane = threadIdx.x % 32;
+  const int r = lane / 4;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = j * 8 + (lane % 4) * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (r + 8 * h < rows)
+        *reinterpret_cast<__nv_bfloat162*>(out + (r + 8 * h) * ld + c) =
+            __floats2bfloat162_rn(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+  }
+}
+
+template <int D>
+struct DkvWs {
+  static constexpr int BK = 128, BQ = 64, STAGES = 3;
+  static constexpr uint32_t KV_TILE = BK * D * 2, Q_TILE = BQ * D * 2;
+  static constexpr uint32_t K = 0, V = KV_TILE, STAGE0 = 2 * KV_TILE;
+  // a stage: q, qs (scaled by the producer), dO, lse, delta
+  static constexpr uint32_t SQ = 0, SQS = Q_TILE, SDO = 2 * Q_TILE, SLSE = 3 * Q_TILE,
+                            SDELTA = SLSE + BQ * 4;
+  static constexpr uint32_t STAGE = align1024(SDELTA + BQ * 4);
+  static constexpr uint32_t BAR = STAGE0 + STAGES * STAGE;   // full[S], empty[S], kv
+  static constexpr uint32_t ALLOC = BAR + 8 * (2 * STAGES + 1) + 1024;
+  static_assert(ALLOC <= 232448, "flash_bwd_dkv: shared memory");
+};
+
+// dK / dV: block = (128 kv rows, kv head, batch), consumer warpgroup w owns
+// kv rows 64w..64w+63. Steps: (q head of the group, live q tile of 64 rows).
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_bwd_dkv_ws_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const bf16* __restrict__ dO,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int Hq, int Hkv,
+                            Strides s, float scale, int window) {
+  using LY = DkvWs<D>;
+  constexpr int BK = LY::BK, BQ = LY::BQ, S = LY::STAGES, HQ = D == 128 ? 16 : BQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_aligned(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + LY::BAR);
+  uint64_t* empty = full + S;
+  uint64_t* kvfull = empty + S;
+
+  // grid (kv head, batch, kv tile): the first kv tiles, which see the most
+  // q tiles, are launched first
+  const int k0 = blockIdx.z * BK, hk = blockIdx.x, b = blockIdx.y, g = Hq / Hkv;
+  const int k_last = min(k0 + BK, T) - 1;
+  const int i_lo = k0 / BQ;
+  int i_hi = (T - 1) / BQ;
+  if (window > 0) i_hi = min(i_hi, (k_last + window - 1) / BQ);
+  const int n_it = i_hi - i_lo + 1;
+  const int n_steps = g * n_it;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], 128);
+      mbar_init(&empty[i], 8);
+    }
+    mbar_init(kvfull, 128);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, t128 = threadIdx.x % 128;
+  if (wg == 2) {   // producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    copy_rows<D, BK, 128>(sm + LY::K, k + b * s.ksb + hk * s.ksh, s.kst, k0, T, t128);
+    copy_rows<D, BK, 128>(sm + LY::V, v + b * s.vsb + hk * s.vsh, s.vst, k0, T, t128);
+    cp_async_arrive(kvfull);
+    for (int st = 0; st < n_steps; ++st) {
+      const int stage = st % S;
+      mbar_wait(&empty[stage], ((st / S) & 1) ^ 1);
+      const int h = hk * g + st / n_it, q0 = (i_lo + st % n_it) * BQ;
+      unsigned char* sp = sm + LY::STAGE0 + stage * LY::STAGE;
+      copy_rows<D, BQ, 128>(sp + LY::SQ, q + b * s.qsb + h * s.qsh, s.qst, q0, T, t128);
+      copy_rows<D, BQ, 128>(sp + LY::SDO, dO + b * s.dsb + h * s.dsh, s.dst, q0, T, t128);
+      const long long bh = (static_cast<long long>(b) * Hq + h) * T;
+      copy_floats<BQ, 128>(sp + LY::SLSE, lse + bh, q0, T, t128);
+      copy_floats<BQ, 128>(sp + LY::SDELTA, delta + bh, q0, T, t128);
+      // qs = bf16(q·scale) from the chunks this thread copied, once they
+      // landed; then a plain arrive (the barrier counts the 128 producers)
+      cp_async_wait_all();
+      scale_tile<D, BQ>(sp + LY::SQS, sp + LY::SQ, 0, BQ, scale, t128, 128);
+      fence_proxy_async();
+      mbar_arrive(&full[stage]);
+    }
+  } else {   // consumers
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int warp = t128 / 32, lane = t128 % 32;
+    const uint32_t sK = smem_u32(sm + LY::K), sV = smem_u32(sm + LY::V);
+    const int kw0 = k0 + wg * 64;                     // this warpgroup's first kv row
+    const int kr = kw0 + warp * 16 + lane / 4;        // this thread's rows kr, kr + 8
+    float dka[D / 2], dva[D / 2];
+    zero(dka);
+    zero(dva);
+    mbar_wait(kvfull, 0);
+    fence_proxy_async();
+    for (int st = 0; st < n_steps; ++st) {
+      const int stage = st % S;
+      mbar_wait(&full[stage], (st / S) & 1);
+      fence_proxy_async();
+      const int q0 = (i_lo + st % n_it) * BQ;
+      unsigned char* sp = sm + LY::STAGE0 + stage * LY::STAGE;
+      const bool live = kw0 < T && kw0 <= q0 + BQ - 1 &&
+                        !(window > 0 && kw0 + 63 <= q0 - window);
+      if (live) {
+        const uint32_t sQ = smem_u32(sp + LY::SQ), sQS = smem_u32(sp + LY::SQS),
+                       sDO = smem_u32(sp + LY::SDO);
+        const float* Ls = reinterpret_cast<const float*>(sp + LY::SLSE);
+        const float* Dl = reinterpret_cast<const float*>(sp + LY::SDELTA);
+        // the q tile in column parts of HQ (D = 128: four parts of 16, so
+        // that S, dP and their fragments fit beside the dK, dV accumulators)
+#pragma unroll 1
+        for (int c0 = 0; c0 < BQ; c0 += HQ) {
+          float sa[HQ / 2], dpa[HQ / 2];
+          zero(sa);
+          zero(dpa);
+          // Sᵀ = K·qsᵀ and dPᵀ = V·dOᵀ for this warpgroup's 64 kv rows
+          wgmma_fence();
+          qk_t<D, HQ>(sa, sK, BK, wg * 64, sQS, BQ, c0);
+          qk_t<D, HQ>(dpa, sV, BK, wg * 64, sDO, BQ, c0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sa);
+          fence_regs(dpa);
+          // no entry of this part is masked: every kv row <= every q row,
+          // all q rows < T, all inside the window
+          const int qa = q0 + c0;
+          const bool inner = kw0 + 63 <= qa && qa + HQ <= T &&
+                             (window == 0 || kw0 > qa + HQ - 1 - window);
+          auto elementwise = [&](auto masked) {
+#pragma unroll
+            for (int j = 0; j < HQ / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int c = c0 + j * 8 + (lane % 4) * 2 + (e & 1);
+                bool ok = true;
+                if constexpr (decltype(masked)::value) {
+                  const int kpos = kr + (e & 2 ? 8 : 0), qpos = q0 + c;
+                  ok = kpos <= qpos && qpos < T && (window == 0 || kpos > qpos - window);
+                }
+                p_and_ds(sa[4 * j + e], dpa[4 * j + e], ok, Ls[c] * LOG2E, Dl[c], scale);
+              }
+          };
+          if (inner)
+            elementwise(std::false_type{});
+          else
+            elementwise(std::true_type{});
+          uint32_t pf[HQ / 16][4], df[HQ / 16][4];
+          acc_to_frags<HQ>(pf, sa);
+          acc_to_frags<HQ>(df, dpa);
+          // dV += bf16(Pᵀ)·dO; dK += bf16(dSᵀ)·q over this part's q rows
+          wgmma_fence();
+          pv<D, HQ / 16>(dva, pf, sDO, BQ, c0);
+          pv<D, HQ / 16>(dka, df, sQ, BQ, c0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dva);
+          fence_regs(dka);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+    }
+    // dk, dv [B,T,Hkv,D] contiguous
+    const int r0 = kw0 + warp * 16;
+    const long long ld = static_cast<long long>(Hkv) * D;
+    const long long at = ((static_cast<long long>(b) * T + r0) * Hkv + hk) * D;
+    store_acc<D>(dk + at, ld, dka, T - r0);
+    store_acc<D>(dv + at, ld, dva, T - r0);
+  }
+}
+
+template <int D>
+struct DqWs {
+  static constexpr int BQ = 128, BN = 64, STAGES = 2;
+  static constexpr uint32_t Q_TILE = BQ * D * 2, KV_TILE = BN * D * 2;
+  // q (scaled in place to qs), dO, lse, delta; then the K/V ring
+  static constexpr uint32_t Q = 0, DO = Q_TILE, LSE = 2 * Q_TILE, DELTA = LSE + BQ * 4;
+  static constexpr uint32_t STAGE0 = align1024(DELTA + BQ * 4);
+  static constexpr uint32_t SK = 0, SV = KV_TILE, STAGE = 2 * KV_TILE;
+  static constexpr uint32_t BAR = STAGE0 + STAGES * STAGE;   // full[S], empty[S], q
+  static constexpr uint32_t ALLOC = BAR + 8 * (2 * STAGES + 1) + 1024;
+  static_assert(ALLOC <= 232448, "flash_bwd_dq: shared memory");
+};
+
+// dQ: block = (128 q rows, q head, batch), consumer warpgroup w owns q rows
+// 64w..64w+63; the live kv tiles of 64 rows stream through the ring.
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_bwd_dq_ws_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ dO,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dq, int T, int Hq, int Hkv, Strides s, float scale,
+                           int window) {
+  using LY = DqWs<D>;
+  constexpr int BQ = LY::BQ, BN = LY::BN, S = LY::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_aligned(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + LY::BAR);
+  uint64_t* empty = full + S;
+  uint64_t* qfull = empty + S;
+
+  // grid (q head, batch, q tile): the last q tiles, which see the most kv
+  // tiles, are launched first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ, h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (Hq / Hkv);
+  const int q_last = min(q0 + BQ, T) - 1;
+  const int j_hi = q_last / BN;
+  const int j_lo = (window > 0 && q0 - window + 1 > 0) ? (q0 - window + 1) / BN : 0;
+  const int n = j_hi - j_lo + 1;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], 128);
+      mbar_init(&empty[i], 8);
+    }
+    mbar_init(qfull, 128);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, t128 = threadIdx.x % 128;
+  if (wg == 2) {   // producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    copy_rows<D, BQ, 128>(sm + LY::Q, q + b * s.qsb + h * s.qsh, s.qst, q0, T, t128);
+    copy_rows<D, BQ, 128>(sm + LY::DO, dO + b * s.dsb + h * s.dsh, s.dst, q0, T, t128);
+    const long long bh = (static_cast<long long>(b) * Hq + h) * T;
+    copy_floats<BQ, 128>(sm + LY::LSE, lse + bh, q0, T, t128);
+    copy_floats<BQ, 128>(sm + LY::DELTA, delta + bh, q0, T, t128);
+    cp_async_arrive(qfull);
+    const bf16* kh = k + b * s.ksb + hk * s.ksh;
+    const bf16* vh = v + b * s.vsb + hk * s.vsh;
+    for (int i = 0; i < n; ++i) {
+      const int stage = i % S;
+      mbar_wait(&empty[stage], ((i / S) & 1) ^ 1);
+      unsigned char* sp = sm + LY::STAGE0 + stage * LY::STAGE;
+      copy_rows<D, BN, 128>(sp + LY::SK, kh, s.kst, (j_lo + i) * BN, T, t128);
+      copy_rows<D, BN, 128>(sp + LY::SV, vh, s.vst, (j_lo + i) * BN, T, t128);
+      cp_async_arrive(&full[stage]);
+    }
+    cp_async_wait_all();
+  } else {   // consumers
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int warp = t128 / 32, lane = t128 % 32;
+    const int wq0 = q0 + wg * 64;                     // this warpgroup's first q row
+    const int lr = wg * 64 + warp * 16 + lane / 4;    // this thread's rows lr, lr + 8 in the tile
+    const int qr = q0 + lr;
+    mbar_wait(qfull, 0);
+    fence_proxy_async();
+    // qs = bf16(q·scale) in place, this warpgroup's 64 rows
+    scale_tile<D, BQ>(sm + LY::Q, sm + LY::Q, wg * 64, 64, scale, t128, 128);
+    fence_proxy_async();
+    named_bar_sync(2 + wg, 128);
+    const float* Ls = reinterpret_cast<const float*>(sm + LY::LSE);
+    const float* Dl = reinterpret_cast<const float*>(sm + LY::DELTA);
+    const float l0 = Ls[lr] * LOG2E, l1 = Ls[lr + 8] * LOG2E, d0 = Dl[lr], d1 = Dl[lr + 8];
+    const uint32_t sQ = smem_u32(sm + LY::Q), sDO = smem_u32(sm + LY::DO);
+    const int w_last = min(wq0 + 63, T - 1);
+    float dqa[D / 2];
+    zero(dqa);
+    for (int i = 0; i < n; ++i) {
+      const int stage = i % S;
+      mbar_wait(&full[stage], (i / S) & 1);
+      fence_proxy_async();
+      const int k0 = (j_lo + i) * BN;
+      const bool live = wq0 < T && k0 <= w_last && !(window > 0 && k0 + BN - 1 <= wq0 - window);
+      if (live) {
+        unsigned char* sp = sm + LY::STAGE0 + stage * LY::STAGE;
+        const uint32_t sK = smem_u32(sp + LY::SK), sV = smem_u32(sp + LY::SV);
+        float sa[BN / 2], dpa[BN / 2];
+        zero(sa);
+        zero(dpa);
+        // S = qs·Kᵀ and dP = dO·Vᵀ for this warpgroup's 64 q rows
+        wgmma_fence();
+        qk_t<D, BN>(sa, sQ, BQ, wg * 64, sK, BN);
+        qk_t<D, BN>(dpa, sDO, BQ, wg * 64, sV, BN);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sa);
+        fence_regs(dpa);
+        // no entry of this warpgroup's tile is masked
+        const bool inner = k0 + BN - 1 <= wq0 && wq0 + 64 <= T &&
+                           (window == 0 || k0 > wq0 + 63 - window);
+        auto elementwise = [&](auto masked) {
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              bool ok = true;
+              if constexpr (decltype(masked)::value) {
+                const int qpos = qr + (e & 2 ? 8 : 0);
+                const int kpos = k0 + j * 8 + (lane % 4) * 2 + (e & 1);
+                ok = kpos <= qpos && qpos < T && (window == 0 || kpos > qpos - window);
+              }
+              p_and_ds(sa[4 * j + e], dpa[4 * j + e], ok, e & 2 ? l1 : l0, e & 2 ? d1 : d0,
+                       scale);
+            }
+        };
+        if (inner)
+          elementwise(std::false_type{});
+        else
+          elementwise(std::true_type{});
+        uint32_t df[BN / 16][4];
+        acc_to_frags<BN>(df, dpa);
+        // dQ += bf16(dS)·K
+        wgmma_fence();
+        pv<D, BN / 16>(dqa, df, sK, BN);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dqa);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+    }
+    const int r0 = wq0 + warp * 16;
+    const long long ld = static_cast<long long>(Hq) * D;
+    store_acc<D>(dq + ((static_cast<long long>(b) * T + r0) * Hq + h) * D, ld, dqa, T - r0);
+  }
+}
+
+template <int D>
+cudaError_t launch_delta(const void* o, const void* dO, void* delta, int B, int T, int Hq,
+                         const Strides& s, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(B) * Hq * T;
+  flash_bwd_delta_kernel<D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dO), static_cast<float*>(delta), T,
+      Hq, rows, s);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_ws(const void* q, const void* k, const void* v, const void* o,
+                          const void* dO, const void* lse, void* delta, int make_delta, void* dk,
+                          void* dv, int B, int T, int Hq, int Hkv, const Strides& s, float scale,
+                          int window, cudaStream_t stream) {
+  using LY = DkvWs<D>;
+  static cudaError_t attr = set_smem(flash_bwd_dkv_ws_kernel<D>, LY::ALLOC);
+  if (attr != cudaSuccess) return attr;
+  if (make_delta) {
+    const cudaError_t e = launch_delta<D>(o, dO, delta, B, T, Hq, s, stream);
+    if (e != cudaSuccess) return e;
+  }
+  dim3 grid(Hkv, B, (T + LY::BK - 1) / LY::BK);
+  flash_bwd_dkv_ws_kernel<D><<<grid, WS_THREADS, LY::ALLOC, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dO), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, Hq,
+      Hkv, s, scale, window);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_ws(const void* q, const void* k, const void* v, const void* o,
+                         const void* dO, const void* lse, void* delta, int make_delta, void* dq,
+                         int B, int T, int Hq, int Hkv, const Strides& s, float scale, int window,
+                         cudaStream_t stream) {
+  using LY = DqWs<D>;
+  static cudaError_t attr = set_smem(flash_bwd_dq_ws_kernel<D>, LY::ALLOC);
+  if (attr != cudaSuccess) return attr;
+  if (make_delta) {
+    const cudaError_t e = launch_delta<D>(o, dO, delta, B, T, Hq, s, stream);
+    if (e != cudaSuccess) return e;
+  }
+  dim3 grid(Hq, B, (T + LY::BQ - 1) / LY::BQ);
+  flash_bwd_dq_ws_kernel<D><<<grid, WS_THREADS, LY::ALLOC, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dO), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), T, Hq, Hkv, s, scale, window);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 #define KOIFISH_BWD_ARGS                                                                      \
   int B, int T, int Hq, int Hkv, int D, long long qsb, long long qst, long long qsh,         \
       long long ksb, long long kst, long long ksh, long long vsb, long long vst, long long vsh, \
       long long osb, long long ost, long long osh, long long dsb, long long dst, long long dsh, \
-      float scale, int window, void* stream
+      float scale, int window, int make_delta, void* stream
 
+// delta: f32 [B,Hq,T], computed first when make_delta, else read (D <= 128;
+// the D = 256 kernels recompute it and ignore the buffer)
 KOIFISH_API int koifish_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* o,
-                                      const void* dO, const void* lse, void* dk, void* dv,
-                                      KOIFISH_BWD_ARGS) {
+                                      const void* dO, const void* lse, void* delta, void* dk,
+                                      void* dv, KOIFISH_BWD_ARGS) {
   if (B < 1 || T < 1 || Hkv < 1 || Hq % Hkv != 0 || window < 0) return cudaErrorInvalidValue;
   const Strides s{qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh, dsb, dst, dsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_dkv_reg<64>(q, k, v, o, dO, lse, dk, dv, B, T, Hq, Hkv, s, scale, window, st);
+      return launch_dkv_ws<64>(q, k, v, o, dO, lse, delta, make_delta, dk, dv, B, T, Hq, Hkv, s,
+                               scale, window, st);
     case 128:
-      return launch_dkv_reg<128>(q, k, v, o, dO, lse, dk, dv, B, T, Hq, Hkv, s, scale, window,
-                                 st);
+      return launch_dkv_ws<128>(q, k, v, o, dO, lse, delta, make_delta, dk, dv, B, T, Hq, Hkv, s,
+                                scale, window, st);
     case 256:
       return launch_dkv<256, 2, 32>(q, k, v, o, dO, lse, dk, dv, B, T, Hq, Hkv, s, scale, window,
                                     st);
@@ -695,16 +1064,18 @@ KOIFISH_API int koifish_flash_bwd_dkv(const void* q, const void* k, const void* 
 }
 
 KOIFISH_API int koifish_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                                     const void* dO, const void* lse, void* dq,
+                                     const void* dO, const void* lse, void* delta, void* dq,
                                      KOIFISH_BWD_ARGS) {
   if (B < 1 || T < 1 || Hkv < 1 || Hq % Hkv != 0 || window < 0) return cudaErrorInvalidValue;
   const Strides s{qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh, dsb, dst, dsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_dq<64, 64>(q, k, v, o, dO, lse, dq, B, T, Hq, Hkv, s, scale, window, st);
+      return launch_dq_ws<64>(q, k, v, o, dO, lse, delta, make_delta, dq, B, T, Hq, Hkv, s,
+                              scale, window, st);
     case 128:
-      return launch_dq<128, 64>(q, k, v, o, dO, lse, dq, B, T, Hq, Hkv, s, scale, window, st);
+      return launch_dq_ws<128>(q, k, v, o, dO, lse, delta, make_delta, dq, B, T, Hq, Hkv, s,
+                               scale, window, st);
     case 256:
       return launch_dq<256, 32>(q, k, v, o, dO, lse, dq, B, T, Hq, Hkv, s, scale, window, st);
     default:

@@ -1,78 +1,40 @@
-// Dequant-fused GEMM / GEMV for Hopper: y = Σ_g (x_g @ codes_g) · s_g.
+// Dequant-fused GEMV for Hopper (m <= 32): y = Σ_g (x_g @ codes_g) · s_g.
 //
 // Replaces the Pallas kernels of koifish_tpu/ops/pallas/matmul.py:
-// _qmm/_qmm_kernel (:305/:328, the GEMM, m > 32) and _qmv/_qmv_kernel
-// (:201/:224, the GEMV, m <= 32), and their learned-codebook variants
-// _qmm_book/_qmm_book_kernel (:451/:480) and _qmv_book/_qmv_book_kernel
-// (:389/:419). All launch shapes are one kernel template here: 64 x 128
-// output tiles for the GEMM, 32 x 64 for the GEMV; the BOOK flag swaps the
-// constant NF decode for a lookup in the tensor's own book.
+// _qmv/_qmv_kernel (:201/:224, the GEMV, m <= 32) and its learned-codebook
+// variant _qmv_book/_qmv_book_kernel (:389/:419), with 32 x 64 output tiles;
+// the BOOK flag swaps the constant NF decode for a lookup in the tensor's
+// own book. The GEMM shape (m > 32: _qmm, _qmm_book) is qmm.cu.
 //
 // Codes: [K/cpb, N] bytes (INT8: int8 [K, N]) in the group-local
 // block-split order of quant/packing.py — within each 128-row group, byte
 // row r holds rows r, r + 128/cpb, ... (lowest bits first). Decoding
 // follows _unpack_block (matmul.py:155-189): signed formats are stored
 // biased by 2^(bits-1), TERNARY is raw-1, BINARY is 2·raw-1, NF4/NF3 come
-// from the same constants, rounded to bf16. Integer codes are exact in bf16.
-// The group scale multiplies each group's f32 partial product, never the
-// weights. Learned codebooks (BOOK, NF4/NF3 code layouts only): code c of
-// weight row k decodes to bf16(book[k][c]) from an f32 book of 2^bits
-// entries per row ([K, 2^bits], MINI) or one book for all rows ([2^bits],
-// k-means: per_row = 0). A block stages the group's book rows (or the one
-// book, once) in shared memory beside the codes, so the lookup costs a
-// shared load per code and the tiling, the products and the K split are
-// those of the constant formats.
+// from the same constants, rounded to bf16 (qcodes.cuh). Integer codes are
+// exact in bf16. The group scale multiplies each group's f32 partial
+// product, never the weights. Learned codebooks (BOOK, NF4/NF3 code layouts
+// only): code c of weight row k decodes to bf16(book[k][c]) from an f32
+// book of 2^bits entries per row ([K, 2^bits], MINI) or one book for all
+// rows ([2^bits], k-means: per_row = 0). A block stages the group's book
+// rows (or the one book, once) in shared memory beside the codes.
 //
 // What bounds it on the H100: the decode GEMV (m = 32) does 2·32 flops per
 // weight against half a byte of INT4 codes — 128 flops per byte, under the
-// ~295 bf16 flops/byte ridge, so reading the codes once bounds it; the
-// prefill GEMM (m = 4096) is far above the ridge and bound by the tensor
-// cores. Design: one block of 4 warps per (output tile, K split). Per
-// 128-row group it stages the x tile and the group's codes, decoded to
-// bf16, in shared memory (each code byte is read from device memory once
-// per column tile); each warp multiplies its 32-row slice on the tensor
-// cores (mma.sync m16n8k16, bf16 in, f32 accumulate, operands through
-// ldmatrix) into a register partial, and adds partial · scale into its
-// register accumulators — no shared-memory round trip per group. When the
-// output tiles alone cannot fill the card (decode: m <= 32, N ~ 1-3K), K
-// is split across blocks into an f32 workspace that a second pass sums in
-// a fixed order and rounds to bf16.
-#include "common.cuh"
+// ~295 bf16 flops/byte ridge, so reading the codes once bounds it. Design:
+// one block of 4 warps per (output tile, K split). Per 128-row group it
+// stages the x tile and the group's codes, decoded to bf16, in shared
+// memory; each warp multiplies its 32-row slice on the tensor cores
+// (mma.sync m16n8k16, bf16 in, f32 accumulate, operands through ldmatrix)
+// into a register partial, and adds partial · scale into its register
+// accumulators. The output tiles alone cannot fill the card (m <= 32, N ~
+// 1-3K), so K is split across blocks into an f32 workspace that a second
+// pass sums in a fixed order and rounds to bf16.
+#include "qcodes.cuh"
 
 namespace {
 
-constexpr int GROUP = 128;
 constexpr int NTHREADS = 128;   // 4 warps
-
-enum Fmt { INT8 = 0, INT4, NF4, INT3, NF3, INT2, TERNARY, BINARY };
-
-__constant__ float kNF4[16] = {
-    -1.0f, -0.6961928009986877f, -0.5250730514526367f, -0.39491748809814453f,
-    -0.28444138169288635f, -0.18477343022823334f, -0.09105003625154495f, 0.0f,
-    0.07958029955625534f, 0.16093020141124725f, 0.24611230194568634f, 0.33791524171829224f,
-    0.44070982933044434f, 0.5626170039176941f, 0.7229568362236023f, 1.0f};
-__constant__ float kNF3[8] = {-1.0f, -0.5350227355957031f, -0.2469314038753510f, 0.0f,
-                              0.1833375245332718f, 0.3819939494132996f, 0.6229856610298157f,
-                              1.0f};
-
-template <int FMT>
-struct Codes {
-  static constexpr int BITS = FMT == INT8 ? 8 : (FMT == INT2 || FMT == TERNARY) ? 2
-                                                : FMT == BINARY                 ? 1
-                                                                                : 4;
-  static constexpr int CPB = 8 / BITS;       // codes per byte
-  static constexpr int SUB = GROUP / CPB;    // byte rows per group
-  static __device__ __forceinline__ bf16 value(uint32_t raw) {
-    if (FMT == INT8) return __float2bfloat16(static_cast<float>(static_cast<int8_t>(raw)));
-    if (FMT == NF4) return __float2bfloat16(kNF4[raw]);
-    if (FMT == NF3) return __float2bfloat16(kNF3[raw]);
-    if (FMT == TERNARY) return __float2bfloat16(static_cast<float>(static_cast<int>(raw) - 1));
-    if (FMT == BINARY) return __float2bfloat16(static_cast<float>(2 * static_cast<int>(raw) - 1));
-    // INT4 / INT3 / INT2: biased by 2^(bits-1)
-    constexpr int bias = FMT == INT4 ? 8 : FMT == INT3 ? 4 : 2;
-    return __float2bfloat16(static_cast<float>(static_cast<int>(raw) - bias));
-  }
-};
 
 // Tile shape: BM x BN outputs per block, 4 warps as WM x WN, each warp
 // 32 rows (two m16 tiles) x WTN columns (NT n8 tiles).
@@ -119,14 +81,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-
-// entries of a learned book of a format (2^bits), and the shared memory a
-// block keeps for the book rows of one group
-template <int FMT, bool BOOK>
-struct Book {
-  static constexpr int NB = FMT == NF3 ? 8 : 16;
-  static constexpr size_t BYTES = BOOK ? sizeof(float) * GROUP * NB : 0;
-};
 
 template <int FMT, int BM, int BN, bool BOOK>
 __global__ void __launch_bounds__(NTHREADS)
@@ -278,20 +232,12 @@ __global__ void __launch_bounds__(NTHREADS)
     }
 }
 
-// Sum the K-split partials in split order and round to bf16.
-__global__ void splitk_reduce(const float* __restrict__ partial, bf16* __restrict__ out,
-                              int splits, size_t mn) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += partial[k * mn + i];
-  out[i] = __float2bfloat16(s);
-}
-
-template <int FMT, int BM, int BN, bool BOOK>
-cudaError_t launch(const void* x, const void* codes, const void* scales, const void* book,
-                   int per_row, void* out, void* work, int m, int K, int N, int gps,
-                   cudaStream_t stream) {
+// the GEMV's 32 x 64 tiles (ops/kernels/matmul.py::TILES)
+template <int FMT, bool BOOK = false>
+cudaError_t launch(const void* x, const void* codes, const void* scales, void* out, void* work,
+                   int m, int K, int N, int gps, cudaStream_t stream, const void* book = nullptr,
+                   int per_row = 0) {
+  constexpr int BM = 32, BN = 64;
   using TL = Tile<BM, BN>;
   constexpr size_t bytes = TL::BYTES + Book<FMT, BOOK>::BYTES;
   static cudaError_t attr = set_smem(qmm_kernel<FMT, BM, BN, BOOK>, bytes);
@@ -313,37 +259,21 @@ cudaError_t launch(const void* x, const void* codes, const void* scales, const v
   return cudaGetLastError();
 }
 
-// bm picks the launch shape: 32 -> the GEMV's 32 x 64 tiles, 64 -> the
-// GEMM's 64 x 128 tiles (ops/kernels/matmul.py::_plan)
-template <int FMT, bool BOOK = false>
-cudaError_t launch_bm(const void* x, const void* codes, const void* scales, void* out, void* work,
-                      int m, int K, int N, int bm, int gps, cudaStream_t stream,
-                      const void* book = nullptr, int per_row = 0) {
-  if (bm == 32)
-    return launch<FMT, 32, 64, BOOK>(x, codes, scales, book, per_row, out, work, m, K, N, gps,
-                                     stream);
-  if (bm == 64)
-    return launch<FMT, 64, 128, BOOK>(x, codes, scales, book, per_row, out, work, m, K, N, gps,
-                                      stream);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 KOIFISH_API int koifish_qmatmul(const void* x, const void* codes, const void* scales, void* out,
-                                void* work, int m, int K, int N, int fmt, int bm, int gps,
-                                void* stream) {
+                                void* work, int m, int K, int N, int fmt, int gps, void* stream) {
   if (m < 1 || K % GROUP != 0 || N % 4 != 0 || gps < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (fmt) {
-    case INT8: return launch_bm<INT8>(x, codes, scales, out, work, m, K, N, bm, gps, s);
-    case INT4: return launch_bm<INT4>(x, codes, scales, out, work, m, K, N, bm, gps, s);
-    case NF4: return launch_bm<NF4>(x, codes, scales, out, work, m, K, N, bm, gps, s);
-    case INT3: return launch_bm<INT3>(x, codes, scales, out, work, m, K, N, bm, gps, s);
-    case NF3: return launch_bm<NF3>(x, codes, scales, out, work, m, K, N, bm, gps, s);
-    case INT2: return launch_bm<INT2>(x, codes, scales, out, work, m, K, N, bm, gps, s);
-    case TERNARY: return launch_bm<TERNARY>(x, codes, scales, out, work, m, K, N, bm, gps, s);
-    case BINARY: return launch_bm<BINARY>(x, codes, scales, out, work, m, K, N, bm, gps, s);
+    case INT8: return launch<INT8>(x, codes, scales, out, work, m, K, N, gps, s);
+    case INT4: return launch<INT4>(x, codes, scales, out, work, m, K, N, gps, s);
+    case NF4: return launch<NF4>(x, codes, scales, out, work, m, K, N, gps, s);
+    case INT3: return launch<INT3>(x, codes, scales, out, work, m, K, N, gps, s);
+    case NF3: return launch<NF3>(x, codes, scales, out, work, m, K, N, gps, s);
+    case INT2: return launch<INT2>(x, codes, scales, out, work, m, K, N, gps, s);
+    case TERNARY: return launch<TERNARY>(x, codes, scales, out, work, m, K, N, gps, s);
+    case BINARY: return launch<BINARY>(x, codes, scales, out, work, m, K, N, gps, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -352,18 +282,15 @@ KOIFISH_API int koifish_qmatmul(const void* x, const void* codes, const void* sc
 // (per_row = 1) or [2^bits] (per_row = 0), contiguous.
 KOIFISH_API int koifish_qmatmul_book(const void* x, const void* codes, const void* scales,
                                      const void* book, void* out, void* work, int m, int K,
-                                     int N, int fmt, int per_row, int bm, int gps,
-                                     void* stream) {
+                                     int N, int fmt, int per_row, int gps, void* stream) {
   if (m < 1 || K % GROUP != 0 || N % 4 != 0 || gps < 1 || book == nullptr)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (fmt) {
     case NF4:
-      return launch_bm<NF4, true>(x, codes, scales, out, work, m, K, N, bm, gps, s, book,
-                                  per_row);
+      return launch<NF4, true>(x, codes, scales, out, work, m, K, N, gps, s, book, per_row);
     case NF3:
-      return launch_bm<NF3, true>(x, codes, scales, out, work, m, K, N, bm, gps, s, book,
-                                  per_row);
+      return launch<NF3, true>(x, codes, scales, out, work, m, K, N, gps, s, book, per_row);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -31,6 +31,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "qmatmul": "qmatmul.cu",
+    "qmm": "qmm.cu",
     "decode_attn": "decode_attn.cu",
     "flash_bwd": "flash_bwd.cu",
     "fused_ce": "fused_ce.cu",

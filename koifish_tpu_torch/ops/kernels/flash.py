@@ -148,11 +148,12 @@ def _bwd_kernels():
         for name, n_out in (("koifish_flash_bwd_dkv", 2),
                             ("koifish_flash_bwd_dq", 1)):
             fn = getattr(lib, name)
-            # q k v o do lse, outputs; B T Hq Hkv D; 5 x 3 strides; scale,
-            # window, stream
-            fn.argtypes = ([ctypes.c_void_p] * (6 + n_out)
+            # q k v o do lse delta, outputs; B T Hq Hkv D; 5 x 3 strides;
+            # scale, window, make_delta, stream
+            fn.argtypes = ([ctypes.c_void_p] * (7 + n_out)
                            + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 15
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p])
             fn.restype = ctypes.c_int
             fns.append(fn)
         _bwd = (lib, *fns)
@@ -192,17 +193,25 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, scale: float,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bwd_launch(which: int, q, k, v, o, lse, do, scale, window):
+def _bwd_launch(which: int, q, k, v, o, lse, do, scale, window, delta=None):
     """Check the inputs, allocate the outputs and launch one backward
-    kernel: 0 = ``flash_bwd_dkv`` -> (dk, dv), 1 = ``flash_bwd_dq`` -> dq."""
-    _check(q, k, v, window, extra=(("o", o), ("do", do)), what="flash_bwd")
+    kernel: 0 = ``flash_bwd_dkv`` -> (dk, dv), 1 = ``flash_bwd_dq`` -> dq.
+    Returns (outputs, delta): delta = rowsum(dO·O) f32 [B,Hq,T] is computed
+    by the same launch when not given (a row-sum pass before the kernel)."""
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
-    if lse.shape != (B, Hq, T) or lse.dtype != torch.float32 \
-            or not lse.is_contiguous() or lse.device != q.device:
-        raise ValueError(f"flash_bwd: lse {tuple(lse.shape)} {lse.dtype} "
-                         f"on {lse.device}: need a contiguous f32 [B,Hq,T] "
-                         f"on q's device")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t is None:
+            continue
+        if t.shape != (B, Hq, T) or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"flash_bwd: {name} {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}: need a contiguous f32 "
+                             f"[B,Hq,T] on q's device")
+    _check(q, k, v, window, extra=(("o", o), ("do", do)), what="flash_bwd")
+    make = delta is None
+    if make:
+        delta = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
     lib, *fns = _bwd_kernels()
     outs = ([torch.empty((B, T, Hkv, D), dtype=torch.bfloat16,
                          device=q.device) for _ in range(2)] if which == 0
@@ -210,25 +219,29 @@ def _bwd_launch(which: int, q, k, v, o, lse, do, scale, window):
                               device=q.device)])
     rc = fns[which](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), *(t.data_ptr() for t in outs), B, T, Hq, Hkv, D,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        *do.stride()[:3], float(scale), int(window),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+        B, T, Hq, Hkv, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *o.stride()[:3], *do.stride()[:3], float(scale), int(window),
+        int(make), torch.cuda.current_stream(q.device).cuda_stream)
     name = (NAME_DKV, NAME_DQ)[which]
     _build.check(lib, rc, f"{name} q{tuple(q.shape)}")
     kernel_log.count(name)
-    return outs
+    return outs, delta
 
 
 def flash_bwd_dkv(q, k, v, o, lse, do, *, scale: float, window: int = 0):
-    """(dk, dv) [B,T,Hkv,D] bf16: the ``flash_bwd_dkv`` kernel (CUDA only)."""
-    dk, dv = _bwd_launch(0, q, k, v, o, lse, do, scale, window)
+    """(dk, dv) [B,T,Hkv,D] bf16: the ``flash_bwd_dkv`` kernel (CUDA only),
+    with delta = rowsum(dO·O) computed by the same launch."""
+    (dk, dv), _ = _bwd_launch(0, q, k, v, o, lse, do, scale, window)
     return dk, dv
 
 
-def flash_bwd_dq(q, k, v, o, lse, do, *, scale: float, window: int = 0):
-    """dq [B,T,Hq,D] bf16: the ``flash_bwd_dq`` kernel (CUDA only)."""
-    return _bwd_launch(1, q, k, v, o, lse, do, scale, window)[0]
+def flash_bwd_dq(q, k, v, o, lse, do, *, scale: float, window: int = 0,
+                 delta=None):
+    """dq [B,T,Hq,D] bf16: the ``flash_bwd_dq`` kernel (CUDA only). ``delta``
+    (f32 [B,Hq,T], as ``flash_bwd_dkv``'s launch leaves it) is computed by
+    the same launch when not given."""
+    return _bwd_launch(1, q, k, v, o, lse, do, scale, window, delta)[0][0]
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
@@ -237,13 +250,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
 
     q, o, do [B,T,Hq,D] and k, v [B,T,Hkv,D] bf16 (any strides with a unit
     last-dim stride), lse [B,Hq,T] f32 from the forward. A CPU tensor takes
-    the plain version; a CUDA tensor launches ``flash_bwd_dkv`` and then
-    ``flash_bwd_dq``."""
+    the plain version; a CUDA tensor launches ``flash_bwd_dkv`` (which
+    computes delta first) and then ``flash_bwd_dq`` on the same delta."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, scale=scale,
                                          window=window)
-    dk, dv = flash_bwd_dkv(q, k, v, o, lse, do, scale=scale, window=window)
-    dq = flash_bwd_dq(q, k, v, o, lse, do, scale=scale, window=window)
+    (dk, dv), delta = _bwd_launch(0, q, k, v, o, lse, do, scale, window)
+    dq = _bwd_launch(1, q, k, v, o, lse, do, scale, window, delta)[0][0]
     return dq, dk, dv
 
 

@@ -1,20 +1,24 @@
-"""Dequant-fused GEMM / GEMV: the CUDA kernel's wrapper and plain version.
+"""Dequant-fused GEMM / GEMV: the CUDA kernels' wrapper and plain version.
 
-The kernel (``csrc/qmatmul.cu``) replaces the JAX package's Pallas
-``_qmm``/``_qmm_kernel`` (GEMM, m > 32) and ``_qmv``/``_qmv_kernel`` (GEMV,
-m <= 32) in ``koifish_tpu/ops/pallas/matmul.py``: packed codes are decoded
-in the kernel and the per-group scale multiplies each group's partial
-product, ``y = Σ_g (x_g @ codes_g) · s_g`` with f32 accumulation. It takes
-every symmetric format — INT8, INT4, NF4, INT3, NF3, INT2, TERNARY, BINARY —
-at group size 128, any m >= 1, any K that is a multiple of 128 and any N
-that is a multiple of 4.
+The kernels replace the JAX package's Pallas ``_qmm``/``_qmm_kernel`` (GEMM,
+m > 32: ``csrc/qmm.cu``, warp-specialised wgmma) and ``_qmv``/``_qmv_kernel``
+(GEMV, m <= 32: ``csrc/qmatmul.cu``) in ``koifish_tpu/ops/pallas/matmul.py``:
+packed codes are decoded in the kernel and the per-group scale multiplies
+each group's partial product, ``y = Σ_g (x_g @ codes_g) · s_g`` with f32
+accumulation. They take every symmetric format — INT8, INT4, NF4, INT3,
+NF3, INT2, TERNARY, BINARY — at group size 128, any m >= 1, any K that is a
+multiple of 128 and any N that is a multiple of 4.
 
-Its book flavour replaces ``_qmv_book``/``_qmv_book_kernel`` (GEMV) and
+Their book flavour replaces ``_qmv_book``/``_qmv_book_kernel`` (GEMV) and
 ``_qmm_book``/``_qmm_book_kernel`` (GEMM) of the same file: learned-codebook
 tensors (k-means ``[2^bits]`` books, MINI ``[K, 2^bits]`` books, NF4/NF3 code
 layouts) decode code c of row k to ``bf16(book[k, c])`` and otherwise share
 the tiling, the ``_plan`` and the arithmetic. The per-tensor book is read
 with a row stride of 0 instead of the JAX package's broadcast copy.
+
+``qmatmul`` goes through the ``QMatmul`` autograd Function when x needs a
+gradient: dx = dy·deq(w)ᵀ, the gradient of the JAX package's
+dequantize-and-dot path.
 """
 from __future__ import annotations
 
@@ -35,8 +39,9 @@ BOOK_GEMV = "qmv_book"  # the same two shapes with a learned codebook
 BOOK_GEMM = "qmm_book"
 GEMV_MAX_M = 32
 GROUP = 128
-#: block tile (rows, columns) of each launch shape, keyed by its rows
-TILES = {32: (32, 64), 64: (64, 128)}
+#: block tile (rows, columns) of each launch shape, keyed by its rows: the
+#: GEMV's (csrc/qmatmul.cu) and the GEMM's (csrc/qmm.cu)
+TILES = {32: (32, 64), 128: (128, 128)}
 #: format -> the kernel's format id (csrc/qmatmul.cu)
 FORMATS = {
     QFormat.INT8: 0, QFormat.INT4: 1, QFormat.NF4: 2, QFormat.INT3: 3,
@@ -44,26 +49,32 @@ FORMATS = {
 }
 #: the code layouts a learned codebook rides
 BOOK_FORMATS = (QFormat.NF4, QFormat.NF3)
-# enough blocks in flight to cover the card's 132 SMs twice
-_TARGET_BLOCKS = 264
+GEMM_LIB = "qmm"
+#: blocks in flight to aim for: the GEMV's 4-warp blocks cover the card's
+#: 132 SMs twice, the GEMM's one 384-thread block a SM (its shared memory)
+_TARGET_BLOCKS = {32: 264, 128: 132}
 
-_fn = None
+_fn = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        lib = _build.load(NAME)
-        fn = lib.koifish_qmatmul
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+def _kernel(bm: int):
+    """(library, plain entry, book entry) of the launch shape ``bm``."""
+    if bm not in _fn:
+        if bm == 32:
+            lib = _build.load(NAME)
+            fn, book = lib.koifish_qmatmul, lib.koifish_qmatmul_book
+        else:
+            lib = _build.load(GEMM_LIB)
+            fn, book = lib.koifish_qmm, lib.koifish_qmm_book
+        # x codes scales out work; m K N fmt gps; stream (book: + the book
+        # pointer, and per_row after fmt)
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        book = lib.koifish_qmatmul_book
-        book.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        book.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                          + [ctypes.c_void_p])
-        book.restype = ctypes.c_int
-        _fn = (lib, fn, book)
-    return _fn
+        fn.restype = book.restype = ctypes.c_int
+        _fn[bm] = (lib, fn, book)
+    return _fn[bm]
 
 
 def _book_ok(w: QTensor) -> bool:
@@ -121,10 +132,10 @@ def qmatmul_book_plain(x2: torch.Tensor, codes: torch.Tensor,
 def _plan(m: int, K: int, N: int):
     """(bm, groups per split, splits): split K across blocks when the
     output tiles alone cannot fill the card (decode GEMVs)."""
-    bm, bn = TILES[32 if m <= GEMV_MAX_M else 64]
+    bm, bn = TILES[32 if m <= GEMV_MAX_M else 128]
     ng = K // GROUP
     tiles = -(-N // bn) * -(-m // bm)
-    splits = min(ng, max(1, -(-_TARGET_BLOCKS // tiles)))
+    splits = min(ng, max(1, -(-_TARGET_BLOCKS[bm] // tiles)))
     gps = -(-ng // splits)
     return bm, gps, -(-ng // gps)
 
@@ -165,10 +176,49 @@ def _check(x2: torch.Tensor, w: QTensor):
         raise ValueError(f"qmatmul: x is {x2.dtype}, need bf16")
 
 
+class QMatmul(torch.autograd.Function):
+    """``y = x2 @ w`` with the gradient of the dequantize-and-dot path that
+    the JAX package differentiates (``koifish_tpu/ops/matmul.py``):
+    ``dx = dy · deq(w)ᵀ``, a plain product on the dequantized bf16 weight.
+    The forward is ``_forward`` (the kernel on the card, the plain version
+    on the CPU); the codes, scales and book get no gradient here."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.w = w
+        return _forward(x2, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        wd = ctx.w.dequantize(dy.dtype)
+        return torch.matmul(dy, wd.t()), None
+
+
 def qmatmul(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
     """``x2 [m, K] bf16 @ w`` -> [m, N] bf16 for a kernel-covered QTensor.
     A CPU tensor takes the plain version; a CUDA tensor launches the GEMV
-    shape (m <= 32) or the GEMM shape (m > 32)."""
+    shape (m <= 32) or the GEMM shape (m > 32).
+
+    Under autograd the product goes through ``QMatmul`` (dx = dy·deq(w)ᵀ)
+    on both devices. A gradient for the scales or the book exists only on
+    the CPU, through the plain version; on the card it raises: the scale
+    gradient comes with gama training (ROADMAP queue 1 item 2)."""
+    if torch.is_grad_enabled() and (
+            w.scales.requires_grad
+            or (w.codebook is not None and w.codebook.requires_grad)):
+        if x2.device.type == "cpu":
+            return _forward(x2, w)
+        raise NotImplementedError(
+            f"qmatmul: the scales or the codebook of w{tuple(w.shape)} "
+            f"{w.fmt.name} require a gradient; the kernel's backward gives "
+            f"dx only. The scale gradient comes with gama training "
+            f"(ROADMAP queue 1 item 2)")
+    if torch.is_grad_enabled() and x2.requires_grad:
+        return QMatmul.apply(x2, w)
+    return _forward(x2, w)
+
+
+def _forward(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
     book = w.codebook
     if x2.device.type == "cpu":
         if book is not None:
@@ -182,17 +232,17 @@ def qmatmul(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
     out = torch.empty((m, N), dtype=torch.bfloat16, device=x2.device)
     work = (torch.empty((splits, m, N), dtype=torch.float32,
                         device=x2.device) if splits > 1 else None)
-    lib, fn, fn_book = _kernel()
+    lib, fn, fn_book = _kernel(bm)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     ptrs = (x2.data_ptr(), w.codes.data_ptr(), w.scales.data_ptr())
     wk = None if work is None else work.data_ptr()
     if book is None:
-        rc = fn(*ptrs, out.data_ptr(), wk, m, K, N, FORMATS[w.fmt], bm, gps,
+        rc = fn(*ptrs, out.data_ptr(), wk, m, K, N, FORMATS[w.fmt], gps,
                 stream)
         name = GEMV if bm == 32 else GEMM
     else:
         rc = fn_book(*ptrs, book.data_ptr(), out.data_ptr(), wk, m, K, N,
-                     FORMATS[w.fmt], int(book.dim() == 2), bm, gps, stream)
+                     FORMATS[w.fmt], int(book.dim() == 2), gps, stream)
         name = BOOK_GEMV if bm == 32 else BOOK_GEMM
     _build.check(lib, rc, f"{name} x{tuple(x2.shape)} {w.fmt.name}")
     kernel_log.count(name)

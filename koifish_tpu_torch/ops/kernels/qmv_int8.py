@@ -126,6 +126,12 @@ def qmv_int8(x2: torch.Tensor, codes: torch.Tensor,
     tensor launches the kernel or raises."""
     if x2.device.type == "cpu":
         return qmv_int8_plain(x2, codes, scales)
+    if torch.is_grad_enabled() and x2.requires_grad:
+        raise NotImplementedError(
+            f"qmv_int8: x{tuple(x2.shape)} requires a gradient, and the "
+            f"kernel's in-kernel activation rounding has none (nor in the "
+            f"JAX package); for a differentiable INT8 product set "
+            f"koifish_tpu_torch.ops.matmul.INT8_GEMV = \"dot\"")
     _check(x2, codes, scales)
     m, K = x2.shape
     N = codes.shape[1]
