@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B one change of the port on one GPU: old, new, new, old in one call.
 
-    python3 chip_ab.py OLD_TREE PHASE [--train] [--host]
+    python3 chip_ab.py OLD_TREE PHASE[,PHASE...] [--train] [--host] [--shapes]
 
 OLD_TREE is a copy of the repository at the old version (``koifish_tpu_torch/``,
 ``chip_smoke.py`` and ``configs/``, for example unpacked with ``git archive``
@@ -9,13 +9,19 @@ into a directory that ``.gitignore`` lists, such as ``build/ab_old``); the
 new version is the tree around this script. Each of the four runs is a
 fresh process in its tree that builds that tree's kernels and calls one
 kernel phase of ``chip_smoke.py`` (``flash_bwd_phase``, ``fused_ce_phase``,
-...), printing each kernel's ``ms``; with ``--train`` the second and fourth
+...; several, comma-separated), printing each kernel's ``ms`` (for a phase
+that returns one flat result, as ``flash_phase`` does, every number of it
+whose key ends in ``ms``); with ``--train`` the second and fourth
 runs also train Qwen3-0.6B (B=8) and GPT2-124M (B=32) for 6 steps through
 ``chip_smoke.train_model``. With ``--host`` every run also prints the host
-microseconds of one eager call of the GEMM wrapper (m = 128, INT4) and of
-each flash backward wrapper (B 1, T 128, D 128), through that tree's own
-modules. Compare the two versions only within one call: two calls may land
-on two cards or on a busier host.
+microseconds of one eager call of the GEMM wrapper (m = 128, INT4), of the
+GEMV wrapper (m = 1 INT8 codes and m = 32 INT4; K 1024, N 1024), of the
+flash forward wrapper and of each flash backward wrapper (B 1, T 128, D
+128), through that tree's own modules. With ``--shapes`` every run also times
+the flash forward wrapper at the training shapes of Qwen3-0.6B (B 8, T 1024,
+Hq 16, Hkv 8, D 128) and GPT2-124M (B 32, T 1024, Hq 12, D 64), CUDA-graph
+replays as ``chip_smoke.time_ms`` takes them. Compare the two versions only
+within one call: two calls may land on two cards or on a busier host.
 """
 from __future__ import annotations
 
@@ -34,8 +40,14 @@ import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 g = torch.Generator(device="cuda"); g.manual_seed(0)
-r = getattr(cs, sys.argv[1])(torch, g)
-print("K", {k: round(v["ms"], 4) for k, v in r.items()}, flush=True)
+def rnd(*s):
+    return torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+for phase in sys.argv[1].split(","):
+    r = getattr(cs, phase)(torch, g)
+    if "ms" in r:   # one flat result (flash_phase)
+        r = {phase: r} | {f"{phase}.{k}": {"ms": v} for k, v in r.items()
+                          if k.endswith("ms") and k != "ms"}
+    print("K", {k: round(v["ms"], 4) for k, v in r.items()}, flush=True)
 if "train" in sys.argv[2:]:
     cs.train_model(torch, "Qwen3-0.6B", "qwen3_0.6b.json", 8, steps=6)
     cs.train_model(torch, "GPT2-124M", "gpt2_124m.json", 32, steps=6)
@@ -43,24 +55,37 @@ if "host" in sys.argv[2:]:
     from koifish_tpu_torch.dtypes import QFormat
     from koifish_tpu_torch.ops.kernels import flash as kf, matmul as km
     from koifish_tpu_torch.quant.rtn import quantize
-    def rnd(*s):
-        return torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
     w = quantize(torch.randn((1024, 1024), generator=g, device="cuda") * 0.02,
                  QFormat.INT4, group=128)
-    x = rnd(128, 1024)
+    w8 = quantize(torch.randn((1024, 1024), generator=g, device="cuda") * 0.02,
+                  QFormat.INT8, group=128)
+    x, x1, x32 = rnd(128, 1024), rnd(1, 1024), rnd(32, 1024)
     q, k, v, do = rnd(1, 128, 16, 128), rnd(1, 128, 8, 128), \
         rnd(1, 128, 8, 128), rnd(1, 128, 16, 128)
     o, lse = kf.flash_attention_fwd(q, k, v, scale=128 ** -0.5)
     calls = {"qmm m128": lambda: km.qmatmul(x, w),
+             "qmv m1 INT8": lambda: km.qmatmul(x1, w8),
+             "qmv m32 INT4": lambda: km.qmatmul(x32, w),
+             "flash_fwd": lambda: kf.flash_attention_fwd(q, k, v,
+                                                         scale=0.1),
              "flash_bwd_dkv": lambda: kf.flash_bwd_dkv(q, k, v, o, lse, do,
                                                        scale=0.1),
              "flash_bwd_dq": lambda: kf.flash_bwd_dq(q, k, v, o, lse, do,
                                                      scale=0.1)}
     print("H", {n: [round(cs.host_us(torch, f), 1) for _ in range(3)]
                 for n, f in calls.items()}, "us", flush=True)
+if "shapes" in sys.argv[2:]:
+    from koifish_tpu_torch.ops.kernels import flash as kf
+    ms = {}
+    for label, B, Hq, Hkv, D in (("qwen3 B8 T1024 D128", 8, 16, 8, 128),
+                                 ("gpt2 B32 T1024 D64", 32, 12, 12, 64)):
+        q, k, v = rnd(B, 1024, Hq, D), rnd(B, 1024, Hkv, D), rnd(B, 1024, Hkv, D)
+        ms[label] = round(cs.time_ms(torch, lambda: kf.flash_attention_fwd(
+            q, k, v, scale=D ** -0.5)), 4)
+    print("S flash_fwd", ms, "ms", flush=True)
 '''
 
-KEEP = ("K ", "H ", "  check", "  time", "  host", "  median", "  losses",
+KEEP = ("K ", "H ", "S ", "  check", "  time", "  host", "  median", "  losses",
         "chip_smoke")
 
 
@@ -70,6 +95,7 @@ def main() -> None:
     ap.add_argument("phase")
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--host", action="store_true")
+    ap.add_argument("--shapes", action="store_true")
     args = ap.parse_args()
     old = os.path.abspath(args.old_tree)
     if not os.path.exists(os.path.join(old, "chip_smoke.py")):
@@ -78,7 +104,8 @@ def main() -> None:
     for i, (name, tree) in enumerate((("old", old), ("new", ROOT),
                                       ("new", ROOT), ("old", old))):
         extra = (["train"] if args.train and i in (1, 3) else []) \
-            + (["host"] if args.host else [])
+            + (["host"] if args.host else []) \
+            + (["shapes"] if args.shapes else [])
         t0 = time.perf_counter()
         out = subprocess.run([sys.executable, "-c", RUN, args.phase] + extra,
                              cwd=tree, capture_output=True, text=True)

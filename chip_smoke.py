@@ -14,7 +14,11 @@ Phases, in order; any failed check exits non-zero before the last line:
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes of its path and at ragged ones, with the tolerance
              stated; kernel, plain, library and bound times. Serving: flash
-             forward, dequant-fused GEMM/GEMV, quantized-KV decode attention.
+             forward (also timed at the Qwen3-0.6B and GPT2-124M training
+             shapes beside SDPA), dequant-fused GEMM/GEMV (the GEMV at m =
+             1, 5, 8, 17, 32 for every format, N on and off its tiles, K
+             256-3072; timed at m = 32 INT4 and at chat's m = 1 INT8 codes),
+             quantized-KV decode attention.
              Training: flash backward (dK/dV and dQ kernels, at the Qwen3
              and GPT2 shapes, ragged T and windows; times at both) and the
              fused classifier CE (forward, dx, dw). Int8 training, at GPT2-774M's
@@ -22,7 +26,8 @@ Phases, in order; any failed check exits non-zero before the last line:
              dgrad and the int8 fused CE (and the bf16 one at E 1280).
              Multi-request serving: the
              KV slot and page writes (bit for bit) and the learned-codebook
-             GEMV/GEMM (k-means and MINI books, NF4 and NF3). Chat: the int8
+             GEMV/GEMM (k-means and MINI books, NF4 and NF3, m 1-4097).
+             Chat: the int8
              GEMV with in-kernel activation quantization (row 5) at Qwen3's
              projections, m = 1, 5 and 32, beside the row-4 GEMV. The
              GEMM shape (m > 32) also at m and N off its 128 x 128 tiles
@@ -206,13 +211,41 @@ def flash_phase(torch, gen):
 
     cases = [  # (label, B, T, Hq, Hkv, D, window, head-major view)
         ("slice B32 T128 Hq16 Hkv8 D128", 32, 128, 16, 8, 128, 0, False),
+        # the training shapes of Qwen3-0.6B and GPT2-124M (timed too)
+        ("qwen3 B8 T1024 Hq16 Hkv8 D128", 8, 1024, 16, 8, 128, 0, False),
+        ("gpt2 B32 T1024 Hq12 Hkv12 D64", 32, 1024, 12, 12, 64, 0, False),
         ("head-major B2 T256 Hq16 Hkv8 D128", 2, 256, 16, 8, 128, 0, True),
         ("ragged B3 T300 Hq8 Hkv2 D64 window100", 3, 300, 8, 2, 64, 100,
          False),
         ("ragged B1 T77 Hq4 Hkv4 D256", 1, 77, 4, 4, 256, 0, False),
         ("long B1 T1500 Hq4 Hkv2 D128", 1, 1500, 4, 2, 128, 0, False),
+        # T off the 128-row q tiles and 64-row kv tiles; windows that start
+        # inside a tile
+        ("ragged B2 T77 Hq4 Hkv1 D128", 2, 77, 4, 1, 128, 0, False),
+        ("ragged B1 T200 Hq6 Hkv2 D64 window64", 1, 200, 6, 2, 64, 64, False),
+        ("ragged B1 T1500 Hq4 Hkv2 D128 window256", 1, 1500, 4, 2, 128, 256,
+         False),
+        ("ragged B1 T1 Hq2 Hkv1 D128", 1, 1, 2, 1, 128, 0, False),
     ]
     slice_err = None
+    res = {}
+
+    def times(q, k, v, sc):
+        """(kernel ms, SDPA ms, bound ms, bound by) at q, k, v's shape."""
+        B, T, Hq, D = q.shape
+        Hkv = k.shape[2]
+        kms = time_ms(torch, lambda: kf.flash_attention_fwd(q, k, v, scale=sc))
+        g = Hq // Hkv
+        qh = q.transpose(1, 2).contiguous()
+        kh = k.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+        vh = v.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+        lms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, scale=sc))
+        nbytes = 2 * (2 * B * T * Hq * D + 2 * B * T * Hkv * D) \
+            + 4 * B * Hq * T
+        bms, by = bound_ms(nbytes, 4.0 * B * Hq * causal_pairs(T, 0) * D)
+        return kms, lms, bms, by
+
     for label, B, T, Hq, Hkv, D, win, hm in cases:
         if hm:   # [B, H, T, D] storage seen as [B, T, H, D]
             q = rnd(B, Hq, T, D).transpose(1, 2)
@@ -229,25 +262,22 @@ def flash_phase(torch, gen):
         check(f"flash_fwd {label} lse", e_l, tol_lse)
         if slice_err is None:
             slice_err = e_o
-            kms = time_ms(torch, lambda: kf.flash_attention_fwd(
-                q, k, v, scale=sc))
+            kms, lms, bms, by = times(q, k, v, sc)
             pms = time_ms(torch, lambda: kf.flash_attention_plain(
                 q, k, v, scale=sc), iters=5)
-            g = Hq // Hkv
-            qh = q.transpose(1, 2).contiguous()
-            kh = k.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
-            vh = v.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
-            lms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True, scale=sc))
-            pairs = T * (T + 1) // 2
-            nbytes = 2 * (2 * B * T * Hq * D + 2 * B * T * Hkv * D) \
-                + 4 * B * Hq * T
-            bms, by = bound_ms(nbytes, 4.0 * B * Hq * pairs * D)
             say(f"  time flash_fwd slice: kernel_ms={kms:.4f} "
                 f"plain_ms={pms:.4f} library_ms(SDPA)={lms:.4f} "
                 f"bound_ms={bms:.5f} ({by})")
-            res = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+            res.update(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
                        bound_by=by)
+        elif label.startswith(("qwen3", "gpt2")):
+            kms, lms, bms, by = times(q, k, v, sc)
+            tag = label.split()[0]
+            say(f"  time flash_fwd {label}: kernel_ms={kms:.4f} "
+                f"library_ms(SDPA)={lms:.4f} bound_ms={bms:.5f} ({by})")
+            res.update({f"{tag}_ms": kms, f"{tag}_sdpa_ms": lms,
+                        f"{tag}_bound_ms": bms})
+        del q, k, v, o, lse, po, plse
     res["max_abs_err"] = slice_err
     return res
 
@@ -280,11 +310,17 @@ def qmatmul_phase(torch, gen):
                            ).to(torch.bfloat16)
 
     # every format, both launch shapes, plus ragged shapes: m and N off the
-    # GEMM's 128 x 128 tiles (N = 520 takes its 4-byte code loads)
+    # GEMM's 128 x 128 tiles (N = 520 takes its 4-byte code loads); the GEMV
+    # at m = 1, 5, 8, 17, 32 (1-4 m8 tiles of x), N on and off its 64-column
+    # tiles and 16-byte code rows, K 256-3072 (1-8 blocks of a cluster, 1-3
+    # groups a block)
+    gemv = [(m, K, N) for m in (1, 5, 8, 17, 32)
+            for K, N in ((256, 132), (3072, 1024), (384, 200), (1024, 520),
+                         (2048, 1000), (1024, 2048))]
     for fmt in km.FORMATS:
-        for m, K, N in ((256, 1024, 1024), (32, 1024, 1024), (40, 384, 1000),
-                        (5, 256, 132), (1, 3072, 1024), (33, 256, 200),
-                        (65, 384, 132), (129, 1024, 1000), (4097, 1024, 520)):
+        for m, K, N in gemv + [
+                (256, 1024, 1024), (40, 384, 1000), (33, 256, 200),
+                (65, 384, 132), (129, 1024, 1000), (4097, 1024, 520)]:
             w, x = weight(K, N, fmt), act(m, K)
             y = km.qmatmul(x, w)
             ref = km.qmatmul_plain(x, w.codes, w.scales, w.fmt, w.group)
@@ -338,6 +374,26 @@ def qmatmul_phase(torch, gen):
             f"bound_ms={bms:.5f} ({by})")
         out[kind] = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
                          bound_by=by, max_abs_err=err)
+        del ws, deq
+    # chat's default route: INT8 codes at m = 1 through the GEMV ("dot")
+    n_layers = 12
+    ws = [[weight(K, N, QFormat.INT8) for _, K, N in QWEN3_PROJ]
+          for _ in range(n_layers)]
+    xs = {K: act(1, K) for K in (1024, 2048, 3072)}
+    deq = [w.dequantize(torch.bfloat16) for w in ws[0]]
+    kms = time_ms(torch, lambda: [km.qmatmul(xs[K], w) for layer in ws
+                                  for (_, K, _n), w in zip(QWEN3_PROJ, layer)],
+                  iters=5) / n_layers
+    lms = time_ms(torch, lambda: [torch.matmul(xs[K], wd) for (_, K, _n), wd
+                                  in zip(QWEN3_PROJ, deq)], iters=5)
+    bms, by = bound_ms(sum(K * 2 + K * N + (K // 128) * N * 4 + N * 2
+                           for _, K, N in QWEN3_PROJ), 0.0)
+    say(f"  time qmv one layer's 7 projections (m=1, INT8 codes, chat's "
+        f"\"dot\" route): kernel_ms={kms:.4f} library_ms(matmul on "
+        f"dequantized bf16)={lms:.4f} bound_ms={bms:.5f} ({by})")
+    out["qmv"].update(m1_int8_ms=kms, m1_int8_library_ms=lms,
+                      m1_int8_bound_ms=bms)
+    del ws, deq
     # the GEMM wrapper's host cost at a batcher bucket (m = 128), where the
     # device time is a few microseconds (its TMA map is encoded each call)
     w0, x0 = weight(1024, 1024, QFormat.INT4), act(128, 1024)
@@ -912,7 +968,7 @@ def slotwrite_phase(torch, gen):
 # 128-column tiles, GEMV and GEMM rows (m off its 128-row tiles too)
 BOOK_SHAPES = ((1024, 2048), (1024, 1024), (1024, 3072), (3072, 1024),
                (384, 200))
-BOOK_MS = (1, 32, 33, 128, 129, 512, 4096, 4097)
+BOOK_MS = (1, 5, 8, 17, 32, 33, 128, 129, 512, 4096, 4097)
 
 
 def book_phase(torch, gen):

@@ -49,7 +49,7 @@
 // below): a warpgroup's dK and dV accumulators for 64 rows of D = 256 are
 // 256 registers a thread, more than a thread has. They recompute delta per
 // q tile and stage S, dP, P and dS through shared memory.
-#include "sm90.cuh"
+#include "flash_ws.cuh"
 
 #include <mma.h>
 
@@ -536,10 +536,6 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
 // warps release). The producer gives its registers to the consumers
 // (setmaxnreg), which hold S, dP and the accumulators in registers.
 
-constexpr int WS_THREADS = 384;
-
-constexpr uint32_t align1024(uint32_t x) { return (x + 1023u) / 1024u * 1024u; }
-
 // delta[b, h, t] = Σ_d f32(dO)·f32(O), one warp a row, rows in [B,Hq,T] order
 template <int D>
 __global__ void __launch_bounds__(256)
@@ -561,8 +557,6 @@ __global__ void __launch_bounds__(256)
   if (lane == 0) delta[row] = acc;
 }
 
-constexpr float LOG2E = 1.4426950408889634f;
-
 // p = exp(s − lse) (as 2^(s·log2 e − lse·log2 e)) on live entries, else 0;
 // ds = p·(dp − delta)·scale — written back over s and dp. lse2 = lse·log2 e.
 __device__ __forceinline__ void p_and_ds(float& s, float& dp, bool ok, float lse2, float dl,
@@ -572,62 +566,6 @@ __device__ __forceinline__ void p_and_ds(float& s, float& dp, bool ok, float lse
   s = p;
 }
 
-// the k16 register fragments of a 64 x N accumulator (bf16, k = N)
-template <int N>
-__device__ __forceinline__ void acc_to_frags(uint32_t (&f)[N / 16][4], const float (&d)[N / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) f[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = 0.f;
-}
-
-// d (64 x N, f32) = A(64 rows of a K-major tile from row r0) · B(N rows of a
-// K-major tile from row b0)ᵀ over D
-template <int D, int N>
-__device__ __forceinline__ void qk_t(float (&d)[N / 2], uint32_t a, int ra, int r0, uint32_t b,
-                                     int rb, int b0 = 0) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    if constexpr (N == 16)
-      wgmma_ss_n16<0>(d, desc_k(a, ra, r0, kk), desc_k(b, rb, b0, kk), kk > 0);
-    else
-      wgmma_ss_n64<0>(d, desc_k(a, ra, r0, kk), desc_k(b, rb, b0, kk), kk > 0);
-  }
-}
-
-// d (64 x D) += frags(64 x 16·KS) · B(rows k0 .. k0 + 16·KS of an MN-major
-// tile of rb rows x D)
-template <int D, int KS>
-__device__ __forceinline__ void pv(float (&d)[D / 2], const uint32_t (&f)[KS][4], uint32_t b,
-                                   int rb, int k0 = 0) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    if constexpr (D == 64)
-      wgmma_rs_n64<1>(d, f[kk], desc_mn(b + k0 * 128, rb, kk), 1);
-    else
-      wgmma_rs_n128<1>(d, f[kk], desc_mn(b + k0 * 128, rb, kk), 1);
-  }
-}
-
-// Copy rows [r0, r0 + R) of one head of a [B,T,H,D] tensor (row stride st)
-// into a swizzled tile of R rows; rows past T are zero. Thread i of NT.
-template <int D, int R, int NT>
-__device__ __forceinline__ void copy_rows(unsigned char* tile, const bf16* src, long long st,
-                                          int r0, int T, int i0) {
-  constexpr int CH = D / 8;
-  for (int i = i0; i < R * CH; i += NT) {
-    const int r = i / CH, c = i % CH;
-    const bool in = r0 + r < T;
-    cp_async16(tile + sw128(r, c, R), in ? src + (r0 + r) * st + c * 8 : src, in ? 16 : 0);
-  }
-}
-
 // n floats from[r0 ...] (zero past T) by 4-byte copies, thread i0 of NT
 template <int N, int NT>
 __device__ __forceinline__ void copy_floats(unsigned char* dst, const float* src, int r0, int T,
@@ -635,22 +573,6 @@ __device__ __forceinline__ void copy_floats(unsigned char* dst, const float* src
   for (int i = i0; i < N; i += NT) {
     const bool in = r0 + i < T;
     cp_async4(dst + 4 * i, in ? src + r0 + i : src, in ? 4 : 0);
-  }
-}
-
-// rows [r_lo, r_lo + n) of a swizzled tile of R rows: dst = bf16(f32(src)·scale)
-template <int D, int R>
-__device__ __forceinline__ void scale_tile(unsigned char* dst, const unsigned char* src, int r_lo,
-                                           int n, float scale, int i0, int nt) {
-  constexpr int CH = D / 8;
-  for (int i = i0; i < n * CH; i += nt) {
-    const int r = r_lo + i / CH, c = i % CH;
-    const uint32_t off = sw128(r, c, R);
-    uint4 val = *reinterpret_cast<const uint4*>(src + off);
-    bf16* e = reinterpret_cast<bf16*>(&val);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) e[k] = __float2bfloat16(__bfloat162float(e[k]) * scale);
-    *reinterpret_cast<uint4*>(dst + off) = val;
   }
 }
 

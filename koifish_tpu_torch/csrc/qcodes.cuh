@@ -1,6 +1,6 @@
 // What the dequant-fused GEMV (qmatmul.cu) and GEMM (qmm.cu) share: the
-// code formats (the decode of one packed code to its bf16 value), the shared
-// memory a learned book takes, and the K split's reduce.
+// code formats (the decode of one packed code to its bf16 value) and the
+// shared memory a learned book takes.
 #pragma once
 
 #include "common.cuh"
@@ -46,15 +46,5 @@ struct Book {
   static constexpr int NB = FMT == NF3 ? 8 : 16;
   static constexpr size_t BYTES = BOOK ? sizeof(float) * GROUP * NB : 0;
 };
-
-// Sum the K-split partials in split order and round to bf16.
-__global__ void splitk_reduce(const float* __restrict__ partial, bf16* __restrict__ out,
-                              int splits, size_t mn) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += partial[k * mn + i];
-  out[i] = __float2bfloat16(s);
-}
 
 }  // namespace

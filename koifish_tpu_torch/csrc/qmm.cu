@@ -39,7 +39,6 @@
 #include "qcodes.cuh"
 #include "sm90.cuh"
 
-#include <cuda.h>   // CUtensorMap (the encoder is looked up in libcuda at run time)
 
 namespace {
 
@@ -341,23 +340,20 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+// Sum the K-split partials in split order and round to bf16.
+__global__ void splitk_reduce(const float* __restrict__ partial, bf16* __restrict__ out,
+                              int splits, size_t mn) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= mn) return;
+  float s = 0.f;
+  for (int k = 0; k < splits; ++k) s += partial[k * mn + i];
+  out[i] = __float2bfloat16(s);
+}
 
 // The TMA map of x [m, K] bf16: boxes of 64 columns x BM rows in the
 // 128-byte swizzle; rows past m read as zero.
 cudaError_t x_map(CUtensorMap* map, const void* x, int m, int K) {
-  static EncodeTiled encode = [] {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      fn = nullptr;
-    return reinterpret_cast<EncodeTiled>(fn);
-  }();
+  const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(m)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 2};
@@ -368,17 +364,6 @@ cudaError_t x_map(CUtensorMap* map, const void* x, int m, int K) {
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-int sm_count() {
-  static int n = [] {
-    int dev = 0, v = 132;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      v = 132;
-    return v;
-  }();
-  return n;
 }
 
 template <int FMT, bool BOOK = false>

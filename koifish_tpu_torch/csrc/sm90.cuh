@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's warp-specialised kernels:
 // mbarriers, a cp.async ring that signals them, named barriers, register
-// rebalancing, and wgmma with its shared-memory descriptors.
+// rebalancing, TMA, and wgmma with its shared-memory descriptors; on the
+// host, the TMA map encoder and the SM count.
 //
 // Tiles live in shared memory in the 128-byte swizzle that wgmma reads
 // (LayoutType B128): a tile of R rows x C bf16 columns is C/64 column blocks
@@ -12,6 +13,8 @@
 #pragma once
 
 #include "common.cuh"
+
+#include <cuda.h>   // CUtensorMap (the encoder is looked up in libcuda at run time)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -80,6 +83,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, uint64_t
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// TMA: the box at (c0 innermost, c1, c2, c3) of a 4-d tensor map
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -279,4 +293,40 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// ---------------------------------------------------------------------------
+// host: the TMA map encoder and the SM count
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in the driver once (so no -lcuda);
+// null when the driver lacks it
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<EncodeTiled>(fn);
+  }();
+  return encode;
+}
+
+// the current device's SM count (132 if it cannot be read)
+inline int sm_count() {
+  static int n = [] {
+    int dev = 0, v = 132;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      v = 132;
+    return v;
+  }();
+  return n;
 }

@@ -2,7 +2,9 @@
 
 The kernels replace the JAX package's Pallas ``_qmm``/``_qmm_kernel`` (GEMM,
 m > 32: ``csrc/qmm.cu``, warp-specialised wgmma) and ``_qmv``/``_qmv_kernel``
-(GEMV, m <= 32: ``csrc/qmatmul.cu``) in ``koifish_tpu/ops/pallas/matmul.py``:
+(GEMV, m <= 32: ``csrc/qmatmul.cu``, codes decoded straight into
+``mma.sync`` fragments, K split across a thread-block cluster) in
+``koifish_tpu/ops/pallas/matmul.py``:
 packed codes are decoded in the kernel and the per-group scale multiplies
 each group's partial product, ``y = Σ_g (x_g @ codes_g) · s_g`` with f32
 accumulation. They take every symmetric format — INT8, INT4, NF4, INT3,
@@ -53,6 +55,9 @@ GEMM_LIB = "qmm"
 #: blocks in flight to aim for: the GEMV's 4-warp blocks cover the card's
 #: 132 SMs twice, the GEMM's one 384-thread block a SM (its shared memory)
 _TARGET_BLOCKS = {32: 264, 128: 132}
+#: the most blocks of a thread-block cluster that split the GEMV's K
+#: (the portable cluster size)
+GEMV_MAX_CLUSTER = 8
 
 _fn = {}
 
@@ -61,17 +66,23 @@ def _kernel(bm: int):
     """(library, plain entry, book entry) of the launch shape ``bm``."""
     if bm not in _fn:
         if bm == 32:
+            # x codes scales out; m K N fmt gps splits; stream (book: + the
+            # book pointer, and per_row after fmt)
             lib = _build.load(NAME)
             fn, book = lib.koifish_qmatmul, lib.koifish_qmatmul_book
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p])
+            book.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                             + [ctypes.c_void_p])
         else:
+            # x codes scales out work; m K N fmt gps; stream (book: + the
+            # book pointer, and per_row after fmt)
             lib = _build.load(GEMM_LIB)
             fn, book = lib.koifish_qmm, lib.koifish_qmm_book
-        # x codes scales out work; m K N fmt gps; stream (book: + the book
-        # pointer, and per_row after fmt)
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
-        book.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                         + [ctypes.c_void_p])
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p])
+            book.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                             + [ctypes.c_void_p])
         fn.restype = book.restype = ctypes.c_int
         _fn[bm] = (lib, fn, book)
     return _fn[bm]
@@ -131,11 +142,16 @@ def qmatmul_book_plain(x2: torch.Tensor, codes: torch.Tensor,
 
 def _plan(m: int, K: int, N: int):
     """(bm, groups per split, splits): split K across blocks when the
-    output tiles alone cannot fill the card (decode GEMVs)."""
+    output tiles alone cannot fill the card. The GEMV (bm 32) splits it
+    across the blocks of one thread-block cluster, at most
+    ``GEMV_MAX_CLUSTER``, which sum their partials in one launch; the GEMM
+    (bm 128) across work items and an f32 workspace [splits, m, N]."""
     bm, bn = TILES[32 if m <= GEMV_MAX_M else 128]
     ng = K // GROUP
     tiles = -(-N // bn) * -(-m // bm)
     splits = min(ng, max(1, -(-_TARGET_BLOCKS[bm] // tiles)))
+    if bm == 32:
+        splits = min(splits, GEMV_MAX_CLUSTER)
     gps = -(-ng // splits)
     return bm, gps, -(-ng // gps)
 
@@ -230,20 +246,23 @@ def _forward(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
     N = w.out_features
     bm, gps, splits = _plan(m, K, N)
     out = torch.empty((m, N), dtype=torch.bfloat16, device=x2.device)
-    work = (torch.empty((splits, m, N), dtype=torch.float32,
-                        device=x2.device) if splits > 1 else None)
     lib, fn, fn_book = _kernel(bm)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     ptrs = (x2.data_ptr(), w.codes.data_ptr(), w.scales.data_ptr())
-    wk = None if work is None else work.data_ptr()
-    if book is None:
-        rc = fn(*ptrs, out.data_ptr(), wk, m, K, N, FORMATS[w.fmt], gps,
-                stream)
-        name = GEMV if bm == 32 else GEMM
+    if book is not None:
+        ptrs += (book.data_ptr(),)
+        fn = fn_book
+    fmt = ((FORMATS[w.fmt], int(book.dim() == 2)) if book is not None
+           else (FORMATS[w.fmt],))
+    if bm == 32:   # the cluster's blocks sum the K split: no workspace
+        rc = fn(*ptrs, out.data_ptr(), m, K, N, *fmt, gps, splits, stream)
+        name = GEMV if book is None else BOOK_GEMV
     else:
-        rc = fn_book(*ptrs, book.data_ptr(), out.data_ptr(), wk, m, K, N,
-                     FORMATS[w.fmt], int(book.dim() == 2), gps, stream)
-        name = BOOK_GEMV if bm == 32 else BOOK_GEMM
+        work = (torch.empty((splits, m, N), dtype=torch.float32,
+                            device=x2.device) if splits > 1 else None)
+        rc = fn(*ptrs, out.data_ptr(), None if work is None
+                else work.data_ptr(), m, K, N, *fmt, gps, stream)
+        name = GEMM if book is None else BOOK_GEMM
     _build.check(lib, rc, f"{name} x{tuple(x2.shape)} {w.fmt.name}")
     kernel_log.count(name)
     return out

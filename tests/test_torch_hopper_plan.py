@@ -2,12 +2,21 @@
 
 The kernels themselves run only on the card (``chip_smoke.py`` holds them
 against their plain versions there). What the wrappers decide in Python is
-checked here: the GEMM/GEMV launch plan of ``ops/kernels/matmul.py``, the
-library each shape loads, and the checks of the flash backward's delta
-buffer.
+checked here: the GEMM/GEMV launch plan of ``ops/kernels/matmul.py`` (the
+GEMV splits K across the blocks of one thread-block cluster and takes no
+workspace; the GEMM splits it across work items into an f32 workspace),
+what the wrapper hands each launch, the library each shape loads, and the
+checks of the flash backward's delta buffer.
 """
+import dataclasses
+import types
+
 import pytest
 import torch
+
+from koifish_tpu_torch.dtypes import QFormat
+from koifish_tpu_torch.quant.cluster import quantize_kmeans
+from koifish_tpu_torch.quant.rtn import quantize
 
 from koifish_tpu_torch.ops.kernels import _build
 from koifish_tpu_torch.ops.kernels import flash as kf
@@ -15,8 +24,9 @@ from koifish_tpu_torch.ops.kernels import matmul as km
 
 
 @pytest.mark.parametrize("m, K, N, want", [
-    (32, 1024, 1024, (32, 1, 8)),       # decode GEMV: K split 8 ways
-    (1, 3072, 1024, (32, 2, 12)),      # 16 tiles: 12 splits of 2 groups
+    (32, 1024, 1024, (32, 1, 8)),       # decode GEMV: a cluster of 8 splits K
+    (1, 3072, 1024, (32, 3, 8)),       # 16 tiles: 8 splits (the cluster's
+                                        # most) of 3 groups
     (4096, 1024, 1024, (128, 8, 1)),    # prefill GEMM: 256 tiles, no split
     (4096, 3072, 1024, (128, 24, 1)),
     (128, 1024, 1024, (128, 1, 8)),     # a batcher bucket: 8 tiles, K split
@@ -26,14 +36,101 @@ from koifish_tpu_torch.ops.kernels import matmul as km
 ])
 def test_qmatmul_plan(m, K, N, want):
     """(tile rows, groups per split, splits): the GEMM's 128 x 128 tiles aim
-    at one block per SM (132), the GEMV's 32 x 64 tiles at two; every split
-    takes at least one group and the splits cover K."""
+    at one block per SM (132), the GEMV's 32 x 64 tiles at two, with at
+    most 8 splits (one cluster); every split takes at least one group and
+    the splits cover K."""
     bm, gps, splits = km._plan(m, K, N)
     assert (bm, gps, splits) == want
     ng = K // km.GROUP
     assert 1 <= gps <= ng and (splits - 1) * gps < ng <= splits * gps
     assert bm == (32 if m <= km.GEMV_MAX_M else 128)
     assert km.TILES[bm] == ((32, 64) if bm == 32 else (128, 128))
+
+
+@pytest.mark.parametrize("m, K, N", [
+    (1, 128, 64), (1, 1024, 2048), (5, 3072, 1024), (8, 256, 132),
+    (17, 2048, 1000), (32, 1024, 3072), (32, 12288, 1024), (1, 8192, 4096),
+])
+def test_gemv_plan_covers_k_once_in_one_cluster(m, K, N):
+    """m <= 32: the splits are the blocks of one cluster (1-8), each takes
+    a run of gps groups, the runs cover the K groups exactly once and none
+    is empty."""
+    bm, gps, splits = km._plan(m, K, N)
+    ng = K // km.GROUP
+    assert bm == 32 and 1 <= splits <= km.GEMV_MAX_CLUSTER
+    runs = [range(r * gps, min(ng, (r + 1) * gps)) for r in range(splits)]
+    assert all(len(r) >= 1 for r in runs)
+    assert sorted(g for r in runs for g in r) == list(range(ng))
+
+
+def _fake_launch(monkeypatch):
+    """Run the wrapper's card branch on the "meta" device with the kernel
+    replaced by a recorder: returns (launch argument tuples, allocations)."""
+    calls, allocs = [], []
+    real_empty = torch.empty
+
+    def empty(*a, **k):
+        t = real_empty(*a, **k)
+        allocs.append((tuple(t.shape), t.dtype))
+        return t
+
+    def fn(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(km, "_check", lambda x2, w: None)
+    monkeypatch.setattr(km, "_kernel", lambda bm: (None, fn, fn))
+    monkeypatch.setattr(km._build, "check", lambda lib, rc, what: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(torch, "empty", empty)
+    return calls, allocs
+
+
+def _meta_weight(K, N, book=False):
+    w = torch.randn((K, N), generator=torch.Generator().manual_seed(0))
+    w = quantize_kmeans(w, bits=4) if book else quantize(w, QFormat.INT4)
+    meta = lambda t: None if t is None else t.to("meta")   # noqa: E731
+    return dataclasses.replace(w, codes=meta(w.codes), scales=meta(w.scales),
+                               codebook=meta(w.codebook))
+
+
+@pytest.mark.parametrize("m, K, N, book", [
+    (1, 1024, 1024, False), (32, 3072, 1024, False), (5, 256, 132, False),
+    (32, 1024, 2048, True),
+])
+def test_gemv_launch_takes_no_workspace(monkeypatch, m, K, N, book):
+    """The GEMV (m <= 32) is one launch that allocates its bf16 output and
+    nothing else: no f32 workspace, no second pass; it gets the plan's
+    groups per split and cluster size, and counts one launch."""
+    w = _meta_weight(K, N, book)
+    x = torch.empty((m, K), dtype=torch.bfloat16, device="meta")
+    calls, allocs = _fake_launch(monkeypatch)
+    before = dict(km.kernel_log.LAUNCHES)
+    y = km._forward(x, w)
+    _, gps, splits = km._plan(m, K, N)
+    assert y.shape == (m, N) and y.dtype == torch.bfloat16
+    assert allocs == [((m, N), torch.bfloat16)]
+    assert len(calls) == 1
+    fmt = km.FORMATS[w.fmt]
+    tail = (m, K, N, fmt, 0, gps, splits, 7) if book \
+        else (m, K, N, fmt, gps, splits, 7)   # k-means: one book, per_row 0
+    assert calls[0][-len(tail):] == tail
+    assert len(calls[0]) == (5 if book else 4) + len(tail)
+    name = km.BOOK_GEMV if book else km.GEMV
+    assert km.kernel_log.LAUNCHES.get(name, 0) == before.get(name, 0) + 1
+
+
+def test_gemm_launch_keeps_its_workspace(monkeypatch):
+    """The GEMM (m > 32) still splits K across work items into an f32
+    workspace [splits, m, N] when its tiles cannot fill the card."""
+    w = _meta_weight(1024, 1024)
+    x = torch.empty((128, 1024), dtype=torch.bfloat16, device="meta")
+    calls, allocs = _fake_launch(monkeypatch)
+    km._forward(x, w)
+    assert allocs == [((128, 1024), torch.bfloat16),
+                      ((8, 128, 1024), torch.float32)]
+    assert calls[0][-6:] == (128, 1024, 1024, km.FORMATS[QFormat.INT4], 1, 7)
 
 
 def test_gemm_and_gemv_build_from_their_own_sources():

@@ -488,7 +488,8 @@ def test_wrappers_refuse_cuda_shapes_they_do_not_take():
     w = quantize(torch.zeros((256, 6)), QFormat.INT4)
     with pytest.raises(ValueError, match="N % 4"):
         km._check(torch.zeros((2, 256), dtype=torch.bfloat16), w)
-    assert km._plan(32, 1024, 1024) == (32, 1, 8)      # decode: split K
+    assert km._plan(32, 1024, 1024) == (32, 1, 8)      # decode: a cluster of 8
+    assert km._plan(1, 3072, 1024) == (32, 3, 8)       # ... at most 8 splits
     assert km._plan(4096, 1024, 1024) == (128, 8, 1)   # prefill: no split
     # the backward kernels are CUDA-only entry points: a CPU tensor raises
     o = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
