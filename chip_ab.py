@@ -3,25 +3,28 @@
 
     python3 chip_ab.py OLD_TREE PHASE[,PHASE...] [--train] [--host] [--shapes]
 
-OLD_TREE is a copy of the repository at the old version (``koifish_tpu_torch/``,
-``chip_smoke.py`` and ``configs/``, for example unpacked with ``git archive``
-into a directory that ``.gitignore`` lists, such as ``build/ab_old``); the
-new version is the tree around this script. Each of the four runs is a
-fresh process in its tree that builds that tree's kernels and calls one
-kernel phase of ``chip_smoke.py`` (``flash_bwd_phase``, ``fused_ce_phase``,
-...; several, comma-separated), printing each kernel's ``ms`` (for a phase
-that returns one flat result, as ``flash_phase`` does, every number of it
-whose key ends in ``ms``); with ``--train`` the second and fourth
-runs also train Qwen3-0.6B (B=8) and GPT2-124M (B=32) for 6 steps through
-``chip_smoke.train_model``. With ``--host`` every run also prints the host
-microseconds of one eager call of the GEMM wrapper (m = 128, INT4), of the
-GEMV wrapper (m = 1 INT8 codes and m = 32 INT4; K 1024, N 1024), of the
-flash forward wrapper and of each flash backward wrapper (B 1, T 128, D
-128), through that tree's own modules. With ``--shapes`` every run also times
-the flash forward wrapper at the training shapes of Qwen3-0.6B (B 8, T 1024,
-Hq 16, Hkv 8, D 128) and GPT2-124M (B 32, T 1024, Hq 12, D 64), CUDA-graph
-replays as ``chip_smoke.time_ms`` takes them. Compare the two versions only
-within one call: two calls may land on two cards or on a busier host.
+OLD_TREE is a copy of the repository at the old version
+(``koifish_tpu_torch/``, ``chip_smoke.py`` and ``configs/``, for example
+unpacked with ``git archive`` into a directory that ``.gitignore`` lists, such
+as ``build/ab_old``); the new version is the tree around this script. Each of
+the four runs is a fresh process in its tree that builds that tree's kernels
+and calls one kernel phase of ``chip_smoke.py`` (``flash_bwd_phase``,
+``fused_ce_phase``, ...; several, comma-separated), printing each kernel's
+``ms`` (for a phase that returns one flat result, as ``flash_phase`` does,
+every number of it whose key ends in ``ms``); with ``--train`` the second and
+fourth runs also train Qwen3-0.6B (B=8) and GPT2-124M (B=32) for 6 steps, and
+GPT2-774M as shipped (``configs/gpt2_774m.json``: int8 matmuls and the int8
+fused CE, B=16, warmup 10) for 12 steps (the median of steps 2-11: its
+host-bound steps spread by ~300 ms), through ``chip_smoke.train_model``. With
+``--host`` every run also prints the host microseconds of one eager call of the
+GEMM wrapper (m = 128, INT4), of the GEMV wrapper (m = 1 INT8 codes and m = 32
+INT4; K 1024, N 1024), of the flash forward wrapper and of each flash backward
+wrapper (B 1, T 128, D 128), through that tree's own modules. With ``--shapes``
+every run also times the flash forward wrapper at the training shapes of
+Qwen3-0.6B (B 8, T 1024, Hq 16, Hkv 8, D 128) and GPT2-124M (B 32, T 1024, Hq
+12, D 64), CUDA-graph replays as ``chip_smoke.time_ms`` takes them. Compare the
+two versions only within one call: two calls may land on two cards or on a
+busier host. The first line printed is the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -51,6 +54,12 @@ for phase in sys.argv[1].split(","):
 if "train" in sys.argv[2:]:
     cs.train_model(torch, "Qwen3-0.6B", "qwen3_0.6b.json", 8, steps=6)
     cs.train_model(torch, "GPT2-124M", "gpt2_124m.json", 32, steps=6)
+    import dataclasses
+    from koifish_tpu_torch.config import CLIParams
+    p = CLIParams.load("configs/gpt2_774m.json")
+    cs.train_model(torch, "GPT2-774M int8 as shipped", "gpt2_774m.json",
+                   p.train.batch, steps=12, tcard=dataclasses.replace(
+                       p.train, warmup=10, dump_every=1, seed=p.seed))
 if "host" in sys.argv[2:]:
     from koifish_tpu_torch.dtypes import QFormat
     from koifish_tpu_torch.ops.kernels import flash as kf, matmul as km
@@ -100,6 +109,9 @@ def main() -> None:
     old = os.path.abspath(args.old_tree)
     if not os.path.exists(os.path.join(old, "chip_smoke.py")):
         sys.exit(f"chip_ab: {old} holds no chip_smoke.py")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
     failed = False
     for i, (name, tree) in enumerate((("old", old), ("new", ROOT),
                                       ("new", ROOT), ("old", old))):

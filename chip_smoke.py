@@ -21,9 +21,12 @@ Phases, in order; any failed check exits non-zero before the last line:
              quantized-KV decode attention.
              Training: flash backward (dK/dV and dQ kernels, at the Qwen3
              and GPT2 shapes, ragged T and windows; times at both) and the
-             fused classifier CE (forward, dx, dw). Int8 training, at GPT2-774M's
-             shapes: rowquant/colquant (bit for bit), the per-tile int8
-             dgrad and the int8 fused CE (and the bf16 one at E 1280).
+             fused classifier CE (forward, the backward's dlogits kernel and
+             its dx and dw GEMMs; E 64-2560, ragged V, untied; a repeat of
+             every launch bit for bit; the backward's extra memory at most
+             512 MiB). Int8 training, at GPT2-774M's shapes:
+             rowquant/colquant (bit for bit), the per-tile int8 dgrad and
+             the int8 fused CE (and the bf16 one) at E 1280, 1600 and 2560.
              Multi-request serving: the
              KV slot and page writes (bit for bit) and the learned-codebook
              GEMV/GEMM (k-means and MINI books, NF4 and NF3, m 1-4097).
@@ -81,7 +84,7 @@ Phases, in order; any failed check exits non-zero before the last line:
              kernel launches; fails unless every loss is finite, the last is
              below the first, Qwen3's first loss is within 0.5 of ln 151936,
              and flash_fwd, flash_bwd_dkv, flash_bwd_dq and (Qwen3)
-             fused_ce_fwd/_dx/_dw were launched. A torch.profiler window
+             fused_ce_fwd/_dlogits/_dx/_dw were launched. A torch.profiler window
              over one step of each model prints device time by kernel and
              the idle share.
              Int8: a tiny GPT2 int8 step (tile dgrad, int8 fused CE) and a
@@ -601,86 +604,288 @@ def flash_bwd_phase(torch, gen):
     return out
 
 
+#: the fused CE's cases (label, m, E, V, tied [V, E] storage, masked); the
+#: first, the Qwen3 slice shape, is timed
+CE_CASES = [
+    ("slice m8192 E1024 V151936 tied", 8192, 1024, 151936, True, False),
+    ("ragged m1000 E768 V50304 untied masked", 1000, 768, 50304, False, True),
+    ("ragged m100 E64 V333 tied masked", 100, 64, 333, True, True),
+    ("GPT2-1558M head m16384 E1600 V50304 tied", 16384, 1600, 50304, True,
+     False),
+    ("Qwen3-4B head m1024 E2560 V151936 tied", 1024, 2560, 151936, True,
+     False),
+]
+
+
+def _ce_rows(torch, gen, m, E, V, tied):
+    """x [m, E], a head [E, V] (the tied wte.T view or untied), targets."""
+    x = torch.randn((m, E), generator=gen, device="cuda").to(torch.bfloat16)
+    if tied:
+        w = (torch.randn((V, E), generator=gen, device="cuda") * 0.02
+             ).to(torch.bfloat16).T
+    else:
+        w = (torch.randn((E, V), generator=gen, device="cuda") * 0.02
+             ).to(torch.bfloat16)
+    tgt = torch.randint(0, V, (m,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    return x, w, tgt
+
+
+def _chunk_dlogits(torch, logits, tgt, lse, wtok, c0, p_scale=1.0):
+    """The plain dlogits bf16((exp(logits − lse) − onehot)·wtok) of vocab
+    columns [c0, c0 + n) from their f32 logits [m, n]; ``p_scale`` scales p
+    (a planted fault: 2 doubles it, 0 leaves the one-hot term only)."""
+    cols = torch.arange(c0, c0 + logits.shape[1], device=logits.device)
+    p = torch.exp(logits - lse[:, None]) * p_scale
+    p = p - (cols[None, :] == tgt.long()[:, None]).to(torch.float32)
+    return (p * wtok[:, None]).to(torch.bfloat16)
+
+
+#: the fused CE's checks that see a wrong softmax term (each also fails on
+#: the planted faults "p doubled" and "one-hot term only"): dlogits entry by
+#: entry within one bf16 ulp (2^-7 of the plain entry; the kernels keep the
+#: plain version's roundings), dx as ‖Δ‖/‖plain‖ (its softmax term is ~2 %
+#: of its norm at these widths; the sound kernels read up to 8.3e-4, the
+#: tensor cores' f32 sums over a 131,072-column chunk, and the faults
+#: 2.0e-2 to 5.7e-2), dw as ‖Δ‖/‖plain‖ over the vocab columns that are no
+#: row's target (the softmax term alone: sound up to 4.3e-4, faults 1.0)
+CE_DLOGITS_ULP, CE_DLOGITS_ABS = 2.0 ** -7, 1e-12
+CE_DX_NORM, CE_DW_NT_NORM = 4e-3, 1e-2
+
+
+def _ce_gate(name, err, lim, faults):
+    """``err`` within ``lim``; each planted fault's error beyond it."""
+    check(name, err, lim)
+    for kind, ferr in faults.items():
+        ok = ferr > lim
+        say(f"  check {name} sees a planted fault ({kind}): err={ferr:.3e} "
+            f"> {lim:.1e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{name} does not see a planted fault ({kind})")
+
+
+def _ce_softmax_checks(torch, sfx, label, out, refs, plain, tgt, wtok, lse,
+                       c0):
+    """The checks of ``CE_DLOGITS_ULP`` ... on the kernels' (dlogits of the
+    last chunk, dx, dw), each with the planted faults built from the plain
+    outputs: dx = A − B and dw = A' − B' with B, B' the one-hot terms
+    (wtok·w[:, tgt]ᵀ and x·wtok scattered into the target columns), so p
+    doubled gives 2·plain + B and the one-hot term only gives −B."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    tl = tgt.long()
+
+    def ulps(d, ref):
+        return float(((d.float() - ref.float()).abs()
+                      / (CE_DLOGITS_ULP * ref.float().abs() + CE_DLOGITS_ABS)
+                      ).max())
+
+    def norm_rel(d, ref, cols=None):
+        diff = d.float() - ref.float()
+        r = ref.float()
+        if cols is not None:
+            diff, r = diff[:, cols], r[:, cols]
+        return float(diff.norm() / r.norm().clamp_min(1e-30))
+
+    logits = plain["logits"](c0, out["dlogits"].shape[1])
+    faults = {k: ulps(_chunk_dlogits(torch, logits, tgt, lse, wtok, c0, s),
+                      refs["dlogits"])
+              for k, s in (("p doubled", 2.0), ("one-hot only", 0.0))}
+    del logits
+    _ce_gate(f"fused_ce_dlogits{sfx} {label} per entry, |Δ| / (2^-7·|plain| "
+             f"+ 1e-12)", ulps(out["dlogits"], refs["dlogits"]), 1.0, faults)
+    b = wtok[:, None] * plain["w_cols"](tl).T                   # [m, E]
+    ref = refs["dx"].float()
+    faults = {"p doubled": norm_rel((2 * ref + b).to(bf16), ref),
+              "one-hot only": norm_rel((-b).to(bf16), ref)}
+    del b
+    _ce_gate(f"fused_ce_dx{sfx} {label} ‖Δ‖/‖plain‖",
+             norm_rel(out["dx"], ref), CE_DX_NORM, faults)
+    del ref
+    ref = refs["dw"].float()
+    b = torch.zeros_like(ref).index_add_(
+        1, tl, (plain["x_dw"].float() * wtok[:, None]).T)     # [E, V]
+    nt = torch.ones(ref.shape[1], dtype=torch.bool, device=ref.device)
+    nt[tl] = False
+    faults = {"p doubled": norm_rel((2 * ref + b).to(bf16), ref, nt),
+              "one-hot only": norm_rel((-b).to(bf16), ref, nt)}
+    del b
+    _ce_gate(f"fused_ce_dw{sfx} {label} ‖Δ‖/‖plain‖ over the {int(nt.sum())} "
+             f"non-target columns", norm_rel(out["dw"], ref, nt),
+             CE_DW_NT_NORM, faults)
+
+
+def _ce_check(torch, kc, sfx, label, m, V, tgt, wtok, run, plain, tol_fwd,
+              rel=1e-2):
+    """One fused-CE flavour (kernel names ending ``sfx``) against its plain
+    versions: lse/gold within ``tol_fwd(plain lse)``; the dlogits kernel's
+    last vocab chunk (the chunk buffer after the backward), dx and dw within
+    ``rel`` of their largest entry, and the checks of
+    ``_ce_softmax_checks``; then a repeat of every launch must give the same
+    bits. ``run``: "fwd" () -> (lse, gold), "bwd" (lse, buf) -> (dx, dw);
+    ``plain``: "fwd", "dx" (lse), "dw" (lse), "logits" (c0, vc) -> f32
+    logits [m, vc], "w_cols" (idx) -> f32 [E, len(idx)] head columns as the
+    dx GEMM reads them, "x_dw": the bf16 x the dw GEMM reads. Returns
+    (max_abs_err by kernel, plain lse)."""
+    lse, gold = run["fwd"]()
+    plse, pgold = plain["fwd"]()
+    ldb, chunks = kc.chunk_plan(m, V)
+    c0, vc = chunks[-1]
+    buf = torch.empty((m, ldb), dtype=torch.bfloat16, device="cuda")
+    dx, dw = run["bwd"](plse, buf)
+    refs = dict(dlogits=_chunk_dlogits(torch, plain["logits"](c0, vc), tgt,
+                                       plse, wtok, c0),
+                dx=plain["dx"](plse), dw=plain["dw"](plse))
+    torch.cuda.synchronize()
+    errs = dict(fwd=max(max_err(lse, plse), max_err(gold, pgold)),
+                dlogits=max_err(buf[:, :vc], refs["dlogits"]),
+                dx=max_err(dx, refs["dx"]), dw=max_err(dw, refs["dw"]))
+    check(f"fused_ce_fwd{sfx} {label} lse/gold", errs["fwd"], tol_fwd(plse))
+    for key, ref in refs.items():
+        check(f"fused_ce_{key}{sfx} {label}", errs[key],
+              rel * float(ref.float().abs().max()) + 1e-8)
+    _ce_softmax_checks(torch, sfx, label,
+                       dict(dlogits=buf[:, :vc], dx=dx, dw=dw), refs, plain,
+                       tgt, wtok, plse, c0)
+    del refs
+    lse2, gold2 = run["fwd"]()
+    buf2 = torch.empty_like(buf)
+    dx2, dw2 = run["bwd"](plse, buf2)
+    torch.cuda.synchronize()
+    differ = sum(int(not torch.equal(a, b)) for a, b in (
+        (lse, lse2), (gold, gold2), (buf[:, :vc], buf2[:, :vc]), (dx, dx2),
+        (dw, dw2)))
+    check(f"fused_ce{sfx} {label} repeat: outputs not equal bit for bit",
+          float(differ), 0.0)
+    return errs, plse
+
+
+def _ce_times(torch, rows, errs, out, tag):
+    """Time each (name, kernel, plain, library or None, bytes, bf16 flops,
+    int8 ops, what) row into out[name] with its max_abs_err."""
+    for name, kern, plain, lib, nbytes, fl, i8, what in rows:
+        kms = time_ms(torch, kern, iters=3, warm=1)
+        pms = event_ms(torch, plain, iters=1, warm=1)
+        lms = None if lib is None else time_ms(torch, lib, iters=3, warm=1)
+        bms, by = bound_ms(nbytes, fl, i8)
+        lstr = "null" if lms is None else f"{lms:.4f}"
+        say(f"  time {name} {tag}: kernel_ms={kms:.4f} plain_ms={pms:.4f} "
+            f"library_ms({what})={lstr} bound_ms={bms:.5f} ({by})")
+        out[name] = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                         bound_by=by, max_abs_err=errs.get(
+                             name.split("_")[2], max(errs.values())))
+
+
+def _ce_memory_gate(torch, label, bwd):
+    """The backward's device memory beyond its dx and dw: at most 512 MiB."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dx, dw = bwd()
+    torch.cuda.synchronize()
+    extra = (torch.cuda.max_memory_allocated() - before
+             - 2 * dx.numel() - 2 * dw.numel()) / 2**20
+    ok = extra <= 512.0
+    say(f"  check fused_ce backward {label} extra device memory beyond dx and "
+        f"dw: {extra:.1f} MiB (limit 512) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"the fused CE backward took {extra:.1f} MiB beyond its outputs")
+
+
 def fused_ce_phase(torch, gen):
-    """fused_ce_fwd / _dx / _dw against their plain versions on the card;
-    times at the Qwen3 slice shape (m = 8192, tied [V, E] head)."""
+    """The fused CE's kernels against their plain versions on the card: the
+    forward (lse, gold), the backward's dlogits kernel (its last chunk) and
+    its dx and dw GEMMs through ``fused_ce_bwd``, at the Qwen3 slice shape,
+    ragged shapes and E 1600 and 2560; a repeat of each launch equals the
+    first bit for bit; the backward's extra device memory at the slice
+    shape; times there (m = 8192, tied [V, E] head): fwd, dlogits, dx and
+    dw alone (over all vocab chunks) and the whole backward; at E 1600 and
+    2560 the forward and the whole backward."""
     from koifish_tpu_torch.ops.kernels import fused_ce as kc
-    say("[kernels] fused_ce_fwd / fused_ce_dx / fused_ce_dw "
-        "(koifish_tpu_torch/csrc/fused_ce.cu)")
+    say("[kernels] fused_ce_fwd / fused_ce_dlogits / fused_ce_dx / "
+        "fused_ce_dw (koifish_tpu_torch/csrc/fused_ce.cu)")
     # lse and gold are f32 (|lse| ~ 12): only the f32 summation order
-    # differs; dx and dw are bf16: 1 % of the largest entry (about one ulp)
-    tol_f32, rel = 2e-3, 1e-2
-    cases = [  # (label, m, E, V, tied [V, E] storage, masked)
-        ("slice m8192 E1024 V151936 tied", 8192, 1024, 151936, True, False),
-        ("ragged m1000 E768 V50304 untied masked", 1000, 768, 50304, False,
-         True),
-        ("ragged m100 E64 V333 tied masked", 100, 64, 333, True, True),
-    ]
+    # differs: 2e-3, and at E 1600 and 2560 1e-5 of the largest |lse| (the
+    # int8 phase's limit at E 1280); dlogits, dx and dw are bf16: 1 % of
+    # the largest entry (about one ulp)
+    tol_f32 = 2e-3
     out = {}
-    for label, m, E, V, tied, masked in cases:
-        x = torch.randn((m, E), generator=gen, device="cuda"
-                        ).to(torch.bfloat16)
-        if tied:
-            w = (torch.randn((V, E), generator=gen, device="cuda") * 0.02
-                 ).to(torch.bfloat16).T
-        else:
-            w = (torch.randn((E, V), generator=gen, device="cuda") * 0.02
-                 ).to(torch.bfloat16)
-        tgt = torch.randint(0, V, (m,), generator=gen, device="cuda",
-                            dtype=torch.int32)
+    for label, m, E, V, tied, masked in CE_CASES:
+        x, w, tgt = _ce_rows(torch, gen, m, E, V, tied)
         mask = torch.ones((m,), device="cuda")
         if masked:
             mask[torch.rand((m,), generator=gen, device="cuda") < 0.3] = 0.0
         wtok = (mask / mask.sum().clamp_min(1.0)).contiguous()
-        lse, gold = kc.fused_ce_fwd(x, w, tgt)
-        plse, pgold = kc.fused_ce_fwd_plain(x, w, tgt)
-        dx = kc.fused_ce_dx(x, w, tgt, plse, wtok)
-        dw = kc.fused_ce_dw(x, w, tgt, plse, wtok)
-        pdx = kc.fused_ce_dx_plain(x, w, tgt, plse, wtok)
-        pdw = kc.fused_ce_dw_plain(x, w, tgt, plse, wtok)
-        torch.cuda.synchronize()
-        errs = dict(fwd=max(max_err(lse, plse), max_err(gold, pgold)),
-                    dx=max_err(dx, pdx), dw=max_err(dw, pdw))
-        check(f"fused_ce_fwd {label} lse/gold", errs["fwd"], tol_f32)
-        check(f"fused_ce_dx {label}", errs["dx"],
-              rel * float(pdx.float().abs().max()) + 1e-8)
-        check(f"fused_ce_dw {label}", errs["dw"],
-              rel * float(pdw.float().abs().max()) + 1e-8)
+        run = dict(fwd=lambda: kc.fused_ce_fwd(x, w, tgt),
+                   bwd=lambda lse, buf: kc._bwd(x, w, tgt, lse, wtok,
+                                                buf=buf))
+        plain = dict(fwd=lambda: kc.fused_ce_fwd_plain(x, w, tgt),
+                     dx=lambda lse: kc.fused_ce_dx_plain(x, w, tgt, lse, wtok),
+                     dw=lambda lse: kc.fused_ce_dw_plain(x, w, tgt, lse, wtok),
+                     logits=lambda c0, vc: kc._logits(x, w[:, c0:c0 + vc]),
+                     w_cols=lambda idx: w[:, idx].float(), x_dw=x)
+        errs, plse = _ce_check(
+            torch, kc, "", label, m, V, tgt, wtok, run, plain,
+            (lambda p: 1e-5 * float(p.abs().max())) if E > 1280
+            else (lambda _: tol_f32))
         if out:
+            if E > 1280:    # GPT2-1558M's and Qwen3-4B's heads: timed too
+                fl = 2.0 * m * E * V
+                xE = 2 * m * E + 2 * E * V
+                for name, kern, nbytes, ops in (
+                        ("fused_ce_fwd", run["fwd"], xE + 12 * m, fl),
+                        ("fused_ce_bwd", lambda: kc.fused_ce_bwd(
+                            x, w, tgt, plse, wtok), 2 * xE + 12 * m,
+                         3 * fl)):
+                    kms = time_ms(torch, kern, iters=3, warm=1)
+                    bms, by = bound_ms(nbytes, ops)
+                    say(f"  time {name} E{E} M{m} V{V}: kernel_ms={kms:.4f} "
+                        f"bound_ms={bms:.5f} ({by})")
             continue
+        _ce_memory_gate(torch, label, lambda: kc.fused_ce_bwd(
+            x, w, tgt, plse, wtok))
+        buf = torch.empty((m, kc.chunk_plan(m, V)[0]), dtype=torch.bfloat16,
+                          device="cuda")
         dlog = kc._dlogits(x, w, tgt, plse, wtok)        # [m, V] bf16
-        xE = 2 * m * E + 2 * E * V + 4 * m
-        flops = 2.0 * m * E * V
-        rows = (
+
+        def bwd(kernels):
+            return lambda: kc._bwd(x, w, tgt, plse, wtok, kernels, buf=buf)
+        xE = 2 * m * E + 2 * E * V
+        fl = 2.0 * m * E * V
+        _ce_times(torch, (
             ("fused_ce_fwd", lambda: kc.fused_ce_fwd(x, w, tgt),
              lambda: kc.fused_ce_fwd_plain(x, w, tgt),
-             lambda: torch.matmul(x, w), xE + 8 * m, flops,
+             lambda: torch.matmul(x, w), xE + 12 * m, fl, 0.0, "matmul x·w"),
+            ("fused_ce_dlogits", bwd(("dlogits",)),
+             lambda: kc._dlogits(x, w, tgt, plse, wtok),
+             lambda: torch.matmul(x, w), xE + 12 * m + 2 * m * V, fl, 0.0,
              "matmul x·w"),
-            ("fused_ce_dx", lambda: kc.fused_ce_dx(x, w, tgt, plse, wtok),
-             lambda: kc.fused_ce_dx_plain(x, w, tgt, plse, wtok),
-             lambda: torch.matmul(dlog, w.T), xE + 8 * m + 2 * m * E,
-             2 * flops, "matmul dlogits·wᵀ"),
-            ("fused_ce_dw", lambda: kc.fused_ce_dw(x, w, tgt, plse, wtok),
-             lambda: kc.fused_ce_dw_plain(x, w, tgt, plse, wtok),
-             lambda: torch.matmul(x.T, dlog), xE + 8 * m + 2 * E * V,
-             2 * flops, "matmul xᵀ·dlogits"),
-        )
-        for name, kern, plain, lib, nbytes, fl, what in rows:
-            kms = time_ms(torch, kern, iters=3, warm=1)
-            pms = event_ms(torch, plain, iters=2, warm=1)
-            lms = time_ms(torch, lib, iters=3, warm=1)
-            bms, by = bound_ms(nbytes, fl)
-            say(f"  time {name} slice: kernel_ms={kms:.4f} plain_ms={pms:.4f}"
-                f" library_ms({what})={lms:.4f} bound_ms={bms:.5f} ({by})")
-            key = name.rsplit("_", 1)[1]
-            out[name] = dict(ms=kms, plain_ms=pms, library_ms=lms,
-                             bound_ms=bms, bound_by=by, max_abs_err=errs[key])
-        del dlog
+            ("fused_ce_dx", bwd(("dx",)),
+             lambda: (dlog.float() @ w.float().T).to(torch.bfloat16),
+             lambda: torch.matmul(dlog, w.T),
+             2 * m * V + 2 * E * V + 2 * m * E, fl, 0.0,
+             "matmul dlogits·wᵀ"),
+            ("fused_ce_dw", bwd(("dw",)),
+             lambda: (x.float().T @ dlog.float()).to(torch.bfloat16),
+             lambda: torch.matmul(x.T, dlog),
+             2 * m * V + 2 * m * E + 2 * E * V, fl, 0.0,
+             "matmul xᵀ·dlogits"),
+            ("fused_ce_bwd", bwd(kc.BWD_KERNELS),
+             lambda: (kc.fused_ce_dx_plain(x, w, tgt, plse, wtok),
+                      kc.fused_ce_dw_plain(x, w, tgt, plse, wtok)),
+             None, 2 * xE + 12 * m, 3 * fl, 0.0,
+             "no single call: dlogits, dx and dw"),
+        ), errs, out, "slice")
+        del dlog, buf
+    torch.cuda.empty_cache()
     return out
 
 
 # GPT2-774M (configs/gpt2_774m.json) at B = 16 x T = 1024
 G774_M, G774_E, G774_F, G774_V = 16384, 1280, 5120, 50304
+#: the int8 phase's fused-CE shapes (tag, m, E, V), tied heads: GPT2-774M's
+#: (timed), GPT2-1558M's at the same batch, Qwen3-4B's at m 1024
+CE8_CASES = [("E1280", G774_M, G774_E, G774_V),
+             ("E1600", G774_M, 1600, G774_V), ("E2560", 1024, 2560, 151936)]
 
 
 def int8_phase(torch, gen):
@@ -759,87 +964,108 @@ def int8_phase(torch, gen):
                                    max_abs_err=err)
     del dy, dx, pdx, wd
 
-    # fused CE at E 1280, tied head: int8 and bf16 flavours
-    xs = rnd(M, E)
-    w = wte.T
-    tgt = torch.randint(0, V, (M,), generator=gen, device="cuda",
-                        dtype=torch.int32)
-    wtok = torch.full((M,), 1.0 / M, device="cuda")
-    xq, sx = kq.rowquant(xs, "jit")
-    wq, sw = kq.colquant(w, "jit")
-    sx, sw = sx.reshape(-1).contiguous(), sw.reshape(-1).contiguous()
-    lse, gold = kc.fused_ce_fwd_int8(xq, sx, wq, sw, tgt)
-    plse, pgold = kc.fused_ce_fwd_int8_plain(xq, sx, wq, sw, tgt)
-    dx = kc.fused_ce_dx_int8(xq, sx, wq, sw, tgt, plse, wtok)
-    dw = kc.fused_ce_dw_int8(xs, xq, sx, wq, sw, tgt, plse, wtok)
-    pdx = kc.fused_ce_dx_int8_plain(xq, sx, wq, sw, tgt, plse, wtok)
-    pdw = kc.fused_ce_dw_int8_plain(xs, xq, sx, wq, sw, tgt, plse, wtok)
-    torch.cuda.synchronize()
-    # lse / gold f32 of O(10): the int32 logits are exact, only the order
-    # of the exp sums differs; dx / dw bf16: 1 % of the largest entry
-    errs8 = dict(fwd=max(max_err(lse, plse), max_err(gold, pgold)),
-                 dx=max_err(dx, pdx), dw=max_err(dw, pdw))
-    check("fused_ce_fwd_int8 E1280 lse/gold (1e-5 relative)", errs8["fwd"],
-          1e-5 * float(plse.abs().max()))
-    check("fused_ce_dx_int8 E1280", errs8["dx"],
-          1e-2 * float(pdx.float().abs().max()) + 1e-8)
-    check("fused_ce_dw_int8 E1280", errs8["dw"],
-          1e-2 * float(pdw.float().abs().max()) + 1e-8)
-    del dx, dw, pdx, pdw
-    blse, bgold = kc.fused_ce_fwd(xs, w, tgt)
-    pblse, pbgold = kc.fused_ce_fwd_plain(xs, w, tgt)
-    bdx = kc.fused_ce_dx(xs, w, tgt, pblse, wtok)
-    bdw = kc.fused_ce_dw(xs, w, tgt, pblse, wtok)
-    pbdx = kc.fused_ce_dx_plain(xs, w, tgt, pblse, wtok)
-    pbdw = kc.fused_ce_dw_plain(xs, w, tgt, pblse, wtok)
-    torch.cuda.synchronize()
-    errs16 = dict(fwd=max(max_err(blse, pblse), max_err(bgold, pbgold)),
-                  dx=max_err(bdx, pbdx), dw=max_err(bdw, pbdw))
-    check("fused_ce_fwd E1280 lse/gold (1e-5 relative)", errs16["fwd"],
-          1e-5 * float(pblse.abs().max()))
-    check("fused_ce_dx E1280", errs16["dx"],
-          1e-2 * float(pbdx.float().abs().max()) + 1e-8)
-    check("fused_ce_dw E1280", errs16["dw"],
-          1e-2 * float(pbdw.float().abs().max()) + 1e-8)
-    del bdx, bdw, pbdx, pbdw
-    wq_c = wq.contiguous()                     # [E, V] codes, row-major
-    lib8 = lambda: torch._int_mm(xq, wq_c)
-    flops = 2.0 * M * E * V
-    cols = 4 * M * 3
-    rows8 = (
-        ("fused_ce_fwd_int8", lambda: kc.fused_ce_fwd_int8(xq, sx, wq, sw, tgt),
-         lambda: kc.fused_ce_fwd_int8_plain(xq, sx, wq, sw, tgt),
-         M * E + E * V + 4 * V + cols, 0.0, flops),
-        ("fused_ce_dx_int8", lambda: kc.fused_ce_dx_int8(
-            xq, sx, wq, sw, tgt, plse, wtok),
-         lambda: kc.fused_ce_dx_int8_plain(xq, sx, wq, sw, tgt, plse, wtok),
-         M * E + E * V + 4 * V + cols + 2 * M * E, flops, flops),
-        ("fused_ce_dw_int8", lambda: kc.fused_ce_dw_int8(
-            xs, xq, sx, wq, sw, tgt, plse, wtok),
-         lambda: kc.fused_ce_dw_int8_plain(xs, xq, sx, wq, sw, tgt, plse,
-                                           wtok),
-         3 * M * E + E * V + 4 * V + cols + 2 * E * V, flops, flops),
-    )
-    for name, kern, plain, nbytes, fl, i8 in rows8:
-        kms = time_ms(torch, kern, iters=3, warm=1)
-        pms = event_ms(torch, plain, iters=1, warm=1)
-        lms = time_ms(torch, lib8, iters=3, warm=1)
-        bms, by = bound_ms(nbytes, fl, i8)
-        say(f"  time {name} E1280: kernel_ms={kms:.4f} plain_ms={pms:.4f} "
-            f"library_ms(_int_mm logits)={lms:.4f} bound_ms={bms:.5f} ({by})")
-        out[name] = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
-                         bound_by=by, max_abs_err=errs8[name.split("_")[2]])
-    for name, kern in (
-            ("fused_ce_fwd", lambda: kc.fused_ce_fwd(xs, w, tgt)),
-            ("fused_ce_dx", lambda: kc.fused_ce_dx(xs, w, tgt, pblse, wtok)),
-            ("fused_ce_dw", lambda: kc.fused_ce_dw(xs, w, tgt, pblse, wtok))):
-        kms = time_ms(torch, kern, iters=3, warm=1)
-        fl = flops if name.endswith("fwd") else 2 * flops
-        bms, by = bound_ms(2 * M * E + 2 * E * V + cols, fl)
-        say(f"  time {name} (bf16) E1280 M{M} V{V}: kernel_ms={kms:.4f} "
-            f"bound_ms={bms:.5f} ({by}) max_abs_err="
-            f"{errs16[name.split('_')[2]]:.3e}")
-    del xs, wte, w, xq, wq, wq_c
+    # the int8 fused CE, tied head, at E 1280 (GPT2-774M's head, timed; the
+    # bf16 flavour too, at the same inputs), E 1600 (GPT2-1558M's at B 16 x
+    # 1024) and E 2560 (Qwen3-4B's, m 1024; the bf16 flavour at these two is
+    # fused_ce_phase's). lse / gold f32 of O(10): the int32 logits are exact,
+    # only the order of the exp sums differs (1e-5 relative); dlogits, dx,
+    # dw bf16: 1 % of the largest entry
+    del wte
+    torch.cuda.empty_cache()
+    rel5 = lambda plse: 1e-5 * float(plse.abs().max())   # noqa: E731
+    for tag, m, Ec, Vc in CE8_CASES:
+        xs, w, tgt = _ce_rows(torch, gen, m, Ec, Vc, True)
+        wtok = torch.full((m,), 1.0 / m, device="cuda")
+        xq, sx = kq.rowquant(xs, "jit")
+        wq, sw = kq.colquant(w, "jit")
+        sx, sw = sx.reshape(-1).contiguous(), sw.reshape(-1).contiguous()
+        label = f"{tag} m{m} V{Vc}"
+        run8 = dict(
+            fwd=lambda: kc.fused_ce_fwd_int8(xq, sx, wq, sw, tgt),
+            bwd=lambda lse, buf: kc._bwd_int8(
+                xs, xq, sx, wq, sw, tgt, lse, wtok, buf=buf))
+        plain8 = dict(
+            fwd=lambda: kc.fused_ce_fwd_int8_plain(xq, sx, wq, sw, tgt),
+            dx=lambda lse: kc.fused_ce_dx_int8_plain(xq, sx, wq, sw, tgt,
+                                                     lse, wtok),
+            dw=lambda lse: kc.fused_ce_dw_int8_plain(xs, xq, sx, wq, sw, tgt,
+                                                     lse, wtok),
+            logits=lambda c0, vc: kc._logits8(xq, sx, wq[:, c0:c0 + vc],
+                                              sw[c0:c0 + vc]),
+            w_cols=lambda idx: (wq[:, idx].float() * sw[idx]).to(
+                torch.bfloat16).float(), x_dw=xs)
+        errs8, plse = _ce_check(torch, kc, "_int8", label, m, Vc, tgt, wtok,
+                                run8, plain8, rel5)
+        buf = torch.empty((m, kc.chunk_plan(m, Vc)[0]), dtype=torch.bfloat16,
+                          device="cuda")
+
+        def bwd8(kernels):
+            return lambda: kc._bwd_int8(xs, xq, sx, wq, sw, tgt, plse, wtok,
+                                        kernels, buf=buf)
+        fl = 2.0 * m * Ec * Vc
+        codes = m * Ec + Ec * Vc + 4 * Vc + 4 * m * 3
+        times = [("fused_ce_fwd_int8", run8["fwd"], codes, (0.0, fl)),
+                 ("fused_ce_bwd_int8", bwd8(kc.BWD_KERNELS),
+                  codes + 4 * m * Ec + 2 * Ec * Vc, (2 * fl, fl))]
+        if tag == "E1280":
+            run16 = dict(
+                fwd=lambda: kc.fused_ce_fwd(xs, w, tgt),
+                bwd=lambda lse, buf: kc._bwd(xs, w, tgt, lse, wtok, buf=buf))
+            plain16 = dict(
+                fwd=lambda: kc.fused_ce_fwd_plain(xs, w, tgt),
+                dx=lambda lse: kc.fused_ce_dx_plain(xs, w, tgt, lse, wtok),
+                dw=lambda lse: kc.fused_ce_dw_plain(xs, w, tgt, lse, wtok),
+                logits=lambda c0, vc: kc._logits(xs, w[:, c0:c0 + vc]),
+                w_cols=lambda idx: w[:, idx].float(), x_dw=xs)
+            _, pblse = _ce_check(torch, kc, "", label, m, Vc, tgt, wtok,
+                                 run16, plain16, rel5)
+            times += [("fused_ce_fwd", run16["fwd"], 2 * m * Ec + 2 * Ec * Vc
+                       + 12 * m, (fl, 0.0)),
+                      ("fused_ce_bwd", lambda: kc._bwd(
+                          xs, w, tgt, pblse, wtok, buf=buf),
+                       4 * m * Ec + 4 * Ec * Vc + 12 * m, (3 * fl, 0.0))]
+        # the forward and whole backward at this width (bf16 at E 1280)
+        for name, kern, nbytes, ops in times:
+            kms = time_ms(torch, kern, iters=3, warm=1)
+            bms, by = bound_ms(nbytes, *ops)
+            say(f"  time {name} {tag} M{m} V{Vc}: kernel_ms={kms:.4f} "
+                f"bound_ms={bms:.5f} ({by})")
+        if tag != "E1280":
+            del xs, w, xq, wq, buf
+            torch.cuda.empty_cache()
+            continue
+        wq_c = wq.contiguous()                     # [E, V] codes, row-major
+        wd = (wq.float() * sw).to(torch.bfloat16)  # [E, V]: bf16(wq·sw)
+        dlog = kc._dlogits8(xq, sx, wq, sw, tgt, plse, wtok)   # [m, V] bf16
+        _ce_times(torch, (
+            ("fused_ce_fwd_int8", lambda: kc.fused_ce_fwd_int8(
+                xq, sx, wq, sw, tgt),
+             lambda: kc.fused_ce_fwd_int8_plain(xq, sx, wq, sw, tgt),
+             lambda: torch._int_mm(xq, wq_c), codes, 0.0, fl,
+             "_int_mm logits"),
+            ("fused_ce_dlogits_int8", bwd8(("dlogits",)),
+             lambda: kc._dlogits8(xq, sx, wq, sw, tgt, plse, wtok),
+             lambda: torch._int_mm(xq, wq_c), codes + 2 * m * Vc, 0.0, fl,
+             "_int_mm logits"),
+            ("fused_ce_dx_int8", bwd8(("dx",)),
+             lambda: (dlog.float() @ wd.float().T).to(torch.bfloat16),
+             lambda: torch.matmul(dlog, wd.T),
+             2 * m * Vc + Ec * Vc + 4 * Vc + 2 * m * Ec, fl, 0.0,
+             "matmul dlogits·bf16(wq·sw)ᵀ"),
+            ("fused_ce_dw_int8", bwd8(("dw",)),
+             lambda: (xs.float().T @ dlog.float()).to(torch.bfloat16),
+             lambda: torch.matmul(xs.T, dlog),
+             2 * m * Vc + 2 * m * Ec + 2 * Ec * Vc, fl, 0.0,
+             "matmul xᵀ·dlogits"),
+            ("fused_ce_bwd_int8", bwd8(kc.BWD_KERNELS),
+             lambda: (kc.fused_ce_dx_int8_plain(xq, sx, wq, sw, tgt, plse,
+                                                wtok),
+                      kc.fused_ce_dw_int8_plain(xs, xq, sx, wq, sw, tgt, plse,
+                                                wtok)),
+             None, codes + 4 * m * Ec + 2 * Ec * Vc, 2 * fl, fl,
+             "no single call: dlogits, dx and dw"),
+        ), errs8, out, tag)
+        del xs, w, xq, wq, wq_c, wd, dlog, buf
     torch.cuda.empty_cache()
     return out
 
@@ -1930,13 +2156,14 @@ def bubble_phase(torch):
 # ---------------------------------------------------------------------------
 
 def _step_card_vs_cpu(torch, label, card, tcard, vocab, tol_loss, tol_norm,
-                      qcard=None, seed=7):
+                      tol_head, qcard=None, seed=7):
     """One ``make_train_step`` of ``card`` on the card (kernels) against the
     same step on the CPU (plain versions), SR off: the loss, every
-    gradient's norm and the updated parameters."""
+    gradient's norm (the tied head's ``wte`` within ``tol_head``) and the
+    updated parameters."""
     from koifish_tpu_torch.models import init_params
     from koifish_tpu_torch.train import init_train_state, make_train_step
-    from koifish_tpu_torch.utils.tree import leaves
+    from koifish_tpu_torch.utils.tree import flatten_with_path, leaves
     base = init_params(card, device="cpu", seed=seed)
     tokens = torch.randint(0, vocab, (1, 4, 65),
                            generator=torch.Generator().manual_seed(seed + 1))
@@ -1956,9 +2183,18 @@ def _step_card_vs_cpu(torch, label, card, tcard, vocab, tol_loss, tol_norm,
     check(f"{label} loss, card vs CPU",
           abs(res["cpu"][0] - res["cuda"][0]), tol_loss)
     n_cpu, n_gpu = res["cpu"][1], res["cuda"][1]
-    check(f"{label} grad norms, card vs CPU (relative)",
-          float(((n_gpu - n_cpu).abs() / n_cpu.clamp_min(1e-6)).max()),
+    rel = (n_gpu - n_cpu).abs() / n_cpu.clamp_min(1e-6)
+    worst = int(rel.argmax())
+    say(f"  worst grad norm: {flatten_with_path(base)[worst][0]} "
+        f"(CPU norm {float(n_cpu[worst]):.3e})")
+    check(f"{label} grad norms, card vs CPU (relative)", float(rel.max()),
           tol_norm)
+    # the tied head's gradient (the fused CE's dw plus the embedding's) is
+    # not zero in exact arithmetic, unlike the worst leaf's above: its norm
+    # is held to a tighter limit
+    head = [p for p, _ in flatten_with_path(base)].index(("wte",))
+    check(f"{label} wte grad norm, card vs CPU (relative)",
+          float(rel[head]), tol_head)
     # updated params: AdamW's first step moves each weight by about lr times
     # the sign of its gradient, so a gradient entry near 0 may move the
     # weight either way on the two devices (2·lr), plus one bf16 ulp
@@ -1972,6 +2208,11 @@ def _step_card_vs_cpu(torch, label, card, tcard, vocab, tol_loss, tol_norm,
     say(f"  updated params differ in {moved} of {total} entries")
     check(f"{label} updated params, card vs CPU (excess over 2·lr + "
           "1 ulp)", max(worst, 0.0), 0.0)
+
+
+#: the tiny train steps' limit on the relative difference of the tied
+#: head's gradient norm, card against CPU (20x the 5.3e-5 read at most)
+TOL_HEAD = 1e-3
 
 
 def train_reference_check(torch):
@@ -1988,7 +2229,7 @@ def train_reference_check(torch):
     # f32 loss of O(6): bf16 activations rounded at other points (cuBLAS
     # vs the CPU, kernel sum orders); per-leaf grad norms 2 % relative
     _step_card_vs_cpu(torch, "tiny QWEN3 train step", card, tcard, 512,
-                      1e-2, 2e-2)
+                      1e-2, 2e-2, TOL_HEAD)
     # the SR hash runs on wrapping int32 arithmetic: the card must give
     # the CPU's bits (which the CPU tests hold to the JAX package's)
     from koifish_tpu_torch.train.optimizer import stochastic_round
@@ -2016,14 +2257,14 @@ def reference_check_int8(torch):
                       check_tensor_norm=True, int8_matmul=True,
                       int8_min_kn=0, int8_dgrad="tile")
     _step_card_vs_cpu(torch, "tiny GPT2 int8 train step", card, tcard, 2048,
-                      2e-2, 5e-2)
+                      2e-2, 5e-2, TOL_HEAD)
     qcard = QuantCard.from_json({"self_attn": {"bits": 4},
                                  "mlp": {"bits": 4}, "group_size": 128})
     tcard = TrainCard(batch=4, lr=1e-3, warmup=0, scheduler="static",
                       fused_ce=True, stochastic_round=False,
                       check_tensor_norm=True)
     _step_card_vs_cpu(torch, "tiny GPT2 QAT train step", card, tcard, 2048,
-                      2e-2, 5e-2, qcard=qcard)
+                      2e-2, 5e-2, TOL_HEAD, qcard=qcard)
 
 
 def train_model(torch, label, config, B, steps=8, profile=False, tcard=None):
@@ -2113,7 +2354,7 @@ def train_phase(torch):
         fail(f"first Qwen3 loss {q_losses[0]} is not within 0.5 of "
              f"ln 151936 = {math.log(151936):.4f}")
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "fused_ce_fwd",
-                 "fused_ce_dx", "fused_ce_dw"):
+                 "fused_ce_dlogits", "fused_ce_dx", "fused_ce_dw"):
         if counts.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched by the Qwen3 train_loop")
     _, g_counts = train_model(torch, "GPT2-124M", "gpt2_124m.json", 32,
@@ -2146,12 +2387,13 @@ def train_774m_phase(torch):
         f"batch={base.batch} lr={base.lr}")
     runs = (("GPT2-774M int8 as shipped", {}, 8, True,
              ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "fused_ce_fwd_int8",
-              "fused_ce_dx_int8", "fused_ce_dw_int8", "rowquant",
-              "colquant")),
+              "fused_ce_dlogits_int8", "fused_ce_dx_int8", "fused_ce_dw_int8",
+              "rowquant", "colquant")),
             ("GPT2-774M int8_dgrad tile", {"int8_dgrad": "tile"}, 4, False,
              ("qdgrad_int8_tile", "fused_ce_fwd_int8")),
             ("GPT2-774M bf16 (int8_matmul off)", {"int8_matmul": False}, 4,
-             False, ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw")))
+             False, ("fused_ce_fwd", "fused_ce_dlogits", "fused_ce_dx",
+                     "fused_ce_dw")))
     out = []
     for label, over, steps, prof, need in runs:
         tcard = dataclasses.replace(base, **over)
@@ -2252,6 +2494,9 @@ def main() -> None:
         ("fused_ce_fwd", "fused_ce.cu",
          "koifish_tpu/ops/pallas/fused_ce.py:126", fce["fused_ce_fwd"],
          train_counts),
+        ("fused_ce_dlogits", "fused_ce.cu",
+         "koifish_tpu/ops/pallas/fused_ce.py:217", fce["fused_ce_dlogits"],
+         train_counts),
         ("fused_ce_dx", "fused_ce.cu",
          "koifish_tpu/ops/pallas/fused_ce.py:217", fce["fused_ce_dx"],
          train_counts),
@@ -2271,6 +2516,9 @@ def main() -> None:
         ("fused_ce_fwd_int8", "fused_ce_int8.cu",
          "koifish_tpu/ops/pallas/fused_ce.py:126", i8["fused_ce_fwd_int8"],
          g774_counts),
+        ("fused_ce_dlogits_int8", "fused_ce_int8.cu",
+         "koifish_tpu/ops/pallas/fused_ce.py:217",
+         i8["fused_ce_dlogits_int8"], g774_counts),
         ("fused_ce_dx_int8", "fused_ce_int8.cu",
          "koifish_tpu/ops/pallas/fused_ce.py:217", i8["fused_ce_dx_int8"],
          g774_counts),

@@ -1,5 +1,5 @@
 // Fused classifier cross-entropy for Hopper, both flavours: lse / gold, dx
-// and dw of CE(x · w) without ever writing the [m, V] logits.
+// and dw of CE(x · w) without ever holding the [m, V] logits.
 //
 // Replaces the Pallas kernels of koifish_tpu/ops/pallas/fused_ce.py:
 // _fwd_call (:117, call :126), _dx_call (:209, call :217) and _dw_call (:278,
@@ -9,362 +9,331 @@
 //
 // bf16: x [m, E] bf16 row-major; the head w [E, V] bf16 read through its
 // strides, [E, V] storage (an untied head) or [V, E] storage (the tied wte
-// read in place as wte.T). Logits in f32 from bf16 products (WMMA 16x16x16,
-// f32 accumulate).
+// read in place as wte.T). Logits in f32 from bf16 products.
 // int8: xq [m, E] int8 + sx [m] f32 (row scales), wq int8 in [V, E] storage
-// (the column-quantized head; the wrapper brings an untied head's codes to
-// that order) + sw [V] f32. Logits = (xq · wq)_int32 · sx · sw (int8
-// mma.sync m16n8k32, exact int32 sums), as _tile_logits computes them. dx
-// multiplies dlogits by bf16(wq · sw), dequantized per tile in shared
-// memory; dw multiplies the TRUE bf16 x by dlogits (int8 wgrad measured
-// harmful in the JAX package).
-// Both: tgt [m] int32, lse / wtok [m] f32; the vocab tail masked in-kernel.
+// (row stride ldw; the wrapper brings an untied head's codes to that order)
+// + sw [V] f32. Logits = (xq · wq)_int32 · sx · sw, the two products rounded
+// as _tile_logits rounds them. dx multiplies dlogits by bf16(wq · sw); dw
+// multiplies the TRUE bf16 x by dlogits (int8 wgrad measured harmful in the
+// JAX package).
+// Both: tgt [m] int32, lse / wtok [m] f32; dlogits = bf16((exp(logits − lse)
+// − onehot) · wtok), the vocab tail masked in-kernel; E a multiple of 64 up
+// to 8192 (E is the loop axis of every kernel, never a resident width).
 //
-//   fwd: one block of 8 warps per (64-row tile, vocab split) with its x rows
-//     resident in shared memory; [64 e x 64 v] head chunks stream through a
-//     cp.async ring; each [64, 64] logits tile folds into a running (max,
-//     sumexp, gold) per row; with the vocab split, the partials go to a
-//     workspace that a second pass merges in split order.
-//   dx: one block per (32-row tile, vocab split, E part). The x rows stay in
-//     shared memory, the [32, E part] f32 dx accumulator in registers; each
-//     32-wide vocab tile's [32, E] head tile is loaded once (the next one in
-//     flight when shared memory allows), its logits recomputed over the whole
-//     E, turned into dlogits = bf16((p − onehot)·wtok), and dx[:, part] +=
-//     dlogits·w[part]ᵀ.
-//   dw: one block per (32-column vocab tile, E part): the [E, 32] head tile
-//     stays in shared memory, the [E part, 32] accumulator in registers; it
-//     walks all rows in 32-row x tiles (double-buffered when shared memory
-//     allows), recomputes the logits and dlogits and adds x[:, part]ᵀ·dlogits.
+// What bounds them on the H100: 2·m·E·V operations a product on the tensor
+// cores (989 TFLOP/s bf16, 1,979 TOPS int8): at Qwen3-0.6B's training shape
+// (m 8192, E 1024, V 151,936) the forward's bound is 2.6 ms and a backward's
+// three products 7.7 ms. Bytes matter only for the backward's dlogits
+// chunk (written once, read twice) and the f32 dx carried across chunks.
 //
-// E up to 1280 (GPT2-774M): the accumulators are E/64 16x16 fragments a warp
-// when a block owns the whole E, and 20 fragments (160 registers a thread)
-// do not fit beside the rest. So E is split into parts of at most 16 chunks
-// of 64 (E 1280: two parts of 640), each a block of its own that recomputes
-// the full-E logits tile: dx and dw do 1.5x the operations at E 1280 and none
-// more at E <= 1024. The alternatives were more warps a block (128 registers
-// a thread at 512 threads: spills) or part of the accumulator in shared
-// memory (a load and store of it per vocab tile). A part's accumulator size
-// is a template parameter (1..16 chunks); so is E where one part covers it
-// (E <= 1024: the logits loop unrolls fully), and E 1088..1280 run with E
-// a run-time value.
+// Design: every kernel is warp-specialised (384 threads: consumer
+// warpgroups 0 and 1 issue wgmma on 64 rows each, producer warpgroup 2
+// feeds a ring of 128-byte-swizzled stages by TMA, each stage guarded by a
+// "full" and an "empty" mbarrier), and no sum uses atomics: every sum has one
+// order, so two runs give the same bits.
 //
-// Why these tilings: the TPU sweeps carry a [BM, E] or [E, BV] f32
-// accumulator in VMEM across a sequential grid axis (up to 16 MB); a Hopper
-// block has 227 KB of shared memory and 64K registers, so a block owns a
-// narrow row or vocab tile, keeps the accumulator in registers and the tiles
-// it re-uses in shared memory, and loops over the other axis itself. Nothing
-// is summed with atomics: every sum has one order, so two runs give the same
-// bits.
+//   logits kernel (forward and dlogits): a GEMM of x [128 rows, E] against
+//     256-column vocab tiles of the head, E streamed through the ring in
+//     steps of 128 bytes (64 bf16, 128 int8: wgmma m64n256k16 bf16 or
+//     m64n256k32 s8, the head K-major from [V, E] storage or MN-major from
+//     [E, V]). A consumer's 64 x 256 accumulator (128 registers a thread)
+//     never leaves the registers: the forward folds each tile into a running
+//     (max, sumexp, gold) per row with quad shuffles, as the flash forward's
+//     softmax does; the dlogits form turns it into bf16 dlogits and stores
+//     them, through its own rows of a staging tile, into a chunk buffer.
+//     Persistent: block b takes work items b, b + grid, ... (a row tile and a
+//     run of vocab tiles; row tiles fastest, so the blocks in flight read the
+//     same head tiles and the head comes from L2); the ring runs on across
+//     items. The forward's vocab splits write (max, sumexp, gold) to a
+//     [splits, m, 3] workspace that a second pass merges in split order.
+//   GEMM kernel (dx and dw): C [128 x 128 tile] = Σ_k A·B over the chunk
+//     buffer: dx_f32 += dlogits_c · W_c (the f32 dx carried across chunks in
+//     chunk order, rounded to bf16 by the last) and dW_c = dlogits_cᵀ · x (or
+//     xᵀ · dlogits_c for an [E, V] head), written bf16 through the head's
+//     storage order. In the int8 flavour the dx GEMM's B operand is
+//     bf16(wq · sw): the producer's TMA brings the raw code bytes into the
+//     stage and seven producer warps (a second producer warpgroup) dequantize
+//     them into the swizzled bf16 tile that wgmma reads, so the head is never
+//     dequantized in a pass of its own.
 //
-// What bounds them on the H100: 2·m·E·V (fwd) and 4·m·E·V (dx, dw)
-// operations on the tensor cores, the logits half at the int8 rate in the
-// int8 flavour. In this design the bound is the traffic from L2 that the
-// narrow tiles cause (the head is read m/64 times by fwd and m/32 times by
-// dx; x is read V/32 times by dw) and the round trips of logits and dlogits
-// through shared memory; the products use WMMA and mma.sync, not wgmma, and
-// the loads cp.async, not TMA.
+// The backward is thus one dlogits launch and one or two GEMM launches per
+// vocab chunk (the wrapper's loop): the logits are computed once for dx and
+// dw together, and the accumulators are ordinary GEMM tiles.
 #pragma once
 
-#include "int8.cuh"
+#include "sm90.cuh"
 
-#include <mma.h>
-
-#include <algorithm>
 #include <type_traits>
 
-namespace fce {
-
-using namespace nvcuda;
+// internal linkage: both libraries instantiate some of the same kernels
+namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int NSM_TARGET = 2 * 132;   // blocks to aim for: two per H100 SM
-constexpr int EC = 64;                // E chunk
-constexpr int NT = 256;               // threads per block: 8 warps
-constexpr int E_MAX = 1280;
-constexpr int NCP_MAX = 16;           // E chunks of one part (accumulator fragments a warp)
-constexpr size_t SMEM_MAX = 232448;
-
-__host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAc = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-template <typename L>
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, L>;
+constexpr int THREADS = 384;            // consumer warpgroups 0, 1; producer warpgroup 2
+constexpr int E_STEP = 64, E_MAX = 8192;
+constexpr int BM = 128, BV = 256;       // logits tile: rows x vocab columns
+constexpr int GT = 128;                 // GEMM tile: GT x GT, K steps of 64
+constexpr uint32_t RING_K = 128;        // bytes of E a ring step carries (a swizzled row)
 
 inline bool bad_shape(int m, int E, int V) {
-  return m < 1 || V < 1 || E < EC || E % EC != 0 || E > E_MAX;
+  return m < 1 || V < 1 || E < E_STEP || E % E_STEP != 0 || E > E_MAX;
 }
 
-inline int splits_for(int row_tiles, int n_tiles) {
-  const int want = (NSM_TARGET + row_tiles - 1) / row_tiles;
-  return std::max(1, std::min(want, n_tiles));
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// E parts of at most NCP_MAX chunks, as even as possible
-inline void parts_for(int E, int& parts, int& ncp) {
-  const int nc = E / EC;
-  parts = (nc + NCP_MAX - 1) / NCP_MAX;
-  ncp = (nc + parts - 1) / parts;
-}
+// the float held in an accumulator register (the int8 form keeps its logits
+// there as bits)
+__device__ __forceinline__ float as_f(float v) { return v; }
+__device__ __forceinline__ float as_f(int v) { return __int_as_float(v); }
+__device__ __forceinline__ void put_f(float& d, float v) { d = v; }
+__device__ __forceinline__ void put_f(int& d, float v) { d = __float_as_int(v); }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t bytes) {
-  // the byte count depends on E: set the attribute on every call (cheap)
-  if (bytes > SMEM_MAX) return cudaErrorInvalidValue;
-  return set_smem(kernel, bytes);
-}
-
-// Rows [r0, r0 + R) of a row-major matrix of T (row stride ldx elements),
-// columns [c0, c0 + C), into shared memory rows of LD elements by cp.async
-// (the caller commits and waits); rows past m are zero. C·sizeof(T) % 16 == 0.
-template <int R, typename T>
-__device__ __forceinline__ void load_rows_async(T* X, int LD, const T* x, long long ldx, int r0,
-                                                int c0, int C, int m) {
-  constexpr int PER = 16 / sizeof(T);
-  const int ch = C / PER;
-  for (int i = threadIdx.x; i < R * ch; i += NT) {
-    const int r = i / ch, c = (i % ch) * PER;
-    const bool in = r0 + r < m;
-    cp_async16(X + r * LD + c, in ? x + static_cast<long long>(r0 + r) * ldx + c0 + c : x,
-               in ? 16 : 0);
-  }
+// a warp's release of a ring stage (the empty barriers count 8 warps)
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
 }
 
 // ---------------------------------------------------------------------------
-// forward: per-row (max, sumexp, gold) over a vocab range
+// logits kernel: forward (lse, gold) and dlogits
 // ---------------------------------------------------------------------------
 
-constexpr int F_BM = 64, F_BV = 64, F_ST = 3;   // rows, vocab tile, stages
-constexpr int F_LDL = F_BV + 4;
-
-// A staged bf16 head chunk: EC e-values × VC v-values starting at (e0, v0).
-// VE (w stored [V, E], unit e stride): smem W[v][e], row stride EC + 8.
-// EV (w stored [E, V], unit v stride): smem W[e][v], row stride VC + 8.
-// Values past V are zero.
-template <bool VE, int VC>
-struct HeadTile {
-  static constexpr int LD = VE ? EC + 8 : VC + 8;
-  static constexpr size_t BYTES = sizeof(bf16) * (VE ? VC : EC) * LD;
-  // B operand of logits = x·w: element (k = e, n = v)
-  using LogitsB = std::conditional_t<VE, wmma::col_major, wmma::row_major>;
-  __device__ static const bf16* logits_b(const bf16* W, int kk, int n0) {
-    return VE ? W + n0 * LD + kk : W + kk * LD + n0;
-  }
-  __device__ static void load_async(bf16* W, const bf16* w, long long swe, long long swv, int e0,
-                                    int v0, int V) {
-    if (VE) {   // VC rows of v, EC contiguous e each
-      for (int i = threadIdx.x; i < VC * (EC / 8); i += NT) {
-        const int r = i / (EC / 8), c = (i % (EC / 8)) * 8;
-        const bool in = v0 + r < V;
-        cp_async16(W + r * LD + c, in ? w + (v0 + r) * swv + e0 + c : w, in ? 16 : 0);
-      }
-    } else {    // EC rows of e, VC contiguous v each; the vocab tail zero-filled
-      for (int i = threadIdx.x; i < EC * (VC / 8); i += NT) {
-        const int r = i / (VC / 8), c = (i % (VC / 8)) * 8;
-        const int n = min(8, V - (v0 + c));
-        cp_async16(W + r * LD + c, n > 0 ? w + (e0 + r) * swe + v0 + c : w, n > 0 ? 2 * n : 0);
-      }
-    }
-  }
+template <bool DLOG>
+struct LogitsLayout {
+  static constexpr int STAGES = DLOG ? 3 : 4;
+  static constexpr uint32_t X_TILE = BM * RING_K, W_TILE = BV * RING_K;
+  static constexpr uint32_t STAGE = X_TILE + W_TILE;
+  // dlogits: each consumer warpgroup's [64, BV] bf16 rows on their way out
+  static constexpr uint32_t OUT = STAGES * STAGE;
+  static constexpr uint32_t BAR = OUT + (DLOG ? BM * BV * 2 : 0);   // full[S], empty[S]
+  static constexpr uint32_t ALLOC = BAR + 16 * STAGES + 1024;
+  static_assert(ALLOC <= 232448, "fused_ce: logits kernel shared memory");
 };
 
-// A staged int8 head chunk: F_BV v rows of EC e bytes ([V, E] storage).
-struct HeadTile8 {
-  static constexpr int LD = EC + 16;
-  static constexpr size_t BYTES = F_BV * LD;
-  __device__ static void load_async(int8_t* W, const int8_t* w, long long ldw, int e0, int v0,
-                                    int V) {
-    for (int i = threadIdx.x; i < F_BV * (EC / 16); i += NT) {
-      const int r = i / (EC / 16), c = (i % (EC / 16)) * 16;
-      const bool in = v0 + r < V;
-      cp_async16(W + r * LD + c, in ? w + (v0 + r) * ldw + e0 + c : w, in ? 16 : 0);
-    }
-  }
+// A work item: rows [r0, r0 + BM) against vocab tiles [t0, t1) of the range
+// (split `split` of `splits`, `per` tiles each).
+struct Item {
+  int r0, split, t0, t1;
 };
 
-// shared memory of the forward: the head-chunk ring, the logits tile, the
-// row columns (max, sumexp, gold, target, x scale), then the x rows
-template <bool INT8, bool VE>
-struct FwdLayout {
-  static constexpr size_t STAGE = align128(INT8 ? HeadTile8::BYTES : HeadTile<VE, F_BV>::BYTES);
-  static constexpr size_t W = 0;
-  static constexpr size_t L = W + F_ST * STAGE;
-  static constexpr size_t M = L + align128(sizeof(float) * F_BM * F_LDL);
-  static constexpr size_t S = M + align128(sizeof(float) * F_BM);
-  static constexpr size_t G = S + align128(sizeof(float) * F_BM);
-  static constexpr size_t TG = G + align128(sizeof(float) * F_BM);
-  static constexpr size_t SX = TG + align128(sizeof(int) * F_BM);
-  static constexpr size_t X = SX + align128(sizeof(float) * F_BM);
-  __host__ __device__ static int ldx(int E) { return INT8 ? E + 16 : E + 8; }
-  __host__ __device__ static size_t bytes(int E) {
-    return X + (INT8 ? 1 : sizeof(bf16)) * F_BM * ldx(E);
-  }
-};
-
-// fold a [64, 64] logits tile (row stride F_LDL) into the running (max,
-// sumexp, gold): 8 rows per warp
-__device__ __forceinline__ void fold_tile(const float* L, float* Mr, float* Sr, float* Gr,
-                                          const int* Tg, int v0, int V) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = 0; i < F_BM / 8; ++i) {
-    const int r = warp * (F_BM / 8) + i;
-    float l[2];
-#pragma unroll
-    for (int cc = 0; cc < 2; ++cc) {
-      const int col = lane + 32 * cc;
-      l[cc] = v0 + col < V ? L[r * F_LDL + col] : NEG_INF;
-    }
-    const float m_prev = Mr[r];
-    const float m_new = fmaxf(m_prev, warp_max(fmaxf(l[0], l[1])));
-    const float sum = warp_sum(expf(l[0] - m_new) + expf(l[1] - m_new));
-    if (lane == 0) {
-      Sr[r] = Sr[r] * expf(m_prev - m_new) + sum;
-      Mr[r] = m_new;
-      const int tg = Tg[r];
-      if (tg >= v0 && tg < v0 + F_BV && tg < V) Gr[r] += L[r * F_LDL + tg - v0];
-    }
-    __syncwarp();
-  }
+__device__ __forceinline__ Item item_of(int w, int rt, int per, int nt) {
+  Item it;
+  it.r0 = (w % rt) * BM;
+  it.split = w / rt;
+  it.t0 = it.split * per;
+  it.t1 = min(nt, it.t0 + per);
+  return it;
 }
 
-// The head chunks of a block's vocab range form one stream of steps (vocab
-// tile t, E chunk c); a ring of F_ST staged chunks keeps the next ones in
-// flight (cp.async) while the current one is multiplied. INT8: x, w are the
-// codes, sx / sw their scales (ldw the row stride of wq's [V, E] storage).
-template <bool INT8, bool VE>
-__global__ void __launch_bounds__(NT)
-    fce_fwd_kernel(const void* __restrict__ xv, const void* __restrict__ wv,
-                   const float* __restrict__ sx, const float* __restrict__ sw,
-                   const int* __restrict__ tgt, float* __restrict__ lse_out,
-                   float* __restrict__ gold_out, float* __restrict__ ws, int m, int E, int V,
-                   long long swe, long long swv, int tiles_per_split) {
-  using LY = FwdLayout<INT8, VE>;
-  using T = std::conditional_t<INT8, int8_t, bf16>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* L = reinterpret_cast<float*>(smem + LY::L);
-  float* Mr = reinterpret_cast<float*>(smem + LY::M);
-  float* Sr = reinterpret_cast<float*>(smem + LY::S);
-  float* Gr = reinterpret_cast<float*>(smem + LY::G);
-  int* Tg = reinterpret_cast<int*>(smem + LY::TG);
-  float* Sx = reinterpret_cast<float*>(smem + LY::SX);
-  T* Xs = reinterpret_cast<T*>(smem + LY::X);
-  const T* x = static_cast<const T*>(xv);
-  const T* w = static_cast<const T*>(wv);
-  const int LDX = LY::ldx(E);
+// Vocab tiles t of the range start at column v_begin + t·BV; columns past V
+// are masked. INT8: x, w are the codes, sx / sw their scales. DLOG: writes
+// dlogits of tile t into columns [t·BV, (t + 1)·BV) of the chunk buffer
+// (row stride ldd); else (lse, gold), or with splits > 1 each split's
+// (max, sumexp, gold) into ws [splits, m, 3].
+template <bool INT8, bool VE, bool DLOG>
+__global__ void __launch_bounds__(THREADS, 1)
+    fce_logits_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap, const float* __restrict__ sx,
+                      const float* __restrict__ sw, const int* __restrict__ tgt,
+                      const float* __restrict__ lse_in, const float* __restrict__ wtok,
+                      float* __restrict__ lse_out, float* __restrict__ gold_out,
+                      float* __restrict__ ws, bf16* __restrict__ dlog, long long ldd, int m,
+                      int E, int V, int v_begin, int nt, int splits) {
+  using LY = LogitsLayout<DLOG>;
+  using Acc = std::conditional_t<INT8, int, float>;
+  constexpr int S = LY::STAGES;
+  constexpr int KE = INT8 ? 128 : 64;   // E values a ring step
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_aligned(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + LY::BAR);
+  uint64_t* empty = full + S;
+  const int rt = (m + BM - 1) / BM, per = (nt + splits - 1) / splits;
+  const int items = rt * splits, nk = (E + KE - 1) / KE;
 
-  const int r0 = blockIdx.x * F_BM;
-  const int split = blockIdx.y;
-  const int n_tiles = (V + F_BV - 1) / F_BV;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + tiles_per_split);
-  const int nc = E / EC;
-  const int n_steps = max(0, t_end - t_begin) * nc;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
-  // logits tile [64, 64]: warp -> 16 rows x 32 columns
-  const int lr = (warp / 2) * 16, lc = (warp % 2) * 32;
-  auto stage = [&](int step) { return reinterpret_cast<T*>(smem + LY::W + (step % F_ST) * LY::STAGE); };
-  auto prefetch = [&](int step) {
-    if (step < n_steps) {
-      const int e0 = (step % nc) * EC, v0 = (t_begin + step / nc) * F_BV;
-      if constexpr (INT8)
-        HeadTile8::load_async(stage(step), w, swv, e0, v0, V);
-      else
-        HeadTile<VE, F_BV>::load_async(stage(step), w, swe, swv, e0, v0, V);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
     }
-    cp_async_commit();
-  };
-
-  load_rows_async<F_BM>(Xs, LDX, x, E, r0, 0, E, m);   // first group: x rows
-  for (int i = threadIdx.x; i < F_BM; i += NT) {
-    Mr[i] = NEG_INF;
-    Sr[i] = 0.f;
-    Gr[i] = 0.f;
-    Tg[i] = r0 + i < m ? tgt[r0 + i] : -1;
-    if (INT8) Sx[i] = r0 + i < m ? sx[r0 + i] : 0.f;
+    mbar_fence_init();
   }
-  for (int st = 0; st < F_ST - 1; ++st) prefetch(st);
-
-  FragC acc[2];
-  int iacc[4][4];
-  if constexpr (INT8) {
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) iacc[n][i] = 0;
-  } else {
-    wmma::fill_fragment(acc[0], 0.f);
-    wmma::fill_fragment(acc[1], 0.f);
-  }
-  for (int step = 0; step < n_steps; ++step) {
-    cp_async_wait<F_ST - 2>();
-    __syncthreads();   // chunk `step` landed; the slot of step - 1 is free
-    prefetch(step + F_ST - 1);
-    const int c = step % nc;
-    const T* Wb = stage(step);
-    if constexpr (INT8) {
-#pragma unroll
-      for (int kk = 0; kk < EC; kk += 32) {
-        uint32_t a[4];
-        load_a_s8(a, Xs, LDX, lr, c * EC + kk);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          uint32_t b0, b1;
-          load_b_s8(b0, b1, Wb, HeadTile8::LD, lc + n * 8, kk);
-          mma_s8(iacc[n], a, b0, b1);
-        }
-      }
-    } else {
-      using HT = HeadTile<VE, F_BV>;
-#pragma unroll
-      for (int kk = 0; kk < EC; kk += 16) {
-        FragA fa;
-        wmma::load_matrix_sync(fa, Xs + lr * LDX + c * EC + kk, LDX);
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          FragB<typename HT::LogitsB> fb;
-          wmma::load_matrix_sync(fb, HT::logits_b(Wb, kk, lc + n * 16), HT::LD);
-          wmma::mma_sync(acc[n], fa, fb, acc[n]);
-        }
-      }
-    }
-    if (c != nc - 1) continue;
-    const int v0 = (t_begin + step / nc) * F_BV;
-    if constexpr (INT8) {
-      // logits = (int32 sum · sx) · sw, as _tile_logits
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = lr + g + (i < 2 ? 0 : 8), col = lc + n * 8 + 2 * tq + (i & 1);
-          const float s = v0 + col < V ? sw[v0 + col] : 0.f;
-          L[row * F_LDL + col] = __fmul_rn(__fmul_rn(static_cast<float>(iacc[n][i]), Sx[row]), s);
-          iacc[n][i] = 0;
-        }
-    } else {
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        wmma::store_matrix_sync(L + lr * F_LDL + lc + n * 16, acc[n], F_LDL, wmma::mem_row_major);
-        wmma::fill_fragment(acc[n], 0.f);
-      }
-    }
-    __syncthreads();
-    // the next store to L is nc steps (and as many block syncs) away
-    fold_tile(L, Mr, Sr, Gr, Tg, v0, V);
-  }
-  cp_async_wait<0>();
   __syncthreads();
-  for (int i = threadIdx.x; i < F_BM; i += NT) {
-    const int row = r0 + i;
-    if (row >= m) continue;
-    if (ws == nullptr) {
-      lse_out[row] = Mr[i] + logf(fmaxf(Sr[i], 1e-30f));
-      gold_out[row] = Gr[i];
-    } else {
-      float* p = ws + (static_cast<long long>(split) * m + row) * 3;
-      p[0] = Mr[i];
-      p[1] = Sr[i];
-      p[2] = Gr[i];
+
+  const int wg = threadIdx.x / 128, t128 = threadIdx.x % 128;
+  if (wg == 2) {   // producer: one thread streams x and head tiles by TMA
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (t128 == 0) {
+      int step = 0;
+      for (int w = blockIdx.x; w < items; w += gridDim.x) {
+        const Item it = item_of(w, rt, per, nt);
+        for (int t = it.t0; t < it.t1; ++t) {
+          const int v0 = v_begin + t * BV;
+          for (int k = 0; k < nk; ++k, ++step) {
+            const int stage = step % S;
+            mbar_wait(&empty[stage], ((step / S) & 1) ^ 1);
+            unsigned char* sp = sm + stage * LY::STAGE;
+            mbar_arrive_expect_tx(&full[stage], LY::STAGE);
+            tma_load_2d(sp, &xmap, &full[stage], k * KE, it.r0);
+            if constexpr (VE) {   // [BV v rows, KE e]: K-major
+              tma_load_2d(sp + LY::X_TILE, &wmap, &full[stage], k * KE, v0);
+            } else {              // [64 e rows, BV v] in 64-column blocks: MN-major
+#pragma unroll
+              for (int c = 0; c < BV / 64; ++c)
+                tma_load_2d(sp + LY::X_TILE + c * 64 * RING_K, &wmap, &full[stage], v0 + 64 * c,
+                            k * KE);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int warp = t128 / 32, lane = t128 % 32;
+  const int lr = wg * 64 + warp * 16 + lane / 4;   // this thread's rows lr, lr + 8 of a tile
+  const int cq = 2 * (lane % 4);                   // and columns 8j + cq, + 1
+  Acc acc[BV / 2];
+  int step = 0;
+  for (int w = blockIdx.x; w < items; w += gridDim.x) {
+    const Item it = item_of(w, rt, per, nt);
+    // the rows' columns, read once an item
+    int tg[2];
+    float sxr[2], ls[2], wt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = it.r0 + lr + 8 * r;
+      const bool in = row < m;
+      tg[r] = in ? tgt[row] : -1;
+      sxr[r] = INT8 && in ? sx[row] : 0.f;
+      ls[r] = DLOG && in ? lse_in[row] : 0.f;
+      wt[r] = DLOG && in ? wtok[row] : 0.f;
+    }
+    float m_run[2] = {NEG_INF, NEG_INF}, s_run[2] = {0.f, 0.f}, gold[2] = {0.f, 0.f};
+    for (int t = it.t0; t < it.t1; ++t) {
+      for (int k = 0; k < nk; ++k, ++step) {
+        const int stage = step % S;
+        mbar_wait(&full[stage], (step / S) & 1);
+        const uint32_t sX = smem_u32(sm + stage * LY::STAGE), sW = sX + LY::X_TILE;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t da = desc_k(sX, BM, wg * 64, kk);
+          if constexpr (INT8)
+            wgmma_s8_n256(acc, da, desc_k(sW, BV, 0, kk), k > 0 || kk > 0);
+          else if constexpr (VE)
+            wgmma_ss_n256<0>(acc, da, desc_k(sW, BV, 0, kk), k > 0 || kk > 0);
+          else
+            wgmma_ss_n256<1>(acc, da, desc_mn(sW, 64, kk), k > 0 || kk > 0);
+        }
+        wgmma_commit();
+        if (k > 0) {   // the step before has finished reading its stage
+          wgmma_wait<1>();
+          release(&empty[(step - 1) % S], lane);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(&empty[(step - 1) % S], lane);
+
+      // the tile's logits, in place: f32 sums, or int32 sums · sx · sw as
+      // _tile_logits rounds them; columns past V masked
+      const int v0 = v_begin + t * BV;
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < BV / 8; ++j) {
+        float s2[2] = {0.f, 0.f};
+        if constexpr (INT8) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int col = v0 + 8 * j + cq + h;
+            s2[h] = col < V ? __ldg(sw + col) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = v0 + 8 * j + cq + (e & 1), r = e >> 1;
+          float l;
+          if constexpr (INT8)
+            l = __fmul_rn(__fmul_rn(static_cast<float>(acc[4 * j + e]), sxr[r]), s2[e & 1]);
+          else
+            l = acc[4 * j + e];
+          l = col < V ? l : NEG_INF;
+          if constexpr (!DLOG) {
+            gold[r] = col == tg[r] ? l : gold[r];
+            mx[r] = fmaxf(mx[r], l);
+          }
+          put_f(acc[4 * j + e], l);
+        }
+      }
+      if constexpr (!DLOG) {
+        // fold the tile into the running (max, sumexp) of the rows
+        float mn[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) mn[r] = fmaxf(m_run[r], quad_max(mx[r]));
+#pragma unroll
+        for (int i = 0; i < BV / 2; ++i) sum[(i >> 1) & 1] += expf(as_f(acc[i]) - mn[(i >> 1) & 1]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          s_run[r] = s_run[r] * expf(m_run[r] - mn[r]) + quad_sum(sum[r]);
+          m_run[r] = mn[r];
+        }
+      } else {
+        // dlogits = bf16((p − onehot)·wtok) into this warpgroup's staging
+        // rows (16-byte chunks swizzled by row), then out in 16-byte stores
+        unsigned char* ot = sm + LY::OUT + wg * (64 * BV * 2);
+        named_bar_sync(2 + wg, 128);   // the previous tile's rows are out
+#pragma unroll
+        for (int j = 0; j < BV / 8; ++j) {
+          float d[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = v0 + 8 * j + cq + (e & 1), r = e >> 1;
+            const float p = expf(as_f(acc[4 * j + e]) - ls[r]);
+            const float g = (col == tg[r] ? p - 1.f : p) * wt[r];
+            d[e] = col < V ? g : 0.f;
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int rr = warp * 16 + lane / 4 + 8 * h;
+            *reinterpret_cast<uint32_t*>(ot + rr * (BV * 2) + ((j ^ (rr & 7)) << 4) +
+                                         (lane % 4) * 4) = pack_bf16(d[2 * h], d[2 * h + 1]);
+          }
+        }
+        named_bar_sync(2 + wg, 128);
+        constexpr int CH = BV / 8;
+        for (int idx = t128; idx < 64 * CH; idx += 128) {
+          const int r = idx / CH, c = idx % CH, row = it.r0 + wg * 64 + r;
+          if (row < m)
+            *reinterpret_cast<uint4*>(dlog + static_cast<long long>(row) * ldd + t * BV + c * 8) =
+                *reinterpret_cast<const uint4*>(ot + r * (BV * 2) + ((c ^ (r & 7)) << 4));
+        }
+      }
+    }
+    if constexpr (!DLOG) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float g = quad_sum(gold[r]);   // one thread of the row holds it, the rest 0
+        const int row = it.r0 + lr + 8 * r;
+        if (lane % 4 == 0 && row < m) {
+          if (splits == 1) {
+            lse_out[row] = m_run[r] + logf(fmaxf(s_run[r], 1e-30f));
+            gold_out[row] = g;
+          } else {
+            float* p = ws + (static_cast<long long>(it.split) * m + row) * 3;
+            p[0] = m_run[r];
+            p[1] = s_run[r];
+            p[2] = g;
+          }
+        }
+      }
     }
   }
 }
@@ -386,27 +355,341 @@ __global__ void fce_fwd_merge_kernel(const float* __restrict__ ws, float* __rest
   gold_out[row] = gold;
 }
 
-template <bool INT8, bool VE>
-cudaError_t launch_fwd(const void* x, const void* w, const float* sx, const float* sw,
-                       const void* tgt, void* lse, void* gold, void* ws, int m, int E, int V,
-                       long long swe, long long swv, cudaStream_t st) {
-  const int row_tiles = (m + F_BM - 1) / F_BM, n_tiles = (V + F_BV - 1) / F_BV;
-  const int splits = splits_for(row_tiles, n_tiles);
-  if ((splits > 1) != (ws != nullptr)) return cudaErrorInvalidValue;
-  const int per = (n_tiles + splits - 1) / splits;
-  const size_t bytes = FwdLayout<INT8, VE>::bytes(E);
-  cudaError_t err = prepare(fce_fwd_kernel<INT8, VE>, bytes);
+// The logits kernel over vocab columns [v_begin, v_begin + vc) in `splits`
+// runs of tiles. x [m, E] (codes with INT8); w: [V, E] storage (VE, row
+// stride ldw elements) or [E, V] (row stride ldw).
+template <bool INT8, bool VE, bool DLOG>
+cudaError_t launch_logits(const void* x, const void* w, long long ldw, const float* sx,
+                          const float* sw, const void* tgt, const void* lse_in, const void* wtok,
+                          void* lse_out, void* gold_out, void* ws, void* dlog, long long ldd,
+                          int m, int E, int V, int v_begin, int vc, int splits, cudaStream_t st) {
+  using LY = LogitsLayout<DLOG>;
+  const int nt = (vc + BV - 1) / BV, rt = (m + BM - 1) / BM;
+  if (vc < 1 || v_begin < 0 || v_begin + vc > V || splits < 1 || splits > nt ||
+      (splits - 1) * ((nt + splits - 1) / splits) >= nt)
+    return cudaErrorInvalidValue;
+  if (!DLOG && (splits > 1) != (ws != nullptr)) return cudaErrorInvalidValue;
+  const int esz = INT8 ? 1 : 2, ke = INT8 ? 128 : 64;
+  CUtensorMap xmap, wmap;
+  cudaError_t err = tma_map_2d(&xmap, x, INT8, E, m, static_cast<uint64_t>(E) * esz, ke, BM);
+  if (err == cudaSuccess)
+    err = VE ? tma_map_2d(&wmap, w, INT8, E, V, ldw * esz, ke, BV)
+             : tma_map_2d(&wmap, w, INT8, V, E, ldw * esz, 64, 64);
   if (err != cudaSuccess) return err;
+  static cudaError_t attr = set_smem(fce_logits_kernel<INT8, VE, DLOG>, LY::ALLOC);
+  if (attr != cudaSuccess) return attr;
+  const long long items = static_cast<long long>(rt) * splits;
+  if (items > (1ll << 31) - 1) return cudaErrorInvalidValue;
+  const unsigned grid = static_cast<unsigned>(items < sm_count() ? items : sm_count());
   float* wsf = static_cast<float*>(ws);
-  fce_fwd_kernel<INT8, VE><<<dim3(row_tiles, splits), NT, bytes, st>>>(
-      x, w, sx, sw, static_cast<const int*>(tgt), static_cast<float*>(lse),
-      static_cast<float*>(gold), wsf, m, E, V, swe, swv, per);
-  if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
-  fce_fwd_merge_kernel<<<(m + 255) / 256, 256, 0, st>>>(wsf, static_cast<float*>(lse),
-                                                        static_cast<float*>(gold), m, splits);
+  fce_logits_kernel<INT8, VE, DLOG><<<grid, THREADS, LY::ALLOC, st>>>(
+      xmap, wmap, sx, sw, static_cast<const int*>(tgt), static_cast<const float*>(lse_in),
+      static_cast<const float*>(wtok), static_cast<float*>(lse_out),
+      static_cast<float*>(gold_out), wsf, static_cast<bf16*>(dlog), ldd, m, E, V, v_begin, nt,
+      splits);
+  if ((err = cudaGetLastError()) != cudaSuccess || DLOG || splits == 1) return err;
+  fce_fwd_merge_kernel<<<(m + 255) / 256, 256, 0, st>>>(wsf, static_cast<float*>(lse_out),
+                                                        static_cast<float*>(gold_out), m, splits);
   return cudaGetLastError();
 }
 
-}  // namespace fce
+// ---------------------------------------------------------------------------
+// GEMM kernel: dx and dw from a chunk of dlogits
+// ---------------------------------------------------------------------------
 
-#include "fused_ce_bwd.cuh"
+template <bool DEQ>
+struct GemmLayout {
+  static constexpr int STAGES = DEQ ? 4 : 5;
+  static constexpr uint32_t A_TILE = GT * RING_K, B_TILE = GT * RING_K;
+  static constexpr uint32_t RAW = DEQ ? 64 * RING_K : 0;   // int8 codes [64 v][128 e]
+  static constexpr uint32_t STAGE = A_TILE + B_TILE + RAW;
+  static constexpr uint32_t OUT = STAGES * STAGE;          // two [64, GT] bf16 staging tiles
+  static constexpr uint32_t BAR = OUT + GT * GT * 2;       // full[S], empty[S], raw[S]
+  static constexpr uint32_t ALLOC = BAR + 24 * STAGES + 1024;
+  static_assert(ALLOC <= 232448, "fused_ce: GEMM kernel shared memory");
+};
+
+enum GemmFlags { FIRST = 1, LAST = 2, M_FAST = 4 };
+
+// threads of a GEMM block: two consumer warpgroups and a producer
+// warpgroup, and with DEQ a second producer warpgroup, so that 7 warps
+// dequantize the codes (3 held the int8 dx GEMM at ~1.8x its bf16 form's
+// time on an H100)
+template <bool DEQ>
+constexpr int GEMM_THREADS = DEQ ? 512 : THREADS;
+
+// 4 int8 codes of a word times s as two packed bf16 pairs, bf16(f32(q)·s):
+// byte q + 128 is the low mantissa byte of 2^23 + 128 + q, exact in f32
+__device__ __forceinline__ void deq4(uint32_t word, float s, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = word ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    f[b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | b)) - 8388736.f;
+  lo = pack_bf16(__fmul_rn(f[0], s), __fmul_rn(f[1], s));
+  hi = pack_bf16(__fmul_rn(f[2], s), __fmul_rn(f[3], s));
+}
+
+// C [M, N] = Σ_k A[m, k] · B[k, n] over K in steps of 64, one 128 x 128 tile
+// a block. A: K-major (a row-major [M, K] view: the dlogits chunk for dx) or
+// MN-major (A_MN: a row-major [K, M] view); B: MN-major (B_MN: row-major
+// [K, N]) or K-major (row-major [N, K]); B's K rows start at row b_k0 of its
+// map. DEQ: B is the int8 codes [V, E] (bmap of bytes) times sw, dequantized
+// in the stage. DX: C is dx [M, N] (row stride N): the f32 dx of the earlier
+// chunks (dxf) is added unless FIRST, and C goes to dxf unless LAST, else to
+// out in bf16. Otherwise C goes to out in bf16 (row stride ldo).
+template <bool A_MN, bool B_MN, bool DEQ, bool DX>
+__global__ void __launch_bounds__(GEMM_THREADS<DEQ>, 1)
+    fce_gemm_kernel(const __grid_constant__ CUtensorMap amap,
+                    const __grid_constant__ CUtensorMap bmap, const float* __restrict__ sw,
+                    float* __restrict__ dxf, bf16* __restrict__ out, long long ldo, int M, int N,
+                    int K, int b_k0, int V, int flags) {
+  using LY = GemmLayout<DEQ>;
+  constexpr int S = LY::STAGES;
+  constexpr int NDQ = GEMM_THREADS<DEQ> - 256 - 32;   // DEQ: dequantizing threads
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_aligned(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + LY::BAR);
+  uint64_t* empty = full + S;
+  uint64_t* raw = empty + S;
+  const int tiles_m = (M + GT - 1) / GT, tiles_n = (N + GT - 1) / GT;
+  const int b = blockIdx.x;
+  const int m0 = (flags & M_FAST ? b % tiles_m : b / tiles_n) * GT;
+  const int n0 = (flags & M_FAST ? b / tiles_m : b % tiles_n) * GT;
+  const int nk = (K + 63) / 64;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], DEQ ? NDQ : 1);   // DEQ: the dequantizing threads
+      mbar_init(&empty[i], 8);
+      mbar_init(&raw[i], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, t128 = threadIdx.x % 128;
+  if (wg >= 2) {   // producers: thread 256 issues TMA, warps 9.. dequantize
+    const int pt = threadIdx.x - 256;
+    if (pt == 0) {
+      for (int k = 0; k < nk; ++k) {
+        const int stage = k % S;
+        mbar_wait(&empty[stage], ((k / S) & 1) ^ 1);
+        unsigned char* sp = sm + stage * LY::STAGE;
+        uint64_t* bar = DEQ ? &raw[stage] : &full[stage];
+        mbar_arrive_expect_tx(bar, LY::A_TILE + (DEQ ? LY::RAW : LY::B_TILE));
+        if constexpr (A_MN) {
+          tma_load_2d(sp, &amap, bar, m0, k * 64);
+          tma_load_2d(sp + 64 * RING_K, &amap, bar, m0 + 64, k * 64);
+        } else {
+          tma_load_2d(sp, &amap, bar, k * 64, m0);
+        }
+        unsigned char* sb = sp + LY::A_TILE;
+        if constexpr (DEQ) {
+          tma_load_2d(sb + LY::B_TILE, &bmap, bar, n0, b_k0 + k * 64);
+        } else if constexpr (B_MN) {
+          tma_load_2d(sb, &bmap, bar, n0, b_k0 + k * 64);
+          tma_load_2d(sb + 64 * RING_K, &bmap, bar, n0 + 64, b_k0 + k * 64);
+        } else {
+          tma_load_2d(sb, &bmap, bar, b_k0 + k * 64, n0);
+        }
+      }
+    } else if (DEQ && pt >= 32) {
+      // the stage's codes [64 v][128 e] (swizzled rows of 128 bytes) into
+      // the bf16 B tile [64 v][128 e] read MN-major. A thread takes 16-byte
+      // chunks d, d + NDQ, ... (DQ of them, the last maybe none); its rows'
+      // scales load before the stage lands, and its chunks load together,
+      // so one latency covers them.
+      constexpr int DQ = (64 * 8 + NDQ - 1) / NDQ;
+      const int d = pt - 32;
+      for (int k = 0; k < nk; ++k) {
+        const int stage = k % S;
+        const int v_base = b_k0 + k * 64;
+        float s[DQ];
+#pragma unroll
+        for (int i = 0; i < DQ; ++i) {
+          const int v = v_base + (d + NDQ * i) / 8;
+          s[i] = d + NDQ * i < 64 * 8 && v < V ? __ldg(sw + v) : 0.f;
+        }
+        mbar_wait(&raw[stage], (k / S) & 1);
+        unsigned char* sb = sm + stage * LY::STAGE + LY::A_TILE;
+        uint4 q[DQ];
+#pragma unroll
+        for (int i = 0; i < DQ; ++i) {
+          const int c = d + NDQ * i;
+          if (c < 64 * 8)
+            q[i] = *reinterpret_cast<const uint4*>(sb + LY::B_TILE + sw128(c / 8, c % 8, 64));
+        }
+#pragma unroll
+        for (int i = 0; i < DQ; ++i) {
+          const int c = d + NDQ * i, r = c / 8, c16 = c % 8;
+          if (c >= 64 * 8) continue;
+          uint4 lo, hi;
+          deq4(q[i].x, s[i], lo.x, lo.y);
+          deq4(q[i].y, s[i], lo.z, lo.w);
+          deq4(q[i].z, s[i], hi.x, hi.y);
+          deq4(q[i].w, s[i], hi.z, hi.w);
+          *reinterpret_cast<uint4*>(sb + sw128(r, 2 * c16, 64)) = lo;
+          *reinterpret_cast<uint4*>(sb + sw128(r, 2 * c16 + 1, 64)) = hi;
+        }
+        fence_proxy_async();
+        mbar_arrive(&full[stage]);
+      }
+    }
+    return;
+  }
+
+  // consumers: this warpgroup's 64 rows of the tile
+  const int warp = t128 / 32, lane = t128 % 32;
+  float acc[GT / 2];
+  for (int k = 0; k < nk; ++k) {
+    const int stage = k % S;
+    if (DEQ) mbar_wait(&raw[stage], (k / S) & 1);
+    mbar_wait(&full[stage], (k / S) & 1);
+    const uint32_t sA = smem_u32(sm + stage * LY::STAGE), sB = sA + LY::A_TILE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da =
+          A_MN ? desc_mn(sA + wg * 64 * RING_K, 64, kk) : desc_k(sA, GT, wg * 64, kk);
+      const uint64_t db = B_MN ? desc_mn(sB, 64, kk) : desc_k(sB, GT, 0, kk);
+      wgmma_ss_n128<B_MN ? 1 : 0, A_MN ? 1 : 0>(acc, da, db, k > 0 || kk > 0);
+    }
+    wgmma_commit();
+    if (k > 0) {
+      wgmma_wait<1>();
+      release(&empty[(k - 1) % S], lane);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  release(&empty[(nk - 1) % S], lane);
+
+  // a thread holds rows lr, lr + 8 and columns 8j + cq, + 1 of the tile
+  const int lr = wg * 64 + warp * 16 + lane / 4, cq = 2 * (lane % 4);
+  if constexpr (DX) {
+    if (!(flags & FIRST)) {   // dx of the earlier chunks + this chunk's
+#pragma unroll
+      for (int j = 0; j < GT / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int gm = m0 + lr + 8 * h, gn = n0 + 8 * j + cq;
+          if (gm < M && gn < N) {
+            const float2 p =
+                *reinterpret_cast<const float2*>(dxf + static_cast<long long>(gm) * N + gn);
+            acc[4 * j + 2 * h] = p.x + acc[4 * j + 2 * h];
+            acc[4 * j + 2 * h + 1] = p.y + acc[4 * j + 2 * h + 1];
+          }
+        }
+    }
+    if (!(flags & LAST)) {
+#pragma unroll
+      for (int j = 0; j < GT / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int gm = m0 + lr + 8 * h, gn = n0 + 8 * j + cq;
+          if (gm < M && gn < N)
+            *reinterpret_cast<float2*>(dxf + static_cast<long long>(gm) * N + gn) =
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      return;
+    }
+  }
+  // bf16 out through this warpgroup's staging rows (16-byte chunks swizzled
+  // by row), then 16-byte stores where a chunk lies whole inside C and
+  // aligned, element stores at a ragged edge
+  unsigned char* ot = sm + LY::OUT + wg * (64 * GT * 2);
+  const int rl = warp * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < GT / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = rl + 8 * h;
+      *reinterpret_cast<uint32_t*>(ot + rr * (GT * 2) + ((j ^ (rr & 7)) << 4) + (lane % 4) * 4) =
+          pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  named_bar_sync(2 + wg, 128);
+  const bool vec = ldo % 8 == 0;
+  constexpr int CH = GT / 8;
+  for (int idx = t128; idx < 64 * CH; idx += 128) {
+    const int r = idx / CH, c = idx % CH;
+    const int gm = m0 + wg * 64 + r, gn = n0 + c * 8;
+    if (gm >= M || gn >= N) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(ot + r * (GT * 2) + ((c ^ (r & 7)) << 4));
+    bf16* dst = out + static_cast<long long>(gm) * ldo + gn;
+    if (vec && gn + 8 <= N) {
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+      for (int i = 0; i < 8 && gn + i < N; ++i) dst[i] = e[i];
+    }
+  }
+}
+
+template <bool A_MN, bool B_MN, bool DEQ, bool DX>
+cudaError_t launch_gemm(const CUtensorMap& amap, const CUtensorMap& bmap, const float* sw,
+                        float* dxf, bf16* out, long long ldo, int M, int N, int K, int b_k0,
+                        int V, int flags, cudaStream_t st) {
+  using LY = GemmLayout<DEQ>;
+  static cudaError_t attr = set_smem(fce_gemm_kernel<A_MN, B_MN, DEQ, DX>, LY::ALLOC);
+  if (attr != cudaSuccess) return attr;
+  const int tiles_m = (M + GT - 1) / GT, tiles_n = (N + GT - 1) / GT;
+  const long long tiles = static_cast<long long>(tiles_m) * tiles_n;
+  if (tiles > (1ll << 31) - 1) return cudaErrorInvalidValue;
+  // the operand with fewer tiles varies fastest, so the blocks in flight
+  // share the other (the streamed dlogits) from L2
+  if (tiles_m < tiles_n) flags |= M_FAST;
+  fce_gemm_kernel<A_MN, B_MN, DEQ, DX>
+      <<<static_cast<unsigned>(tiles), GEMM_THREADS<DEQ>, LY::ALLOC, st>>>(
+          amap, bmap, sw, dxf, out, ldo, M, N, K, b_k0, V, flags);
+  return cudaGetLastError();
+}
+
+// dx (+)= dlogits[:, :vc] · W[c0 : c0 + vc] for a chunk: buf [m, ldb] bf16;
+// the head as in launch_logits, or (DEQ) the int8 codes in [V, E] storage
+// with sw; dxf [m, E] f32 carries the chunks' sum; the last writes dx bf16.
+template <bool VE, bool DEQ>
+cudaError_t launch_dx(const void* buf, long long ldb, const void* w, long long ldw,
+                      const float* sw, float* dxf, bf16* dx, int m, int E, int V, int c0, int vc,
+                      int first, int last, cudaStream_t st) {
+  if (vc < 1 || c0 < 0 || c0 + vc > V || ldb < vc || ldb % 8 ||
+      ((!first || !last) && dxf == nullptr))
+    return cudaErrorInvalidValue;
+  CUtensorMap amap, bmap;
+  cudaError_t err = tma_map_2d(&amap, buf, false, ldb, m, ldb * 2, 64, GT);
+  if (err == cudaSuccess) {
+    if (DEQ)
+      err = tma_map_2d(&bmap, w, true, E, V, ldw, 128, 64);
+    else if (VE)   // [V, E] storage: B [k = v][n = e] row-major, MN-major
+      err = tma_map_2d(&bmap, w, false, E, V, ldw * 2, 64, 64);
+    else           // [E, V] storage: B's rows n = e, K-major
+      err = tma_map_2d(&bmap, w, false, V, E, ldw * 2, 64, GT);
+  }
+  if (err != cudaSuccess) return err;
+  const int flags = (first ? FIRST : 0) | (last ? LAST : 0);
+  return launch_gemm<false, VE || DEQ, DEQ, true>(amap, bmap, sw, dxf, dx, E, m, E, vc, c0, V,
+                                                  flags, st);
+}
+
+// dW for the chunk's vocab columns [c0, c0 + vc): Σ over the m rows of x
+// (bf16 [m, E]) against buf [m, ldb]; dw through strides (sde, sdv), one of
+// them 1: [V, E] storage takes C = dlogitsᵀ·x, [E, V] storage C = xᵀ·dlogits.
+inline cudaError_t launch_dw(const void* buf, long long ldb, const void* x, void* dw, int m,
+                             int E, int V, int c0, int vc, long long sde, long long sdv,
+                             cudaStream_t st) {
+  if (vc < 1 || c0 < 0 || c0 + vc > V || ldb < vc || ldb % 8 || (sde != 1 && sdv != 1))
+    return cudaErrorInvalidValue;
+  CUtensorMap dmap, xmap;
+  cudaError_t err = tma_map_2d(&dmap, buf, false, ldb, m, ldb * 2, 64, 64);
+  if (err == cudaSuccess)
+    err = tma_map_2d(&xmap, x, false, E, m, static_cast<uint64_t>(E) * 2, 64, 64);
+  if (err != cudaSuccess) return err;
+  bf16* out = static_cast<bf16*>(dw);
+  if (sde == 1)
+    return launch_gemm<true, true, false, false>(dmap, xmap, nullptr, nullptr,
+                                                 out + c0 * sdv, sdv, vc, E, m, 0, V, 0, st);
+  return launch_gemm<true, true, false, false>(xmap, dmap, nullptr, nullptr, out + c0 * sdv, sde,
+                                               E, vc, m, 0, V, 0, st);
+}
+
+}  // namespace

@@ -1,6 +1,6 @@
-// int8 helpers shared by the int8 training kernels (quantize, qdgrad, the
-// int8 fused CE): the three absmax rounding conventions and the int8 tensor
-// core product.
+// int8 helpers shared by the int8 kernels (quantize, qdgrad, the int8
+// GEMV): the three absmax rounding conventions and the int8 tensor core
+// product.
 #pragma once
 
 #include "common.cuh"

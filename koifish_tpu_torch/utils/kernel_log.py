@@ -14,10 +14,10 @@ it launches its CUDA kernel, so a run can show that its main path went
 through the kernels (``reset_launches`` / ``launches``). The names:
 ``flash_fwd``, ``flash_bwd_dkv``, ``flash_bwd_dq``, ``qmm``, ``qmv``,
 ``qmm_book``, ``qmv_book``, ``decode_attn``, ``slot_write``,
-``page_write``, ``fused_ce_fwd``, ``fused_ce_dx``, ``fused_ce_dw``, their
-int8 flavour ``fused_ce_fwd_int8``, ``fused_ce_dx_int8``,
-``fused_ce_dw_int8``, ``qdgrad_int8_tile``, ``rowquant``, ``colquant`` and
-``qmv_int8``. ``fallbacks`` counts the fallbacks of each kernel since the
+``page_write``, ``fused_ce_fwd``, ``fused_ce_dlogits``, ``fused_ce_dx``,
+``fused_ce_dw``, their int8 flavour ``fused_ce_fwd_int8``,
+``fused_ce_dlogits_int8``, ``fused_ce_dx_int8``, ``fused_ce_dw_int8``,
+``qdgrad_int8_tile``, ``rowquant``, ``colquant`` and ``qmv_int8``. ``fallbacks`` counts the fallbacks of each kernel since the
 same reset, whether or not they were printed.
 """
 from __future__ import annotations

@@ -280,10 +280,11 @@ def test_fused_ce_int8_matches_pallas(interpret, E, masked, tied):
 
 
 def test_fused_ce_int8_kernels_match_pallas_calls(interpret):
-    """The three int8 entry points one by one against ``_fwd_call``,
-    ``_dx_call`` and ``_dw_call(int8=True)`` on the same codes (E 128,
-    m 256, V 2304, tied codes): lse/gold 1e-5 (measured ~5e-7: exp sums
-    in another order), dx/dw 1 % of the largest entry (measured <= 0.4 %)."""
+    """The int8 entry points (the forward, the backward's dx and dw) against
+    ``_fwd_call``, ``_dx_call`` and ``_dw_call(int8=True)`` on the same
+    codes (E 128, m 256, V 2304, tied codes): lse/gold 1e-5 (measured
+    ~5e-7: exp sums in another order), dx/dw 1 % of the largest entry
+    (measured <= 0.4 %)."""
     jh, th, jw, tw, tgt, _ = _ce_inputs(128, False, seed=4)
     x2 = jh.reshape(256, 128)
     xq, sx = jax.jit(pfce._q8_row)(x2)
@@ -300,8 +301,7 @@ def test_fused_ce_int8_kernels_match_pallas_calls(interpret):
     assert np.abs(tlse.numpy() - np.asarray(lse)[:, 0]).max() <= 1e-5
     assert np.abs(tgold.numpy() - np.asarray(gold)[:, 0]).max() <= 1e-5
     args = (t(xq), t(sx), twq, t(sw), ttg, t(lse)[:, 0], t(wtok)[:, 0])
-    tdx = kc.fused_ce_dx_int8(*args)
-    tdw = kc.fused_ce_dw_int8(th.reshape(256, 128), *args)
+    tdx, tdw = kc.fused_ce_bwd_int8(th.reshape(256, 128), *args)
     for a, j in ((tdx, jdx), (tdw, jdw)):
         assert a.dtype == torch.bfloat16
         err = np.abs(f32(a) - f32(j)).max()
@@ -500,4 +500,5 @@ def test_int8_wrappers_refuse_what_they_do_not_take():
     wte = torch.zeros((100, 64))
     assert kq._storage(wte.T) == (True, 100, 64, 64)   # the tied head
     assert kq._storage(torch.zeros((8, 64))[:, 16:48]) == (False, 8, 32, 64)
-    assert not kc.takes(8, 1344, 100) and kc.takes(8, 1280, 100)
+    assert kc.takes(8, 1280, 100) and kc.takes(8, 1600, 100)
+    assert not kc.takes(8, 8256, 100) and not kc.takes(8, 1000, 100)

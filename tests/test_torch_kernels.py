@@ -500,7 +500,8 @@ def test_wrappers_refuse_cuda_shapes_they_do_not_take():
     with pytest.raises(ValueError, match="E=96"):
         kc._check(x, torch.zeros((96, 10), dtype=torch.bfloat16),
                   torch.zeros((4,), dtype=torch.int32))
-    assert not kc.takes(8, 2048, 100) and kc.takes(8, 1024, 100)
+    assert kc.takes(8, 1024, 100) and kc.takes(8, 2048, 100)
+    assert not kc.takes(8, 8256, 100) and not kc.takes(8, 1000, 100)
     wte = torch.zeros((100, 64), dtype=torch.bfloat16)
     assert kc._w_strides(wte.T) == (1, 64)              # tied head in place
 
