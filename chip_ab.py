@@ -15,11 +15,14 @@ every number of it whose key ends in ``ms``); with ``--train`` the second and
 fourth runs also train Qwen3-0.6B (B=8) and GPT2-124M (B=32) for 6 steps, and
 GPT2-774M as shipped (``configs/gpt2_774m.json``: int8 matmuls and the int8
 fused CE, B=16, warmup 10) for 12 steps (the median of steps 2-11: its
-host-bound steps spread by ~300 ms), through ``chip_smoke.train_model``. With
-``--host`` every run also prints the host microseconds of one eager call of the
-GEMM wrapper (m = 128, INT4), of the GEMV wrapper (m = 1 INT8 codes and m = 32
-INT4; K 1024, N 1024), of the flash forward wrapper and of each flash backward
-wrapper (B 1, T 128, D 128), through that tree's own modules. With ``--shapes``
+host-bound steps spread by ~300 ms), then the same card with ``int8_dgrad:
+"tile"`` (the fc dgrad through the per-tile int8 kernels) for 12 steps,
+through ``chip_smoke.train_model``. With ``--host`` every run also prints the
+host microseconds of one eager call of the GEMM wrapper (m = 128, INT4), of
+the GEMV wrapper (m = 1 INT8 codes and m = 32 INT4; K 1024, N 1024), of the
+int8 GEMV wrapper ``qmv_int8`` (m = 1 and m = 32 on the same INT8 codes: the
+chat path's per-call cost), of the flash forward wrapper and of each flash
+backward wrapper (B 1, T 128, D 128), through that tree's own modules. With ``--shapes``
 every run also times the flash forward wrapper at the training shapes of
 Qwen3-0.6B (B 8, T 1024, Hq 16, Hkv 8, D 128) and GPT2-124M (B 32, T 1024, Hq
 12, D 64), CUDA-graph replays as ``chip_smoke.time_ms`` takes them. Compare the
@@ -57,12 +60,16 @@ if "train" in sys.argv[2:]:
     import dataclasses
     from koifish_tpu_torch.config import CLIParams
     p = CLIParams.load("configs/gpt2_774m.json")
-    cs.train_model(torch, "GPT2-774M int8 as shipped", "gpt2_774m.json",
-                   p.train.batch, steps=12, tcard=dataclasses.replace(
-                       p.train, warmup=10, dump_every=1, seed=p.seed))
+    for label, over in (("GPT2-774M int8 as shipped", {}),
+                        ("GPT2-774M int8_dgrad tile", {"int8_dgrad": "tile"})):
+        cs.train_model(torch, label, "gpt2_774m.json", p.train.batch,
+                       steps=12, tcard=dataclasses.replace(
+                           p.train, warmup=10, dump_every=1, seed=p.seed,
+                           **over))
 if "host" in sys.argv[2:]:
     from koifish_tpu_torch.dtypes import QFormat
     from koifish_tpu_torch.ops.kernels import flash as kf, matmul as km
+    from koifish_tpu_torch.ops.kernels import qmv_int8 as kq8
     from koifish_tpu_torch.quant.rtn import quantize
     w = quantize(torch.randn((1024, 1024), generator=g, device="cuda") * 0.02,
                  QFormat.INT4, group=128)
@@ -75,6 +82,8 @@ if "host" in sys.argv[2:]:
     calls = {"qmm m128": lambda: km.qmatmul(x, w),
              "qmv m1 INT8": lambda: km.qmatmul(x1, w8),
              "qmv m32 INT4": lambda: km.qmatmul(x32, w),
+             "qmv_int8 m1": lambda: kq8.qmv_int8(x1, w8.codes, w8.scales),
+             "qmv_int8 m32": lambda: kq8.qmv_int8(x32, w8.codes, w8.scales),
              "flash_fwd": lambda: kf.flash_attention_fwd(q, k, v,
                                                          scale=0.1),
              "flash_bwd_dkv": lambda: kf.flash_bwd_dkv(q, k, v, o, lse, do,

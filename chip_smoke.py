@@ -25,14 +25,21 @@ Phases, in order; any failed check exits non-zero before the last line:
              its dx and dw GEMMs; E 64-2560, ragged V, untied; a repeat of
              every launch bit for bit; the backward's extra memory at most
              512 MiB). Int8 training, at GPT2-774M's shapes:
-             rowquant/colquant (bit for bit), the per-tile int8 dgrad and
-             the int8 fused CE (and the bf16 one) at E 1280, 1600 and 2560.
+             rowquant/colquant (bit for bit), the per-tile int8 dgrad (its
+             quantize pass and wgmma GEMM; bit for bit at the fc shape and
+             at M 1100, K 330, a repeat launch too, and two planted faults
+             rejected: one row scale over all of N, the last tile dropped)
+             and the int8 fused CE (and the bf16 one) at E 1280, 1600 and
+             2560, with the library's products timed beside both flavours.
              Multi-request serving: the
              KV slot and page writes (bit for bit) and the learned-codebook
              GEMV/GEMM (k-means and MINI books, NF4 and NF3, m 1-4097).
              Chat: the int8
              GEMV with in-kernel activation quantization (row 5) at Qwen3's
-             projections, m = 1, 5 and 32, beside the row-4 GEMV. The
+             projections, m = 1, 5 and 32 (a repeat launch bit for bit; two
+             planted faults rejected: the next group's sx, the last K split
+             dropped; one kernel a call under the profiler), timed beside
+             the row-4 GEMV at m = 32 and 1. The
              GEMM shape (m > 32) also at m and N off its 128 x 128 tiles
              (m = 33, 65, 129, 4097; N = 132, 200, 520, 1000).
    grad    — dx through a kernel-covered QTensor (GEMM and GEMV shapes, RTN
@@ -100,7 +107,8 @@ Phases, in order; any failed check exits non-zero before the last line:
              train_loop for the training kernels, the batcher run for the
              slot write and book kernels, the paged run for the page
              write, GPT2-774M run (a) for the int8 fused CE and the
-             quantizers, run (b) for qdgrad, the plain bubble run for the
+             quantizers, run (b) for qdgrad (its quantize pass and its
+             GEMM, each line timing its own launch), the plain bubble run for the
              int8 GEMV), then the last line
              ``{"ok": true, "device": {...}}``.
 
@@ -185,6 +193,12 @@ def host_us(torch, fn, iters: int = 200) -> float:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def bits_differ(a, b) -> float:
+    """The number of entries of two bf16 tensors whose bits differ."""
+    import torch
+    return float((a.view(torch.int16) != b.view(torch.int16)).sum())
 
 
 def check(name: str, err: float, tol: float) -> None:
@@ -831,15 +845,24 @@ def fused_ce_phase(torch, gen):
             if E > 1280:    # GPT2-1558M's and Qwen3-4B's heads: timed too
                 fl = 2.0 * m * E * V
                 xE = 2 * m * E + 2 * E * V
-                for name, kern, nbytes, ops in (
-                        ("fused_ce_fwd", run["fwd"], xE + 12 * m, fl),
+                dlog = kc._dlogits(x, w, tgt, plse, wtok)    # [m, V] bf16
+                for name, kern, lib, nbytes, ops in (
+                        ("fused_ce_fwd", run["fwd"],
+                         lambda: torch.matmul(x, w), xE + 12 * m, fl),
                         ("fused_ce_bwd", lambda: kc.fused_ce_bwd(
-                            x, w, tgt, plse, wtok), 2 * xE + 12 * m,
-                         3 * fl)):
+                            x, w, tgt, plse, wtok),
+                         lambda: (torch.matmul(dlog, w.T),
+                                  torch.matmul(x.T, dlog)),
+                         2 * xE + 12 * m, 3 * fl)):
                     kms = time_ms(torch, kern, iters=3, warm=1)
+                    lms = time_ms(torch, lib, iters=3, warm=1)
                     bms, by = bound_ms(nbytes, ops)
+                    what = ("matmul x·w" if name == "fused_ce_fwd" else
+                            "matmuls dlogits·wᵀ and xᵀ·dlogits")
                     say(f"  time {name} E{E} M{m} V{V}: kernel_ms={kms:.4f} "
+                        f"library_ms({what})={lms:.4f} "
                         f"bound_ms={bms:.5f} ({by})")
+                del dlog
             continue
         _ce_memory_gate(torch, label, lambda: kc.fused_ce_bwd(
             x, w, tgt, plse, wtok))
@@ -940,29 +963,101 @@ def int8_phase(torch, gen):
         f"kernel_ms={fc_ms:.4f}")
     del h
 
-    # qdgrad: the fc dgrad, dy [M, F], wq [E, F]
-    dy = rnd(M, F)
-    wq, sw = kq.quantize(w_fc, 0, "jit")
-    dx = kqd.dgrad_int8_tile(dy, wq, sw.reshape(-1))
-    pdx = kqd.dgrad_int8_tile_plain(dy, wq, sw)
-    torch.cuda.synchronize()
-    err = max_err(dx, pdx)
-    check("qdgrad_int8_tile fc M16384 N5120 K1280", err,
-          1e-2 * float(pdx.float().abs().max()) + 1e-3)
-    wd = (wq.float() * sw).to(torch.bfloat16)
-    sw1 = sw.reshape(-1).contiguous()
-    kms = time_ms(torch, lambda: kqd.dgrad_int8_tile(dy, wq, sw1), iters=10)
-    pms = event_ms(torch, lambda: kqd.dgrad_int8_tile_plain(dy, wq, sw),
-                   iters=2, warm=1)
-    lms = time_ms(torch, lambda: torch.matmul(dy, wd.T), iters=10)
-    bms, by = bound_ms(2 * M * F + E * F + 4 * F + 2 * M * E, 0.0,
-                       2.0 * M * F * E)
-    say(f"  time qdgrad_int8_tile fc: kernel_ms={kms:.4f} plain_ms={pms:.4f}"
-        f" library_ms(bf16 dy·wdᵀ)={lms:.4f} bound_ms={bms:.5f} ({by})")
-    out["qdgrad_int8_tile"] = dict(ms=kms, plain_ms=pms, library_ms=lms,
-                                   bound_ms=bms, bound_by=by,
-                                   max_abs_err=err)
-    del dy, dx, pdx, wd
+    # qdgrad: the fc dgrad, dy [M, F], wq [E, F], and a ragged shape (M off
+    # the 128-row tile, 9 row tiles, K not a multiple of 8), bit for bit against the
+    # plain version; a repeat launch bit for bit; two planted faults built
+    # from the plain outputs that the check must reject
+    for label, Md, Nd, Kd in (("fc M16384 N5120 K1280", M, F, E),
+                              ("ragged M1100 N2048 K330", 1100, 2048, 330)):
+        dy = rnd(Md, Nd)
+        wq, sw = kq.quantize(rnd(Kd, Nd, s=0.02), 0, "jit")
+        sw1 = sw.reshape(-1).contiguous()
+        dx = kqd.dgrad_int8_tile(dy, wq, sw1)
+        dx2 = kqd.dgrad_int8_tile(dy, wq, sw1)
+        pdx = kqd.dgrad_int8_tile_plain(dy, wq, sw)
+        torch.cuda.synchronize()
+        check(f"qdgrad_int8_tile {label} differing bf16 entries",
+              bits_differ(dx, pdx), 0.0)
+        check(f"qdgrad_int8_tile {label} repeat launch differing entries",
+              bits_differ(dx, dx2), 0.0)
+        # faults: one row scale over all of N instead of one per tile; the
+        # last 1024-column tile dropped
+        q1, s1 = kq.quantize_plain(dy.float() * sw1, 1, "jit")
+        one_scale = (kq.int8_dot(q1, wq.T).double() * s1.double()
+                     ).float().to(torch.bfloat16)
+        last = kqd.dgrad_int8_tile_plain(dy[:, :-kqd.BN].contiguous(),
+                                         wq[:, :-kqd.BN].contiguous(),
+                                         sw1[:-kqd.BN].contiguous())
+        for fname, fdx in (("one row scale over N", one_scale),
+                           ("last tile dropped", last)):
+            reading = bits_differ(fdx, pdx)
+            say(f"  fault qdgrad_int8_tile {label} {fname}: differing bf16 "
+                f"entries {reading:.0f} of {pdx.numel()}, max_abs_err "
+                f"{max_err(fdx, pdx):.3e} (the check must reject it)")
+            if reading <= 0.0:
+                fail(f"the qdgrad check passes the planted fault {fname}")
+        del one_scale, last, q1, s1, dx2
+        if Md != M:
+            del dy, dx, pdx
+            continue
+        wd = (wq.float() * sw).to(torch.bfloat16)
+        q, sx = kqd.dgrad_quant_plain(dy, sw1)
+        kms = time_ms(torch, lambda: kqd.dgrad_int8_tile(dy, wq, sw1),
+                      iters=10)
+        pms = event_ms(torch, lambda: kqd.dgrad_int8_tile_plain(dy, wq, sw),
+                       iters=2, warm=1)
+        lms = time_ms(torch, lambda: torch.matmul(dy, wd.T), iters=10)
+        bms, by = bound_ms(2 * M * F + E * F + 4 * F + 2 * M * E, 0.0,
+                           2.0 * M * F * E)
+        # each launch alone, each a row of the kernels line: the quantize
+        # pass against dgrad_quant_plain, the GEMM against dgrad_gemm_plain
+        # on the plain codes and scales
+        lib, quant, gemm = kqd._kernel()
+        qk, sxk = torch.empty_like(q), torch.empty_like(sx)
+        dxk = torch.empty_like(dx)
+
+        def stream():   # the capturing stream under time_ms's graph
+            return torch.cuda.current_stream().cuda_stream
+        qms = time_ms(torch, lambda: quant(dy.data_ptr(), sw1.data_ptr(),
+                                           qk.data_ptr(), sxk.data_ptr(), M,
+                                           F, stream()), iters=10)
+        gms = time_ms(torch, lambda: gemm(q.data_ptr(), wq.data_ptr(),
+                                          sx.data_ptr(), dxk.data_ptr(), M,
+                                          F, E, stream()), iters=10)
+        qpms = event_ms(torch, lambda: kqd.dgrad_quant_plain(dy, sw1),
+                        iters=2, warm=1)
+        gpms = event_ms(torch, lambda: kqd.dgrad_gemm_plain(q, wq, sx),
+                        iters=2, warm=1)
+        # the library's int8 GEMM on the same codes, without the per-tile
+        # scales: the GEMM's yardstick
+        ims = time_ms(torch, lambda: torch._int_mm(q, wq.T), iters=10)
+        qbms, qby = bound_ms(2 * M * F + 4 * F + M * F + 4 * M * (F // 1024),
+                             0.0)
+        gbms, gby = bound_ms(M * F + E * F + 4 * M * (F // 1024) + 2 * M * E,
+                             0.0, 2.0 * M * F * E)
+        torch.cuda.synchronize()
+        qerr = max(float((qk.int() - q.int()).abs().max()),
+                   float((sxk - sx).abs().max()))
+        check("qdgrad_quant fc differing codes+scales",
+              float((qk != q).sum()) + float((sxk != sx).sum()), 0.0)
+        check("qdgrad GEMM alone fc differing bf16 entries",
+              bits_differ(dxk, pdx), 0.0)
+        say(f"  time qdgrad fc, both launches: kernel_ms={kms:.4f} "
+            f"plain_ms={pms:.4f} library_ms(bf16 dy·wdᵀ)={lms:.4f} "
+            f"bound_ms={bms:.5f} ({by})")
+        say(f"  time qdgrad_quant fc: kernel_ms={qms:.4f} plain_ms="
+            f"{qpms:.4f} bound_ms={qbms:.5f} ({qby}) max_abs_err={qerr:.3e}")
+        say(f"  time qdgrad_int8_tile fc (the GEMM): kernel_ms={gms:.4f} "
+            f"plain_ms={gpms:.4f} library_ms(_int_mm q·wqᵀ, no scales)="
+            f"{ims:.4f} bound_ms={gbms:.5f} ({gby}) max_abs_err="
+            f"{max_err(dxk, pdx):.3e}")
+        out["qdgrad_int8_tile"] = dict(ms=gms, plain_ms=gpms, library_ms=ims,
+                                       bound_ms=gbms, bound_by=gby,
+                                       max_abs_err=max_err(dxk, pdx))
+        out["qdgrad_quant"] = dict(ms=qms, plain_ms=qpms, library_ms=None,
+                                   bound_ms=qbms, bound_by=qby,
+                                   max_abs_err=qerr)
+        del dy, dx, pdx, wd, q, sx, qk, sxk, dxk
 
     # the int8 fused CE, tied head, at E 1280 (GPT2-774M's head, timed; the
     # bf16 flavour too, at the same inputs), E 1600 (GPT2-1558M's at B 16 x
@@ -1025,13 +1120,29 @@ def int8_phase(torch, gen):
                           xs, w, tgt, pblse, wtok, buf=buf),
                        4 * m * Ec + 4 * Ec * Vc + 12 * m, (3 * fl, 0.0))]
         # the forward and whole backward at this width (bf16 at E 1280)
+        libs = {}
+        if tag != "E1280":   # row 10-int8's yardsticks at these widths
+            wq_c = wq.contiguous()
+            wd = (wq.float() * sw).to(torch.bfloat16)
+            dlog = kc._dlogits8(xq, sx, wq, sw, tgt, plse, wtok)
+            libs = {"fused_ce_fwd_int8": (
+                        lambda: torch._int_mm(xq, wq_c), "_int_mm logits"),
+                    "fused_ce_bwd_int8": (
+                        lambda: (torch.matmul(dlog, wd.T),
+                                 torch.matmul(xs.T, dlog)),
+                        "matmuls dlogits·bf16(wq·sw)ᵀ and xᵀ·dlogits")}
         for name, kern, nbytes, ops in times:
             kms = time_ms(torch, kern, iters=3, warm=1)
             bms, by = bound_ms(nbytes, *ops)
-            say(f"  time {name} {tag} M{m} V{Vc}: kernel_ms={kms:.4f} "
+            lstr = ""
+            if name in libs:
+                lib, what = libs[name]
+                lstr = (f" library_ms({what})="
+                        f"{time_ms(torch, lib, iters=3, warm=1):.4f}")
+            say(f"  time {name} {tag} M{m} V{Vc}: kernel_ms={kms:.4f}{lstr} "
                 f"bound_ms={bms:.5f} ({by})")
         if tag != "E1280":
-            del xs, w, xq, wq, buf
+            del xs, w, xq, wq, buf, libs, wq_c, wd, dlog
             torch.cuda.empty_cache()
             continue
         wq_c = wq.contiguous()                     # [E, V] codes, row-major
@@ -1286,6 +1397,28 @@ def book_phase(torch, gen):
     return out
 
 
+def _qmv8_variant(torch, x, w, gps, shift_sx=0, drop=None):
+    """qmv_int8_plain's arithmetic with a planted fault: each group's codes
+    scaled by the sx of group g + shift_sx, or split ``drop``'s partial left
+    out of the sum (neither: the plain output)."""
+    from koifish_tpu_torch.ops.kernels.quantize import int8_dot, quantize_plain
+    m, K = x.shape
+    ng = K // 128
+    s = w.scales.float()
+    qs = [quantize_plain(x[:, g * 128:(g + 1) * 128], 1, "jit")
+          for g in range(ng)]
+    y = None
+    for r, g0 in enumerate(range(0, ng, gps)):
+        acc = torch.zeros((m, w.codes.shape[1]), device=x.device)
+        for g in range(g0, min(ng, g0 + gps)):
+            d = int8_dot(qs[g][0], w.codes[g * 128:(g + 1) * 128]).float()
+            t = (d * qs[(g + shift_sx) % ng][1]).double()
+            acc = (t * s[g].double() + acc.double()).float()
+        if r != drop:
+            y = acc if y is None else y + acc
+    return y.to(torch.bfloat16)
+
+
 def qmv_int8_phase(torch, gen):
     """The int8 GEMV (row 5) against qmv_int8_plain at Qwen3-0.6B's seven
     projections at m = 1, 5 and 32 and a ragged shape; times of one layer's
@@ -1295,6 +1428,7 @@ def qmv_int8_phase(torch, gen):
     from koifish_tpu_torch.ops.kernels import matmul as km
     from koifish_tpu_torch.ops.kernels import qmv_int8 as kq
     from koifish_tpu_torch.quant.rtn import quantize
+    from koifish_tpu_torch.utils import kernel_log
     say("[kernels] qmv_int8 (koifish_tpu_torch/csrc/qmv_int8.cu)")
 
     def tol(ref):
@@ -1316,16 +1450,73 @@ def qmv_int8_phase(torch, gen):
         return kq.qmv_int8_plain(x, w.codes, w.scales, gps=gps)
 
     err = 0.0
-    shapes = [(n, K, N) for n, K, N in QWEN3_PROJ] + [("ragged", 384, 100)]
+    # the Qwen3 projections and the ragged shape split K across a cluster;
+    # K 128 (one group) and N 33792 (256 column tiles) take no split
+    shapes = [(n, K, N) for n, K, N in QWEN3_PROJ] + [
+        ("ragged", 384, 100), ("one split K128", 128, 1024),
+        ("one split N33792", 1024, 33792)]
     for pname, K, N in shapes:
         w = weight(K, N)
         for m in (1, 5, 32):
+            if pname.startswith("one split") and kq._plan(m, K, N)[1] != 1:
+                fail(f"qmv_int8 {pname} m{m}: the plan splits K "
+                     f"({kq._plan(m, K, N)})")
             x = act(m, K)
             y, ref = kq.qmv_int8(x, w.codes, w.scales), plain(x, w)
+            y2 = kq.qmv_int8(x, w.codes, w.scales)
             torch.cuda.synchronize()
             e = max_err(y, ref)
             check(f"qmv_int8 {pname} m{m} K{K} N{N}", e, tol(ref))
+            # the plan's split order, summed as qmv_int8_plain(gps=...)
+            # sums it: every entry equal
+            check(f"qmv_int8 {pname} m{m} differing bf16 entries",
+                  bits_differ(y, ref), 0.0)
+            check(f"qmv_int8 {pname} m{m} repeat launch differing entries",
+                  bits_differ(y, y2), 0.0)
             err = max(err, e)
+            if pname != "down" or m == 5:
+                continue
+            # planted faults built from the plain arithmetic, which the
+            # check must reject: each group's codes scaled by the next
+            # group's sx; the last split's partial dropped
+            gps, splits = kq._plan(m, K, N)
+            same = _qmv8_variant(torch, x, w, gps)
+            check(f"qmv_int8 down m{m} fault arithmetic with no fault "
+                  f"planted, differing entries", bits_differ(same, ref), 0.0)
+            for fname, fy in (
+                    ("sx of the next group", _qmv8_variant(torch, x, w, gps,
+                                                           shift_sx=1)),
+                    ("last split dropped", _qmv8_variant(
+                        torch, x, w, gps, drop=splits - 1))):
+                reading = max_err(fy, ref)
+                say(f"  fault qmv_int8 down m{m} {fname}: max_abs_err="
+                    f"{reading:.3e} tol={tol(ref):.1e} (the check must "
+                    f"reject it)")
+                if reading <= tol(ref):
+                    fail(f"the qmv_int8 check passes the planted fault "
+                         f"{fname}")
+
+    # one launch a call: the profiler sees one kernel on the card
+    from torch.profiler import ProfilerActivity, profile
+    w = weight(3072, 1024)
+    for m in (1, 32):
+        x = act(m, 3072)
+        kq.qmv_int8(x, w.codes, w.scales)
+        torch.cuda.synchronize()
+        before = kernel_log.launches().get("qmv_int8", 0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kq.qmv_int8(x, w.codes, w.scales)
+            torch.cuda.synchronize()
+        kern = [(e.key, e.count) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")
+                and getattr(e, "self_device_time_total", 0) > 0]
+        n = sum(c for _, c in kern)
+        counted = kernel_log.launches().get("qmv_int8", 0) - before
+        say(f"  check qmv_int8 m{m} K3072 N1024 launches a call: {n} on the "
+            f"card ({', '.join(k[:40] for k, _ in kern)}), {counted} "
+            f"counted {'ok' if n == 1 == counted else 'FAIL'}")
+        if not n == 1 == counted:
+            fail("a qmv_int8 call is not one launch")
 
     m, n_layers = 32, 12
     ws = [[weight(K, N) for _, K, N in QWEN3_PROJ] for _ in range(n_layers)]
@@ -1357,13 +1548,20 @@ def qmv_int8_phase(torch, gen):
                  for _, K, N in QWEN3_PROJ)
     ops = sum(2.0 * m * K * N for _, K, N in QWEN3_PROJ)
     bms, by = bound_ms(nbytes, 0.0, ops)
+    # chat's shape: m = 1
+    xs = {K: act(1, K) for _, K, _n in QWEN3_PROJ}
+    kms1 = time_ms(torch, run(lambda x, w: kq.qmv_int8(x, w.codes,
+                                                       w.scales)),
+                   iters=5) / n_layers
+    row4_1 = time_ms(torch, run(km.qmatmul), iters=5) / n_layers
     say(f"  time qmv_int8 one layer's 7 projections (m={m}, INT8): "
         f"kernel_ms={kms:.4f} plain_ms={pms:.4f} "
         f"library_ms(matmul on dequantized bf16)={lms:.4f} "
         f"bound_ms={bms:.5f} ({by}); row-4 GEMV (qmv) on the same INT8 "
-        f"weights {row4:.4f} ms")
+        f"weights {row4:.4f} ms; at m=1 {kms1:.4f} ms, row 4 {row4_1:.4f} ms")
     return dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
-                bound_by=by, max_abs_err=err, row4_ms=row4)
+                bound_by=by, max_abs_err=err, row4_ms=row4, m1_ms=kms1,
+                row4_m1_ms=row4_1)
 
 
 def _reaches(node, name: str, depth: int = 4) -> bool:
@@ -2390,7 +2588,7 @@ def train_774m_phase(torch):
               "fused_ce_dlogits_int8", "fused_ce_dx_int8", "fused_ce_dw_int8",
               "rowquant", "colquant")),
             ("GPT2-774M int8_dgrad tile", {"int8_dgrad": "tile"}, 4, False,
-             ("qdgrad_int8_tile", "fused_ce_fwd_int8")),
+             ("qdgrad_quant", "qdgrad_int8_tile", "fused_ce_fwd_int8")),
             ("GPT2-774M bf16 (int8_matmul off)", {"int8_matmul": False}, 4,
              False, ("fused_ce_fwd", "fused_ce_dlogits", "fused_ce_dx",
                      "fused_ce_dw")))
@@ -2527,6 +2725,8 @@ def main() -> None:
          g774_counts),
         ("qdgrad_int8_tile", "qdgrad.cu", "koifish_tpu/ops/pallas/qdgrad.py:61",
          i8["qdgrad_int8_tile"], tile_counts),
+        ("qdgrad_quant", "qdgrad.cu", "koifish_tpu/ops/pallas/qdgrad.py:61",
+         i8["qdgrad_quant"], tile_counts),
         ("rowquant", "quantize.cu", "koifish_tpu/ops/pallas/quantize.py:53",
          i8["rowquant"], g774_counts),
         ("colquant", "quantize.cu", "koifish_tpu/ops/pallas/quantize.py:101",

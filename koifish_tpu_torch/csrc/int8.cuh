@@ -19,7 +19,7 @@
 enum Rounding { PALLAS = 0, JIT = 1, EAGER = 2 };
 
 struct Q8 {
-  float scale, recip;   // recip is used by PALLAS only
+  float scale, recip;   // recip: 127 / max(a, 1e-12) (PALLAS) or fl(1 / scale) (JIT)
 };
 
 template <int MODE>
@@ -31,7 +31,7 @@ __device__ __forceinline__ Q8 q8_scale(float absmax) {
     r.recip = __fdiv_rn(127.0f, am);
   } else if (MODE == JIT) {
     r.scale = fmaxf(__fmul_rn(absmax, 1.0f / 127.0f), 1e-12f);
-    r.recip = 0.f;
+    r.recip = __frcp_rn(r.scale);
   } else {
     r.scale = fmaxf(__fdiv_rn(absmax, 127.0f), 1e-12f);
     r.recip = 0.f;
@@ -39,10 +39,22 @@ __device__ __forceinline__ Q8 q8_scale(float absmax) {
   return r;
 }
 
+// JIT takes rint(x·fl(1/s)) and divides only where x·fl(1/s) lies within
+// 2^-14 of a rounding boundary: for |x / s| <= 128 (any x of the line whose
+// absmax made s) x·fl(1/s) (two roundings) and the rounded quotient fl(x / s)
+// are within 2.3e-5 of each other, so away from the boundaries both round to
+// the same integer, and the code is rint(x / s)'s.
 template <int MODE>
 __device__ __forceinline__ int q8_code(float x, Q8 s) {
-  const float v = MODE == PALLAS ? __fmul_rn(x, s.recip) : __fdiv_rn(x, s.scale);
-  return static_cast<int>(fminf(fmaxf(rintf(v), -127.f), 127.f));
+  float c;
+  if (MODE == JIT) {
+    const float v = __fmul_rn(x, s.recip);
+    c = rintf(v);
+    if (fabsf(v - c) > 0.5f - 6.103515625e-05f) c = rintf(__fdiv_rn(x, s.scale));
+  } else {
+    c = rintf(MODE == PALLAS ? __fmul_rn(x, s.recip) : __fdiv_rn(x, s.scale));
+  }
+  return static_cast<int>(fminf(fmaxf(c, -127.f), 127.f));
 }
 
 __device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {

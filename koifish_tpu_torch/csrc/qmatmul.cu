@@ -358,18 +358,7 @@ __global__ void __launch_bounds__(NT)
   for (int idx = tid; idx < total; idx += NT) {
     const float4 v = ksum(idx);
     const int owner = idx / per;
-    uint32_t dst, bar;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-                 : "=r"(dst)
-                 : "r"(smem_u32(slots + rank * per + idx - owner * per)), "r"(owner));
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-                 : "=r"(bar)
-                 : "r"(smem_u32(rbar)), "r"(owner));
-    asm volatile(
-        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
-        "[%5];\n" ::"r"(dst),
-        "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
-        : "memory");
+    st_async_in(slots + rank * per + idx - owner * per, rbar, owner, v);
   }
   mbar_wait(rbar, 0);
   for (int idx = rank * per + tid; idx < rank * per + mine; idx += NT) {

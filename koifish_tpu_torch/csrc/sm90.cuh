@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's warp-specialised kernels:
 // mbarriers, a cp.async ring that signals them, named barriers, register
-// rebalancing, TMA, and wgmma with its shared-memory descriptors; on the
-// host, the TMA map encoder and the SM count.
+// rebalancing, TMA, stores into another block of a thread-block cluster,
+// and wgmma with its shared-memory descriptors; on the host, the
+// TMA map encoder and the SM count.
 //
 // Tiles live in shared memory in the 128-byte swizzle that wgmma reads
 // (LayoutType B128): a tile of R rows x C bf16 columns is C/64 column blocks
@@ -94,6 +95,28 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// thread-block clusters
+// ---------------------------------------------------------------------------
+
+// the address of `p`'s offset in block `cta` of the cluster
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t cta) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(cta));
+  return a;
+}
+
+// store v at `dst`'s offset in block `cta` of the cluster, its 16 bytes
+// counted by the barrier at `bar`'s offset there (complete_tx)
+__device__ __forceinline__ void st_async_in(const void* dst, uint64_t* bar, uint32_t cta,
+                                            float4 v) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(cluster_addr(dst, cta)),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(cluster_addr(bar, cta))
       : "memory");
 }
 
@@ -334,6 +357,30 @@ __device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64
         "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
         "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
         "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -1,13 +1,17 @@
-"""Per-tile dynamic-int8 dgrad: the CUDA kernel's wrapper, its plain version
-and the dispatch.
+"""Per-tile dynamic-int8 dgrad: the CUDA kernels' wrapper, their plain
+versions and the dispatch.
 
-The kernel (``csrc/qdgrad.cu``) replaces the JAX package's Pallas
+The kernels (``csrc/qdgrad.cu``) replace the JAX package's Pallas
 ``_dgrad_call`` (``koifish_tpu/ops/pallas/qdgrad.py``, row 11): dx = dy ·
 (wq·sw)ᵀ with dy folded by the column scales, quantized per row and per
 1024-column tile, and multiplied in int8:
 
     for each 1024-column tile j:  t = dy_j·sw_j;  sx = max(rowmax|t|·(1/127), 1e-12)
                                   dx += (q8(t)·wq_jᵀ)_int32 · sx
+
+in two launches: a quantize pass (``qdgrad_quant``: dy read once into the
+codes q [M, N] int8 and the scales sx [M, N/1024] f32 that the Pallas kernel
+forms in VMEM) and a ``wgmma`` s8 GEMM over them (``qdgrad_int8_tile``).
 
 ``dgrad_int8_tile_or_none`` keeps the JAX dispatch rule on n % 1024 (the tile
 defines the scales); the TPU-only limits on m, k do not carry over. Other n
@@ -25,7 +29,8 @@ from koifish_tpu_torch.ops.kernels.quantize import int8_dot, quantize_plain
 from koifish_tpu_torch.utils import kernel_log
 
 NAME = "qdgrad"
-COUNT = "qdgrad_int8_tile"    # launch counter
+COUNT = "qdgrad_int8_tile"    # launch counter of the GEMM
+QUANT = "qdgrad_quant"        # launch counter of the quantize pass
 BN = 1024                     # columns of dy per scale tile
 
 _fn = None
@@ -35,11 +40,15 @@ def _kernel():
     global _fn
     if _fn is None:
         lib = _build.load(NAME)
-        fn = lib.koifish_qdgrad
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+        quant, gemm = lib.koifish_qdgrad_quant, lib.koifish_qdgrad
+        # dy sw q sx | M N | stream
+        quant.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + \
             [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = (lib, fn)
+        # q wq sx dx | M N K | stream
+        gemm.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+            [ctypes.c_void_p]
+        quant.restype = gemm.restype = ctypes.c_int
+        _fn = (lib, quant, gemm)
     return _fn
 
 
@@ -58,6 +67,30 @@ def dgrad_int8_tile_plain(dy: torch.Tensor, wq: torch.Tensor,
         d = int8_dot(q, wq[:, j:j + BN].T).to(torch.float64)
         acc = (acc.to(torch.float64) + d * sx.to(torch.float64)
                ).to(torch.float32)
+    return acc.to(torch.bfloat16)
+
+
+def dgrad_quant_plain(dy: torch.Tensor, sw: torch.Tensor):
+    """The quantize pass: (q [M, N] int8, sx [M, N/1024] f32), the codes and
+    scales of dy [M, N] folded by sw [N] per row and 1024-column tile."""
+    m, n = dy.shape
+    t = dy.to(torch.float32) * sw.reshape(n).to(torch.float32)
+    qs, sxs = zip(*(quantize_plain(t[:, j:j + BN], 1, "jit")
+                    for j in range(0, n, BN)))
+    return torch.cat(qs, dim=1), torch.cat(sxs, dim=1)
+
+
+def dgrad_gemm_plain(q: torch.Tensor, wq: torch.Tensor,
+                     sx: torch.Tensor) -> torch.Tensor:
+    """The GEMM: dx [M, K] bf16 = Σ_j (q_j·wq_jᵀ)_int32 · sx_j over the
+    1024-column tiles j in order, each step one fused multiply-add (emulated
+    in f64, as ``dgrad_int8_tile_plain``)."""
+    m, n = q.shape
+    acc = torch.zeros((m, wq.shape[0]), dtype=torch.float32, device=q.device)
+    for j in range(n // BN):
+        d = int8_dot(q[:, j * BN:(j + 1) * BN], wq[:, j * BN:(j + 1) * BN].T)
+        acc = (acc.to(torch.float64) + d.to(torch.float64)
+               * sx[:, j:j + 1].to(torch.float64)).to(torch.float32)
     return acc.to(torch.bfloat16)
 
 
@@ -80,12 +113,20 @@ def dgrad_int8_tile(dy: torch.Tensor, wq: torch.Tensor,
                              f"{dy.device}")
         if t.dtype != dt:
             raise ValueError(f"qdgrad: {name} is {t.dtype}, need {dt}")
-        if not t.is_contiguous():
-            raise ValueError(f"qdgrad: {name} must be contiguous")
-    lib, fn = _kernel()
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"qdgrad: {name} must be contiguous and "
+                             f"16-byte aligned")
+    lib, quant, gemm = _kernel()
+    stream = torch.cuda.current_stream(dy.device).cuda_stream
+    q = torch.empty((m, n), dtype=torch.int8, device=dy.device)
+    sx = torch.empty((m, n // BN), dtype=torch.float32, device=dy.device)
+    rc = quant(dy.data_ptr(), sw.data_ptr(), q.data_ptr(), sx.data_ptr(), m, n,
+               stream)
+    _build.check(lib, rc, f"qdgrad quantize pass dy{tuple(dy.shape)}")
+    kernel_log.count(QUANT)
     dx = torch.empty((m, k), dtype=torch.bfloat16, device=dy.device)
-    rc = fn(dy.data_ptr(), wq.data_ptr(), sw.data_ptr(), dx.data_ptr(), m, n,
-            k, torch.cuda.current_stream(dy.device).cuda_stream)
+    rc = gemm(q.data_ptr(), wq.data_ptr(), sx.data_ptr(), dx.data_ptr(), m, n,
+              k, stream)
     _build.check(lib, rc, f"qdgrad dy{tuple(dy.shape)} k={k}")
     kernel_log.count(COUNT)
     return dx

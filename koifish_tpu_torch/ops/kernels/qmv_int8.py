@@ -14,6 +14,11 @@ bit (XLA turns its ``/ 127.0`` into a product with f32(1/127) and keeps the
 division by sx). The int8 products are exact int32 sums; the f32 epilogue is
 acc = fma(d·sx, s, acc), the form the interpreted kernel's bf16 outputs
 agree with best.
+
+The kernel is one launch a call: where the column tiles cannot fill the
+card, K is split across the blocks of one thread-block cluster (at most
+``GEMV_MAX_CLUSTER``, as the row-4 GEMV), which sum their partials in rank order in the launch, as
+``qmv_int8_plain(gps=...)`` does. No workspace.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 
 from koifish_tpu_torch.dtypes import QFormat
 from koifish_tpu_torch.ops.kernels import _build
+from koifish_tpu_torch.ops.kernels.matmul import GEMV_MAX_CLUSTER
 from koifish_tpu_torch.ops.kernels.quantize import int8_dot, quantize_plain
 from koifish_tpu_torch.quant.qtensor import QTensor
 from koifish_tpu_torch.utils import kernel_log
@@ -31,7 +37,7 @@ from koifish_tpu_torch.utils import kernel_log
 NAME = "qmv_int8"       # library and launch counter
 GROUP = 128
 MAX_M = 32
-BN = 64                 # output columns per block (csrc/qmv_int8.cu)
+BN = 128                # output columns per block (csrc/qmv_int8.cu)
 # enough blocks in flight to cover the card's 132 SMs twice
 _TARGET_BLOCKS = 264
 
@@ -43,7 +49,8 @@ def _kernel():
     if _fn is None:
         lib = _build.load(NAME)
         fn = lib.koifish_qmv_int8
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
+        # x codes scales out | m K N gps splits | stream
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = (lib, fn)
@@ -86,11 +93,12 @@ def takes(w: QTensor) -> bool:
 
 
 def _plan(m: int, K: int, N: int):
-    """(groups per split, splits): split K across blocks when the column
-    tiles alone cannot fill the card."""
+    """(groups per split, splits): split K across the blocks of one cluster
+    (at most ``GEMV_MAX_CLUSTER``) when the column tiles alone cannot fill
+    the card; every split takes at least one group."""
     ng = K // GROUP
     tiles = -(-N // BN)
-    splits = min(ng, max(1, -(-_TARGET_BLOCKS // tiles)))
+    splits = min(ng, GEMV_MAX_CLUSTER, max(1, -(-_TARGET_BLOCKS // tiles)))
     gps = -(-ng // splits)
     return gps, -(-ng // gps)
 
@@ -137,12 +145,10 @@ def qmv_int8(x2: torch.Tensor, codes: torch.Tensor,
     N = codes.shape[1]
     gps, splits = _plan(m, K, N)
     out = torch.empty((m, N), dtype=torch.bfloat16, device=x2.device)
-    work = (torch.empty((splits, m, N), dtype=torch.float32,
-                        device=x2.device) if splits > 1 else None)
     lib, fn = _kernel()
     rc = fn(x2.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-            out.data_ptr(), None if work is None else work.data_ptr(),
-            m, K, N, gps, torch.cuda.current_stream(x2.device).cuda_stream)
+            out.data_ptr(), m, K, N, gps, splits,
+            torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(lib, rc, f"qmv_int8 x{tuple(x2.shape)} N={N}")
     kernel_log.count(NAME)
     return out

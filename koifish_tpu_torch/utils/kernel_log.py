@@ -17,7 +17,8 @@ through the kernels (``reset_launches`` / ``launches``). The names:
 ``page_write``, ``fused_ce_fwd``, ``fused_ce_dlogits``, ``fused_ce_dx``,
 ``fused_ce_dw``, their int8 flavour ``fused_ce_fwd_int8``,
 ``fused_ce_dlogits_int8``, ``fused_ce_dx_int8``, ``fused_ce_dw_int8``,
-``qdgrad_int8_tile``, ``rowquant``, ``colquant`` and ``qmv_int8``. ``fallbacks`` counts the fallbacks of each kernel since the
+``qdgrad_quant`` (the per-tile dgrad's quantize pass), ``qdgrad_int8_tile``
+(its GEMM), ``rowquant``, ``colquant`` and ``qmv_int8``. ``fallbacks`` counts the fallbacks of each kernel since the
 same reset, whether or not they were printed.
 """
 from __future__ import annotations

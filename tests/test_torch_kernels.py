@@ -196,8 +196,8 @@ def test_qmv_int8_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="lies on cpu"):
         kq8._check(torch.zeros((2, 256), dtype=torch.bfloat16), codes, scales)
     assert kq8._plan(1, 1024, 1024) == (1, 8)     # decode: split K
-    assert kq8._plan(32, 3072, 1024) == (2, 12)
-    assert kq8._plan(5, 1024, 3072) == (2, 4)
+    assert kq8._plan(32, 3072, 1024) == (3, 8)    # one cluster: <= 8 splits
+    assert kq8._plan(5, 1024, 3072) == (1, 8)
     assert kq8.takes(quantize(torch.zeros((256, 8)), QFormat.INT8))
     assert not kq8.takes(quantize(torch.zeros((256, 8)), QFormat.INT4))
 
