@@ -2,6 +2,7 @@
 """A/B one change of the port on one GPU: old, new, new, old in one call.
 
     python3 chip_ab.py OLD_TREE PHASE[,PHASE...] [--train] [--host] [--shapes]
+                       [--decode]
 
 OLD_TREE is a copy of the repository at the old version
 (``koifish_tpu_torch/``, ``chip_smoke.py`` and ``configs/``, for example
@@ -9,7 +10,8 @@ unpacked with ``git archive`` into a directory that ``.gitignore`` lists, such
 as ``build/ab_old``); the new version is the tree around this script. Each of
 the four runs is a fresh process in its tree that builds that tree's kernels
 and calls one kernel phase of ``chip_smoke.py`` (``flash_bwd_phase``,
-``fused_ce_phase``, ...; several, comma-separated), printing each kernel's
+``fused_ce_phase``, ...; several, comma-separated; ``-`` for none), printing
+each kernel's
 ``ms`` (for a phase that returns one flat result, as ``flash_phase`` does,
 every number of it whose key ends in ``ms``); with ``--train`` the second and
 fourth runs also train Qwen3-0.6B (B=8) and GPT2-124M (B=32) for 6 steps, and
@@ -25,7 +27,16 @@ chat path's per-call cost), of the flash forward wrapper and of each flash
 backward wrapper (B 1, T 128, D 128), through that tree's own modules. With ``--shapes``
 every run also times the flash forward wrapper at the training shapes of
 Qwen3-0.6B (B 8, T 1024, Hq 16, Hkv 8, D 128) and GPT2-124M (B 32, T 1024, Hq
-12, D 64), CUDA-graph replays as ``chip_smoke.time_ms`` takes them. Compare the
+12, D 64), CUDA-graph replays as ``chip_smoke.time_ms`` takes them. With
+``--decode`` every run also times, through that tree's own modules, the INT8
+decode attention wrapper and one layer's write plus attention (the fused
+entry where the tree has it, else the two quantizer calls, the slot write
+and the attention that the decode step made) at the slice's (B 32, lengths
+129-192), the batcher's (B 32, lengths 16-640), chat's (B 1, lengths
+100-1024) and a g = 8 shape (Hq 64, Hkv 8, B 8, lengths 256-1024), all S
+1024, D 128, as graph replays and as the host µs of one eager call; then
+runs ``chip_smoke.batcher_phase`` (its aggregate decode tok/s) with the
+device launches a step of its profiled decode chunk. Compare the
 two versions only within one call: two calls may land on two cards or on a
 busier host. The first line printed is the card's name and power limit.
 """
@@ -48,12 +59,13 @@ torch.backends.cudnn.allow_tf32 = False
 g = torch.Generator(device="cuda"); g.manual_seed(0)
 def rnd(*s):
     return torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
-for phase in sys.argv[1].split(","):
+for phase in sys.argv[1].split(",") if sys.argv[1] != "-" else []:
     r = getattr(cs, phase)(torch, g)
     if "ms" in r:   # one flat result (flash_phase)
         r = {phase: r} | {f"{phase}.{k}": {"ms": v} for k, v in r.items()
                           if k.endswith("ms") and k != "ms"}
-    print("K", {k: round(v["ms"], 4) for k, v in r.items()}, flush=True)
+    print("K", {k: round(v["ms"], 4) for k, v in r.items()
+                if isinstance(v, dict)}, flush=True)
 if "train" in sys.argv[2:]:
     cs.train_model(torch, "Qwen3-0.6B", "qwen3_0.6b.json", 8, steps=6)
     cs.train_model(torch, "GPT2-124M", "gpt2_124m.json", 32, steps=6)
@@ -101,10 +113,67 @@ if "shapes" in sys.argv[2:]:
         ms[label] = round(cs.time_ms(torch, lambda: kf.flash_attention_fwd(
             q, k, v, scale=D ** -0.5)), 4)
     print("S flash_fwd", ms, "ms", flush=True)
+if "decode" in sys.argv[2:]:
+    import time
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.ops.kernels import decode_attn as kd
+    from koifish_tpu_torch.ops.kernels import slotwrite as ksw
+    from koifish_tpu_torch.serve.kvcache import _quant_kv
+    fused = hasattr(kd, "decode_attention_write")
+    dev, host = {}, {}
+    for label, B, Hq, lo, hi in (("slice", 32, 16, 129, 193),
+                                 ("batcher", 32, 16, 16, 641),
+                                 ("chat", 1, 16, 100, 1025),
+                                 ("g8", 8, 64, 256, 1025)):
+        Hkv, S, D = 8, 1024, 128
+        kc, ks = _quant_kv(torch.randn((B, Hkv, S, D), generator=g,
+                                       device="cuda"), QFormat.INT8)
+        vc, vs = _quant_kv(torch.randn((B, Hkv, S, D), generator=g,
+                                       device="cuda"), QFormat.INT8)
+        q, kn, vn = rnd(B, Hq, D), rnd(B, Hkv, D), rnd(B, Hkv, D)
+        lengths = torch.randint(lo, hi, (B,), generator=g, device="cuda",
+                                dtype=torch.int32)
+        slots = (torch.rand((B,), generator=g, device="cuda")
+                 * lengths).to(torch.int32)
+        sc = D ** -0.5
+        attn = lambda: kd.decode_attention_quant(q, kc, vc, ks, vs, lengths,
+                                                 sc)
+        if fused:
+            step = lambda: kd.decode_attention_write(q, kn, vn, kc, vc, ks,
+                                                     vs, slots, lengths, sc)
+        else:
+            def step():
+                kq, ksc = _quant_kv(kn, QFormat.INT8)
+                vq, vsc = _quant_kv(vn, QFormat.INT8)
+                ksw.slot_write_many([(kc, kq), (vc, vq), (ks, ksc),
+                                     (vs, vsc)], slots)
+                return attn()
+        dev[label] = [round(cs.time_ms(torch, f, iters=50), 4)
+                      for f in (attn, step)]
+        host[label] = [round(cs.host_us(torch, f), 1) for f in (attn, step)]
+    print("D decode ms [attention, write + attention]", dev, flush=True)
+    print("D decode host us [attention, write + attention]", host, flush=True)
+
+    def launches_a_step(torch, label, fn, steps=1):
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        n = sum(e.count for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")
+                and getattr(e, "self_device_time_total", 0) > 0)
+        print(f"P {label}: {n / steps:.1f} device launches a step, wall "
+              f"{wall * 1e3 / steps:.3f} ms/step", flush=True)
+    cs.profile_window = launches_a_step
+    cs.batcher_phase(torch)
 '''
 
-KEEP = ("K ", "H ", "S ", "  check", "  time", "  host", "  median", "  losses",
-        "chip_smoke")
+KEEP = ("K ", "H ", "S ", "D ", "P ", "  check", "  time", "  host",
+        "  median", "  losses", "  aggregate", "  completed", "chip_smoke")
 
 
 def main() -> None:
@@ -114,6 +183,7 @@ def main() -> None:
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--host", action="store_true")
     ap.add_argument("--shapes", action="store_true")
+    ap.add_argument("--decode", action="store_true")
     args = ap.parse_args()
     old = os.path.abspath(args.old_tree)
     if not os.path.exists(os.path.join(old, "chip_smoke.py")):
@@ -126,7 +196,8 @@ def main() -> None:
                                       ("new", ROOT), ("old", old))):
         extra = (["train"] if args.train and i in (1, 3) else []) \
             + (["host"] if args.host else []) \
-            + (["shapes"] if args.shapes else [])
+            + (["shapes"] if args.shapes else []) \
+            + (["decode"] if args.decode else [])
         t0 = time.perf_counter()
         out = subprocess.run([sys.executable, "-c", RUN, args.phase] + extra,
                              cwd=tree, capture_output=True, text=True)

@@ -18,7 +18,13 @@ Phases, in order; any failed check exits non-zero before the last line:
              shapes beside SDPA), dequant-fused GEMM/GEMV (the GEMV at m =
              1, 5, 8, 17, 32 for every format, N on and off its tiles, K
              256-3072; timed at m = 32 INT4 and at chat's m = 1 INT8 codes),
-             quantized-KV decode attention.
+             quantized-KV decode attention and its fused K/V write (INT8
+             and INT4, one to eight splits, g 1-16, D 64-256 and MLA's 192
+             / 128, one case with q along the new key; the write's cache
+             bytes bit for bit, a repeat launch bit for bit, two planted
+             faults rejected: the stale row read, the last split dropped;
+             timed at the slice's, the batcher's, chat's and a g = 8
+             shape, beside SDPA on the dequantized cache).
              Training: flash backward (dK/dV and dQ kernels, at the Qwen3
              and GPT2 shapes, ragged T and windows; times at both) and the
              fused classifier CE (forward, the backward's dlogits kernel and
@@ -62,10 +68,11 @@ Phases, in order; any failed check exits non-zero before the last line:
              ContinuousBatcher (INT8 KV, 32 slots of 1024, decode_chunk 8)
              serving 96 seeded requests (prompts 16-512, 16-128 new tokens):
              requests completed, aggregate decode tok/s, warm TTFT p50/p90,
-             launches (the book GEMV/GEMM, slot write, flash forward and
-             decode attention must all be > 0), and the idle share over one
-             decode chunk. Then ``generate_paged`` on the same params (B=32,
-             128-token prompts, 64 new): tok/s, page-pool growth, page-write
+             launches (the book GEMV/GEMM, the fused K/V write, flash
+             forward and decode attention must all be > 0), and the idle
+             share and device launches a step over one decode chunk. Then
+             ``generate_paged`` on the same params (B=32, 128-token
+             prompts, 64 new): tok/s, page-pool growth, page-write
              launches. A tiny k-means model's batcher and paged runs on the
              card are held against the CPU.
    chat    — a Qwen3-0.6B HF folder (the config's dims, seeded bf16 weights,
@@ -103,9 +110,12 @@ Phases, in order; any failed check exits non-zero before the last line:
              are finite, (a)'s fall from within 0.5 of ln 50304, bench.py's
              gate holds and each run's kernels launched.
 6. result  — one JSON line with every kernel's numbers (launches from its
-             path's run: the serving run for the slice-1 kernels, the Qwen3
-             train_loop for the training kernels, the batcher run for the
-             slot write and book kernels, the paged run for the page
+             path's run: the serving run for the slice-1 kernels and the
+             decode attention's fused K/V write (``decode_attn_write``,
+             with the write's own ``write_ms``), the Qwen3 train_loop for
+             the training kernels, the batcher run for the book kernels
+             and the slot writes (the standalone kernel's launches plus
+             the fused ones), the paged run for the page
              write, GPT2-774M run (a) for the int8 fused CE and the
              quantizers, run (b) for qdgrad (its quantize pass and its
              GEMM, each line timing its own launch), the plain bubble run for the
@@ -176,6 +186,19 @@ def time_ms(torch, fn, iters: int = 20, warm: int = 3) -> float:
     e1.synchronize()
     del graph
     return e0.elapsed_time(e1) / iters
+
+
+def time_cold_ms(torch, fn, inputs, iters: int = 48) -> float:
+    """``time_ms`` of ``fn(*args)`` cycling through ``inputs``, copies whose
+    bytes together exceed the 50 MB L2: each launch finds its data cold, as
+    one layer of a decode step does after the other layers' caches."""
+    turn = [0]
+
+    def cycle():
+        args = inputs[turn[0] % len(inputs)]
+        turn[0] += 1
+        return fn(*args)
+    return time_ms(torch, cycle, iters=iters, warm=len(inputs))
 
 
 def host_us(torch, fn, iters: int = 200) -> float:
@@ -419,72 +442,230 @@ def qmatmul_phase(torch, gen):
     return out
 
 
-def decode_attn_phase(torch, gen):
+# decode attention cases: (label, B, Hq, Hkv, S, D, Dv, lengths [lo, hi));
+# the first DECODE_TIMED are timed (INT8). Together they reach every branch
+# of the split plan: one split, eight, a head group past the first (g 16),
+# D 192 with Dv 128, and (each case runs INT8 and INT4) packed INT4.
+DECODE_CASES = [
+    ("slice B32 Hq16 Hkv8 S1024 D128 len129-192", 32, 16, 8, 1024, 128, 128,
+     (129, 193)),
+    ("batcher B32 Hq16 Hkv8 S1024 D128 len16-640", 32, 16, 8, 1024, 128,
+     128, (16, 641)),
+    ("chat B1 Hq16 Hkv8 S1024 D128 len100-1024", 1, 16, 8, 1024, 128, 128,
+     (100, 1025)),
+    ("Qwen3-32B g8 B8 Hq64 Hkv8 S1024 D128 len256-1024", 8, 64, 8, 1024, 128,
+     128, (256, 1025)),
+    ("ragged B5 Hq16 Hkv8 S1024 D128 len1-1024", 5, 16, 8, 1024, 128, 128,
+     (1, 1025)),
+    ("ragged g16 B3 Hq64 Hkv4 S300 D64 len1-300", 3, 64, 4, 300, 64, 64,
+     (1, 301)),
+    ("mla B2 Hq8 Hkv8 S512 D192 Dv128", 2, 8, 8, 512, 192, 128, (100, 513)),
+    ("B4 Hq28 Hkv4 S256 D256", 4, 28, 4, 256, 256, 256, (200, 257)),
+    ("one split B64 Hq8 Hkv8 S512 D64 len1-512", 64, 8, 8, 512, 64, 64,
+     (1, 513)),
+]
+DECODE_TIMED = 4
+
+
+def _kv_quant_rounding(torch, gen) -> None:
+    """Which rounding the KV quantizer gets on the card (the fused write
+    reproduces it): PyTorch's CUDA division by a Python scalar multiplies by
+    its f32 reciprocal, so the scale is max(absmax · fl(1/qmax), 1e-12)."""
+    import numpy as np
     from koifish_tpu_torch.dtypes import QFormat
     from koifish_tpu_torch.ops.kernels import decode_attn as kd
-    from koifish_tpu_torch.serve.kvcache import _quant_kv
+    x = (torch.randn((8192, 128), generator=gen, device="cuda") * 3
+         ).to(torch.bfloat16)
+    xf = x.float()
+    am = xf.abs().amax(dim=-1)
+    for fmt, qmax in ((QFormat.INT8, 127.0), (QFormat.INT4, 7.0)):
+        _, s = kd.quant_kv(x, fmt)
+        recip = float(np.float32(1.0) / np.float32(qmax))
+        s_mul = torch.clamp(am * recip, min=1e-12)
+        s_div = torch.clamp(am / torch.full_like(am, qmax), min=1e-12)
+        n_mul, n_div = int((s != s_mul).sum()), int((s != s_div).sum())
+        say(f"  quant_kv {fmt.name} scale on the card: differs from "
+            f"absmax·fl(1/{qmax:g}) in {n_mul} and from absmax/{qmax:g} in "
+            f"{n_div} of {s.numel()} rows")
+        if n_mul:
+            fail("quant_kv's scale on the card is not absmax·fl(1/qmax), "
+                 "the rounding the fused write reproduces")
+
+
+def _bytes_differ(torch, a, b) -> int:
+    return int((a.contiguous().view(torch.uint8)
+                != b.contiguous().view(torch.uint8)).sum())
+
+
+def decode_attn_phase(torch, gen):
+    """Row 7 (decode attention over INT8 / INT4 codes) and its fused entry
+    (the new token's K/V quantized and written at each lane's slot in the
+    same launch) against their plain versions: every case through both
+    entries, a repeat launch bit for bit, the fused entry's cache bytes bit
+    for bit, and two planted faults each check must reject: the stale row
+    read in place of the new one, and the last split's partial dropped."""
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.ops.kernels import decode_attn as kd
     F = torch.nn.functional
-    say("[kernels] decode_attn (koifish_tpu_torch/csrc/decode_attn.cu)")
-    # bf16 outputs of O(0.1-1); p·v_scale is rounded to bf16 against the
-    # running max in the kernel and the final max in the plain version
+    say("[kernels] decode_attn (koifish_tpu_torch/csrc/decode_attn.cu): "
+        "attention, and attention with the fused K/V write")
+    # bf16 outputs of O(0.1-1); p·v_scale is rounded to bf16 against each
+    # warp's running max in the kernel and the final max in the plain version
     tol = 2e-2
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _kv_quant_rounding(torch, gen)
 
-    def cache(B, Hkv, S, D, fmt):
-        x = torch.randn((B, Hkv, S, D), generator=gen, device="cuda")
-        return _quant_kv(x, fmt)
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
 
-    cases = [  # (label, B, Hq, Hkv, S, D, Dv, lengths)
-        ("slice B32 Hq16 Hkv8 S1024 D128 len129-192", 32, 16, 8, 1024, 128,
-         128, (129, 193)),
-        ("ragged B5 Hq16 Hkv8 S1024 D128 len1-1024", 5, 16, 8, 1024, 128,
-         128, (1, 1025)),
-        ("ragged B3 Hq64 Hkv4 S300 D64 len1-300", 3, 64, 4, 300, 64, 64,
-         (1, 301)),
-        ("mla B2 Hq8 Hkv8 S512 D192 Dv128", 2, 8, 8, 512, 192, 128,
-         (100, 513)),
-        ("B4 Hq28 Hkv4 S256 D256", 4, 28, 4, 256, 256, 256, (200, 257)),
-    ]
-    res = None
+    seen = set()
+    res, shapes = {}, []
     for fmt in (QFormat.INT8, QFormat.INT4):
-        for label, B, Hq, Hkv, S, D, Dv, (lo, hi) in cases:
-            kc, ks = cache(B, Hkv, S, D, fmt)
-            vc, vs = cache(B, Hkv, S, Dv, fmt)
-            q = torch.randn((B, Hq, D), generator=gen, device="cuda"
-                            ).to(torch.bfloat16)
+        for i, (label, B, Hq, Hkv, S, D, Dv, (lo, hi)) in enumerate(
+                DECODE_CASES):
+            kc, ks = kd.quant_kv(rnd(B, Hkv, S, D), fmt)
+            vc, vs = kd.quant_kv(rnd(B, Hkv, S, Dv), fmt)
+            q = rnd(B, Hq, D).to(torch.bfloat16)
+            kn = (rnd(B, Hkv, D) * 2).to(torch.bfloat16)
+            vn = rnd(B, Hkv, Dv).to(torch.bfloat16)
             lengths = torch.randint(lo, hi, (B,), generator=gen,
                                     device="cuda", dtype=torch.int32)
+            slots = (torch.rand((B,), generator=gen, device="cuda")
+                     * lengths).to(torch.int32)      # a live row each lane
             sc = 1.0 / D ** 0.5
+            splits = kd.plan(B, Hq, Hkv, S, sms)
+            groups = -(-(Hq // Hkv) // kd.GROUP)
+            seen.update({f"splits {splits}", f"groups {groups}", fmt.name,
+                         f"D{D} Dv{Dv}"})
+            tag = f"{fmt.name} {label} (splits {splits})"
+            # attention alone
             o = kd.decode_attention_quant(q, kc, vc, ks, vs, lengths, sc)
+            o2 = kd.decode_attention_quant(q, kc, vc, ks, vs, lengths, sc)
             ref = kd.decode_attention_plain(q, kc, vc, ks, vs, lengths, sc)
             torch.cuda.synchronize()
             err = max_err(o, ref)
-            check(f"decode_attn {fmt.name} {label}", err, tol)
-            if res is None and fmt is QFormat.INT8:
-                kms = time_ms(torch, lambda: kd.decode_attention_quant(
-                    q, kc, vc, ks, vs, lengths, sc), iters=50)
-                pms = time_ms(torch, lambda: kd.decode_attention_plain(
-                    q, kc, vc, ks, vs, lengths, sc), iters=10)
-                g = Hq // Hkv
-                kf = (kc.float() * ks[..., None]).to(torch.bfloat16)
-                vf = (vc.float() * vs[..., None]).to(torch.bfloat16)
-                kf = kf.repeat_interleave(g, dim=1)
-                vf = vf.repeat_interleave(g, dim=1)
-                mask = (torch.arange(S, device="cuda")[None, :]
-                        < lengths[:, None])[:, None, None, :]
-                q4 = q[:, :, None, :]
-                lms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    q4, kf, vf, attn_mask=mask, scale=sc), iters=50)
-                live = int(lengths.sum())
-                nbytes = (B * Hq * D * 2 + live * Hkv * (D + Dv)
-                          + live * Hkv * 8 + B * Hq * Dv * 2)
-                bms, by = bound_ms(nbytes, 2.0 * Hq // Hkv * Hkv
-                                   * (D + Dv) * live)
-                say(f"  time decode_attn INT8 slice (one layer): "
-                    f"kernel_ms={kms:.4f} plain_ms={pms:.4f} "
-                    f"library_ms(SDPA on dequantized cache)={lms:.4f} "
-                    f"bound_ms={bms:.5f} ({by})")
-                res = dict(ms=kms, plain_ms=pms, library_ms=lms,
-                           bound_ms=bms, bound_by=by, max_abs_err=err)
+            check(f"decode_attn {tag}", err, tol)
+            check(f"decode_attn {tag} repeat launch", bits_differ(o, o2), 0.0)
+            # planted fault: the last live split's partial dropped
+            live = [sum(t1 > t0 for t0, t1 in kd.rank_tiles(n, S, splits))
+                    for n in lengths.tolist()]
+            if max(live) >= 2:
+                drop = kd.decode_attention_splits_plain(
+                    q, kc, vc, ks, vs, lengths, sc, splits, drop_last=True)
+                derr = max_err(o, drop)
+                say(f"    fault (last split dropped): output err {derr:.3e}")
+                seen.add("split dropped")
+                if derr <= tol:
+                    fail(f"decode_attn {tag}: the check does not reject the "
+                         f"last split's partial dropped")
+            # the fused write, and (first case) q along k_new: the new row
+            # carries the softmax and the output is about its V row, kept
+            # O(1) (the tolerance's premise: 1 bf16 ulp in [4, 8) is 3.1e-2)
+            variants = [("", q, vn)]
+            if i == 0:
+                q_new = kn.float().repeat_interleave(Hq // Hkv, dim=1) * 4
+                variants.append((" q along k_new", q_new.to(torch.bfloat16),
+                                 vn * 0.25))
+            for vlabel, qv, vnv in variants:
+                fused = [t.clone() for t in (kc, vc, ks, vs)]
+                plain = [t.clone() for t in (kc, vc, ks, vs)]
+                again = [t.clone() for t in (kc, vc, ks, vs)]
+                ow = kd.decode_attention_write(qv, kn, vnv, *fused, slots,
+                                               lengths, sc)
+                rw = kd.decode_attention_write_plain(qv, kn, vnv, *plain,
+                                                     slots, lengths, sc)
+                ow2 = kd.decode_attention_write(qv, kn, vnv, *again, slots,
+                                                lengths, sc)
+                torch.cuda.synchronize()
+                e = max_err(ow, rw)
+                werr = e if not vlabel else werr
+                check(f"decode_attn_write {tag}{vlabel}", e, tol)
+                nb = sum(_bytes_differ(torch, a, b)
+                         for a, b in zip(fused, plain))
+                check(f"decode_attn_write {tag}{vlabel} cache bytes",
+                      float(nb), 0.0)
+                rep = bits_differ(ow, ow2) + sum(
+                    _bytes_differ(torch, a, b) for a, b in zip(fused, again))
+                check(f"decode_attn_write {tag}{vlabel} repeat launch", rep,
+                      0.0)
+                # planted fault: the stale row read in place of the new one
+                # (the cache left unwritten)
+                stale = kd.decode_attention_plain(qv, kc, vc, ks, vs,
+                                                  lengths, sc)
+                sb = sum(_bytes_differ(torch, a, b)
+                         for a, b in zip(fused, (kc, vc, ks, vs)))
+                serr = max_err(ow, stale)
+                say(f"    fault (stale row): {sb} cache bytes differ, "
+                    f"output err {serr:.3e}")
+                if sb == 0 or (vlabel and serr <= tol):
+                    fail(f"decode_attn_write {tag}{vlabel}: the checks do "
+                         f"not reject the stale row")
+            if fmt is not QFormat.INT8 or i >= DECODE_TIMED:
+                continue
+            g = Hq // Hkv
+            fused = [t.clone() for t in (kc, vc, ks, vs)]
+            kms = time_ms(torch, lambda: kd.decode_attention_quant(
+                q, kc, vc, ks, vs, lengths, sc), iters=50)
+            wms = time_ms(torch, lambda: kd.decode_attention_write(
+                q, kn, vn, *fused, slots, lengths, sc), iters=50)
+            pms = time_ms(torch, lambda: kd.decode_attention_plain(
+                q, kc, vc, ks, vs, lengths, sc), iters=10)
+            wpms = time_ms(torch, lambda: kd.decode_attention_write_plain(
+                q, kn, vn, *fused, slots, lengths, sc), iters=10)
+            # cold: 8 copies of the cache (>= 64 MB at these shapes)
+            copies = [(q, kc, vc, ks, vs)] + [
+                (q, t.clone(), u.clone(), v.clone(), w.clone())
+                for t, u, v, w in [(kc, vc, ks, vs)] * 7]
+            kcold = time_cold_ms(torch, lambda q_, a, b_, c, d: (
+                kd.decode_attention_quant(q_, a, b_, c, d, lengths, sc)),
+                copies)
+            wcold = time_cold_ms(torch, lambda q_, a, b_, c, d: (
+                kd.decode_attention_write(q_, kn, vn, a, b_, c, d, slots,
+                                          lengths, sc)), copies)
+            del copies
+            kf = (kc.float() * ks[..., None]).to(torch.bfloat16)
+            vf = (vc.float() * vs[..., None]).to(torch.bfloat16)
+            kf = kf.repeat_interleave(g, dim=1)
+            vf = vf.repeat_interleave(g, dim=1)
+            mask = (torch.arange(S, device="cuda")[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            q4 = q[:, :, None, :]
+            lms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, kf, vf, attn_mask=mask, scale=sc), iters=50)
+            del kf, vf
+            live = int(lengths.sum())
+            nbytes = (B * Hq * D * 2 + live * Hkv * (D + Dv)
+                      + live * Hkv * 8 + B * 4 + B * Hq * Dv * 2)
+            flops = 2.0 * g * Hkv * (D + Dv) * live
+            bms, by = bound_ms(nbytes, flops)
+            # the write: new K/V read, codes and scales written, slots read
+            wbytes = B * Hkv * (D + Dv) * 2 + B * Hkv * (D + Dv + 8) + B * 4
+            wbms, wby = bound_ms(nbytes + wbytes, flops)
+            say(f"  time decode_attn INT8 {label} (one layer, splits "
+                f"{splits}, {live} live rows): kernel_ms={kms:.4f} "
+                f"fused_ms={wms:.4f} "
+                f"(write {wms - kms:+.4f}) cold: kernel_ms={kcold:.4f} "
+                f"fused_ms={wcold:.4f}; plain_ms={pms:.4f} "
+                f"fused_plain_ms={wpms:.4f} library_ms(SDPA on dequantized "
+                f"cache)={lms:.4f} bound_ms={bms:.5f} ({by}) "
+                f"fused_bound_ms={wbms:.5f} ({wby})")
+            shapes.append(dict(label=label, splits=splits, ms=kms,
+                               fused_ms=wms, cold_ms=kcold,
+                               fused_cold_ms=wcold, plain_ms=pms,
+                               fused_plain_ms=wpms, library_ms=lms,
+                               bound_ms=bms, fused_bound_ms=wbms))
+            if i == 0:
+                res["decode_attn"] = dict(
+                    ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                    bound_by=by, max_abs_err=err)
+                res["decode_attn_write"] = dict(
+                    ms=wms, plain_ms=wpms, library_ms=None, bound_ms=wbms,
+                    bound_by=wby, max_abs_err=werr, write_ms=wms - kms)
+    want = {"splits 1", f"splits {kd.MAX_SPLITS}", "groups 2", "INT4",
+            "D192 Dv128", "split dropped"}
+    if not want <= seen:
+        fail(f"decode_attn: no check reached {sorted(want - seen)}")
+    res["shapes"] = shapes
     return res
 
 
@@ -1782,6 +1963,17 @@ def reference_check_slice3(torch):
            out["cuda"][3])
 
 
+def fused_write_check(counts, run: str) -> None:
+    """On an INT8 cache every decode attention launch also wrote the new
+    token's K/V (one launch a layer), and no standalone slot write ran."""
+    n, w = counts.get("decode_attn", 0), counts.get("kv_write", 0)
+    say(f"  {run}: {n} decode attention launches, {w} with the K/V write, "
+        f"{counts.get('slot_write', 0)} standalone slot writes")
+    if w != n or counts.get("slot_write", 0):
+        fail(f"{run}: the decode step wrote its K/V outside the decode "
+             f"attention's launch")
+
+
 def profile_window(torch, label: str, fn, steps: int = 1) -> None:
     """Where ``fn``'s time goes: torch.profiler over one warm call — device
     time by kernel and the device's idle share of the wall time, per step
@@ -1801,7 +1993,8 @@ def profile_window(torch, label: str, fn, steps: int = 1) -> None:
            and str(e.device_type).endswith("CUDA")]
     busy_us = sum(t for _, t, _ in dev)
     say(f"[profile] {label}: wall {wall * 1e3 / steps:.3f} ms/step "
-        f"(under the profiler)")
+        f"(under the profiler); {sum(n for _, _, n in dev) / steps:.1f} "
+        f"device launches (kernels and copies) a step")
     if busy_us <= 0:
         say("  device time: not measured (the profiler saw no CUDA time)")
         return
@@ -1914,9 +2107,10 @@ def slice_phase(torch):
     say(f"  peak device memory: {peak / 2**30:.2f} GiB")
     say(f"  launches in the main path ({REPS} x (TTFT call + {NEW}-token "
         f"call) at B={B}, then one greedy B=1 call): {json.dumps(counts)}")
-    for name in ("flash_fwd", "qmm", "qmv", "decode_attn"):
+    for name in ("flash_fwd", "qmm", "qmv", "decode_attn", "kv_write"):
         if counts.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the main path")
+    fused_write_check(counts, "the serving run")
     if tuple(toks.shape) != (B, NEW) or tuple(greedy.shape) != (1, 32):
         fail(f"generate returned {tuple(toks.shape)} / "
              f"{tuple(greedy.shape)}")
@@ -2024,10 +2218,11 @@ def batcher_phase(torch):
                  f"{r.max_new}")
         if min(r.tokens) < 0 or max(r.tokens) >= card.vocab_size:
             fail(f"request {r.rid}: token ids out of the vocabulary")
-    for name in ("qmv_book", "qmm_book", "slot_write", "flash_fwd",
+    for name in ("qmv_book", "qmm_book", "kv_write", "flash_fwd",
                  "decode_attn"):
         if counts.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched by the batcher run")
+    fused_write_check(counts, "the batcher run")
     # one decode chunk of the host loop with every slot busy
     for i in range(SLOTS):
         eng.submit(Request(rid=1000 + i, prompt=reqs[i].prompt[:128],
@@ -2682,7 +2877,12 @@ def main() -> None:
         ("qmv", "qmatmul.cu", "koifish_tpu/ops/pallas/matmul.py:201",
          qmm["qmv"], serve_counts),
         ("decode_attn", "decode_attn.cu",
-         "koifish_tpu/ops/pallas/decode_attn.py:179", dec, serve_counts),
+         "koifish_tpu/ops/pallas/decode_attn.py:179", dec["decode_attn"],
+         serve_counts),
+        ("decode_attn_write", "decode_attn.cu",
+         "koifish_tpu/ops/pallas/decode_attn.py:179",
+         dec["decode_attn_write"],
+         {"decode_attn_write": serve_counts.get("kv_write", 0)}),
         ("flash_bwd_dkv", "flash_bwd.cu",
          "koifish_tpu/ops/pallas/flash.py:932", bwd["flash_bwd_dkv"],
          train_counts),
@@ -2701,9 +2901,12 @@ def main() -> None:
         ("fused_ce_dw", "fused_ce.cu",
          "koifish_tpu/ops/pallas/fused_ce.py:302", fce["fused_ce_dw"],
          train_counts),
+        # the batcher's slot writes: the standalone kernel's and those
+        # folded into the decode attention's launch
         ("slot_write", "slotwrite.cu",
          "koifish_tpu/ops/pallas/slotwrite.py:87", sw["slot_write"],
-         batch_counts),
+         {"slot_write": batch_counts.get("slot_write", 0)
+          + batch_counts.get("kv_write", 0)}),
         ("page_write", "slotwrite.cu",
          "koifish_tpu/ops/pallas/slotwrite.py:140", sw["page_write"],
          paged_counts),
@@ -2740,6 +2943,9 @@ def main() -> None:
                     bound_ms=m["bound_ms"], bound_by=m["bound_by"],
                     library_ms=m["library_ms"])
                for n, f, r, m, c in rows]
+    for k in kernels:   # the fused write's own share of its launch
+        if k["name"] == "decode_attn_write":
+            k["write_ms"] = dec["decode_attn_write"]["write_ms"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

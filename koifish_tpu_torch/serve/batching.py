@@ -13,7 +13,9 @@ The JAX package's ``serve/batching.py``:
   its pool slot (``merge_lane``) — the cache holds what the JAX package's
   holds;
 - every lane sits at its own position, so each decode step writes K/V at
-  per-lane slots: the slot-write kernel, one launch per layer.
+  per-lane slots: inside the decode attention's launch on a quantized
+  cache, the slot-write kernel on a BF16 one; one launch per layer either
+  way.
 
 Reports TTFT per request and the exact aggregate decode rate.
 """

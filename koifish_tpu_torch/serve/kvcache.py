@@ -10,7 +10,9 @@ stored RoPE'd at their absolute position.
 Unlike the JAX package, writes update the cache buffers in place (the JAX
 caller donates the cache, so the observable behaviour is the same). The
 one-token write at per-lane slots (``ring_write``, ``write_token``) goes
-through the slot-write kernel (``ops/kernels/slotwrite.py``).
+through the slot-write kernel (``ops/kernels/slotwrite.py``); the decode
+step writes quantized caches inside its attention launch
+(``serve/layered.py``).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from koifish_tpu_torch.dtypes import QFormat
-from koifish_tpu_torch.ops.kernels.decode_attn import unpack_int4
+from koifish_tpu_torch.ops.kernels.decode_attn import quant_kv, unpack_int4
 from koifish_tpu_torch.ops.kernels.slotwrite import slot_write_many
 from koifish_tpu_torch.utils.device import resolve_device
 
@@ -108,20 +110,10 @@ def ring_slot(pos: torch.Tensor, size: int, sinks: int) -> torch.Tensor:
 
 def _quant_kv(x: torch.Tensor, fmt: QFormat
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-(token, head) absmax quantization of a K/V vector [..., D].
-    Rounds half to even (``torch.round``, as ``jnp.round``). INT4 returns
-    block-split packed bytes [..., D//2]."""
-    qmax = 127.0 if fmt is QFormat.INT8 else 7.0
-    xf = x.to(torch.float32)
-    absmax = torch.amax(torch.abs(xf), dim=-1)
-    scale = torch.clamp(absmax / qmax, min=1e-12)
-    q = torch.clamp(torch.round(xf / scale[..., None]), -qmax - 1, qmax
-                    ).to(torch.int8)
-    if fmt is QFormat.INT4:
-        d = q.shape[-1]
-        b = (q + 8).to(torch.uint8)
-        q = b[..., : d // 2] | (b[..., d // 2:] << 4)
-    return q, scale
+    """Per-(token, head) absmax quantization of a K/V vector [..., D]
+    (``ops/kernels/decode_attn.quant_kv``, the one definition, which the
+    decode step's fused write matches on the card)."""
+    return quant_kv(x, fmt)
 
 
 def ring_write(buf: torch.Tensor, val: torch.Tensor,

@@ -2,12 +2,17 @@
 
 The JAX package keeps the decode cache as a tuple of per-layer arrays so
 XLA can update each one in place; here each layer's buffers are plain
-tensors that the step writes in place. The one-token write of a uniform
-batch (every lane at the same position) is an in-place ``index_copy_`` of
-one slot into the layer's buffer (``layered.py:133-142`` of the JAX
-package); per-lane slots (the continuous batcher's pool, and ``KVCache``
-views for ``engine.decode_step``) go through the slot-write kernel: one
-launch for the layer's K and V codes and scales.
+tensors that the step writes in place. On a quantized (INT8 or INT4)
+cache the one-token write and the attention are one launch a layer
+(``ops/kernels/decode_attn.decode_attention_write``: the new K/V quantized,
+its codes and scales written at each lane's slot, then attention over the
+updated cache), whether every lane sits at the same position or not, as
+the reference's CUDA decode writes the KV slot in place (Pipe.hpp:160). A
+BF16 cache keeps the two steps of ``layered.py:133-142`` of the JAX
+package: a uniform batch writes its one slot with an in-place
+``index_copy_``; per-lane slots (the continuous batcher's pool, and
+``KVCache`` views for ``engine.decode_step``) go through the slot-write
+kernel.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ from koifish_tpu_torch.dtypes import QFormat
 from koifish_tpu_torch.models.transformer import (
     Params, _linear_l, _norm, gather_embed, lm_head, mlp, qkv_project)
 from koifish_tpu_torch.ops.attention import decode_attention
-from koifish_tpu_torch.ops.kernels.decode_attn import decode_attention_quant
+from koifish_tpu_torch.ops.kernels.decode_attn import decode_attention_write
 from koifish_tpu_torch.ops.kernels.slotwrite import slot_write_many
 from koifish_tpu_torch.ops.rope import rope_cos_sin_at, rope_inv_freq
 from koifish_tpu_torch.serve import kvcache as kvc
@@ -138,14 +143,15 @@ def decode_step_layered(card: ModelCard, params: Params, token: torch.Tensor,
                                        stream_rows, inv_freq)
         h = _norm(card, x, lp["ln1"], lp.get("ln1_b"))
         q, k, v = qkv_project(card, lp, h, cos, sin, None)
-        vsl = lc.v_scale[li] if quant else None
-        _write(kvc._token_pairs(kl, vl, ksl, vsl, lc.fmt, k[:, 0], v[:, 0]),
-               slots, lc.uniform)
         if quant:
-            # the fused kernel reads the INT8 / packed-INT4 codes directly
-            a = decode_attention_quant(q[:, 0], kl, vl, ksl, vsl, lengths,
+            # one launch: quantize and write the new K/V, then attend over
+            # the INT8 / packed-INT4 codes
+            a = decode_attention_write(q[:, 0], k[:, 0], v[:, 0], kl, vl,
+                                       ksl, lc.v_scale[li], slots, lengths,
                                        att_scale)
         else:
+            _write(kvc._token_pairs(kl, vl, None, None, lc.fmt, k[:, 0],
+                                    v[:, 0]), slots, lc.uniform)
             valid = (torch.arange(lc.size, device=dev)[None, :]
                      < lengths[:, None])
             a = decode_attention(q[:, 0], kl.transpose(1, 2),

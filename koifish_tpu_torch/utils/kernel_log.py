@@ -13,7 +13,9 @@ Launch counters: every kernel wrapper calls ``count(name)`` exactly where
 it launches its CUDA kernel, so a run can show that its main path went
 through the kernels (``reset_launches`` / ``launches``). The names:
 ``flash_fwd``, ``flash_bwd_dkv``, ``flash_bwd_dq``, ``qmm``, ``qmv``,
-``qmm_book``, ``qmv_book``, ``decode_attn``, ``slot_write``,
+``qmm_book``, ``qmv_book``, ``decode_attn``, ``kv_write`` (a
+``decode_attn`` launch that also quantized and wrote the new token's K/V),
+``slot_write``,
 ``page_write``, ``fused_ce_fwd``, ``fused_ce_dlogits``, ``fused_ce_dx``,
 ``fused_ce_dw``, their int8 flavour ``fused_ce_fwd_int8``,
 ``fused_ce_dlogits_int8``, ``fused_ce_dx_int8``, ``fused_ce_dw_int8``,
