@@ -2,16 +2,16 @@
 """A/B one change of the port on one GPU: old, new, new, old in one call.
 
     python3 chip_ab.py OLD_TREE PHASE[,PHASE...] [--train] [--host] [--shapes]
-                       [--decode]
+                       [--decode] [--paged]
 
 OLD_TREE is a copy of the repository at the old version
 (``koifish_tpu_torch/``, ``chip_smoke.py`` and ``configs/``, for example
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists, such
 as ``build/ab_old``); the new version is the tree around this script. Each of
-the four runs is a fresh process in its tree that builds that tree's kernels
-and calls one kernel phase of ``chip_smoke.py`` (``flash_bwd_phase``,
-``fused_ce_phase``, ...; several, comma-separated; ``-`` for none), printing
-each kernel's
+the four runs is a fresh process in its tree that first builds all of that
+tree's kernels (none is built inside a timed call), then calls one kernel
+phase of ``chip_smoke.py`` (``flash_bwd_phase``, ``fused_ce_phase``, ...;
+several, comma-separated; ``-`` for none), printing each kernel's
 ``ms`` (for a phase that returns one flat result, as ``flash_phase`` does,
 every number of it whose key ends in ``ms``); with ``--train`` the second and
 fourth runs also train Qwen3-0.6B (B=8) and GPT2-124M (B=32) for 6 steps, and
@@ -36,7 +36,16 @@ and the attention that the decode step made) at the slice's (B 32, lengths
 100-1024) and a g = 8 shape (Hq 64, Hkv 8, B 8, lengths 256-1024), all S
 1024, D 128, as graph replays and as the host µs of one eager call; then
 runs ``chip_smoke.batcher_phase`` (its aggregate decode tok/s) with the
-device launches a step of its profiled decode chunk. Compare the
+device launches a step of its profiled decode chunk. With ``--paged`` every
+run also times, through that tree's own modules, one layer's paged
+attention and its write plus attention at the paged run's shape (B 32, Hq
+16, Hkv 8, D 128, a 4-page table, lengths 129-192): the fused entry where
+the tree has it, else ``page_write_many`` and the gather
+``_paged_attention_ref`` that the paged decode step made; as graph replays
+and as the host µs of one eager call; then builds Qwen3-0.6B with k-means
+NF4 weights, runs ``chip_smoke.paged_phase`` (its tok/s) and profiles one
+paged decode chunk (8 decode + sample steps at B 32) for its device
+launches a step. Compare the
 two versions only within one call: two calls may land on two cards or on a
 busier host. The first line printed is the card's name and power limit.
 """
@@ -54,11 +63,28 @@ RUN = r'''
 import sys, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
+from koifish_tpu_torch.ops.kernels import _build
+_build.build()   # every kernel before any timing, not at its first use
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 g = torch.Generator(device="cuda"); g.manual_seed(0)
 def rnd(*s):
     return torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+def launches_a_step(torch, label, fn, steps=1):
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = sum(e.count for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and getattr(e, "self_device_time_total", 0) > 0)
+    print(f"P {label}: {n / steps:.1f} device launches a step, wall "
+          f"{wall * 1e3 / steps:.3f} ms/step", flush=True)
 for phase in sys.argv[1].split(",") if sys.argv[1] != "-" else []:
     r = getattr(cs, phase)(torch, g)
     if "ms" in r:   # one flat result (flash_phase)
@@ -153,26 +179,65 @@ if "decode" in sys.argv[2:]:
         host[label] = [round(cs.host_us(torch, f), 1) for f in (attn, step)]
     print("D decode ms [attention, write + attention]", dev, flush=True)
     print("D decode host us [attention, write + attention]", host, flush=True)
-
-    def launches_a_step(torch, label, fn, steps=1):
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        n = sum(e.count for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA")
-                and getattr(e, "self_device_time_total", 0) > 0)
-        print(f"P {label}: {n / steps:.1f} device launches a step, wall "
-              f"{wall * 1e3 / steps:.3f} ms/step", flush=True)
     cs.profile_window = launches_a_step
     cs.batcher_phase(torch)
+if "paged" in sys.argv[2:]:
+    import dataclasses
+    from koifish_tpu_torch.config import CLIParams, QuantCard
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.ops.kernels import slotwrite as ksw
+    from koifish_tpu_torch.ops.sampling import sample_logits
+    from koifish_tpu_torch.quant import quantize_params
+    from koifish_tpu_torch.serve import paged as P
+    B, Hq, Hkv, D, maxp, NP = 32, 16, 8, 128, 4, 68
+    lengths = torch.randint(129, 193, (B,), generator=g, device="cuda",
+                            dtype=torch.int32)
+    live = torch.randperm(NP, generator=g, device="cuda")[:2 * B]
+    table = torch.cat([live.reshape(B, 2), torch.randint(
+        0, NP, (B, maxp - 2), generator=g, device="cuda")], 1
+        ).to(torch.int32).contiguous()
+    kp, vp = rnd(Hkv, NP, 128, D), rnd(Hkv, NP, 128, D)
+    q, kn, vn = rnd(B, Hq, D), rnd(B, Hkv, D), rnd(B, Hkv, D)
+    pos = (lengths - 1).long()
+    pids = table.gather(1, (pos // 128)[:, None])[:, 0].contiguous()
+    rows = (pos % 128).to(torch.int32)
+    sc = D ** -0.5
+    read = getattr(P, "_paged_attention", P._paged_attention_ref)
+    attn = lambda: read(q, kp, vp, lengths, table, sc)
+    if hasattr(P, "paged_attention_write"):
+        step = lambda: P.paged_attention_write(q, kn, vn, kp, vp, lengths,
+                                               table, pids, rows, sc)
+    else:
+        def step():
+            ksw.page_write_many([(kp, kn), (vp, vn)], pids, rows)
+            return P._paged_attention_ref(q, kp, vp, lengths, table, sc)
+    print("G paged layer ms [attention, write + attention]",
+          [round(cs.time_ms(torch, f, iters=50), 4) for f in (attn, step)],
+          "host us", [round(cs.host_us(torch, f), 1) for f in (attn, step)],
+          flush=True)
+    p = CLIParams.load("configs/qwen3_0.6b.json")
+    card = p.model
+    gq = torch.Generator(device="cuda")
+    gq.manual_seed(p.seed)
+    qp = quantize_params(init_params(card, gq),
+                         QuantCard.from_json(cs.KMEANS_RULES), card)
+    cs.profile_window = lambda *a, **k: None
+    cs.paged_phase(torch, card, qp)
+    pc, alloc = P.init_paged_cache(card.n_layer, 32, card.n_kv_head,
+                                   card.head_dim, max_pages=4)
+    pc = dataclasses.replace(alloc.ensure(pc, 137),
+                             pos=torch.full_like(pc.pos, 128))
+    tok = torch.randint(0, card.vocab_size, (32,), generator=g, device="cuda")
+
+    def chunk():
+        c, t = pc, tok
+        for _ in range(8):
+            logits, c = P.decode_step_paged(card, qp, t, c)
+            t = sample_logits(g, logits, 0.6, 50, 0.95)
+    launches_a_step(torch, "paged decode chunk (8 steps, B=32)", chunk, 8)
 '''
 
-KEEP = ("K ", "H ", "S ", "D ", "P ", "  check", "  time", "  host",
+KEEP = ("K ", "H ", "S ", "D ", "P ", "G ", "  check", "  time", "  host",
         "  median", "  losses", "  aggregate", "  completed", "chip_smoke")
 
 
@@ -184,6 +249,7 @@ def main() -> None:
     ap.add_argument("--host", action="store_true")
     ap.add_argument("--shapes", action="store_true")
     ap.add_argument("--decode", action="store_true")
+    ap.add_argument("--paged", action="store_true")
     args = ap.parse_args()
     old = os.path.abspath(args.old_tree)
     if not os.path.exists(os.path.join(old, "chip_smoke.py")):
@@ -197,14 +263,16 @@ def main() -> None:
         extra = (["train"] if args.train and i in (1, 3) else []) \
             + (["host"] if args.host else []) \
             + (["shapes"] if args.shapes else []) \
-            + (["decode"] if args.decode else [])
+            + (["decode"] if args.decode else []) \
+            + (["paged"] if args.paged else [])
         t0 = time.perf_counter()
         out = subprocess.run([sys.executable, "-c", RUN, args.phase] + extra,
                              cwd=tree, capture_output=True, text=True)
         print(f"=== run {i} {name} rc={out.returncode} "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         print("\n".join(ln for ln in out.stdout.splitlines()
-                        if ln.startswith(KEEP)), flush=True)
+                        if ln.startswith(KEEP) or "paged steps at" in ln),
+              flush=True)
         if out.returncode:
             failed = True
             print(out.stdout[-3000:], out.stderr[-5000:], flush=True)

@@ -24,7 +24,15 @@ Phases, in order; any failed check exits non-zero before the last line:
              bytes bit for bit, a repeat launch bit for bit, two planted
              faults rejected: the stale row read, the last split dropped;
              timed at the slice's, the batcher's, chat's and a g = 8
-             shape, beside SDPA on the dequantized cache).
+             shape, beside SDPA on the dequantized cache); the paged
+             decode attention and its fused page write (D 64, 128 and
+             256, g 1-16, one to eight splits, MAXP 4, 5, 8 and 64,
+             lengths to 8192 on scattered tables with stale ids past each
+             length; the written pages bit for bit, a repeat launch bit
+             for bit, three planted faults rejected: two table entries
+             swapped, the last live page dropped, the new row's write
+             skipped; timed at the paged run's, chat's and a g = 8 shape,
+             beside SDPA on a dense view gathered outside the timed call).
              Training: flash backward (dK/dV and dQ kernels, at the Qwen3
              and GPT2 shapes, ragged T and windows; times at both) and the
              fused classifier CE (forward, the backward's dlogits kernel and
@@ -72,8 +80,11 @@ Phases, in order; any failed check exits non-zero before the last line:
              forward and decode attention must all be > 0), and the idle
              share and device launches a step over one decode chunk. Then
              ``generate_paged`` on the same params (B=32, 128-token
-             prompts, 64 new): tok/s, page-pool growth, page-write
-             launches. A tiny k-means model's batcher and paged runs on the
+             prompts, 64 new): tok/s, page-pool growth; fails unless each
+             layer of each of the 191 steps made one paged_attn_write
+             launch, with no standalone page write and no gather; then the
+             idle share and device launches a step over one paged decode
+             chunk. A tiny k-means model's batcher and paged runs on the
              card are held against the CPU.
    chat    — a Qwen3-0.6B HF folder (the config's dims, seeded bf16 weights,
              a byte-level tokenizer) written under build/ and served
@@ -115,11 +126,12 @@ Phases, in order; any failed check exits non-zero before the last line:
              with the write's own ``write_ms``), the Qwen3 train_loop for
              the training kernels, the batcher run for the book kernels
              and the slot writes (the standalone kernel's launches plus
-             the fused ones), the paged run for the page
-             write, GPT2-774M run (a) for the int8 fused CE and the
-             quantizers, run (b) for qdgrad (its quantize pass and its
-             GEMM, each line timing its own launch), the plain bubble run for the
-             int8 GEMV), then the last line
+             the fused ones), the paged run for the paged attention, its
+             fused write and the page write (the standalone kernel's
+             launches plus the fused ones), GPT2-774M run (a) for the
+             int8 fused CE and the quantizers, run (b) for qdgrad (its
+             quantize pass and its GEMM, each line timing its own launch),
+             the plain bubble run for the int8 GEMV), then the last line
              ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the repository around it; without either it
@@ -638,9 +650,12 @@ def decode_attn_phase(torch, gen):
                       + live * Hkv * 8 + B * 4 + B * Hq * Dv * 2)
             flops = 2.0 * g * Hkv * (D + Dv) * live
             bms, by = bound_ms(nbytes, flops)
-            # the write: new K/V read, codes and scales written, slots read
-            wbytes = B * Hkv * (D + Dv) * 2 + B * Hkv * (D + Dv + 8) + B * 4
-            wbms, wby = bound_ms(nbytes + wbytes, flops)
+            # the write: the new rows' codes and scales are written, not
+            # read (each lane's slot is one of its live rows); their bf16
+            # K/V and the slots are read
+            rbytes = B * Hkv * (D + Dv + 8)
+            wbytes = B * Hkv * (D + Dv) * 2 + rbytes + B * 4
+            wbms, wby = bound_ms(nbytes - rbytes + wbytes, flops)
             say(f"  time decode_attn INT8 {label} (one layer, splits "
                 f"{splits}, {live} live rows): kernel_ms={kms:.4f} "
                 f"fused_ms={wms:.4f} "
@@ -665,6 +680,277 @@ def decode_attn_phase(torch, gen):
             "D192 Dv128", "split dropped"}
     if not want <= seen:
         fail(f"decode_attn: no check reached {sorted(want - seen)}")
+    res["shapes"] = shapes
+    return res
+
+
+# paged decode attention cases: (label, B, Hq, Hkv, D, MAXP, lengths [lo,
+# hi)); the first PAGED_TIMED are timed. Together they reach one split and
+# eight, a head group past the first (g 16), D 64, 128 and 256, and a MAXP
+# that is not a multiple of 4.
+PAGED_CASES = [
+    ("slice B32 Hq16 Hkv8 D128 MAXP4 len129-192", 32, 16, 8, 128, 4,
+     (129, 193)),
+    ("chat B1 Hq16 Hkv8 D128 MAXP64 len100-8192", 1, 16, 8, 128, 64,
+     (100, 8193)),
+    ("Qwen3-32B g8 B8 Hq64 Hkv8 D128 MAXP64 len256-8192", 8, 64, 8, 128, 64,
+     (256, 8193)),
+    ("slice B32 Hq16 Hkv8 D128 MAXP64 len129-192", 32, 16, 8, 128, 64,
+     (129, 193)),
+    ("GPT2 B16 Hq12 Hkv12 D64 MAXP8 len1-1024", 16, 12, 12, 64, 8, (1, 1025)),
+    ("g16 B3 Hq64 Hkv4 D256 MAXP5 len1-640", 3, 64, 4, 256, 5, (1, 641)),
+]
+PAGED_TIMED = 3
+#: the paged attention's output check, entry by entry: |Δ| ≤ 2^-7·|plain| +
+#: PAGED_ABS. The kernel and the plain version each round their f32 output
+#: to bf16 once, so an entry may land one bf16 ulp apart (≤ 2^-7 of the
+#: entry); PAGED_ABS covers the f32 sums' own difference, which shows only
+#: at entries near 0: the kernel carries p as a bf16 hi and lo pair (~16
+#: bits, ≤ 2^-17·max|v| ≈ 4e-5 for randn V rows) and sums in another order.
+#: A limit of 2e-2 absolute would be as large as a typical output of the
+#: long lanes (|o| ~ sqrt(e/len), 0.02-0.04 at 4-8k positions).
+PAGED_ULP, PAGED_ABS = 2.0 ** -7, 1e-4
+
+
+def paged_rel(a, ref) -> float:
+    """max over entries of |a − ref| / (2^-7·|ref| + PAGED_ABS): ≤ 1 within
+    the limit."""
+    r = ref.float()
+    return float(((a.float() - r).abs() / (PAGED_ULP * r.abs() + PAGED_ABS)
+                  ).max())
+
+
+def _paged_gate(name: str, a, ref) -> float:
+    """``paged_rel(a, ref)`` ≤ 1, or fail; returns the max abs error."""
+    rel, err = paged_rel(a, ref), max_err(a, ref)
+    ok = rel <= 1.0
+    say(f"  check {name}: |Δ|/(2^-7·|plain| + {PAGED_ABS:.0e})="
+        f"{rel:.3e} (max_abs_err={err:.3e}) limit 1 {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    return err
+
+
+def _paged_inputs(torch, gen, B, Hq, Hkv, D, maxp, lo, hi):
+    """Seeded pools, q, new K/V, lengths and a scattered, non-monotone
+    table: each lane's live pages are distinct ids from a permutation of the
+    pool, its entries past its length stale ids drawn from the whole pool
+    (never the id of its last live page); the write goes to position
+    lengths[b] - 1."""
+    from koifish_tpu_torch.ops.kernels.paged_attn import PAGE
+    dev = "cuda"
+    lengths = torch.randint(lo, hi, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    live = (lengths.long() + PAGE - 1) // PAGE
+    NP = B * -(-(hi - 1) // PAGE) + 4
+    perm = torch.randperm(NP, generator=gen, device=dev).to(torch.int32)
+    table = torch.randint(0, NP, (B, maxp), generator=gen, device=dev,
+                          dtype=torch.int32)
+    taken = 0
+    for b, n in enumerate(live.tolist()):       # live ids: distinct
+        table[b, :n] = perm[taken:taken + n]
+        taken += n
+    last = table.gather(1, (live - 1)[:, None])
+    stale = torch.arange(maxp, device=dev)[None, :] >= live[:, None]
+    table = torch.where(stale & (table == last), (table + 1) % NP, table)
+    pages = lambda: torch.randn((Hkv, NP, PAGE, D), generator=gen,
+                                device=dev).to(torch.bfloat16)
+    kp, vp = pages(), pages()
+    q = torch.randn((B, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+    kn = (torch.randn((B, Hkv, D), generator=gen, device=dev) * 2
+          ).to(torch.bfloat16)
+    vn = torch.randn((B, Hkv, D), generator=gen, device=dev
+                     ).to(torch.bfloat16)
+    pos = (lengths - 1).long()
+    page_ids = table.gather(1, (pos // PAGE)[:, None])[:, 0].contiguous()
+    rows = (pos % PAGE).to(torch.int32)
+    return q, kp, vp, kn, vn, lengths, table.contiguous(), page_ids, rows
+
+
+def paged_attn_phase(torch, gen):
+    """Row 14, the paged decode attention (``csrc/paged_attn.cu``), and its
+    fused page write against their plain versions: every case through both
+    entries, a repeat launch bit for bit, the written pages bit for bit, and
+    three planted faults the checks must reject: two entries of one lane's
+    table swapped, the last live page dropped, and the new row's write
+    skipped while q lies along the new key. Outputs are held entry by entry
+    to ``paged_rel`` ≤ 1, and each fault must read > 1."""
+    from koifish_tpu_torch.ops.kernels import paged_attn as kpa
+    F = torch.nn.functional
+    say("[kernels] paged_attn (koifish_tpu_torch/csrc/paged_attn.cu): "
+        "attention through the page table, and with the page write")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    seen = set()
+    res, shapes = {}, []
+    for i, (label, B, Hq, Hkv, D, maxp, (lo, hi)) in enumerate(PAGED_CASES):
+        q, kp, vp, kn, vn, lengths, table, pids, rows = _paged_inputs(
+            torch, gen, B, Hq, Hkv, D, maxp, lo, hi)
+        sc = 1.0 / D ** 0.5
+        splits = kpa.plan(B, Hq, Hkv, maxp, sms)
+        groups = -(-(Hq // Hkv) // kpa.GROUP)
+        seen.update({f"splits {splits}", f"groups {groups}", f"D{D}"})
+        tag = f"{label} (splits {splits})"
+        o = kpa.paged_attention(q, kp, vp, lengths, table, sc)
+        o2 = kpa.paged_attention(q, kp, vp, lengths, table, sc)
+        ref = kpa.paged_attention_plain(q, kp, vp, lengths, table, sc)
+        torch.cuda.synchronize()
+        err = _paged_gate(f"paged_attn {tag}", o, ref)
+        check(f"paged_attn {tag} repeat launch", bits_differ(o, o2), 0.0)
+        # planted faults, each probed by a lane whose q lies along the key at
+        # one live position, so that the softmax rests on the row the fault
+        # takes away; the probe's own output is checked too. Each fault's
+        # reading against the case's own q is printed beside it.
+        g = Hq // Hkv
+        live = ((lengths.long() + kpa.PAGE - 1) // kpa.PAGE).tolist()
+
+        def probed(lane, pos, faulty):
+            pid, row = int(table[lane, pos // kpa.PAGE]), pos % kpa.PAGE
+            qf = q.clone()
+            qf[lane] = (kp[:, pid, row].float().repeat_interleave(g, 0) * 4
+                        ).to(torch.bfloat16)
+            of = kpa.paged_attention(qf, kp, vp, lengths, table, sc)
+            _paged_gate(f"paged_attn {tag} q along lane {lane}'s key {pos}",
+                        of, kpa.paged_attention_plain(qf, kp, vp, lengths,
+                                                      table, sc))
+            return paged_rel(of, faulty(qf)), paged_rel(o, faulty(q))
+        # two entries of one lane's table swapped: its last live page with a
+        # stale entry (the probe at its last position), or, where every
+        # entry is live, with its first page when the last one is partial
+        # (the probe at row 127 of the first page, which then goes unread)
+        lane = next((b for b, n in enumerate(live) if n < maxp), None)
+        other, pos = (None, 0) if lane is None \
+            else (live[lane], int(lengths[lane]) - 1)
+        if lane is None:
+            lane = next((b for b, n in enumerate(live) if n >= 2
+                         and int(lengths[b]) % kpa.PAGE), None)
+            other, pos = 0, kpa.PAGE - 1
+        if lane is not None:
+            ft = table.clone()
+            a_, b_ = live[lane] - 1, other
+            ft[lane, a_], ft[lane, b_] = table[lane, b_], table[lane, a_]
+            serr, sown = probed(lane, pos, lambda qf: (
+                kpa.paged_attention_plain(qf, kp, vp, lengths, ft, sc)))
+            say(f"    fault (table entries {a_} and {b_} of lane {lane} "
+                f"swapped): probe reads {serr:.3e}, the case's q {sown:.3e}")
+            seen.add("swap")
+            if serr <= 1.0:
+                fail(f"paged_attn {tag}: the check does not reject two "
+                     f"swapped table entries")
+        # the last live page dropped (the probe at lane 0's last position)
+        short = ((lengths - 1) // kpa.PAGE * kpa.PAGE).to(torch.int32)
+        derr, down = probed(0, int(lengths[0]) - 1, lambda qf: (
+            kpa.paged_attention_plain(qf, kp, vp, short, table, sc)))
+        say(f"    fault (last live page dropped): probe reads {derr:.3e}, "
+            f"the case's q {down:.3e}")
+        if derr <= 1.0:
+            fail(f"paged_attn {tag}: the check does not reject the last "
+                 f"live page dropped")
+        # the fused write, and (first case) q along k_new: the new row
+        # carries the softmax and the output is about its V row, kept O(1)
+        variants = [("", q, vn)]
+        if i == 0:
+            q_new = kn.float().repeat_interleave(Hq // Hkv, dim=1) * 4
+            variants.append((" q along k_new", q_new.to(torch.bfloat16),
+                             vn * 0.25))
+        for vlabel, qv, vnv in variants:
+            fused = [kp.clone(), vp.clone()]
+            plain = [kp.clone(), vp.clone()]
+            again = [kp.clone(), vp.clone()]
+            ow = kpa.paged_attention_write(qv, kn, vnv, *fused, lengths,
+                                           table, pids, rows, sc)
+            rw = kpa.paged_attention_write_plain(qv, kn, vnv, *plain,
+                                                 lengths, table, pids, rows,
+                                                 sc)
+            ow2 = kpa.paged_attention_write(qv, kn, vnv, *again, lengths,
+                                            table, pids, rows, sc)
+            torch.cuda.synchronize()
+            e = _paged_gate(f"paged_attn_write {tag}{vlabel}", ow, rw)
+            werr = e if not vlabel else werr
+            nb = sum(_bytes_differ(torch, a, b) for a, b in zip(fused, plain))
+            check(f"paged_attn_write {tag}{vlabel} page bytes", float(nb),
+                  0.0)
+            rep = bits_differ(ow, ow2) + sum(
+                _bytes_differ(torch, a, b) for a, b in zip(fused, again))
+            check(f"paged_attn_write {tag}{vlabel} repeat launch", rep, 0.0)
+            # planted fault: the new row's write skipped (the stale row read)
+            stale = kpa.paged_attention_plain(qv, kp, vp, lengths, table, sc)
+            sb = sum(_bytes_differ(torch, a, b)
+                     for a, b in zip(fused, (kp, vp)))
+            serr = paged_rel(ow, stale)
+            say(f"    fault (write skipped): {sb} page bytes differ, output "
+                f"reads {serr:.3e}")
+            if sb == 0 or (vlabel and serr <= 1.0):
+                fail(f"paged_attn_write {tag}{vlabel}: the checks do not "
+                     f"reject the skipped write")
+        if i >= PAGED_TIMED:
+            continue
+        fused = [kp.clone(), vp.clone()]
+        kms = time_ms(torch, lambda: kpa.paged_attention(
+            q, kp, vp, lengths, table, sc), iters=50)
+        wms = time_ms(torch, lambda: kpa.paged_attention_write(
+            q, kn, vn, *fused, lengths, table, pids, rows, sc), iters=50)
+        pms = time_ms(torch, lambda: kpa.paged_attention_plain(
+            q, kp, vp, lengths, table, sc), iters=10)
+        wpms = time_ms(torch, lambda: kpa.paged_attention_write_plain(
+            q, kn, vn, *fused, lengths, table, pids, rows, sc), iters=10)
+        # cold: 8 copies of the pools (> 50 MB together at these shapes)
+        copies = [(kp.clone(), vp.clone()) for _ in range(8)]
+        kcold = time_cold_ms(torch, lambda a, b_: kpa.paged_attention(
+            q, a, b_, lengths, table, sc), copies)
+        wcold = time_cold_ms(torch, lambda a, b_: kpa.paged_attention_write(
+            q, kn, vn, a, b_, lengths, table, pids, rows, sc), copies)
+        del copies
+        # the library's call on a dense view gathered outside the timed call
+        kd_ = kpa.gather_pages(kp, table)
+        vd_ = kpa.gather_pages(vp, table)
+        mask = (torch.arange(maxp * kpa.PAGE, device="cuda")[None, :]
+                < lengths[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q4, kd_, vd_, attn_mask=mask, scale=sc, enable_gqa=True)
+        lms = time_ms(torch, sdpa, iters=50)
+        lerr = max_err(sdpa()[:, :, 0], ref)
+        del kd_, vd_
+        nlive = int(lengths.sum())
+        # live K/V rows, q and out, the live table entries and the lengths
+        nbytes = (nlive * Hkv * D * 2 * 2 + 2 * B * Hq * D * 2
+                  + sum(live) * 4 + B * 4)
+        flops = 4.0 * g * Hkv * D * nlive
+        bms, by = bound_ms(nbytes, flops)
+        # the write: each lane's new K/V row (its last live row) is read from
+        # k_new/v_new in place of its page and written once; page ids and
+        # rows read
+        rbytes = B * Hkv * D * 2 * 2
+        wbms, wby = bound_ms(nbytes - rbytes + 2 * rbytes + B * 8, flops)
+        hk = host_us(torch, lambda: kpa.paged_attention(
+            q, kp, vp, lengths, table, sc))
+        hw = host_us(torch, lambda: kpa.paged_attention_write(
+            q, kn, vn, *fused, lengths, table, pids, rows, sc))
+        say(f"  time paged_attn {label} (one layer, splits {splits}, {nlive} "
+            f"live rows): kernel_ms={kms:.4f} fused_ms={wms:.4f} (write "
+            f"{wms - kms:+.4f}) cold: kernel_ms={kcold:.4f} "
+            f"fused_ms={wcold:.4f}; plain_ms={pms:.4f} "
+            f"fused_plain_ms={wpms:.4f} library_ms(SDPA enable_gqa on a "
+            f"dense view gathered outside the timed call)={lms:.4f} "
+            f"(its err {lerr:.3e}) bound_ms={bms:.5f} ({by}) "
+            f"fused_bound_ms={wbms:.5f} ({wby}); host per eager call "
+            f"{hk:.1f} us, fused {hw:.1f} us")
+        shapes.append(dict(label=label, splits=splits, ms=kms, fused_ms=wms,
+                           cold_ms=kcold, fused_cold_ms=wcold, plain_ms=pms,
+                           fused_plain_ms=wpms, library_ms=lms,
+                           bound_ms=bms, fused_bound_ms=wbms))
+        if i == 0:
+            res["paged_attn"] = dict(
+                ms=kms, cold_ms=kcold, plain_ms=pms, library_ms=lms,
+                bound_ms=bms, bound_by=by, max_abs_err=err)
+            res["paged_attn_write"] = dict(
+                ms=wms, cold_ms=wcold, plain_ms=wpms, library_ms=None,
+                bound_ms=wbms, bound_by=wby, max_abs_err=werr,
+                write_ms=wms - kms)
+    want = {"splits 1", f"splits {kpa.MAX_SPLITS}", "groups 2", "D64",
+            "D128", "D256", "swap"}
+    if not want <= seen:
+        fail(f"paged_attn: no check reached {sorted(want - seen)}")
     res["shapes"] = shapes
     return res
 
@@ -1817,10 +2103,11 @@ def qmatmul_grad_phase(torch, gen) -> None:
     x = rnd(64, K).requires_grad_(True)
     ws["INT4"].scales.requires_grad_(True)
     raises("scale requiring a gradient",
-           lambda: km.qmatmul(x, ws["INT4"]), "queue 1 item 2")
+           lambda: km.qmatmul(x, ws["INT4"]), "queue 1, gama training")
     ws["k-means NF4"].codebook.requires_grad_(True)
     raises("codebook requiring a gradient",
-           lambda: km.qmatmul(x, ws["k-means NF4"]), "queue 1 item 2")
+           lambda: km.qmatmul(x, ws["k-means NF4"]),
+           "queue 1, gama training")
     w8, x8 = ws["INT8"], rnd(8, K).requires_grad_(True)
     raises("qmv_int8 with x requiring a gradient",
            lambda: kq.qmv_int8(x8, w8.codes, w8.scales), 'INT8_GEMV = "dot"')
@@ -1902,11 +2189,13 @@ def _agree(label: str, a, b) -> None:
 
 def reference_check_slice3(torch):
     """A tiny QWEN3 card with k-means NF4 weights (quantized on the CPU,
-    copied to the card): its card run (book GEMV/GEMM, slot/page writes,
-    flash, decode attention) against the CPU run (plain versions) — prefill
-    logits and ContinuousBatcher greedy tokens (INT8 KV, 2 slots, 5
-    requests); the paged step's logits after a prompt feed and
-    generate_paged greedy tokens. The thresholds of ``reference_check``."""
+    copied to the card): its card run (book GEMV/GEMM, slot writes, flash,
+    decode attention, the paged attention with its page write) against the
+    CPU run (plain versions) — prefill logits and ContinuousBatcher greedy
+    tokens (INT8 KV, 2 slots, 5 requests); the paged step's logits after a
+    prompt feed and generate_paged greedy tokens across a page boundary,
+    the card's paged run one paged_attn_write launch a layer a step. The
+    thresholds of ``reference_check``."""
     from koifish_tpu_torch.config import QuantCard, SamplerCard
     from koifish_tpu_torch.dtypes import QFormat
     from koifish_tpu_torch.models import init_params
@@ -1915,7 +2204,9 @@ def reference_check_slice3(torch):
                                          cache_for, generate_paged, prefill)
     from koifish_tpu_torch.serve.paged import (decode_step_paged,
                                                init_paged_cache)
+    from koifish_tpu_torch.utils import kernel_log
     card = _tiny_card()
+    NEW_PAGED = 64      # 70 prompt + 64 positions: across the page at 128
     p_cpu = quantize_params(init_params(card, device="cpu", seed=4),
                             QuantCard.from_json(KMEANS_RULES), card,
                             device="cpu")
@@ -1943,16 +2234,24 @@ def reference_check_slice3(torch):
             eng.submit(Request(rid=i, prompt=ids, max_new=10))
         res = eng.run()
         btoks = torch.tensor([res[i].tokens for i in range(len(reqs))])
+        kernel_log.reset_launches()
         pc, alloc = init_paged_cache(card.n_layer, 4, card.n_kv_head,
                                      card.head_dim, max_pages=4, device=dev)
         pc = alloc.ensure(pc, 20)
         for t in range(20):
             plog, pc = decode_step_paged(card, params, prompt[:, t].to(dev),
                                          pc)
-        ptoks = generate_paged(card, params, prompt[:, :100], sampler=greedy,
-                               max_new_tokens=40, decode_chunk=8,
+        ptoks = generate_paged(card, params, prompt, sampler=greedy,
+                               max_new_tokens=NEW_PAGED, decode_chunk=8,
                                max_pages=4, device=dev)
         out[dev] = (logits.cpu(), btoks, plog.float().cpu(), ptoks.cpu())
+        counts = kernel_log.launches()
+        if dev == "cuda" and (counts.get("page_write", 0)
+                              or counts.get("paged_attn_write", 0)
+                              != card.n_layer * (20 + prompt.shape[1]
+                                                 + NEW_PAGED - 1)):
+            fail(f"tiny paged run on the card: {json.dumps(counts)}, not "
+                 f"one paged_attn_write a layer a step")
     check("tiny k-means QWEN3 prefill logits, card vs CPU",
           max_err(out["cpu"][0], out["cuda"][0]), 5e-2)
     _agree("ContinuousBatcher (k-means, INT8 KV)", out["cpu"][1],
@@ -2235,10 +2534,17 @@ def batcher_phase(torch):
 
 def paged_phase(torch, card, qp):
     """generate_paged on the batcher's params: B=32 prompts of 128 tokens
-    fed through the paged step, 64 new tokens, decode_chunk 8."""
+    fed through the paged step, 64 new tokens, decode_chunk 8. Fails unless
+    every layer of every step made one paged_attn_write launch (the page
+    write and the attention in one), with no standalone page write and no
+    gather of the pages; then profiles one paged decode chunk."""
+    import dataclasses
     from koifish_tpu_torch.config import SamplerCard
+    from koifish_tpu_torch.ops.kernels import paged_attn as kpa
+    from koifish_tpu_torch.ops.sampling import sample_logits
     from koifish_tpu_torch.serve import generate_paged
-    from koifish_tpu_torch.serve.paged import PAGE
+    from koifish_tpu_torch.serve.paged import (PAGE, decode_step_paged,
+                                               init_paged_cache)
     from koifish_tpu_torch.utils import kernel_log
     B, T, NEW = 32, 128, 64
     say(f"[paged] generate_paged: B={B}, {T}-token prompts, {NEW} new, "
@@ -2248,14 +2554,24 @@ def paged_phase(torch, card, qp):
     prompts = torch.randint(0, card.vocab_size, (B, T), generator=gen,
                             device="cuda")
     sampler = SamplerCard(temperature=0.6, top_k=50, top_p=0.95)
-    kernel_log.reset_launches()
-    t0 = time.perf_counter()
-    toks, cache = generate_paged(card, qp, prompts, sampler=sampler,
-                                 max_new_tokens=NEW, decode_chunk=8,
-                                 max_pages=4, return_cache=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = kernel_log.launches()
+    gathers = [0]
+    gather = kpa.gather_pages
+
+    def counted(*args):
+        gathers[0] += 1
+        return gather(*args)
+    kpa.gather_pages = counted
+    try:
+        kernel_log.reset_launches()
+        t0 = time.perf_counter()
+        toks, cache = generate_paged(card, qp, prompts, sampler=sampler,
+                                     max_new_tokens=NEW, decode_chunk=8,
+                                     max_pages=4, return_cache=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernel_log.launches()
+    finally:
+        kpa.gather_pages = gather
     steps = T + NEW - 1
     say(f"  {wall:.2f} s for {steps} paged steps at B={B}: "
         f"{B * steps / wall:.1f} tok/s through the paged step "
@@ -2270,8 +2586,30 @@ def paged_phase(torch, card, qp):
         fail(f"generate_paged returned {tuple(toks.shape)}")
     if int(toks.min()) < 0 or int(toks.max()) >= card.vocab_size:
         fail("paged token ids out of the vocabulary")
-    if counts.get("page_write", 0) <= 0:
-        fail("kernel page_write was not launched by generate_paged")
+    n, want = counts.get("paged_attn_write", 0), card.n_layer * steps
+    say(f"  {n} paged_attn_write launches ({card.n_layer} layers x {steps} "
+        f"steps = {want}), {counts.get('page_write', 0)} standalone page "
+        f"writes, {gathers[0]} gathers of the pages")
+    if n != want or counts.get("paged_attn", 0) != n:
+        fail(f"generate_paged made {n} paged_attn_write launches, not one a "
+             f"layer a step ({want})")
+    if counts.get("page_write", 0) or gathers[0]:
+        fail("the paged decode path wrote its pages outside the paged "
+             "attention's launch or gathered them")
+    # one decode chunk (8 decode + sample steps) from position T, all lanes
+    pc, alloc = init_paged_cache(card.n_layer, B, card.n_kv_head,
+                                 card.head_dim, max_pages=4)
+    pc = dataclasses.replace(alloc.ensure(pc, T + 9),
+                             pos=torch.full_like(pc.pos, T))
+    gen.manual_seed(12)
+
+    def chunk():
+        c, t = pc, toks[:, -1]
+        for _ in range(8):
+            logits, c = decode_step_paged(card, qp, t, c)
+            t = sample_logits(gen, logits, sampler.temperature,
+                              sampler.top_k, sampler.top_p)
+    profile_window(torch, f"paged decode chunk (8 steps, B={B})", chunk, 8)
     return counts
 
 
@@ -2850,6 +3188,7 @@ def main() -> None:
     flash = flash_phase(torch, gen)
     qmm = qmatmul_phase(torch, gen)
     dec = decode_attn_phase(torch, gen)
+    pag = paged_attn_phase(torch, gen)
     bwd = flash_bwd_phase(torch, gen)
     fce = fused_ce_phase(torch, gen)
     i8 = int8_phase(torch, gen)
@@ -2907,8 +3246,18 @@ def main() -> None:
          "koifish_tpu/ops/pallas/slotwrite.py:87", sw["slot_write"],
          {"slot_write": batch_counts.get("slot_write", 0)
           + batch_counts.get("kv_write", 0)}),
+        # the paged run's page writes: the standalone kernel's and those
+        # folded into the paged attention's launch
         ("page_write", "slotwrite.cu",
          "koifish_tpu/ops/pallas/slotwrite.py:140", sw["page_write"],
+         {"page_write": paged_counts.get("page_write", 0)
+          + paged_counts.get("paged_attn_write", 0)}),
+        # the library Pallas kernel jax.experimental.pallas.ops.tpu.
+        # paged_attention that the JAX package's _paged_attention calls
+        ("paged_attn", "paged_attn.cu", "koifish_tpu/serve/paged.py:173",
+         pag["paged_attn"], paged_counts),
+        ("paged_attn_write", "paged_attn.cu",
+         "koifish_tpu/serve/paged.py:173", pag["paged_attn_write"],
          paged_counts),
         ("qmv_book", "qmatmul.cu", "koifish_tpu/ops/pallas/matmul.py:389",
          book["qmv_book"], batch_counts),
@@ -2943,9 +3292,25 @@ def main() -> None:
                     bound_ms=m["bound_ms"], bound_by=m["bound_by"],
                     library_ms=m["library_ms"])
                for n, f, r, m, c in rows]
-    for k in kernels:   # the fused write's own share of its launch
+    # rows whose launches are, in part or whole, launches of a fused entry
+    # that has its own row: ``folded_launches`` of their ``launches`` are
+    # that entry's (``folded_into``), timed there, so a ranking by launches
+    # x (ms - bound_ms) counts launches - folded_launches for these rows
+    folded = {
+        "decode_attn": ("decode_attn_write", serve_counts.get("kv_write", 0)),
+        "slot_write": ("decode_attn_write", batch_counts.get("kv_write", 0)),
+        "page_write": ("paged_attn_write",
+                       paged_counts.get("paged_attn_write", 0)),
+        "paged_attn": ("paged_attn_write",
+                       paged_counts.get("paged_attn_write", 0))}
+    for k in kernels:
+        if k["name"] in folded:
+            k["folded_into"], k["folded_launches"] = folded[k["name"]]
+    for k in kernels:   # the fused writes' own share of their launch
         if k["name"] == "decode_attn_write":
             k["write_ms"] = dec["decode_attn_write"]["write_ms"]
+        if k["name"] == "paged_attn_write":
+            k["write_ms"] = pag["paged_attn_write"]["write_ms"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -79,7 +79,7 @@ def main(argv=None, turns: Optional[List[dict]] = None) -> int:
     if args.tp > 1:
         raise NotImplementedError(
             "--tp > 1: tensor parallelism is not ported yet (ROADMAP.md "
-            "queue 1 item 15, the parallelism slice)")
+            "queue 1, parallelism on torch.distributed)")
     dev = resolve_device(args.device)
     p = CLIParams.load(args.config) if args.config else CLIParams.from_json({})
     hf_dir = args.hf or p.hf_card

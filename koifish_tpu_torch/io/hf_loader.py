@@ -45,7 +45,8 @@ def load_kun_model(path: str, dtype=torch.bfloat16, device=None):
     not ported yet."""
     raise NotImplementedError(
         f"{path}: .kun/.ckp models need io/kun.py, which is not ported yet "
-        f"(ROADMAP.md queue 1 item 12); export the model as a HF folder")
+        f"(ROADMAP.md queue 1, the other CLIs and .kun models); export "
+        f"the model as a HF folder")
 
 
 def _t(a, dtype, dev, transpose: bool = False):
@@ -85,7 +86,7 @@ def _map_llama_family(card: ModelCard, raw: Dict[str, Any], dtype, dev
         if (pre + "mlp.gate.weight") in raw:
             raise NotImplementedError(
                 "MoE checkpoints need models/moe.py, which is not ported yet "
-                "(ROADMAP.md queue 1 item 14)")
+                "(ROADMAP.md queue 1, the model zoo)")
         lp["gate"] = w("mlp.gate_proj.weight")
         lp["up"] = w("mlp.up_proj.weight")
         lp["down"] = w("mlp.down_proj.weight")

@@ -218,7 +218,7 @@ def qmatmul(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
     Under autograd the product goes through ``QMatmul`` (dx = dy·deq(w)ᵀ)
     on both devices. A gradient for the scales or the book exists only on
     the CPU, through the plain version; on the card it raises: the scale
-    gradient comes with gama training (ROADMAP queue 1 item 2)."""
+    gradient comes with gama training (ROADMAP queue 1, gama training)."""
     if torch.is_grad_enabled() and (
             w.scales.requires_grad
             or (w.codebook is not None and w.codebook.requires_grad)):
@@ -228,7 +228,7 @@ def qmatmul(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
             f"qmatmul: the scales or the codebook of w{tuple(w.shape)} "
             f"{w.fmt.name} require a gradient; the kernel's backward gives "
             f"dx only. The scale gradient comes with gama training "
-            f"(ROADMAP queue 1 item 2)")
+            f"(ROADMAP queue 1, gama training)")
     if torch.is_grad_enabled() and x2.requires_grad:
         return QMatmul.apply(x2, w)
     return _forward(x2, w)

@@ -7,12 +7,17 @@ doubling as lanes need pages, so KV memory tracks the tokens resident, not
 B x max_len. Prefill feeds the prompt one token at a time through the paged
 decode step, as the JAX package's v1 does.
 
-Writes go through the page-write kernel (``ops/kernels/slotwrite.py``):
-one launch writes a layer's K and V rows at (page_ids[b], rows[b]). Reads
-gather each lane's pages into a dense view and run the plain decode
-attention, which is what the JAX package runs off the TPU; on the TPU it
-calls ``jax.experimental.pallas.ops.tpu.paged_attention``, a library kernel
-that has no counterpart in the port yet.
+Each layer of the decode step writes and reads in one launch of the paged
+decode attention (``ops/kernels/paged_attn.py``, ``csrc/paged_attn.cu``):
+it writes the layer's new K and V rows at (page_ids[b], rows[b]) and
+attends over each lane's pages through the table, skipping pages past the
+lane's length. It is the port's counterpart of the library kernel the JAX
+package calls on the TPU (``jax.experimental.pallas.ops.tpu.
+paged_attention``) and of the page write before it. On a CPU tensor it runs
+the plain versions: the page write's masked select, then the gather of each
+lane's whole table into a dense view and the plain decode attention, which
+is what the JAX package runs off the TPU (``_page_write_ref``,
+``_paged_attention_ref``).
 """
 from __future__ import annotations
 
@@ -24,16 +29,14 @@ import torch
 from koifish_tpu_torch.config import ModelCard, SamplerCard
 from koifish_tpu_torch.models.transformer import (
     Params, _linear_l, _norm, gather_embed, lm_head, mlp, qkv_project)
-from koifish_tpu_torch.ops.attention import decode_attention
+from koifish_tpu_torch.ops.kernels.paged_attn import (
+    PAGE, paged_attention, paged_attention_plain, paged_attention_write)
 from koifish_tpu_torch.ops.kernels.slotwrite import (page_write,
-                                                     page_write_many,
                                                      page_write_plain)
 from koifish_tpu_torch.ops.rope import rope_cos_sin_at
 from koifish_tpu_torch.ops.sampling import sample_logits
 from koifish_tpu_torch.serve.stacked import unstack_layers
 from koifish_tpu_torch.utils.device import resolve_device
-
-PAGE = 128          # positions per page
 
 
 @dataclasses.dataclass
@@ -127,20 +130,10 @@ _page_write = page_write
 
 # --- read path ---------------------------------------------------------------
 
-def _paged_attention_ref(q, k_pages, v_pages, lengths, page_indices,
-                         scale) -> torch.Tensor:
-    """Gather each lane's pages into a dense [B, S, H, D] view and run the
-    masked decode attention. q [B, Hq, D] -> [B, Hq, D]."""
-    B, maxp = page_indices.shape
-    H, D = k_pages.shape[0], k_pages.shape[-1]
-    S = maxp * PAGE
-    idx = page_indices.long()
-    # [H, B, maxp, P, D] -> [B, maxp, P, H, D] -> [B, S, H, D]
-    gk = k_pages[:, idx].permute(1, 2, 3, 0, 4).reshape(B, S, H, D)
-    gv = v_pages[:, idx].permute(1, 2, 3, 0, 4).reshape(
-        B, S, H, v_pages.shape[-1])
-    valid = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
-    return decode_attention(q, gk, gv, valid, scale=scale)
+# the JAX package's names: the gather oracle and the dispatching reader (the
+# kernel on the card)
+_paged_attention_ref = paged_attention_plain
+_paged_attention = paged_attention
 
 
 # --- decode step -------------------------------------------------------------
@@ -170,10 +163,10 @@ def decode_step_paged(card: ModelCard, params: Params, token: torch.Tensor,
     for li, lp in enumerate(params["layers"]):
         h = _norm(card, x, lp["ln1"], lp.get("ln1_b"))
         q, k, v = qkv_project(card, lp, h, cos, sin, None)
-        kp, vp = cache.k_pages[li], cache.v_pages[li]
-        page_write_many([(kp, k[:, 0]), (vp, v[:, 0])], page_ids, rows)
-        a = _paged_attention_ref(q[:, 0].to(torch.bfloat16), kp, vp, lengths,
-                                 cache.page_table, att_scale)
+        a = paged_attention_write(q[:, 0].to(torch.bfloat16), k[:, 0],
+                                  v[:, 0], cache.k_pages[li],
+                                  cache.v_pages[li], lengths,
+                                  cache.page_table, page_ids, rows, att_scale)
         x = x + _linear_l(a.reshape(B, 1, -1), lp, "o")
         h = _norm(card, x, lp["ln2"], lp.get("ln2_b"))
         x = x + mlp(card, lp, h)

@@ -52,7 +52,8 @@ def compute_loss(card: ModelCard, params, tokens, loss_mask=None,
         params = apply_qat(params, qcard, card)
     if card.arch in ("SALMON", "GUPPY"):
         raise NotImplementedError(
-            f"{card.arch} training is not ported yet (slice 5, model zoo)")
+            f"{card.arch} training is not ported yet (ROADMAP.md queue 1, "
+            f"the model zoo)")
     targets = tokens[:, 1:]
     mask = loss_mask[:, 1:] if loss_mask is not None else None
     head = params.get("head", params["wte"])
@@ -93,7 +94,8 @@ def make_train_step(card: ModelCard, tcard: TrainCard, total_steps: int,
                 if tcard.int8_matmul else None)
     if sp is not None:
         raise NotImplementedError(
-            "sequence-parallel training is not ported yet (slice 6)")
+            "sequence-parallel training is not ported yet (ROADMAP.md "
+            "queue 1, parallelism on torch.distributed)")
     if getattr(tcard, "kernel_choices", False):
         kernel_log.set_verbose(True)
     sr_on = _sr_on(tcard)

@@ -16,7 +16,9 @@ through the kernels (``reset_launches`` / ``launches``). The names:
 ``qmm_book``, ``qmv_book``, ``decode_attn``, ``kv_write`` (a
 ``decode_attn`` launch that also quantized and wrote the new token's K/V),
 ``slot_write``,
-``page_write``, ``fused_ce_fwd``, ``fused_ce_dlogits``, ``fused_ce_dx``,
+``page_write``, ``paged_attn``, ``paged_attn_write`` (a ``paged_attn``
+launch that also wrote the new token's K/V rows into their pages),
+``fused_ce_fwd``, ``fused_ce_dlogits``, ``fused_ce_dx``,
 ``fused_ce_dw``, their int8 flavour ``fused_ce_fwd_int8``,
 ``fused_ce_dlogits_int8``, ``fused_ce_dx_int8``, ``fused_ce_dw_int8``,
 ``qdgrad_quant`` (the per-tile dgrad's quantize pass), ``qdgrad_int8_tile``

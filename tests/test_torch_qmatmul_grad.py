@@ -127,7 +127,7 @@ def test_cuda_branch_raises_for_a_weight_gradient(which):
                              codebook=_meta(tw.codebook))
     getattr(mw, which).requires_grad_(True)
     x = torch.empty((40, K), dtype=torch.bfloat16, device="meta")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="queue 1, gama training"):
         km.qmatmul(x, mw)
 
 

@@ -282,16 +282,18 @@ def test_remat_gives_the_same_grads(remat):
 
 
 def test_compute_loss_raises_for_unported_paths():
-    """What the port still refuses: sequence-parallel steps (slice 6),
-    SALMON / GUPPY training (slice 5) and scale-only (gama) QAT."""
+    """What the port still refuses, each message naming its ROADMAP queue 1
+    subject: sequence-parallel steps (parallelism), SALMON / GUPPY training
+    (the model zoo) and scale-only (gama) QAT."""
     card = ModelCard.from_arch("QWEN3", n_kv_head=1, **TINY)
     params = init_params(card, device="cpu")
     tok = torch.zeros((1, 5), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="queue 1, parallelism"):
         ttrainer.make_train_step(card, TrainCard(), 10, sp=object())
     for arch in ("SALMON", "GUPPY"):
         zoo = dataclasses.replace(card, arch=arch)
-        with pytest.raises(NotImplementedError, match="slice 5"):
+        with pytest.raises(NotImplementedError,
+                           match="queue 1, the model zoo"):
             ttrainer.compute_loss(zoo, params, tok)
     gama = QuantCard.from_json({"self_attn": {"bits": 4},
                                 "train_target": "gama"})
