@@ -38,7 +38,9 @@ Phases, in order; any failed check exits non-zero before the last line:
              fused classifier CE (forward, the backward's dlogits kernel and
              its dx and dw GEMMs; E 64-2560, ragged V, untied; a repeat of
              every launch bit for bit; the backward's extra memory at most
-             512 MiB). Int8 training, at GPT2-774M's shapes:
+             512 MiB); flash forward and backward at one row of the LoRA
+             SFT step (T 8192) and the fused CE at its 131,072 rows, 95 %
+             masked, all timed. Int8 training, at GPT2-774M's shapes:
              rowquant/colquant (bit for bit), the per-tile int8 dgrad (its
              quantize pass and wgmma GEMM; bit for bit at the fc shape and
              at M 1100, K 330, a repeat launch too, and two planted faults
@@ -120,6 +122,28 @@ Phases, in order; any failed check exits non-zero before the last line:
              int8_dgrad "tile", (c) int8_matmul off; fails unless the losses
              are finite, (a)'s fall from within 0.5 of ln 50304, bench.py's
              gate holds and each run's kernels launched.
+   koifish — the training CLI, ``koifish_tpu_torch.cli.koifish.main``,
+             on inputs written under build/koifish from seeds: a Qwen3-0.6B
+             HF folder (the config's dims, max_position_embeddings 40960,
+             so n_ctx 8192) and 48 ChatML conversations run through
+             configs/qwen3_sft_lora.json with only its paths changed (LoRA
+             r 16 on q/k/v/o, B 16, every sample padded to 8193 tokens),
+             3 steps; it fails unless the losses are finite, every base
+             weight is bit for bit unchanged, every adapter's b moved and
+             the flash forward / dK/dV / dQ and fused-CE forward / dlogits
+             / dx launches are the counts 3 steps x 28 layers imply, with
+             no dW launch for the frozen head and no fallback. Prints step
+             ms, tok/s, MFU and peak memory; the final state is saved,
+             loaded back bit for bit, profiled for one step (device time by
+             kernel, idle share) and resumed for one step ("step 3"). Then
+             configs/gpt2_124m.json (paths changed) for 4 steps from seeded
+             uint16 shards (flash kernels launched), ``pangpi --bits 4
+             --ppl`` on the Qwen3 folder (qmm and flash launched, CE within
+             0.5 of ln V), and tiny folders on the card against the CPU: a
+             LoRA SFT run of 2 steps through ``koifish.main`` (losses
+             1e-2, step 2's adapter grad norms 2 %, the adapters' b
+             ‖Δ‖/‖b_cpu‖ 0.25) and ``pangpi --bits 4 --ppl`` (mean CE
+             1e-2).
 6. result  — one JSON line with every kernel's numbers (launches from its
              path's run: the serving run for the slice-1 kernels and the
              decode attention's fused K/V write (``decode_attn_write``,
@@ -271,6 +295,9 @@ def flash_phase(torch, gen):
          False),
         ("ragged B1 T77 Hq4 Hkv4 D256", 1, 77, 4, 4, 256, 0, False),
         ("long B1 T1500 Hq4 Hkv2 D128", 1, 1500, 4, 2, 128, 0, False),
+        # one row of the Qwen3 LoRA SFT step (configs/qwen3_sft_lora.json
+        # pads every sample to n_ctx 8192); timed too
+        ("sft B1 T8192 Hq16 Hkv8 D128", 1, 8192, 16, 8, 128, 0, False),
         # T off the 128-row q tiles and 64-row kv tiles; windows that start
         # inside a tile
         ("ragged B2 T77 Hq4 Hkv1 D128", 2, 77, 4, 1, 128, 0, False),
@@ -322,10 +349,15 @@ def flash_phase(torch, gen):
                 f"bound_ms={bms:.5f} ({by})")
             res.update(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
                        bound_by=by)
-        elif label.startswith(("qwen3", "gpt2")):
+        elif label.startswith(("qwen3", "gpt2", "sft")):
             kms, lms, bms, by = times(q, k, v, sc)
             tag = label.split()[0]
-            say(f"  time flash_fwd {label}: kernel_ms={kms:.4f} "
+            pstr = ""
+            if tag == "sft":
+                pstr = " plain_ms={:.4f}".format(event_ms(
+                    torch, lambda: kf.flash_attention_plain(q, k, v, scale=sc),
+                    iters=2, warm=1))
+            say(f"  time flash_fwd {label}: kernel_ms={kms:.4f}{pstr} "
                 f"library_ms(SDPA)={lms:.4f} bound_ms={bms:.5f} ({by})")
             res.update({f"{tag}_ms": kms, f"{tag}_sdpa_ms": lms,
                         f"{tag}_bound_ms": bms})
@@ -998,6 +1030,8 @@ def flash_bwd_phase(torch, gen):
     cases = [  # (label, B, T, Hq, Hkv, D, window, head-major view)
         ("slice B8 T1024 Hq16 Hkv8 D128", 8, 1024, 16, 8, 128, 0, False),
         ("gpt2 B32 T1024 Hq12 Hkv12 D64", 32, 1024, 12, 12, 64, 0, False),
+        # one row of the Qwen3 LoRA SFT step (n_ctx 8192); timed too
+        ("sft B1 T8192 Hq16 Hkv8 D128", 1, 8192, 16, 8, 128, 0, False),
         ("ragged B1 T1500 Hq4 Hkv2 D128 window256", 1, 1500, 4, 2, 128, 256,
          False),
         ("head-major B2 T300 Hq8 Hkv2 D64 window100", 2, 300, 8, 2, 64, 100,
@@ -1029,14 +1063,34 @@ def flash_bwd_phase(torch, gen):
             errs[name] = max_err(a, ref)
             check(f"flash_bwd {label} {name}", errs[name],
                   rel * float(ref.float().abs().max()) + 1e-3)
-        if label.startswith("gpt2"):   # the GPT2-124M shape (D 64): times only
+        if label.startswith(("gpt2", "sft")):   # times only
             dl = kf._bwd_launch(0, q, k, v, o, lse, do, sc, win)[1]
             g_dkv = time_ms(torch, lambda: kf.flash_bwd_dkv(
                 q, k, v, o, lse, do, scale=sc), iters=10)
             g_dq = time_ms(torch, lambda: kf.flash_bwd_dq(
                 q, k, v, o, lse, do, scale=sc, delta=dl), iters=10)
-            say(f"  time flash_bwd gpt2 (B32 T1024 Hq12 D64): dkv "
-                f"kernel_ms={g_dkv:.4f} dq kernel_ms={g_dq:.4f}")
+            pairs = B * Hq * causal_pairs(T, win)
+            g = Hq // Hkv
+            qh = q.transpose(1, 2).detach().clone().requires_grad_(True)
+            kh = k.transpose(1, 2).repeat_interleave(g, dim=1).detach() \
+                .requires_grad_(True)
+            vh = v.transpose(1, 2).repeat_interleave(g, dim=1).detach() \
+                .requires_grad_(True)
+            oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                scale=sc)
+            lms = event_ms(torch, lambda: torch.autograd.grad(
+                oh, (qh, kh, vh), do.transpose(1, 2), retain_graph=True),
+                iters=10)
+            pstr = "" if not label.startswith("sft") else \
+                " plain_ms(whole backward)={:.4f}".format(event_ms(
+                    torch, lambda: kf.flash_attention_bwd_plain(
+                        q, k, v, o, lse, do, scale=sc), iters=1, warm=1))
+            say(f"  time flash_bwd {label}: dkv kernel_ms={g_dkv:.4f} dq "
+                f"kernel_ms={g_dq:.4f}{pstr} bound_ms(dkv, dq)="
+                f"{bound_ms(0, 8.0 * D * pairs)[0]:.5f}, "
+                f"{bound_ms(0, 6.0 * D * pairs)[0]:.5f} (operations) "
+                f"library_ms(SDPA backward)={lms:.4f}")
+            del qh, kh, vh, oh
         if out:
             continue
         # timing at the Qwen3 slice shape: dkv with its delta pass, dq on
@@ -1085,16 +1139,19 @@ def flash_bwd_phase(torch, gen):
     return out
 
 
-#: the fused CE's cases (label, m, E, V, tied [V, E] storage, masked); the
-#: first, the Qwen3 slice shape, is timed
+#: the fused CE's cases (label, m, E, V, tied [V, E] storage, share of the
+#: rows masked); the first, the Qwen3 slice shape, is timed, and the SFT
+#: step's shape (16 x 8192 rows, most of them padding) is timed too
 CE_CASES = [
-    ("slice m8192 E1024 V151936 tied", 8192, 1024, 151936, True, False),
-    ("ragged m1000 E768 V50304 untied masked", 1000, 768, 50304, False, True),
-    ("ragged m100 E64 V333 tied masked", 100, 64, 333, True, True),
+    ("slice m8192 E1024 V151936 tied", 8192, 1024, 151936, True, 0.0),
+    ("ragged m1000 E768 V50304 untied masked", 1000, 768, 50304, False, 0.3),
+    ("ragged m100 E64 V333 tied masked", 100, 64, 333, True, 0.3),
+    ("sft m131072 E1024 V151936 tied 95% masked", 131072, 1024, 151936,
+     True, 0.95),
     ("GPT2-1558M head m16384 E1600 V50304 tied", 16384, 1600, 50304, True,
-     False),
+     0.0),
     ("Qwen3-4B head m1024 E2560 V151936 tied", 1024, 2560, 151936, True,
-     False),
+     0.0),
 ]
 
 
@@ -1294,7 +1351,7 @@ def fused_ce_phase(torch, gen):
         x, w, tgt = _ce_rows(torch, gen, m, E, V, tied)
         mask = torch.ones((m,), device="cuda")
         if masked:
-            mask[torch.rand((m,), generator=gen, device="cuda") < 0.3] = 0.0
+            mask[torch.rand((m,), generator=gen, device="cuda") < masked] = 0.0
         wtok = (mask / mask.sum().clamp_min(1.0)).contiguous()
         run = dict(fwd=lambda: kc.fused_ce_fwd(x, w, tgt),
                    bwd=lambda lse, buf: kc._bwd(x, w, tgt, lse, wtok,
@@ -1309,6 +1366,33 @@ def fused_ce_phase(torch, gen):
             (lambda p: 1e-5 * float(p.abs().max())) if E > 1280
             else (lambda _: tol_f32))
         if out:
+            if label.startswith("sft"):   # the SFT step's launches, timed
+                # two bounds: the rows the masked loss needs (wtok > 0; a
+                # masked row's lse, dlogits and dx row are not needed, its
+                # dx row is written as zeros) and every row, as the kernels
+                # take them (they skip no row)
+                mu = int(mask.sum())
+                bounds = {}
+                for rows, tag in ((mu, "needed rows"), (m, "all rows")):
+                    fl = 2.0 * rows * E * V
+                    xE = 2 * rows * E + 2 * E * V
+                    bounds[tag] = (
+                        (xE + 12 * rows, fl),
+                        (xE + 2 * m * E + 12 * m, 2 * fl))
+                for j, (name, kern, plain_fn) in enumerate((
+                        ("fused_ce_fwd", run["fwd"], plain["fwd"]),
+                        ("fused_ce_bwd dlogits+dx", lambda: kc.fused_ce_bwd(
+                            x, w, tgt, plse, wtok, need_dw=False),
+                         lambda: plain["dx"](plse)))):
+                    kms = time_ms(torch, kern, iters=2, warm=1)
+                    pms = event_ms(torch, plain_fn, iters=1, warm=0)
+                    txt = []
+                    for tag, b in bounds.items():
+                        bms, by = bound_ms(*b[j])
+                        txt.append(f"bound_ms({tag})={bms:.5f} ({by})")
+                    say(f"  time {name} {label}: kernel_ms={kms:.4f} "
+                        f"plain_ms={pms:.4f} {' '.join(txt)}; {mu} of {m} "
+                        f"rows unmasked")
             if E > 1280:    # GPT2-1558M's and Qwen3-4B's heads: timed too
                 fl = 2.0 * m * E * V
                 xE = 2 * m * E + 2 * E * V
@@ -3150,6 +3234,429 @@ def train_774m_phase(torch):
     return out[0], out[1]
 
 
+# ---------------------------------------------------------------------------
+# phase 5b: the koifish CLI
+# ---------------------------------------------------------------------------
+
+#: Qwen3-0.6B's published max_position_embeddings
+QWEN3_MAX_POS = 40960
+#: conversations of the SFT run's jsonl: 3 steps of configs/
+#: qwen3_sft_lora.json's batch of 16
+SFT_CONVS = 48
+SFT_WORDS = ("hello", "world", "river", "stone", "light", "green", "seven",
+             "paper", "north", "quiet", "table", "music")
+
+
+def write_chatml_jsonl(path: str, n: int, seed: int) -> None:
+    """``n`` seeded OAI-message conversations, as tests/test_cli.py:218-226
+    writes them: a user turn and an assistant turn of a few words."""
+    import random
+    rng = random.Random(seed)
+
+    def words(lo, hi):
+        return " ".join(rng.choice(SFT_WORDS)
+                        for _ in range(rng.randint(lo, hi)))
+    with open(path, "w") as f:
+        for i in range(n):
+            f.write(json.dumps({"messages": [
+                {"role": "user", "content": f"{words(2, 8)} {i}"},
+                {"role": "assistant", "content": words(3, 12)}]}) + "\n")
+
+
+def config_copy(src: str, dst: str, hf=None, train=None, eval_glob=None):
+    """configs/<src> written to ``dst`` with only its paths changed: the SFT
+    folder (``sft.hf-card``), the train glob and the ``eval_1`` glob."""
+    with open(os.path.join(ROOT, "configs", src)) as f:
+        cfg = json.load(f)
+    if hf is not None:
+        cfg["sft"]["hf-card"] = hf
+    if train is not None:
+        cfg["datasets"]["train"]["glob"] = train
+    if eval_glob is not None:
+        cfg["datasets"]["eval_1"]["glob"] = eval_glob
+    with open(dst, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return cfg
+
+
+class _Tee:
+    """stdout that is also kept: a CLI's own lines are read back."""
+
+    def __init__(self):
+        self.lines = []
+
+    def write(self, s):
+        self.lines.append(s)
+        return sys.__stdout__.write(s)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+    def text(self) -> str:
+        return "".join(self.lines)
+
+
+def run_cli(torch, main, argv, label, check=True):
+    """One CLI ``main(argv, result=...)`` with the launches and fallbacks
+    counted from 0 and its stdout kept; on the card (``check``) it fails
+    unless the CLI returns 0 and logs no fallback. Returns (result, stdout,
+    launches)."""
+    import contextlib
+    from koifish_tpu_torch.utils import kernel_log
+    res, tee = {}, _Tee()
+    if check:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernel_log.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = main(argv, result=res)
+    if check:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, falls = kernel_log.launches(), kernel_log.fallbacks()
+    if check:
+        say(f"  {label}: rc={rc}, {wall:.2f} s; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+            f"{json.dumps(counts)}; fallbacks {json.dumps(falls)}")
+        if falls:
+            fail(f"{label}: a kernel fallback was logged: {falls}")
+    if rc != 0:
+        fail(f"{label}: returned {rc}")
+    return res, tee.text(), counts
+
+
+def _same_bits(torch, a, b) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point() and a.element_size() == 2:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def sft_launches(steps: int, card, remat, m: int) -> dict:
+    """The launches ``steps`` LoRA SFT steps make: a flash forward a layer
+    (and its recompute with ``remat``), a dK/dV and a dQ backward a layer,
+    one fused-CE forward and a dlogits and a dx launch per vocab chunk of
+    the m rows (no dW: the tied head is frozen)."""
+    from koifish_tpu_torch.ops.kernels import fused_ce as kc
+    L = card.n_layer
+    chunks = len(kc.chunk_plan(m, card.vocab_size)[1])
+    return {"flash_fwd": steps * L * (2 if remat else 1),
+            "flash_bwd_dkv": steps * L, "flash_bwd_dq": steps * L,
+            "fused_ce_fwd": steps, "fused_ce_dlogits": steps * chunks,
+            "fused_ce_dx": steps * chunks}
+
+
+def koifish_sft(torch, root: str):
+    """configs/qwen3_sft_lora.json as shipped (paths only changed) through
+    ``koifish.main`` for 3 steps on a full-width Qwen3-0.6B folder; then the
+    final state saved, loaded back bit for bit and resumed for one step.
+    Returns the SFT run's launches."""
+    import dataclasses
+    import math
+    from koifish_tpu_torch.cli import koifish
+    from koifish_tpu_torch.config import CLIParams
+    from koifish_tpu_torch.io import (load_hf_model, load_train_state,
+                                      save_train_state)
+    from koifish_tpu_torch.utils import mfu
+    from koifish_tpu_torch.utils.tree import flatten_with_path
+    card = dataclasses.replace(CLIParams.load(os.path.join(
+        ROOT, "configs", "qwen3_0.6b.json")).model, max_pos=QWEN3_MAX_POS)
+    hf = os.path.join(root, "qwen3_0.6b")
+    jsonl = os.path.join(root, "chatml.jsonl")
+    cfgp = os.path.join(root, "qwen3_sft_lora.json")
+    t0 = time.perf_counter()
+    gb = write_hf_dir(torch, hf, card, seed=11)
+    write_chatml_jsonl(jsonl, SFT_CONVS, seed=12)
+    cfg = config_copy("qwen3_sft_lora.json", cfgp, hf=hf, train=jsonl)
+    say(f"[koifish] configs/qwen3_sft_lora.json, paths changed: "
+        f"{json.dumps(cfg)}")
+    say(f"  wrote a Qwen3-0.6B HF folder ({gb:.2f} GB of bf16 weights, "
+        f"max_position_embeddings {QWEN3_MAX_POS}) and {SFT_CONVS} "
+        f"conversations in {time.perf_counter() - t0:.1f} s")
+    steps = 3
+    res, out, counts = run_cli(torch, koifish.main, [
+        cfgp, "--most-iter", str(steps), "--out-dir",
+        os.path.join(root, "sft")], "koifish SFT (3 steps)")
+    scard, state, infos = res["card"], res["state"], res["infos"]
+    tcard = CLIParams.load(cfgp).train
+    B, T = tcard.batch, scard.n_ctx
+    losses = infos.losses
+    say(f"  card: L={scard.n_layer} E={scard.n_embd} V={scard.vocab_size} "
+        f"n_ctx={T}; B={B}, remat={tcard.remat}; losses "
+        f"{[round(x, 4) for x in losses]}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        fail(f"koifish SFT: losses {losses}")
+    dts = [r[3] for r in infos.rows]
+    dt = sorted(dts[1:])[len(dts[1:]) // 2]
+    util = mfu.step_mfu(scard, B * T, dt)
+    say(f"  step ms {[round(d * 1e3, 1) for d in dts]}; median of steps 1-"
+        f"{steps - 1}: {dt * 1e3:.1f} ms, {B * T / dt:.1f} tok/s (B x n_ctx "
+        f"tokens a step, padding included), MFU "
+        f"{'not measured' if util is None else f'{util:.4f}'} (6·N·tokens "
+        f"+ attention; the frozen weights' dW is not computed)")
+    want = sft_launches(steps, scard, tcard.remat, B * T)
+    for name, n in want.items():
+        if counts.get(name, 0) != n:
+            fail(f"koifish SFT: {counts.get(name, 0)} {name} launches, "
+                 f"{n} expected")
+    say(f"  launches as expected: {json.dumps(want)}; fused_ce_dw "
+        f"{counts.get('fused_ce_dw', 0)} (the frozen head takes no dW)")
+    if counts.get("fused_ce_dw", 0):
+        fail("koifish SFT: the dW GEMM launched for the frozen head")
+    _, base = load_hf_model(hf, device="cuda")
+    trained = flatten_with_path(state.params)
+    base_now = [(p, t) for p, t in trained
+                if not any(str(k).endswith("_lora") for k in p)]
+    if [p for p, _ in base_now] != [p for p, _ in flatten_with_path(base)]:
+        fail("koifish SFT: the trained params' base leaves are not the "
+             "folder's")
+    for (path, a), (_, b) in zip(flatten_with_path(base), base_now):
+        if not _same_bits(torch, a, b.detach()):
+            fail(f"koifish SFT: base weight {path} changed")
+    lora_b = [(p, t) for p, t in trained if len(p) > 3 and p[-1] == "b"]
+    for path, b in lora_b:
+        if not b.abs().max() > 0:
+            fail(f"koifish SFT: adapter {path} did not move")
+    say(f"  every base weight ({len(base_now)} tensors) bit for bit "
+        f"unchanged; all {len(lora_b)} adapters' b moved")
+    del base
+
+    ck = os.path.join(root, "sft_step3.safetensors")
+    t0 = time.perf_counter()
+    save_train_state(ck, state, scard, extra_meta={"iter": steps})
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, _ = load_train_state(ck, state)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    trees = (("params", state.params, loaded.params),
+             ("opt_m", state.opt.m, loaded.opt.m),
+             ("opt_v", state.opt.v, loaded.opt.v))
+    n = 0
+    for tag, a, b in trees:
+        for (path, x), (_, y) in zip(flatten_with_path(a),
+                                     flatten_with_path(b)):
+            n += 1
+            if not _same_bits(torch, x.detach(), y):
+                fail(f"checkpoint: {tag} {path} did not load bit for bit")
+    if loaded.opt.step != state.opt.step or \
+            not torch.equal(loaded.opt.spikes, state.opt.spikes):
+        fail("checkpoint: step or spikes did not load")
+    say(f"  checkpoint {os.path.getsize(ck) / 1e9:.2f} GB: saved in "
+        f"{t_save:.1f} s, loaded in {t_load:.1f} s; {n} tensors and step "
+        f"{loaded.opt.step} bit for bit")
+    del loaded
+    profile_sft_step(torch, scard, tcard, state, jsonl, hf)
+    del res, state
+    torch.cuda.empty_cache()
+    res, out, _ = run_cli(torch, koifish.main, [
+        cfgp, "--most-iter", "1", "--resume", ck, "--out-dir",
+        os.path.join(root, "sft_resume")], "koifish SFT --resume (1 step)")
+    if f"(step {steps})" not in out:
+        fail(f"koifish --resume did not report step {steps}")
+    if not all(math.isfinite(x) for x in res["infos"].losses):
+        fail("koifish --resume: a non-finite loss")
+    say(f"  resumed at step {steps}: loss "
+        f"{res['infos'].losses[0]:.4f}")
+    del res
+    os.remove(ck)
+    torch.cuda.empty_cache()
+    return counts, hf
+
+
+def profile_sft_step(torch, card, tcard, state, jsonl: str, hf: str) -> None:
+    """The SFT step's device time by kernel and idle share: one step of
+    the CLI's batches, LoRA mask and train card under the profiler."""
+    from koifish_tpu_torch.data import BPETokenizer
+    from koifish_tpu_torch.data.sft import SFTDataset
+    from koifish_tpu_torch.train import make_train_step
+    from koifish_tpu_torch.train.lora import trainable_mask
+    b = next(SFTDataset.from_jsonl(jsonl, BPETokenizer.from_file(hf),
+                                   card.n_ctx).batches(tcard.batch))
+    batch = {"tokens": torch.from_numpy(b["tokens"]).to("cuda", torch.int64),
+             "loss_mask": torch.from_numpy(b["loss_mask"]).to("cuda")}
+    step = make_train_step(card, tcard, total_steps=3,
+                           trainable=trainable_mask(state.params, "lora"))
+
+    def one():
+        nonlocal state
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+    profile_window(torch, f"Qwen3-0.6B LoRA SFT step (B={tcard.batch}, "
+                   f"T={card.n_ctx})", one)
+
+
+def koifish_gpt2(torch, root: str) -> dict:
+    """configs/gpt2_124m.json (paths only changed) through ``koifish.main``
+    for 4 steps from seeded uint16 train and val shards."""
+    import math
+    import numpy as np
+    from koifish_tpu_torch.cli import koifish
+    from koifish_tpu_torch.data import MAGIC_GPT2, write_shard
+    d = os.path.join(root, "edu_fineweb")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(13)
+    for split, n in (("train", 300_000), ("val", 40_000)):
+        write_shard(os.path.join(d, f"edu_fineweb_{split}_000000.bin"),
+                    rng.integers(0, 50257, n).astype(np.uint16), MAGIC_GPT2,
+                    50257)
+    cfgp = os.path.join(root, "gpt2_124m.json")
+    config_copy("gpt2_124m.json", cfgp, train=os.path.join(d, "*train*.bin"),
+                eval_glob=os.path.join(d, "*val*.bin"))
+    say("[koifish] configs/gpt2_124m.json, paths changed: seeded uint16 "
+        "shards (300,000 train and 40,000 val tokens)")
+    steps = 4
+    res, _, counts = run_cli(torch, koifish.main, [
+        cfgp, "--most-iter", str(steps), "--out-dir",
+        os.path.join(root, "gpt2")], "koifish GPT2-124M (4 steps)")
+    losses = res["infos"].losses
+    dts = [round(r[3] * 1e3, 1) for r in res["infos"].rows]
+    say(f"  losses {[round(x, 4) for x in losses]}; step ms {dts}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        fail(f"koifish GPT2-124M: losses {losses}")
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        if counts.get(name, 0) <= 0:
+            fail(f"koifish GPT2-124M: kernel {name} was not launched")
+    del res
+    torch.cuda.empty_cache()
+    return counts
+
+
+def koifish_pangpi(torch, root: str, hf: str) -> dict:
+    """``pangpi --bits 4 --ppl`` on the full-width Qwen3 folder (n_ctx 8192,
+    one row a batch, two batches)."""
+    import math
+    import numpy as np
+    from koifish_tpu_torch.cli import pangpi
+    from koifish_tpu_torch.config import ModelCard
+    from koifish_tpu_torch.data import MAGIC_QWEN3, write_shard
+    with open(os.path.join(hf, "config.json")) as f:
+        card = ModelCard.from_hf(json.load(f))
+    V = card.vocab_size
+    val = os.path.join(root, "qwen3_val.bin")
+    write_shard(val, np.random.default_rng(15).integers(
+        0, V, 3 * (card.n_ctx + 1)).astype(np.uint32), MAGIC_QWEN3, V)
+    say(f"[koifish] pangpi --bits 4 --ppl on the Qwen3-0.6B folder (n_ctx "
+        f"{card.n_ctx}, 2 batches of 1 row)")
+    res, _, counts = run_cli(torch, pangpi.main, [
+        "--hf", hf, "--ppl", val, "--bits", "4", "--batch", "1", "--max", "2"],
+        "pangpi --bits 4 --ppl")
+    say(f"  ce {res['ce']:.4f}, ppl {res['ppl']:.1f} (random weights: ln "
+        f"{V} = {math.log(V):.4f})")
+    if not math.isfinite(res["ppl"]) or abs(res["ce"] - math.log(V)) > 0.5:
+        fail(f"pangpi: ce {res['ce']} is not within 0.5 of ln {V}")
+    for name in ("qmm", "flash_fwd"):
+        if counts.get(name, 0) <= 0:
+            fail(f"pangpi: kernel {name} was not launched")
+    return counts
+
+
+def koifish_reference_check(torch, root: str) -> None:
+    """Tiny folders through the CLIs on the card against the CPU: two LoRA
+    SFT steps of ``koifish.main`` (the losses within 1e-2, step 2's
+    adapter gradient norms within ``_step_card_vs_cpu``'s 2 %, the
+    adapters' b; SR off), and ``pangpi --bits 4 --ppl`` (mean CE within
+    1e-2)."""
+    import dataclasses
+    import numpy as np
+    from koifish_tpu_torch.cli import koifish, pangpi
+    from koifish_tpu_torch.data import MAGIC_QWEN3, write_shard
+    from koifish_tpu_torch.utils.tree import flatten_with_path
+    tiny = dataclasses.replace(_tiny_card(), vocab_size=300, max_pos=256)
+    hf = os.path.join(root, "tiny_hf")
+    write_hf_dir(torch, hf, tiny, seed=14)
+    jsonl = os.path.join(root, "tiny.jsonl")
+    write_chatml_jsonl(jsonl, 8, seed=16)
+    lr = 1e-3
+    cfgp = os.path.join(root, "tiny_sft.json")
+    with open(cfgp, "w") as f:
+        json.dump({"sft": {"hf-card": hf, "method": "lora", "lora_rank": 8,
+                           "lora_alpha": 16},
+                   "model": {"arch": "QWEN3"},
+                   "train": {"batch": 4, "learning-rate": lr, "warmup": 0,
+                             "scheduler": "static", "dump-every": 1,
+                             "optimizatioin": {"method": "adamw",
+                                               "stochastic_round": False}},
+                   "datasets": {"train": {"glob": jsonl,
+                                          "type": "OAI_message"}},
+                   "debug": {"check_tensor_norm": True, "nn_structure": False},
+                   "seed": 42}, f)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        res, _, _ = run_cli(torch, koifish.main, [
+            cfgp, "--most-iter", "2", "--device", dev, "--out-dir",
+            os.path.join(root, f"tiny_{dev}")], f"tiny SFT on {dev}",
+            check=dev == "cuda")
+        got[dev] = (res["infos"].losses,
+                    res["metrics"]["leaf_norms"].float().cpu(),
+                    [(p, t.detach().float().cpu()) for p, t in
+                     flatten_with_path(res["state"].params)])
+    check("tiny LoRA SFT 2 steps through koifish.main losses, card vs CPU",
+          max(abs(a - b) for a, b in zip(got["cpu"][0], got["cuda"][0])),
+          1e-2)
+    paths = [p for p, _ in got["cpu"][2]]
+    ad = [i for i, p in enumerate(paths) if any(
+        str(x).endswith("_lora") for x in p)]
+    n_cpu, n_gpu = got["cpu"][1][ad], got["cuda"][1][ad]
+    rel = (n_gpu - n_cpu).abs() / n_cpu.clamp_min(1e-6)
+    say(f"  {len(ad)} adapter tensors; step 2's grad norms (CPU) "
+        f"{float(n_cpu.min()):.3e}..{float(n_cpu.max()):.3e}")
+    check("tiny LoRA SFT adapter grad norms, card vs CPU (relative)",
+          float(rel.max()), 2e-2)
+    # each b starts at 0 and AdamW moves an entry by about lr·sign(g) a
+    # step: after two steps a card that made no update reads 1 here, one
+    # with the wrong sign 2, one with twice the step 1; an entry whose
+    # gradient is near 0 may take the other sign on the two devices
+    # (0.25 allows ~1.5 % of the entries to)
+    bs = [i for i in ad if paths[i][-1] == "b"]
+    d2 = sum(float(((got["cuda"][2][i][1] - got["cpu"][2][i][1]) ** 2).sum())
+             for i in bs)
+    c2 = sum(float((got["cpu"][2][i][1] ** 2).sum()) for i in bs)
+    flips = sum(int((got["cuda"][2][i][1].sign()
+                     != got["cpu"][2][i][1].sign()).sum()) for i in bs)
+    say(f"  {len(bs)} adapters' b: {flips} of "
+        f"{sum(got['cpu'][2][i][1].numel() for i in bs)} entries differ in "
+        f"sign, card vs CPU")
+    check("tiny LoRA SFT adapters' b after 2 steps, card vs CPU "
+          "(‖Δ‖/‖b_cpu‖)", (d2 / max(c2, 1e-30)) ** 0.5, 0.25)
+    val = os.path.join(root, "tiny_val.bin")
+    write_shard(val, np.random.default_rng(17).integers(0, 300, 2000).astype(
+        np.uint32), MAGIC_QWEN3, 300)
+    ce = {}
+    for dev in ("cpu", "cuda"):
+        res, _, counts = run_cli(torch, pangpi.main, [
+            "--hf", hf, "--ppl", val, "--bits", "4", "--batch", "2", "--max",
+            "2", "--device", dev], f"tiny pangpi on {dev}",
+            check=dev == "cuda")
+        ce[dev] = res["ce"]
+    if counts.get("qmm", 0) <= 0:
+        fail("tiny pangpi --bits 4: qmm was not launched on the card")
+    check("tiny pangpi --bits 4 --ppl mean CE, card vs CPU",
+          abs(ce["cpu"] - ce["cuda"]), 1e-2)
+
+
+def koifish_phase(torch):
+    """Slice 12: the koifish training CLI on the card. Writes its inputs
+    under build/koifish; runs configs/qwen3_sft_lora.json as shipped (3
+    steps, then save, load and resume), configs/gpt2_124m.json (4 steps)
+    and ``pangpi --bits 4 --ppl``, each with its launches counted from 0,
+    then the tiny card-against-CPU checks. Returns the SFT run's launches."""
+    import shutil
+    root = os.path.join(ROOT, "build", "koifish")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    sft_counts, hf = koifish_sft(torch, root)
+    koifish_gpt2(torch, root)
+    koifish_pangpi(torch, root, hf)
+    koifish_reference_check(torch, root)
+    shutil.rmtree(root)
+    say(f"[koifish] phase: {time.perf_counter() - t0:.1f} s")
+    return sft_counts
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3206,6 +3713,8 @@ def main() -> None:
     train_counts = train_phase(torch)
     reference_check_int8(torch)
     g774_counts, tile_counts = train_774m_phase(torch)
+    sft_counts = koifish_phase(torch)
+    say(f"[koifish] the SFT run's launches: {json.dumps(sft_counts)}")
 
     src = "koifish_tpu_torch/csrc/"
     rows = [  # (name, source, TPU kernel, numbers, launches on its path)

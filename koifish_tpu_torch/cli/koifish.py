@@ -1,0 +1,307 @@
+"""``koifish`` — the training / SFT / QAT CLI (the JAX package's
+``cli/koifish.py``; the reference's train binary, koifish.cpp:29-60 ->
+Fish::Train -> Optimizer::Search).
+
+    python -m koifish_tpu_torch.cli.koifish <config.json> [--most-iter N]
+        [--hf DIR] [--device cpu|cuda] [--out-dir DIR] [--resume CKPT]
+
+One JSON config in the reference's schema is the product surface. It runs
+on one device, the card unless ``--device cpu`` is given: pretraining from
+token shards, SFT on ChatML jsonl (LoRA or another trainable mask),
+checkpoints and ``--resume``, the in-training perplexity eval with its
+``Eval.csv``, the ``gpt-every`` sample, the ``nn_structure`` dump and the
+Fuyou swarm. Parallelism (``--dp/--tp/--sp/--pp > 1``, ``--fsdp``) and
+gama (scale-only) training are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+import time
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="koifish")
+    ap.add_argument("config", help="JSON config (reference schema)")
+    ap.add_argument("--most-iter", type=int, default=None,
+                    help="cap training iterations (debug.most_iter)")
+    ap.add_argument("--hf", default=None, help="HF model dir (load weights)")
+    ap.add_argument("--device", default=None, choices=["cpu", "cuda"],
+                    help="default: the CUDA device (raises without one)")
+    ap.add_argument("--out-dir", default=".", help="loss CSV / checkpoint dir")
+    ap.add_argument("--dp", type=int, default=1, help="data-parallel ways")
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ways")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="sequence-parallel ways")
+    ap.add_argument("--pp", type=int, default=1, help="pipeline stages")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="shard params+moments over dp (ZeRO-3 analog)")
+    ap.add_argument("--resume", default=None,
+                    help="checkpoint to resume from (params+moments+step)")
+    ap.add_argument("--wandb", default=None, metavar="PROJECT",
+                    help="log to Weights & Biases when it is installed")
+    return ap
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported to koifish_tpu_torch "
+                              f"yet (ROADMAP.md queue 1, {item})")
+
+
+def _on_device(batches, dev):
+    """Numpy batches -> int64 token / bool mask tensors on ``dev``."""
+    import torch
+    for b in batches:
+        yield {k: torch.from_numpy(v).to(
+            dev, torch.int64 if k == "tokens" else torch.bool)
+            for k, v in b.items()}
+
+
+def main(argv=None, result=None) -> int:
+    """Train as the config says. ``result``: a dict that receives the run's
+    ``card``, final ``state``, ``infos`` (its loss curve) and the last
+    step's ``metrics`` (``leaf_norms`` among them when the config sets
+    ``debug.check_tensor_norm``)."""
+    args = build_argparser().parse_args(argv)
+    if args.dp > 1 or args.tp > 1 or args.sp > 1 or args.pp > 1 or args.fsdp:
+        _not_ported("--dp/--tp/--sp/--pp > 1 and --fsdp",
+                    "parallelism on torch.distributed")
+    import torch
+
+    from koifish_tpu_torch.config import CLIParams
+    from koifish_tpu_torch.data import TokenDataset
+    from koifish_tpu_torch.evaluate import perplexity
+    from koifish_tpu_torch.io import load_hf_model, save_train_state
+    from koifish_tpu_torch.train.trainer import init_train_state, train_loop
+    from koifish_tpu_torch.utils.device import resolve_device
+    from koifish_tpu_torch.utils.tree import leaves
+
+    dev = resolve_device(args.device)
+    p = CLIParams.load(args.config)
+    if args.hf:
+        p.hf_card = args.hf
+    if args.most_iter is not None:
+        p.train.most_iter = args.most_iter
+    card, tcard = p.model, p.train
+    qcard = p.quant if p.quant.rules else None
+    if qcard is not None and qcard.train_target == "gama":
+        _not_ported("gama (scale-only) training", "gama training")
+
+    params = None
+    if p.hf_card:
+        print(f"[koifish] loading HF weights from {p.hf_card}")
+        card, params = load_hf_model(p.hf_card, card, device=dev)
+
+    # SFT method wiring (LoRA adapters / trainable masks; SFT_CARD analog)
+    trainable = None
+    if p.sft is not None and params is not None:
+        from koifish_tpu_torch.train.lora import add_lora, trainable_mask
+        if p.sft.method == "lora":
+            params = add_lora(params, p.sft,
+                              torch.Generator().manual_seed(p.seed))
+        if p.sft.method != "full":
+            trainable = trainable_mask(params, p.sft.method)
+        print(f"[koifish] SFT method={p.sft.method}")
+
+    state = init_train_state(card, tcard, params=params, device=dev)
+    resume_path = args.resume or p.checkpoint_in
+    if resume_path:
+        from koifish_tpu_torch.io import load_train_state
+        state, _ = load_train_state(resume_path, state)
+        print(f"[koifish] resumed from {resume_path} "
+              f"(step {int(state.opt.step)})")
+    n_params = sum(x.numel() for x in leaves(state.params))
+    print(f"[koifish] arch={card.arch} layers={card.n_layer} "
+          f"params={n_params/1e6:.1f}M device={dev.type}")
+    if tcard.nn_structure:    # DUMP_SWITCH.nn_structure
+        from koifish_tpu_torch.utils.dump import model_structure
+        print(model_structure(state.params))
+
+    train_ds = p.datasets.get("train")
+    if train_ds is None or not train_ds.glob:
+        print("[koifish] no train dataset in config", file=sys.stderr)
+        return 2
+    if train_ds.kind in ("OAI_message", "jsonl", "ChatML") and \
+            train_ds.glob.endswith(".jsonl"):
+        from koifish_tpu_torch.data import BPETokenizer
+        from koifish_tpu_torch.data.sft import SFTDataset
+        tok = BPETokenizer.from_file(p.hf_card)
+        sds = SFTDataset.from_jsonl(train_ds.glob, tok, card.n_ctx)
+        total_steps = max(len(sds) // tcard.batch, 1) * tcard.epochs
+        batches = sds.batches(tcard.batch, seed=p.seed, epochs=tcard.epochs,
+                              accum=tcard.grad_accum)
+        print(f"[koifish] SFT: {len(sds)} conversations, {total_steps} steps")
+    else:
+        ds = TokenDataset(train_ds.glob, most=train_ds.most)
+        steps_per_epoch = max(ds.total // (tcard.batch * card.n_ctx), 1)
+        total_steps = steps_per_epoch * tcard.epochs
+        batches = ds.batches(tcard.batch, card.n_ctx, seed=p.seed,
+                             epochs=tcard.epochs, accum=tcard.grad_accum)
+        print(f"[koifish] {ds.total/1e6:.1f}M tokens, {total_steps} steps "
+              f"(B={tcard.batch}, ctx={card.n_ctx}, accum={tcard.grad_accum})")
+
+    eval_cards = [d for k, d in p.datasets.items() if k.startswith("eval")]
+    eval_csv = os.path.join(args.out_dir, "Eval.csv")
+    eval_state = {"best": float("inf"), "last": float("inf"),
+                  "no_improve": 0}
+
+    def eval_fn(st, it):
+        for d in eval_cards:
+            if d.kind == "hellaswag":
+                continue  # pangpi handles hellaswag
+            try:
+                eds = TokenDataset(d.glob, most=max(d.most, 1))
+            except FileNotFoundError:
+                continue
+            ce, ppl = perplexity(card, st.params,
+                                 eds.batches(tcard.batch, card.n_ctx),
+                                 max_batches=max(int(8 * d.samp * 10), 2))
+            # overfit / no-improvement heuristics (UpdateStepInfos,
+            # TokenSet.cpp:603-619, Optimizer.hpp:69)
+            best = eval_state["best"]
+            overfit = (ce > eval_state["last"]
+                       and abs(ce - best) > best / 10)
+            if ce < best:
+                eval_state["best"] = ce
+                eval_state["no_improve"] = 0
+            else:
+                eval_state["no_improve"] += 1
+            eval_state["last"] = ce
+            flagmsg = " !OVERFIT!" if overfit else ""
+            if eval_state["no_improve"] >= 3:
+                flagmsg += f" (no improvement x{eval_state['no_improve']})"
+            print(f"[eval {d.name}@{it}] ce={ce:.4f} ppl={ppl:.2f}{flagmsg}")
+            new = not os.path.exists(eval_csv)
+            with open(eval_csv, "a") as f:
+                if new:
+                    f.write("iter,dataset,ce,ppl\n")
+                f.write(f"{it},{d.name},{ce:.6f},{ppl:.4f}\n")
+        return {}
+
+    # in-training chat sample every gpt_every iters (Optimizer::Evaluate's
+    # chat hook, Optimizer.cpp:717-749; config train.gpt-every)
+    gpt_tok = None
+    if tcard.gpt_every > 0 and p.hf_card:
+        from koifish_tpu_torch.data import BPETokenizer
+        try:
+            gpt_tok = BPETokenizer.from_file(p.hf_card)
+        except (OSError, ValueError, KeyError) as e:
+            print(f"[koifish] gpt-every disabled (no tokenizer): {e}")
+
+    def gpt_sample(st, it):
+        from koifish_tpu_torch.config import SamplerCard
+        from koifish_tpu_torch.serve import generate, init_cache
+        prompt_text = (p.prompts[0] if p.prompts else "Once upon a time")
+        ids = gpt_tok.encode(prompt_text)[: card.n_ctx // 2] or [0]
+        cache = init_cache(card.n_layer, 1, min(card.n_ctx, 256),
+                           card.n_kv_head, card.head_dim, device=dev)
+        with torch.no_grad():
+            toks, _ = generate(card, st.params,
+                               torch.tensor([ids], dtype=torch.int64), cache,
+                               SamplerCard(temperature=0.0),
+                               max_new_tokens=24, device=dev)
+        print(f"[gpt@{it}] {prompt_text!r} -> "
+              f"{gpt_tok.decode([int(t) for t in toks[0]])!r}")
+
+    ckpt_dir = (p.checkpoint_out.path if p.checkpoint_out else args.out_dir)
+    os.makedirs(ckpt_dir or ".", exist_ok=True)
+
+    def save_fn(st, it, tag):
+        path = os.path.join(ckpt_dir, f"koifish_{tag}_{it}.safetensors")
+        save_train_state(path, st, card, extra_meta={"iter": it})
+        print(f"[koifish] saved {tag} checkpoint -> {path}")
+
+    if qcard is not None:
+        print(f"[koifish] QAT enabled: fake-quant (STE), "
+              f"{len(qcard.rules)} rules")
+
+    hooks = []
+    if gpt_tok is not None:
+        def gpt_hook(st, it, loss):
+            if it and it % tcard.gpt_every == 0:
+                gpt_sample(st, it)
+            return None
+        hooks.append(gpt_hook)
+
+    # Fuyou EOE swarm: rotate branches every `switch` iters (the reference's
+    # ExploreOptimization hook, gLLM.cpp:673-677; config model.fuyou)
+    if p.fuyou:
+        from koifish_tpu_torch.train.fuyou import Fuyou, FuyouConfig
+        fcfg = FuyouConfig.from_json(p.fuyou)
+        fy = Fuyou(fcfg, state.params)
+        state = dataclasses.replace(state, params=fy.inject(state.params))
+        fy_losses = []
+        fy_gen = torch.Generator(device=dev)
+        fy_gen.manual_seed(p.seed + 1)
+
+        def fuyou_hook(st, it, loss):
+            fy_losses.append(loss)
+            if (it + 1) % fcfg.switch:
+                return None
+            recent = (sum(fy_losses[-fcfg.switch:])
+                      / min(len(fy_losses), fcfg.switch))
+            new_params = fy.rotate(st.params, recent, fy_gen)
+            print(f"[fuyou] iter {it}: rotate -> branch {fy.cur} "
+                  f"(best={fy.best}, score={recent:.4f})")
+            return dataclasses.replace(st, params=new_params)
+        hooks.append(fuyou_hook)
+        print(f"[koifish] fuyou swarm: {fcfg.branches} branches, "
+              f"switch={fcfg.switch}, method={fcfg.method}")
+
+    hook_fn = None
+    if hooks:
+        def hook_fn(st, it, loss):
+            for h in hooks:
+                new = h(st, it, loss)
+                if new is not None:
+                    st = new
+            return st
+
+    wandb_run = None
+    if args.wandb:
+        try:
+            import wandb
+            wandb_run = wandb.init(project=args.wandb,
+                                   config={"arch": card.arch,
+                                           "batch": tcard.batch,
+                                           "lr": tcard.lr})
+        except Exception as e:   # an optional logger: report and go on
+            print(f"[koifish] wandb unavailable: {e}")
+
+    def log_fn(msg):
+        print(msg)
+        if wandb_run is not None and msg.startswith("["):
+            parts = dict(kv.split("=", 1) for kv in
+                         msg.partition("]")[2].split() if "=" in kv)
+            vals = {}
+            for k in ("loss", "lr", "gnorm"):
+                try:
+                    vals[k] = float(parts[k])
+                except (KeyError, ValueError):
+                    pass
+            wandb_run.log(vals)
+
+    t0 = time.time()
+    state, infos = train_loop(
+        card, tcard, state, _on_device(batches, dev),
+        total_steps=total_steps, log_fn=log_fn, eval_fn=eval_fn,
+        save_fn=save_fn, qcard=qcard, trainable=trainable, hook_fn=hook_fn)
+    csv = tcard.train_csv_path or os.path.join(args.out_dir,
+                                               "koifish_loss.csv")
+    infos.save_csv(csv)
+    if infos.rows:
+        print(f"[koifish] done: {len(infos.rows)} iters in "
+              f"{time.time()-t0:.0f}s, final loss {infos.losses[-1]:.4f}, "
+              f"curve -> {csv}")
+    if tcard.save_every or p.checkpoint_out:
+        save_fn(state, len(infos.rows), "final")
+    if result is not None:
+        result.update(card=card, state=state, infos=infos,
+                      metrics=infos.metrics)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,7 +5,8 @@ already a numpy array (``np.asarray`` on the JAX side) and every QTensor
 given as a dict of its numpy fields plus its metadata (``fmt`` as the
 format's string value, ``shape``, ``group``). ``cache_from_numpy`` does the
 same for a ``KVCache`` (stacked leaves) or a ``LayeredKVCache`` (per-layer
-lists), and ``opt_state_from_numpy`` for an optimizer state. bf16 arrives as ``ml_dtypes.bfloat16``; it is carried as a
+lists), ``opt_state_from_numpy`` for an optimizer state and
+``train_state_from_numpy`` for a whole train state. bf16 arrives as ``ml_dtypes.bfloat16``; it is carried as a
 ``uint16`` view and reinterpreted as ``torch.bfloat16``, bit for bit. This
 module imports no JAX.
 """
@@ -17,12 +18,11 @@ import numpy as np
 import torch
 
 from koifish_tpu_torch.dtypes import QFormat
-from koifish_tpu_torch.quant.qtensor import QTensor
+from koifish_tpu_torch.quant.qtensor import TENSOR_FIELDS, QTensor
 from koifish_tpu_torch.serve.kvcache import KVCache
 from koifish_tpu_torch.serve.layered import LayeredKVCache
 from koifish_tpu_torch.utils.device import resolve_device
-
-_QT_FIELDS = ("codes", "scales", "zeros", "codebook", "row_scale")
+from koifish_tpu_torch.utils.tree import leaves as _leaves
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -40,7 +40,7 @@ def _fmt(f) -> QFormat:
 
 def qtensor_from_numpy(d: Dict[str, Any], device) -> QTensor:
     fields = {k: (None if d.get(k) is None
-                  else tensor_from_numpy(d[k], device)) for k in _QT_FIELDS}
+                  else tensor_from_numpy(d[k], device)) for k in TENSOR_FIELDS}
     return QTensor(fmt=_fmt(d["fmt"]), shape=tuple(d["shape"]),
                    group=int(d["group"]), **fields)
 
@@ -94,3 +94,21 @@ def opt_state_from_numpy(tree: Dict[str, Any], device=None):
                     step=int(np.asarray(tree["step"])),
                     spikes=torch.tensor(int(np.asarray(tree["spikes"])),
                                         dtype=torch.int32, device=dev))
+
+
+def train_state_from_numpy(tree: Dict[str, Any], device=None):
+    """The JAX package's ``TrainState`` as numpy fields — ``params`` (LoRA
+    adapter dicts included), ``opt`` (as ``opt_state_from_numpy`` takes it)
+    and ``rng`` (its uint32 key data) — -> the port's ``TrainState``, its
+    float params requiring a gradient and its generator seeded from the key
+    as ``io/checkpoint.py`` seeds it."""
+    from koifish_tpu_torch.io.checkpoint import generator_from_words
+    from koifish_tpu_torch.train.trainer import TrainState
+    params = params_from_numpy(tree["params"], device)
+    for p in _leaves(params):
+        if isinstance(p, torch.Tensor) and p.is_floating_point():
+            p.requires_grad_(True)
+    return TrainState(
+        params=params, opt=opt_state_from_numpy(tree["opt"], device),
+        gen=generator_from_words(torch.from_numpy(
+            np.asarray(tree["rng"]).astype(np.int64))))

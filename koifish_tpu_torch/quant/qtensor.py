@@ -52,6 +52,10 @@ def code_values(raw: torch.Tensor, fmt: QFormat) -> torch.Tensor:
     return raw.to(torch.float32) - float(1 << (fmt.bits - 1))
 
 
+#: QTensor's tensor fields, in its field order (the JAX pytree's leaves)
+TENSOR_FIELDS = ("codes", "scales", "zeros", "codebook", "row_scale")
+
+
 @dataclasses.dataclass
 class QTensor:
     """Packed quantized tensor + per-group scales.

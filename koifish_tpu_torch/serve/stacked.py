@@ -17,10 +17,8 @@ import torch
 
 from koifish_tpu_torch.config import ModelCard
 from koifish_tpu_torch.models.transformer import Params
-from koifish_tpu_torch.quant.qtensor import QTensor
+from koifish_tpu_torch.quant.qtensor import TENSOR_FIELDS, QTensor
 from koifish_tpu_torch.serve.kvcache import KVCache
-
-_QT_FIELDS = ("codes", "scales", "zeros", "codebook", "row_scale")
 
 
 def _stack(xs: List[Any]) -> Any:
@@ -38,7 +36,7 @@ def _stack(xs: List[Any]) -> Any:
                or (x.fmt, tuple(x.shape), x.group) != meta for x in xs):
             return None
         fields = {}
-        for f in _QT_FIELDS:
+        for f in TENSOR_FIELDS:
             vals = [getattr(x, f) for x in xs]
             if all(v is None for v in vals):
                 fields[f] = None
@@ -74,7 +72,7 @@ def layer_params(stacked: Any, li: int) -> Any:
     if isinstance(stacked, QTensor):
         return dataclasses.replace(stacked, **{
             f: None if getattr(stacked, f) is None else getattr(stacked, f)[li]
-            for f in _QT_FIELDS})
+            for f in TENSOR_FIELDS})
     return stacked[li]
 
 

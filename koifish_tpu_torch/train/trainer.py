@@ -113,6 +113,14 @@ def make_train_step(card: ModelCard, tcard: TrainCard, total_steps: int,
         flat = leaves(state.params)
         diff = [i for i, p in enumerate(flat)
                 if _is_float(p) and (frozen is None or not frozen[i])]
+        # only the trained leaves require a gradient, so the backward makes
+        # none for a frozen one (a frozen head's dW, a frozen embedding's);
+        # params swapped in between steps (a resumed or Fuyou-injected
+        # branch) are marked here too
+        want = set(diff)
+        for i, p in enumerate(flat):
+            if _is_float(p) and p.requires_grad != (i in want):
+                p.requires_grad_(i in want)
         acc = None
         loss_sum = 0.0
         for a in range(accum):
@@ -167,8 +175,10 @@ def make_train_step(card: ModelCard, tcard: TrainCard, total_steps: int,
 
 @dataclasses.dataclass
 class StepInfo:
-    """Loss-curve recorder -> CSV (``StepInfos``, DataLoader.hpp:43-71)."""
+    """Loss-curve recorder -> CSV (``StepInfos``, DataLoader.hpp:43-71);
+    ``metrics`` keeps the last step's metrics dict."""
     rows: list = dataclasses.field(default_factory=list)
+    metrics: Optional[dict] = None
 
     def add(self, it: int, loss: float, lr: float, dt: float, tps: float):
         self.rows.append((it, loss, lr, dt, tps))
@@ -236,6 +246,7 @@ def train_loop(
             tokens_per_batch = int(batch["tokens"].numel())
         tps = tokens_per_batch / dt
         infos.add(it, loss, float(metrics["lr"]), dt, tps)
+        infos.metrics = metrics
 
         gnorm = float(metrics["grad_norm"])
         if not (0.0 < loss < 100.0) or not torch.isfinite(

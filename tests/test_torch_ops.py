@@ -213,7 +213,12 @@ def test_port_imports_no_jax():
             " koifish_tpu_torch.ops.kernels.slotwrite, koifish_tpu_torch.io,"
             " koifish_tpu_torch.data, koifish_tpu_torch.cli.bubble,"
             " koifish_tpu_torch.serve.speculative,"
-            " koifish_tpu_torch.ops.kernels.qmv_int8;"
+            " koifish_tpu_torch.ops.kernels.qmv_int8,"
+            " koifish_tpu_torch.data.tokenset, koifish_tpu_torch.data.sft,"
+            " koifish_tpu_torch.train.lora, koifish_tpu_torch.train.fuyou,"
+            " koifish_tpu_torch.io.checkpoint, koifish_tpu_torch.evaluate,"
+            " koifish_tpu_torch.cli.koifish, koifish_tpu_torch.cli.pretokenize,"
+            " koifish_tpu_torch.cli.pangpi;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'koifish_tpu', 'regex', 'ml_dtypes')];"
             " print(bad); sys.exit(bool(bad))")

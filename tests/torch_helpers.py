@@ -3,6 +3,7 @@
 Inputs are made with numpy from a fixed seed and handed to both packages;
 JAX runs on the CPU (tests/conftest.py), the port with ``device="cpu"``.
 """
+import contextlib
 import functools
 
 import numpy as np
@@ -89,3 +90,34 @@ def bf16_pair(a: np.ndarray):
     j = jnp.asarray(a, dtype=jnp.bfloat16)
     t = torch.from_numpy(np.asarray(j, dtype=np.float32)).to(torch.bfloat16)
     return j, t
+
+
+def jax_train_state_to_numpy(state):
+    """A JAX ``TrainState`` -> the dict ``train_state_from_numpy`` takes."""
+    import jax
+    import jax.numpy as jnp
+    opt = state.opt
+    rng = state.rng
+    if jnp.issubdtype(rng.dtype, jax.dtypes.prng_key):
+        rng = jax.random.key_data(rng)
+    return dict(params=jax_tree_to_numpy(state.params),
+                opt=dict(m=jax_tree_to_numpy(opt.m),
+                         v=None if opt.v is None else jax_tree_to_numpy(opt.v),
+                         step=np.asarray(opt.step),
+                         spikes=np.asarray(opt.spikes)),
+                rng=np.asarray(rng))
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """Run the body with ``n`` intra-op torch threads, then restore the
+    count. The test run gives each of its workers a share of the cores;
+    torch's default of one thread a core then makes every small op of a
+    tiny model wait on the other workers (the tiny CLI runs took 40x
+    longer under the parallel run than alone)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
