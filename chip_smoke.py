@@ -60,8 +60,11 @@ Phases, in order; any failed check exits non-zero before the last line:
              (m = 33, 65, 129, 4097; N = 132, 200, 520, 1000).
    grad    — dx through a kernel-covered QTensor (GEMM and GEMV shapes, RTN
              INT4/INT8, k-means and MINI books) against the gradient through
-             the dequantized weight; a scale or a book that requires a
-             gradient must raise, and so must row 5 with x requiring one.
+             the dequantized weight; with the scales and the book requiring
+             a gradient too (gama), one kernel launch forward and dx,
+             dscales and dbook against autograd through the dequantized
+             weight (1 % of the largest entry); row 5 with x requiring a
+             gradient must raise.
 4. serving — Qwen3-0.6B at full width (configs/qwen3_0.6b.json, random
              weights from a seed), INT4 RTN g128 weights, a layered INT8 KV
              cache (B=32, S=1024): ``generate`` on 32 prompts of 128 tokens
@@ -144,6 +147,30 @@ Phases, in order; any failed check exits non-zero before the last line:
              1e-2, step 2's adapter grad norms 2 %, the adapters' b
              ‖Δ‖/‖b_cpu‖ 0.25) and ``pangpi --bits 4 --ppl`` (mean CE
              1e-2).
+   slice13 — under build/slice13, at Qwen3-0.6B's full width and depth:
+             (a) configs/qwen3_0.6b.json with ``"train_target": "gama"``
+             through ``koifish.main``, 4 steps of B 16 x 1024 on a seeded
+             shard (one 1024-token sequence repeated); fails unless the
+             losses are finite and fall, every code tensor is bit for bit
+             the initial quantization's, every scale moved and the
+             launches are exactly the counts 4 steps imply (row 3 in
+             every projection, twice with remat); then the gama
+             backward's plain work timed against bf16's products, a
+             profiled step, and a tiny gama CLI run on the card against
+             the CPU (losses 2e-2, scale grad norms 5 %). (b) an INT4 g128
+             gama student distilled from its bf16 teacher by
+             ``distill_step_loss``, 3 AdamW steps at B 4 x 1024 (reckoned
+             and measured peak memory; kd > 0 at step 0, σ the
+             schedule's, codes frozen, scales moved), and a tiny step card
+             vs CPU (loss 1e-2). (c) a seeded ``.kun`` and
+             ``tokenizer.dat`` from the port's writers: ``load_kun_model``
+             gives every tensor back ``torch.equal``, then ``bubble.main
+             --bits 8 --kv-bits 8 --temperature 0 --max-new 64`` ("mxu")
+             on it launches rows 5, 7 (with its write) and 1a. (d)
+             ``generate`` at B 32 x 128, 64 new, INT4 g128 and a QJL
+             cache: TTFT and decode tok/s, rows 1a, 3, 4 launched and no
+             row 7; a profiled decode chunk; a tiny QJL model card vs CPU
+             (logits 5e-2, greedy tokens 75 %).
 6. result  — one JSON line with every kernel's numbers (launches from its
              path's run: the serving run for the slice-1 kernels and the
              decode attention's fused K/V write (``decode_attn_write``,
@@ -155,7 +182,9 @@ Phases, in order; any failed check exits non-zero before the last line:
              launches plus the fused ones), GPT2-774M run (a) for the
              int8 fused CE and the quantizers, run (b) for qdgrad (its
              quantize pass and its GEMM, each line timing its own launch),
-             the plain bubble run for the int8 GEMV), then the last line
+             the plain bubble run for the int8 GEMV; each row's
+             ``launches_by_path`` gives slice 13's runs: gama, distill,
+             kun_bubble, qjl), then the last line
              ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the repository around it; without either it
@@ -2126,12 +2155,51 @@ def _reaches(node, name: str, depth: int = 4) -> bool:
                              for n, _ in node.next_functions)
 
 
+def gama_grad_check(torch, km, name: str, w, x, dy) -> None:
+    """``km.qmatmul`` with x, the scales and (for a learned book) the book
+    requiring a gradient: the graph goes through ``QMatmul``, whose forward
+    launches the kernel (its counter moves), and dx, dscales and dbook
+    agree with autograd through the dequantized bf16 weight (the JAX
+    package's chain: dW = bf16(xᵀ·dy), then f32 sums) within 1 % of each
+    one's largest entry."""
+    import dataclasses
+    from koifish_tpu_torch.utils import kernel_log
+    m = x.shape[0]
+    out = {}
+    for tag in ("kernel", "plain"):
+        xk = x.clone().requires_grad_(True)
+        s = w.scales.detach().clone().requires_grad_(True)
+        b = (None if w.codebook is None
+             else w.codebook.detach().clone().requires_grad_(True))
+        wk = dataclasses.replace(w, scales=s, codebook=b)
+        if tag == "kernel":
+            kernel_log.reset_launches()
+            y = km.qmatmul(xk, wk)
+            if not _reaches(y.grad_fn, "QMatmul") or \
+                    sum(kernel_log.launches().values()) != 1:
+                fail(f"gama {name} m{m}: the product did not take one "
+                     f"kernel launch and QMatmul ({kernel_log.launches()})")
+        else:
+            y = torch.matmul(xk, wk.dequantize(torch.bfloat16))
+        y.backward(dy)
+        out[tag] = (xk.grad, s.grad, None if b is None else b.grad)
+    torch.cuda.synchronize()
+    for i, part in enumerate(("dx", "dscales", "dbook")):
+        got, ref = out["kernel"][i], out["plain"][i]
+        if ref is None:
+            continue
+        check(f"gama {name} m{m} {part}", max_err(got, ref),
+              1e-2 * float(ref.float().abs().max()) + 1e-6)
+
+
 def qmatmul_grad_phase(torch, gen) -> None:
     """The quantized products' gradient on the card: x.grad through a
     kernel-covered QTensor (the GEMM and GEMV shapes; RTN INT4 and INT8,
     k-means NF4 and MINI NF3 books) against the gradient through the
-    dequantized bf16 weight. A scale or a book that requires a gradient
-    raises, and so does row 5 with an x that requires one. Fails the run
+    dequantized bf16 weight; with the scales (and the book) requiring a
+    gradient too (gama training), the forward still the kernel's and
+    dscales and dbook against autograd through ``QTensor.dequantize``.
+    Row 5 with an x that requires a gradient raises. Fails the run
     otherwise."""
     from koifish_tpu_torch.dtypes import QFormat
     from koifish_tpu_torch.ops import matmul as om
@@ -2172,6 +2240,7 @@ def qmatmul_grad_phase(torch, gen) -> None:
             ref = xr.grad
             check(f"grad {name} m{m} dx", max_err(xk.grad, ref),
                   1e-2 * float(ref.float().abs().max()) + 1e-3)
+            gama_grad_check(torch, km, name, w, x, dy)
 
     def raises(label, fn, match):
         try:
@@ -2186,12 +2255,6 @@ def qmatmul_grad_phase(torch, gen) -> None:
     ws = make()
     x = rnd(64, K).requires_grad_(True)
     ws["INT4"].scales.requires_grad_(True)
-    raises("scale requiring a gradient",
-           lambda: km.qmatmul(x, ws["INT4"]), "queue 1, gama training")
-    ws["k-means NF4"].codebook.requires_grad_(True)
-    raises("codebook requiring a gradient",
-           lambda: km.qmatmul(x, ws["k-means NF4"]),
-           "queue 1, gama training")
     w8, x8 = ws["INT8"], rnd(8, K).requires_grad_(True)
     raises("qmv_int8 with x requiring a gradient",
            lambda: kq.qmv_int8(x8, w8.codes, w8.scales), 'INT8_GEMV = "dot"')
@@ -2712,15 +2775,15 @@ CHAT_PROMPTS = [
 ]
 
 
-def write_hf_dir(torch, path: str, card, seed: int) -> float:
-    """A HF Qwen3 folder at ``card``'s dims, as the JAX package's tests make
-    one: seeded bf16 weights (normal, 0.02; norms 1) written by the port's
-    safetensors writer, its ``config.json`` keys and a byte-level
-    ``tokenizer.json`` with the three chat specials. Returns the GB
-    written."""
-    from koifish_tpu_torch.data.tokenizer import _bytes_to_unicode
-    from koifish_tpu_torch.io.safetensors import write_safetensors
-    os.makedirs(path, exist_ok=True)
+#: the byte-level tokenizer's merges, in rank order, after the 256 bytes
+BYTE_MERGES = ((b"h", b"e"), (b"l", b"l"), (b"he", b"ll"), (b"hell", b"o"),
+               (b" ", b"w"))
+
+
+def qwen3_hf_tensors(torch, card, seed: int) -> dict:
+    """HF-named bf16 CPU tensors of a Qwen3 model at ``card``'s dims, as the
+    JAX package's tests make them: seeded normal(0.02) weights drawn on the
+    card, norms 1."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     E, D, F = card.n_embd, card.head_dim, card.n_ffn
@@ -2748,21 +2811,32 @@ def write_hf_dir(torch, path: str, card, seed: int) -> float:
             pre + "mlp.gate_proj.weight": w(F, E),
             pre + "mlp.up_proj.weight": w(F, E),
             pre + "mlp.down_proj.weight": w(E, F)})
+    return ts
+
+
+def write_hf_dir(torch, path: str, card, seed: int) -> float:
+    """A HF Qwen3 folder at ``card``'s dims: ``qwen3_hf_tensors`` written by
+    the port's safetensors writer, its ``config.json`` keys and a byte-level
+    ``tokenizer.json`` (the 256 bytes, ``BYTE_MERGES`` and the three chat
+    specials). Returns the GB written."""
+    from koifish_tpu_torch.data.tokenizer import _bytes_to_unicode
+    from koifish_tpu_torch.io.safetensors import write_safetensors
+    os.makedirs(path, exist_ok=True)
+    ts = qwen3_hf_tensors(torch, card, seed)
     write_safetensors(os.path.join(path, "model.safetensors"), ts)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump({
             "model_type": "qwen3", "vocab_size": card.vocab_size,
-            "num_hidden_layers": card.n_layer, "hidden_size": E,
+            "num_hidden_layers": card.n_layer, "hidden_size": card.n_embd,
             "num_attention_heads": card.n_head,
-            "num_key_value_heads": card.n_kv_head, "head_dim": D,
-            "intermediate_size": F, "rope_theta": 1e6, "rms_norm_eps": 1e-6,
-            "tie_word_embeddings": True,
+            "num_key_value_heads": card.n_kv_head, "head_dim": card.head_dim,
+            "intermediate_size": card.n_ffn, "rope_theta": 1e6,
+            "rms_norm_eps": 1e-6, "tie_word_embeddings": True,
             "max_position_embeddings": card.max_pos}, f)
     b2u = _bytes_to_unicode()
     vocab = {b2u[b]: b for b in range(256)}
-    u = lambda s: "".join(b2u[c] for c in s.encode())
-    merges = [(u("h"), u("e")), (u("l"), u("l")), (u("he"), u("ll")),
-              (u("hell"), u("o")), (u(" "), u("w"))]
+    u = lambda bs: "".join(b2u[c] for c in bs)
+    merges = [(u(a), u(b)) for a, b in BYTE_MERGES]
     for a, b in merges:
         vocab[a + b] = len(vocab)
     added = [{"content": s, "id": len(vocab) + i}
@@ -3657,6 +3731,610 @@ def koifish_phase(torch):
     return sft_counts
 
 
+# ---------------------------------------------------------------------------
+# phase 5c: gama training, distillation, .kun models, QJL serving (slice 13)
+# ---------------------------------------------------------------------------
+
+#: steps of the gama CLI run and of the distillation
+GAMA_STEPS = 4
+DISTILL_STEPS = 3
+#: rows of the distillation batch (of 1024 tokens)
+DISTILL_B = 4
+#: token ids the seeded shards draw from, with Zipf weights
+SHARD_IDS = 512
+
+
+def write_token_shard(path: str, vocab: int, n: int, seed: int,
+                      period: int = 0) -> None:
+    """``n`` seeded uint32 tokens (Qwen3 shard magic), drawn from the first
+    ``SHARD_IDS`` ids (at most ``vocab``) with weights 1/rank. ``period``:
+    one drawn sequence of that length repeated, so that every window of a
+    ``TokenDataset`` at that stride holds the same tokens."""
+    import numpy as np
+    from koifish_tpu_torch.data import MAGIC_QWEN3, write_shard
+    rng = np.random.default_rng(seed)
+    k = min(SHARD_IDS, vocab)
+    w = 1.0 / np.arange(1, k + 1)
+    toks = rng.choice(k, period or n, p=w / w.sum())
+    if period:
+        toks = np.resize(toks, n)
+    write_shard(path, toks.astype(np.uint32), MAGIC_QWEN3, vocab)
+
+
+def _qtensors(torch, params):
+    """[(path, QTensor)] of a param tree."""
+    from koifish_tpu_torch.quant.qtensor import QTensor
+    return [((li, k), w) for li, lp in enumerate(params["layers"])
+            for k, w in lp.items() if isinstance(w, QTensor)]
+
+
+def gama_launches(steps: int, card, remat, m: int) -> dict:
+    """The launches ``steps`` gama steps of ``card`` make at m rows: row 3
+    in each of a layer's 7 projections and a flash forward a layer (each
+    twice with ``remat``: the backward recomputes the block; the backward
+    itself multiplies by the dequantized weight), a dK/dV and a dQ a
+    layer, and the fused CE's forward and, per vocab chunk, its dlogits, dx
+    and dW (the tied embedding trains)."""
+    from koifish_tpu_torch.ops.kernels import fused_ce as kc
+    L = card.n_layer
+    r = 2 if remat else 1
+    chunks = len(kc.chunk_plan(m, card.vocab_size)[1])
+    return {"qmm": steps * L * 7 * r, "flash_fwd": steps * L * r,
+            "flash_bwd_dkv": steps * L, "flash_bwd_dq": steps * L,
+            "fused_ce_fwd": steps, "fused_ce_dlogits": steps * chunks,
+            "fused_ce_dx": steps * chunks, "fused_ce_dw": steps * chunks}
+
+
+def gama_cli(torch, root: str) -> dict:
+    """configs/qwen3_0.6b.json as shipped, with ``"train_target": "gama"``
+    in its quantizer card and its train glob on a seeded shard, through
+    ``koifish.main`` for ``GAMA_STEPS`` steps (B 16 x 1024; the config's
+    warmup is the default 700 steps, so the lr is 0 at step 0 and ~1e-6
+    after: one token sequence repeated makes every batch the same, so that
+    the losses move only with the updates). Fails unless
+    the losses are finite and fall, every code tensor is bit for bit the
+    initial quantization's, every scale tensor moved and the launches are
+    ``gama_launches``'s. Returns the launches."""
+    import math
+    from koifish_tpu_torch.cli import koifish
+    from koifish_tpu_torch.config import CLIParams
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.quant import quantize_params
+    from koifish_tpu_torch.utils import mfu
+    with open(os.path.join(ROOT, "configs", "qwen3_0.6b.json")) as f:
+        cfg = json.load(f)
+    cfg["quantizer"]["train_target"] = "gama"
+    shard = os.path.join(root, "qwen3_train_000.bin")
+    cfg["datasets"]["train"]["glob"] = os.path.join(root, "*train*.bin")
+    cfgp = os.path.join(root, "qwen3_gama.json")
+    with open(cfgp, "w") as f:
+        json.dump(cfg, f, indent=1)
+    p = CLIParams.load(cfgp)
+    card, tcard = p.model, p.train
+    B, T = tcard.batch, card.n_ctx
+    # every window the same T tokens: the losses differ only by the updates
+    write_token_shard(shard, card.vocab_size, 2 * GAMA_STEPS * B * (T + 1),
+                      seed=31, period=T)
+    say(f"[gama] configs/qwen3_0.6b.json with train_target gama and a "
+        f"seeded shard: {json.dumps(cfg)}")
+    res, _, counts = run_cli(torch, koifish.main, [
+        cfgp, "--most-iter", str(GAMA_STEPS), "--out-dir",
+        os.path.join(root, "gama")], f"koifish gama ({GAMA_STEPS} steps)")
+    state, infos = res["state"], res["infos"]
+    losses = infos.losses
+    dts = [r[3] for r in infos.rows]
+    dt = sorted(dts[1:])[len(dts[1:]) // 2]
+    util = mfu.step_mfu(card, B * T, dt)
+    say(f"  B={B}, T={T}, remat={tcard.remat}, warmup {tcard.warmup}, lr "
+        f"{[round(r[2], 10) for r in infos.rows]}; losses "
+        f"{[round(x, 6) for x in losses]}")
+    say(f"  step ms {[round(d * 1e3, 1) for d in dts]}; median of steps 1-"
+        f"{GAMA_STEPS - 1}: {dt * 1e3:.1f} ms, {B * T / dt:.1f} tok/s, MFU "
+        f"{'not measured' if util is None else f'{util:.4f}'} (6·N·tokens "
+        f"+ attention)")
+    if len(losses) != GAMA_STEPS or not all(math.isfinite(x)
+                                            for x in losses):
+        fail(f"gama: losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"gama: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    want = gama_launches(GAMA_STEPS, card, tcard.remat, B * T)
+    for name, n in want.items():
+        if counts.get(name, 0) != n:
+            fail(f"gama: {counts.get(name, 0)} {name} launches, {n} "
+                 f"expected")
+    say(f"  launches as expected: {json.dumps(want)}")
+    with torch.no_grad():
+        ref = quantize_params(init_params(card, device="cuda",
+                                          seed=tcard.seed), p.quant, card)
+    got = dict(_qtensors(torch, state.params))
+    n = 0
+    for path, q0 in _qtensors(torch, ref):
+        q = got[path]
+        if not torch.equal(q.codes, q0.codes):
+            fail(f"gama: the codes of {path} changed")
+        if torch.equal(q.scales.detach(), q0.scales):
+            fail(f"gama: the scales of {path} did not move")
+        n += 1
+    moved = max(float(((got[p].scales.detach() - q.scales).abs()
+                       / q.scales.abs().clamp_min(1e-12)).max())
+                for p, q in _qtensors(torch, ref))
+    say(f"  all {n} code tensors bit for bit the initial quantization's; "
+        f"all {n} scale tensors moved (largest relative move {moved:.3e})")
+    if n != card.n_layer * 7:
+        fail(f"gama: {n} quantized weights, {card.n_layer * 7} expected")
+    del ref
+    gama_backward_times(torch, [q for (li, _), q in got.items() if li == 0],
+                        card.n_layer, B * T)
+    profile_gama_step(torch, card, tcard, p.quant, state, cfg, B * T)
+    del res, state, got
+    torch.cuda.empty_cache()
+    return counts
+
+
+def gama_backward_times(torch, qs, n_layer: int, m: int) -> None:
+    """The plain PyTorch work of gama's backward for one layer's quantized
+    weights ``qs`` at m rows (dx through the dequantized weight, ``dW =
+    x2ᵀ·dy`` and the scales' sums), times ``n_layer``, against the same
+    layers' bf16 dx and dW products (CUDA events around eager calls)."""
+    from koifish_tpu_torch.ops.kernels.matmul import weight_grads
+    g = torch.Generator(device="cuda")
+    g.manual_seed(34)
+    ins = []
+    with torch.no_grad():
+        for q in qs:
+            K, N = q.shape
+            x = torch.randn((m, K), generator=g, device="cuda").bfloat16()
+            dy = torch.randn((m, N), generator=g, device="cuda").bfloat16()
+            ins.append((q, x, dy, q.dequantize(torch.bfloat16)))
+
+        def gama():
+            for q, x, dy, _ in ins:
+                torch.matmul(dy, q.dequantize(dy.dtype).t())
+                weight_grads(x, dy, q)
+
+        def plain():
+            for _, x, dy, w in ins:
+                torch.matmul(dy, w.t())
+                torch.matmul(x.t(), dy)
+        t_gama, t_plain = event_ms(torch, gama), event_ms(torch, plain)
+    say(f"  gama backward of the quantized weights (dequantize + dx, dW, "
+        f"the scales' sums; {len(qs)} weights a layer, m {m}): "
+        f"{t_gama * n_layer:.2f} ms a step ({n_layer} layers) against "
+        f"{t_plain * n_layer:.2f} ms for their bf16 dx and dW products")
+
+
+def profile_gama_step(torch, card, tcard, qcard, state, cfg, m: int) -> None:
+    """One gama step of the CLI's train card on its first batch under the
+    profiler: device time by kernel and the idle share."""
+    from koifish_tpu_torch.data import TokenDataset
+    from koifish_tpu_torch.train import make_train_step
+    b = next(TokenDataset(cfg["datasets"]["train"]["glob"]).batches(
+        tcard.batch, card.n_ctx))
+    batch = {"tokens": torch.from_numpy(b["tokens"]).to("cuda", torch.int64)}
+    step = make_train_step(card, tcard, total_steps=GAMA_STEPS, qcard=qcard)
+
+    def one():
+        nonlocal state
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+    profile_window(torch, f"Qwen3-0.6B gama step (B={tcard.batch}, "
+                   f"T={card.n_ctx}, remat={tcard.remat})", one)
+
+
+def gama_reference_check(torch, root: str) -> None:
+    """A tiny Qwen3 folder (E 128: every product takes the kernels at g128)
+    through ``koifish.main`` with a gama quantizer card, 3 steps on the
+    card against the CPU (SR off): losses within 2e-2 and the last step's
+    scale gradient norms within 5 % (the tiny QAT step's tolerances)."""
+    import dataclasses
+    from koifish_tpu_torch.cli import koifish
+    from koifish_tpu_torch.utils.tree import flatten_with_path
+    tiny = dataclasses.replace(_tiny_card(), vocab_size=300, max_pos=256)
+    hf = os.path.join(root, "tiny_gama_hf")
+    write_hf_dir(torch, hf, tiny, seed=32)
+    shard = os.path.join(root, "tiny_train_000.bin")
+    write_token_shard(shard, 300, 20000, seed=33)
+    cfgp = os.path.join(root, "tiny_gama.json")
+    with open(cfgp, "w") as f:
+        json.dump({"quantizer": {"self_attn": {"bits": 4}, "mlp": {"bits": 4},
+                                 "group_size": 128, "train_target": "gama"},
+                   "model": {"arch": "QWEN3", "hf-card": hf},
+                   "train": {"batch": 4, "learning-rate": 1e-3, "warmup": 0,
+                             "scheduler": "static", "dump-every": 1,
+                             "optimizatioin": {"method": "adamw",
+                                               "stochastic_round": False}},
+                   "datasets": {"train": {"glob": shard}},
+                   "debug": {"check_tensor_norm": True,
+                             "nn_structure": False}, "seed": 42}, f)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        res, _, counts = run_cli(torch, koifish.main, [
+            cfgp, "--most-iter", "3", "--device", dev, "--out-dir",
+            os.path.join(root, f"tiny_gama_{dev}")], f"tiny gama on {dev}",
+            check=dev == "cuda")
+        paths = [p for p, _ in flatten_with_path(res["state"].params)]
+        got[dev] = (res["infos"].losses,
+                    res["metrics"]["leaf_norms"].float().cpu(), paths)
+    want = gama_launches(3, tiny, True, 4 * tiny.max_pos)["qmm"]
+    if counts.get("qmm", 0) != want:
+        fail(f"tiny gama: {counts.get('qmm', 0)} qmm launches on the card, "
+             f"{want} expected")
+    check("tiny gama CLI 3 steps losses, card vs CPU",
+          max(abs(a - b) for a, b in zip(got["cpu"][0], got["cuda"][0])),
+          2e-2)
+    sc = [i for i, p in enumerate(got["cpu"][2]) if p[-1] == ".scales"]
+    n_cpu, n_gpu = got["cpu"][1][sc], got["cuda"][1][sc]
+    say(f"  {len(sc)} scale tensors; step 3's grad norms (CPU) "
+        f"{float(n_cpu.min()):.3e}..{float(n_cpu.max()):.3e}")
+    check("tiny gama scale grad norms, card vs CPU (relative)",
+          float(((n_gpu - n_cpu).abs() / n_cpu.clamp_min(1e-6)).max()), 5e-2)
+
+
+def distill_phase(torch) -> dict:
+    """An INT4-g128 gama student of a seeded Qwen3-0.6B (configs/
+    qwen3_0.6b.json) distilled from its own bf16 teacher with
+    ``distill_step_loss`` (T 2, cosine σ 0.9 -> 0.1 over the steps):
+    ``DISTILL_STEPS`` AdamW steps (lr 1e-4, no warmup, SR off) at
+    ``DISTILL_B`` x 1024. Prints the reckoned and the measured peak memory;
+    fails unless kd is finite and positive at step 0, σ is the schedule's,
+    the codes are frozen and every scale moved. Returns the launches."""
+    import math
+    from koifish_tpu_torch.config import CLIParams
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.quant import quantize_params
+    from koifish_tpu_torch.train.distill import (DistillSchedule,
+                                                 distill_step_loss)
+    from koifish_tpu_torch.train.optimizer import (apply_updates,
+                                                   init_opt_state)
+    from koifish_tpu_torch.utils import kernel_log
+    from koifish_tpu_torch.utils.tree import leaves, unflatten_like
+    p = CLIParams.load(os.path.join(ROOT, "configs", "qwen3_0.6b.json"))
+    card = p.model
+    B, T, V = DISTILL_B, card.n_ctx, card.vocab_size
+    teacher = init_params(card, device="cuda", seed=41)
+    with torch.no_grad():
+        student = quantize_params(teacher, p.quant, card)
+    flat = leaves(student)
+    diff = [i for i, t in enumerate(flat) if t.is_floating_point()]
+    for i in diff:
+        flat[i].requires_grad_(True)
+    opt = init_opt_state(student, "adamw")
+    sched = DistillSchedule(sigma0=0.9, sigma1=0.1,
+                            total_steps=DISTILL_STEPS, kind="cosine")
+    codes0 = [(path, q.codes.clone(), q.scales.detach().clone())
+              for path, q in _qtensors(torch, student)]
+    logits_gb = B * T * V * 4 / 1e9
+    say(f"[distill] Qwen3-0.6B INT4 g128 gama student <- its bf16 teacher, "
+        f"B={B} x T={T}, {DISTILL_STEPS} AdamW steps; reckoned peak: the "
+        f"two models' f32 logits {2 * logits_gb:.2f} GB, kd_loss's f32 "
+        f"[B, T, V] temporaries (the two scaled logits, p_t, both "
+        f"log-softmaxes, their difference: ~6 x {logits_gb:.2f} GB, about "
+        f"half kept for the backward), CE and the logits' gradient "
+        f"(~2 x {logits_gb:.2f} GB): ~{10 * logits_gb + 3:.0f} GB with the "
+        f"weights, moments and activations")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(42)
+    tokens = torch.randint(0, SHARD_IDS, (DISTILL_STEPS, B, T + 1),
+                           generator=g, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_log.reset_launches()
+    log, dts = [], []
+    for step in range(DISTILL_STEPS):
+        t0 = time.perf_counter()
+        loss, aux = distill_step_loss(card, student, card, teacher,
+                                      tokens[step], step, sched)
+        grads = torch.autograd.grad(loss, [flat[i] for i in diff])
+        gl = [torch.zeros((0,), dtype=torch.float32, device="cuda")
+              for _ in flat]
+        for i, gr in zip(diff, grads):
+            gl[i] = gr
+        student, opt, _ = apply_updates(
+            student, unflatten_like(student, gl), opt, optimizer="adamw",
+            lr=1e-4, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.0,
+            grad_clip=1.0)
+        flat = leaves(student)
+        vals = [float(loss.detach()), float(aux["ce"].detach()),
+                float(aux["kd"].detach()), float(aux["sigma"])]
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+        log.append(vals)
+        del loss, aux, grads, gl
+    counts = kernel_log.launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"  (loss, ce, kd, sigma) a step: "
+        f"{[[round(v, 6) for v in r] for r in log]}")
+    say(f"  step ms {[round(d * 1e3, 1) for d in dts]}; {B * T / dts[-1]:.1f}"
+        f" student tok/s at the last step; peak device memory {peak:.2f} "
+        f"GiB; launches {json.dumps(counts)}")
+    kd0 = log[0][2]
+    if not (math.isfinite(kd0) and kd0 > 0):
+        fail(f"distill: kd at step 0 is {kd0}")
+    for step, r in enumerate(log):
+        if not all(math.isfinite(v) for v in r):
+            fail(f"distill: step {step}: {r}")
+        if abs(r[3] - float(sched.sigma(step))) > 1e-6:
+            fail(f"distill: sigma {r[3]} at step {step}, the schedule's is "
+                 f"{float(sched.sigma(step))}")
+    got = dict(_qtensors(torch, student))
+    for path, c0, s0 in codes0:
+        if not torch.equal(got[path].codes, c0):
+            fail(f"distill: the codes of {path} changed")
+        if torch.equal(got[path].scales.detach(), s0):
+            fail(f"distill: the scales of {path} did not move")
+    for name in ("qmm", "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        if counts.get(name, 0) <= 0:
+            fail(f"distill: kernel {name} was not launched")
+    say(f"  kd at step 0 {kd0:.6f}; sigma as the schedule gives it; all "
+        f"{len(codes0)} code tensors frozen, every scale moved")
+    del student, teacher, opt, tokens, codes0, got
+    torch.cuda.empty_cache()
+    return counts
+
+
+def distill_reference_check(torch) -> None:
+    """A tiny gama student (E 128, INT4 g128) and its bf16 teacher: one
+    ``distill_step_loss`` on the card against the CPU, loss within 1e-2."""
+    from koifish_tpu_torch.config import QuantCard
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.quant import quantize_params
+    from koifish_tpu_torch.train.distill import (DistillSchedule,
+                                                 distill_step_loss)
+    card = _tiny_card()
+    qc = QuantCard.from_json({"self_attn": {"bits": 4}, "mlp": {"bits": 4},
+                              "group_size": 128, "train_target": "gama"})
+    teacher = init_params(card, device="cpu", seed=43)
+    student = quantize_params(teacher, qc, card, device="cpu")
+    tok = torch.randint(0, 256, (4, 65),
+                        generator=torch.Generator().manual_seed(44))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mv = lambda tree: {k: ([{n: t.to(dev) for n, t in lp.items()}
+                                for lp in v] if k == "layers" else v.to(dev))
+                           for k, v in tree.items()}
+        loss, aux = distill_step_loss(card, mv(student), card, mv(teacher),
+                                      tok.to(dev), 1,
+                                      DistillSchedule(total_steps=4))
+        out[dev] = (float(loss), float(aux["kd"]))
+    say(f"  tiny distill step: loss cpu {out['cpu'][0]:.6f} card "
+        f"{out['cuda'][0]:.6f}; kd cpu {out['cpu'][1]:.3e} card "
+        f"{out['cuda'][1]:.3e}")
+    check("tiny distill_step_loss, card vs CPU", abs(out["cpu"][0]
+                                                     - out["cuda"][0]), 1e-2)
+
+
+def write_tokenizer_dat(path: str) -> None:
+    """``bubble_phase``'s byte-level vocabulary as a reference token table:
+    ids 0-255 the bytes, then ``BYTE_MERGES`` (score -log(rank + 1)), then
+    the chat specials."""
+    import math
+    from koifish_tpu_torch.io.kun import write_tokenizer_dat as write
+    toks = [bytes([b]) for b in range(256)]
+    toks += [a + b for a, b in BYTE_MERGES]
+    scores = [0.0] * 256 + [-math.log(r + 1) for r in range(len(BYTE_MERGES))]
+    toks += [s.encode() for s in SPECIALS]
+    scores += [0.0] * len(SPECIALS)
+    write(path, toks, scores, bos_id=len(toks) - 3, eos_id=len(toks) - 1)
+
+
+def kun_phase(torch) -> dict:
+    """A seeded Qwen3-0.6B ``.kun`` (configs/qwen3_0.6b.json's model card
+    embedded, HF-named bf16 tensors) and a ``tokenizer.dat``, both from the
+    port's writers: ``load_kun_model`` must give the params they were
+    written from, every tensor ``torch.equal``; then ``bubble.main --bits 8
+    --kv-bits 8 --temperature 0 --max-new 64`` ("mxu") on the file, which
+    must launch rows 5, 7 (with its K/V write) and 1a. Returns the bubble
+    run's launches."""
+    import shutil
+    from koifish_tpu_torch.config import CLIParams
+    from koifish_tpu_torch.io.hf_loader import _map_llama_family, load_kun_model
+    from koifish_tpu_torch.io.kun import write_kun
+    from koifish_tpu_torch.ops import matmul as tmm
+    from koifish_tpu_torch.utils.tree import flatten_with_path
+    card = CLIParams.load(os.path.join(ROOT, "configs", "qwen3_0.6b.json")
+                          ).model
+    # the reference's model schema, as the config file gives it
+    cfg = {"model": {"arch": card.arch, "vocab_size": card.vocab_size,
+                     "parameter": {
+                         "Layer": card.n_layer,
+                         "tie_word_embeddings": card.tie_embeddings,
+                         "max_pos_embeddings": card.max_pos,
+                         "transformer": {
+                             "Ctx": card.n_ctx, "Embed": card.n_embd,
+                             "Ffn": card.n_ffn, "Head": card.n_head,
+                             "KVHead": card.n_kv_head,
+                             "head_dim": card.head_dim}}}}
+    d = os.path.join(ROOT, "build", "kun_qwen3")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    kun = os.path.join(d, "model.kun")
+    t0 = time.perf_counter()
+    ts = qwen3_hf_tensors(torch, card, seed=51)
+    t1 = time.perf_counter()
+    write_kun(kun, cfg, ts)
+    write_tokenizer_dat(os.path.join(d, "tokenizer.dat"))
+    t2 = time.perf_counter()
+    say(f"[kun] Qwen3-0.6B .kun: {os.path.getsize(kun) / 1e9:.2f} GB "
+        f"(tensors made in {t1 - t0:.1f} s, written in {t2 - t1:.1f} s)")
+    kcard, kp, kcfg = load_kun_model(kun)
+    torch.cuda.synchronize()
+    say(f"  load_kun_model: {time.perf_counter() - t2:.1f} s; card L="
+        f"{kcard.n_layer} E={kcard.n_embd} V={kcard.vocab_size} tie="
+        f"{kcard.tie_embeddings}")
+    if kcfg != cfg or kcard != card:
+        fail(f"load_kun_model: the embedded config did not come back: "
+             f"{kcard}")
+    want = _map_llama_family(kcard, ts, torch.bfloat16,
+                             torch.device("cuda"))
+    a, b = flatten_with_path(kp), flatten_with_path(want)
+    if [x for x, _ in a] != [x for x, _ in b]:
+        fail("load_kun_model: the param tree is not the written one's")
+    for (path, x), (_, y) in zip(a, b):
+        if not torch.equal(x, y):
+            fail(f"load_kun_model: {path} is not the tensor written")
+    say(f"  every one of {len(a)} params torch.equal to the tensors written")
+    del kp, want, ts, a, b
+    torch.cuda.empty_cache()
+    tmm.INT8_GEMV = "mxu"
+    turns, counts = _chat(torch, [
+        "--hf", kun, "--prompts", *CHAT_PROMPTS, "--bits", "8", "--kv-bits",
+        "8", "--max-new", "64", "--temperature", "0", "--csv",
+        os.path.join(ROOT, "build", "kun_chat.csv")], "bubble on the .kun")
+    tmm.INT8_GEMV = "dot"
+    for name in ("qmv_int8", "decode_attn", "kv_write", "flash_fwd"):
+        if counts.get(name, 0) <= 0:
+            fail(f"bubble on the .kun: kernel {name} was not launched")
+    fused_write_check(counts, "bubble on the .kun")
+    for t in turns:
+        if min(t["tokens"]) < 0 or max(t["tokens"]) >= card.vocab_size:
+            fail("bubble on the .kun: token ids out of the vocabulary")
+    shutil.rmtree(d)
+    return counts
+
+
+def qjl_phase(torch) -> dict:
+    """``generate`` on Qwen3-0.6B (configs/qwen3_0.6b.json, seeded weights)
+    with INT4 RTN g128 weights and a layered QJL KV cache (B 32 x 128-token
+    prompts, 64 new, S 1024, decode_chunk 16, T 0.6 / top-k 50 / top-p
+    0.95): warm TTFT and decode tok/s over three rounds (median). Fails
+    unless rows 1a, 3 and 4 launched and row 7 did not (QJL attends in plain
+    PyTorch), and the tokens are in the vocabulary. Returns the launches."""
+    from koifish_tpu_torch.config import CLIParams, SamplerCard
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.quant import quantize_params
+    from koifish_tpu_torch.serve import cache_for, generate
+    from koifish_tpu_torch.utils import kernel_log
+    p = CLIParams.load(os.path.join(ROOT, "configs", "qwen3_0.6b.json"))
+    card = p.model
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(61)
+    with torch.no_grad():
+        qp = quantize_params(init_params(card, gen), p.quant, card)
+    B, S, P, NEW = 32, 1024, 128, 64
+    say(f"[qjl] Qwen3-0.6B INT4 RTN g128 + a QJL KV cache (sketch "
+        f"{2 * card.head_dim} bits a key), B={B}, S={S}, P={P}, {NEW} new")
+    sampler = SamplerCard(temperature=0.6, top_k=50, top_p=0.95)
+    prompts = torch.randint(0, card.vocab_size, (B, P), generator=gen,
+                            device="cuda", dtype=torch.int64)
+
+    def fresh():
+        c = cache_for(card, B, S, fmt=QFormat.QJL, layered=True)
+        torch.cuda.synchronize()
+        return c
+
+    generate(card, qp, prompts, fresh(), sampler=sampler, max_new_tokens=17,
+             decode_chunk=16)
+    torch.cuda.synchronize()
+    REPS = 3
+    kernel_log.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ttfts, steps = [], []
+    for _ in range(REPS):
+        c = fresh()
+        t0 = time.perf_counter()
+        generate(card, qp, prompts, c, sampler=sampler, max_new_tokens=1)
+        torch.cuda.synchronize()
+        ttfts.append(time.perf_counter() - t0)
+        c = fresh()
+        t0 = time.perf_counter()
+        toks, c = generate(card, qp, prompts, c, sampler=sampler,
+                           max_new_tokens=NEW, decode_chunk=16)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0 - ttfts[-1]) / (NEW - 1))
+    counts = kernel_log.launches()
+    ttft, step = sorted(ttfts)[REPS // 2], sorted(steps)[REPS // 2]
+    say(f"  warm TTFT: median {ttft * 1e3:.2f} ms; runs "
+        f"{[round(t * 1e3, 2) for t in ttfts]}")
+    say(f"  decode: median {step * 1e3:.3f} ms/step, {B / step:.1f} tok/s; "
+        f"runs {[round(B / s, 1) for s in steps]} tok/s")
+    say(f"  peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{json.dumps(counts)}")
+    for name in ("flash_fwd", "qmm", "qmv"):
+        if counts.get(name, 0) <= 0:
+            fail(f"qjl: kernel {name} was not launched")
+    for name in ("decode_attn", "kv_write", "slot_write"):
+        if counts.get(name, 0):
+            fail(f"qjl: {counts[name]} {name} launches on the QJL path")
+    if tuple(toks.shape) != (B, NEW) or int(toks.min()) < 0 \
+            or int(toks.max()) >= card.vocab_size:
+        fail(f"qjl: generate returned {tuple(toks.shape)} tokens out of "
+             f"range")
+    from koifish_tpu_torch.ops.sampling import sample_logits
+    from koifish_tpu_torch.serve import decode_step_layered
+
+    def chunk():
+        lc, t = c, toks[:, -1].to(torch.int32)
+        for _ in range(16):
+            logits, lc = decode_step_layered(card, qp, t, lc, streaming=False)
+            t = sample_logits(gen, logits, sampler.temperature,
+                              sampler.top_k, sampler.top_p)
+    profile_window(torch, f"QJL decode chunk of 16 steps (B={B})", chunk, 16)
+    del qp, c
+    torch.cuda.empty_cache()
+    return counts
+
+
+def qjl_reference_check(torch) -> None:
+    """A tiny INT4 g128 model with a QJL cache: a fresh prefill and one
+    decode step's logits (5e-2) and 12 greedy tokens of ``generate`` (at
+    least 75 % equal) on the card against the CPU."""
+    from koifish_tpu_torch.config import QuantCard, SamplerCard
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.quant import quantize_params
+    from koifish_tpu_torch.serve import cache_for, decode_step, generate
+    from koifish_tpu_torch.serve import prefill
+    card = _tiny_card()
+    qc = QuantCard.from_json({"self_attn": {"bits": 4}, "mlp": {"bits": 4},
+                              "group_size": 128})
+    p_cpu = quantize_params(init_params(card, device="cpu", seed=62), qc,
+                            card, device="cpu")
+    p_gpu = {"wte": p_cpu["wte"].to("cuda"), "ln_f": p_cpu["ln_f"].to("cuda"),
+             "layers": [{k: v.to("cuda") for k, v in lp.items()}
+                        for lp in p_cpu["layers"]]}
+    prompt = torch.randint(0, 256, (4, 70),
+                           generator=torch.Generator().manual_seed(63))
+    out = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        c = cache_for(card, 4, 96, fmt=QFormat.QJL, device=dev)
+        _, c = prefill(card, params, prompt[:, :-1].to(dev), c, fresh=True,
+                       device=dev)
+        logits, _ = decode_step(card, params, prompt[:, -1].to(dev), c)
+        c = cache_for(card, 4, 96, fmt=QFormat.QJL, layered=True, device=dev)
+        toks, _ = generate(card, params, prompt, c,
+                           sampler=SamplerCard(temperature=0.0),
+                           max_new_tokens=12, decode_chunk=4, device=dev)
+        out[dev] = (logits.cpu(), toks.cpu())
+    check("tiny QJL decode-step logits, card vs CPU",
+          max_err(out["cpu"][0], out["cuda"][0]), 5e-2)
+    _agree("generate on a QJL cache", out["cpu"][1], out["cuda"][1])
+
+
+def slice13_phase(torch) -> dict:
+    """Slice 13 on the card: gama training through the CLI, distillation, a
+    ``.kun`` model through ``bubble`` and QJL serving, each at Qwen3-0.6B's
+    full width and depth with its launches counted from 0, and each with
+    its tiny card-against-CPU check. Returns each path's launches."""
+    import shutil
+    root = os.path.join(ROOT, "build", "slice13")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    runs = {"gama": gama_cli(torch, root)}
+    gama_reference_check(torch, root)
+    shutil.rmtree(root)
+    runs["distill"] = distill_phase(torch)
+    distill_reference_check(torch)
+    runs["kun_bubble"] = kun_phase(torch)
+    runs["qjl"] = qjl_phase(torch)
+    qjl_reference_check(torch)
+    say(f"[slice13] phase: {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(runs)}")
+    return runs
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3715,6 +4393,7 @@ def main() -> None:
     g774_counts, tile_counts = train_774m_phase(torch)
     sft_counts = koifish_phase(torch)
     say(f"[koifish] the SFT run's launches: {json.dumps(sft_counts)}")
+    s13 = slice13_phase(torch)
 
     src = "koifish_tpu_torch/csrc/"
     rows = [  # (name, source, TPU kernel, numbers, launches on its path)
@@ -3815,6 +4494,11 @@ def main() -> None:
     for k in kernels:
         if k["name"] in folded:
             k["folded_into"], k["folded_launches"] = folded[k["name"]]
+    for k in kernels:   # slice 13's paths: each row's launches in each
+        k["launches_by_path"] = {p: c.get(k["name"], 0) + (
+            c.get("kv_write", 0) if k["name"] in ("decode_attn_write",
+                                                  "slot_write") else 0)
+            for p, c in s13.items()}
     for k in kernels:   # the fused writes' own share of their launch
         if k["name"] == "decode_attn_write":
             k["write_ms"] = dec["decode_attn_write"]["write_ms"]

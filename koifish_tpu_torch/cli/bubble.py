@@ -8,9 +8,11 @@ The JAX package's ``cli/bubble.py``, flag for flag: quantize-at-load,
 chat-template prompt render, decode with per-turn tokens/s, answers
 appended to a CSV, and speculative decoding with ``--draft-hf`` (the draft
 loaded bf16 with a BF16 cache). It runs on the card unless ``--device cpu``
-is given. ``--tp > 1`` and ``.kun``/``.ckp`` models raise: tensor
-parallelism and ``io/kun.py`` are not ported yet. With a draft, every turn
-starts a fresh conversation.
+is given. ``--hf`` also takes a reference ``.kun``/``.ckp`` model file: its
+embedded config makes the card, the folder's ``tokenizer.dat`` (else its
+``tokenizer.json``) the tokenizer, and chat-template paths are relative to
+the file's folder. ``--tp > 1`` raises: tensor parallelism is not ported
+yet. With a draft, every turn starts a fresh conversation.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from typing import List, Optional
 import torch
 
 from koifish_tpu_torch.config import CLIParams, QuantCard, SamplerCard
-from koifish_tpu_torch.data import BPETokenizer, render
+from koifish_tpu_torch.data import BPETokenizer, ScoreTokenizer, render
 from koifish_tpu_torch.dtypes import QFormat, qformat_from_bits
 from koifish_tpu_torch.io.hf_loader import load_hf_model, load_kun_model
 from koifish_tpu_torch.quant.apply import quantize_params
@@ -97,9 +99,15 @@ def main(argv=None, turns: Optional[List[dict]] = None) -> int:
     print(f"[bubble] loading {hf_dir} ...")
     t0 = time.perf_counter()
     if hf_dir.endswith((".kun", ".ckp")):
-        load_kun_model(hf_dir, device=dev)      # raises: io/kun.py
-    card, params = load_hf_model(hf_dir, device=dev)
-    tokenizer = BPETokenizer.from_file(hf_dir)
+        # reference single-file model (config embedded as a msgpack tensor)
+        card, params, _ = load_kun_model(hf_dir, device=dev)
+        hf_dir = os.path.dirname(hf_dir) or "."   # chat-template paths
+        tk = os.path.join(hf_dir, "tokenizer.dat")
+        tokenizer = (ScoreTokenizer.from_tokenizer_dat(tk)
+                     if os.path.exists(tk) else BPETokenizer.from_file(hf_dir))
+    else:
+        card, params = load_hf_model(hf_dir, device=dev)
+        tokenizer = BPETokenizer.from_file(hf_dir)
     sync()
     print(f"[bubble] {card.arch} {card.n_layer}L loaded in "
           f"{time.perf_counter() - t0:.1f}s on {dev.type}")

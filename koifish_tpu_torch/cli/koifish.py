@@ -10,8 +10,10 @@ on one device, the card unless ``--device cpu`` is given: pretraining from
 token shards, SFT on ChatML jsonl (LoRA or another trainable mask),
 checkpoints and ``--resume``, the in-training perplexity eval with its
 ``Eval.csv``, the ``gpt-every`` sample, the ``nn_structure`` dump and the
-Fuyou swarm. Parallelism (``--dp/--tp/--sp/--pp > 1``, ``--fsdp``) and
-gama (scale-only) training are not ported yet and raise.
+Fuyou swarm, and QAT from the config's quantizer card: fake-quant (STE),
+or gama (scale-only) training, which quantizes the initial params and
+trains their scales with the codes frozen. Parallelism (``--dp/--tp/--sp/
+--pp > 1``, ``--fsdp``) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -86,8 +88,6 @@ def main(argv=None, result=None) -> int:
         p.train.most_iter = args.most_iter
     card, tcard = p.model, p.train
     qcard = p.quant if p.quant.rules else None
-    if qcard is not None and qcard.train_target == "gama":
-        _not_ported("gama (scale-only) training", "gama training")
 
     params = None
     if p.hf_card:
@@ -214,8 +214,14 @@ def main(argv=None, result=None) -> int:
         print(f"[koifish] saved {tag} checkpoint -> {path}")
 
     if qcard is not None:
-        print(f"[koifish] QAT enabled: fake-quant (STE), "
-              f"{len(qcard.rules)} rules")
+        mode = "gama" if qcard.train_target == "gama" else "fake-quant (STE)"
+        print(f"[koifish] QAT enabled: {mode}, {len(qcard.rules)} rules")
+        if qcard.train_target == "gama":
+            from koifish_tpu_torch.quant.apply import quantize_params
+            with torch.no_grad():
+                qparams = quantize_params(state.params, qcard, card,
+                                          device=dev)
+            state = init_train_state(card, tcard, params=qparams, device=dev)
 
     hooks = []
     if gpt_tok is not None:

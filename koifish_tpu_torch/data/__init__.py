@@ -1,4 +1,4 @@
-from koifish_tpu_torch.data.tokenizer import BPETokenizer  # noqa: F401
+from koifish_tpu_torch.data.tokenizer import BPETokenizer, ScoreTokenizer  # noqa: F401
 from koifish_tpu_torch.data.tokenset import (  # noqa: F401
     TokenDataset, read_shard, write_shard, read_hellaswag_shard,
     MAGIC_GPT2, MAGIC_QWEN25, MAGIC_QWEN3, MAGIC_HELLASWAG,

@@ -253,3 +253,62 @@ class BPETokenizer:
 
     def token_id(self, token: str) -> Optional[int]:
         return self.special.get(token, self.vocab.get(token))
+
+
+class ScoreTokenizer:
+    """Tokenizer over the reference's binary ``tokenizer.dat`` table
+    (PreTokenizer.py:136-146; used by GTokenizer at infer time,
+    cases/tutorial/tutorial_qwen3.md:33-36).
+
+    Encode is score-greedy merge (the llama2.c/sentencepiece style the
+    scores are built for: score = -log(merge_rank+1), so the
+    highest-scoring adjacent pair merges first — equivalent to ranked
+    BPE). Decode is a byte-table join."""
+
+    def __init__(self, tokens: List[bytes], scores: List[float],
+                 bos_id: int = 0, eos_id: int = 0):
+        self.tokens = tokens
+        self.scores = scores
+        self.bos_id, self.eos_id = bos_id, eos_id
+        self.lookup: Dict[bytes, int] = {}
+        for i, t in enumerate(tokens):
+            self.lookup.setdefault(t, i)
+
+    @classmethod
+    def from_tokenizer_dat(cls, path: str) -> "ScoreTokenizer":
+        from koifish_tpu_torch.io.kun import read_tokenizer_dat
+        d = read_tokenizer_dat(path)
+        return cls(d["tokens"], d["scores"], d["bos_id"], d["eos_id"])
+
+    def encode(self, text: str, allow_special: bool = True) -> List[int]:
+        data = text.encode("utf-8")
+        ids: List[int] = []
+        for b in data:
+            i = self.lookup.get(bytes([b]))
+            if i is not None:
+                ids.append(i)
+        # greedy highest-score merge until no adjacent pair is in vocab
+        while len(ids) > 1:
+            best, best_score, best_id = -1, None, -1
+            for i in range(len(ids) - 1):
+                cat = self.tokens[ids[i]] + self.tokens[ids[i + 1]]
+                j = self.lookup.get(cat)
+                if j is not None and (best_score is None
+                                      or self.scores[j] > best_score):
+                    best, best_score, best_id = i, self.scores[j], j
+            if best < 0:
+                break
+            ids = ids[:best] + [best_id] + ids[best + 2:]
+        return ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return b"".join(self.tokens[int(i)] for i in ids
+                        if 0 <= int(i) < len(self.tokens)
+                        ).decode("utf-8", errors="replace")
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.tokens)
+
+    def token_id(self, token: str) -> Optional[int]:
+        return self.lookup.get(token.encode("utf-8"))

@@ -28,7 +28,7 @@ class QFormat(enum.Enum):
     INT2 = "int2"       # 4 codes / byte
     TERNARY = "ternary"  # {-1,0,+1}, 4 codes / byte (2b each)
     BINARY = "binary"    # {-1,+1}, 8 codes / byte
-    QJL = "qjl"          # KV-only sign-sketch keys (not ported yet)
+    QJL = "qjl"          # KV-only: sign-of-JL-projection keys + norms
 
     @property
     def bits(self) -> int:

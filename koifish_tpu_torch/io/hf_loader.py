@@ -41,12 +41,31 @@ def load_hf_model(folder: str, card: Optional[ModelCard] = None,
 
 
 def load_kun_model(path: str, dtype=torch.bfloat16, device=None):
-    """A reference ``.kun`` single-file model needs ``io/kun.py``, which is
-    not ported yet."""
-    raise NotImplementedError(
-        f"{path}: .kun/.ckp models need io/kun.py, which is not ported yet "
-        f"(ROADMAP.md queue 1, the other CLIs and .kun models); export "
-        f"the model as a HF folder")
+    """Load a reference ``.kun`` single-file model: the embedded msgpack
+    config (Safetensors.hpp:92-119) gives the ModelCard; the tensors (HF
+    naming, Serialize.cpp) map as an HF folder's do, on ``device``
+    (``None`` means CUDA). Returns (card, params, config_json). Packed or
+    quantized tensors raise, as in the JAX package."""
+    from koifish_tpu_torch.io.kun import read_kun
+    dev = resolve_device(device)
+    config, ktensors = read_kun(path)
+    if config is None:
+        raise ValueError(f"{path}: no embedded __koifish__config__ — not a "
+                         f".kun file (plain safetensors? use load_hf_model)")
+    card = ModelCard.from_json(config.get("model", {}))
+    raw = {}
+    for name, kt in ktensors.items():
+        if kt.gama is not None or kt.data.dim() != len(kt.shape):
+            raise NotImplementedError(
+                f"{name}: packed/quantized .kun tensors need the quant "
+                f"rules from the config — dequantize with the reference "
+                f"or export HF-format for now")
+        raw[name] = kt.data
+    if card.arch == "GPT2":
+        params = _map_gpt2(card, raw, dtype, dev)
+    else:
+        params = _map_llama_family(card, raw, dtype, dev)
+    return card, params, config
 
 
 def _t(a, dtype, dev, transpose: bool = False):

@@ -18,9 +18,10 @@ layouts) decode code c of row k to ``bf16(book[k, c])`` and otherwise share
 the tiling, the ``_plan`` and the arithmetic. The per-tensor book is read
 with a row stride of 0 instead of the JAX package's broadcast copy.
 
-``qmatmul`` goes through the ``QMatmul`` autograd Function when x needs a
-gradient: dx = dy·deq(w)ᵀ, the gradient of the JAX package's
-dequantize-and-dot path.
+``qmatmul`` goes through the ``QMatmul`` autograd Function when x, the
+scales or the book need a gradient: the gradient of the JAX package's
+dequantize-and-dot path (dx = dy·deq(w)ᵀ; for gama training the scales'
+and the book's, through ``dW = x2ᵀ·dy``), in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -192,22 +193,81 @@ def _check(x2: torch.Tensor, w: QTensor):
         raise ValueError(f"qmatmul: x is {x2.dtype}, need bf16")
 
 
+def _unit(w: QTensor) -> torch.Tensor:
+    """[K, N] f32: the decoded code of each entry, the value ``dequantize``
+    multiplies by its group's scale (a book's entry for a learned book)."""
+    if not w.fmt.is_sub_byte:
+        return w.codes.to(torch.float32)
+    raw = unpack_codes(w.codes, w.fmt, w.shape[0], group=w.group)
+    if w.codebook is None:
+        return code_values(raw, w.fmt)
+    bk = w.codebook.to(torch.float32)
+    return bk[raw.long()] if bk.dim() == 1 else torch.gather(bk, 1, raw.long())
+
+
+def weight_grads(x2: torch.Tensor, dy: torch.Tensor, w: QTensor,
+                 want_scales: bool = True, want_book: bool = True):
+    """(dscales, dbook) of ``y = x2 @ deq(w)`` for ``dy``, in the dtype
+    chain ``jax.vjp`` takes through ``QTensor.dequantize`` and the dot:
+    ``dW = bf16(x2ᵀ·dy)`` (f32 accumulation, as the dot's transpose rounds
+    to the dequantized weight's dtype), then in f32
+    ``dscales[g, n] = Σ_{k∈g} unit[k, n]·dW[k, n]`` and, for a learned
+    book, ``dbook[c] += scales·dW`` over the entries coded c (per row for a
+    [K, 2^bits] book), each cast to its tensor's dtype. None where not
+    wanted."""
+    K, N = w.shape[0], w.shape[-1]
+    ng, g = w.n_groups, w.group
+    dw = torch.matmul(x2.to(torch.bfloat16).t(), dy.to(torch.bfloat16)
+                      ).to(torch.float32).reshape(ng, g, N)
+    dscales = dbook = None
+    if want_scales:
+        unit = _unit(w).reshape(ng, g, N)
+        dscales = (unit * dw).sum(dim=1).to(w.scales.dtype)
+    if want_book and w.codebook is not None:
+        dcode = (dw * w.scales.to(torch.float32)[:, None, :]).reshape(K, N)
+        raw = unpack_codes(w.codes, w.fmt, K, group=w.group).long()
+        book = w.codebook
+        acc = torch.zeros(book.shape, dtype=torch.float32, device=dy.device)
+        if book.dim() == 1:
+            acc.index_add_(0, raw.reshape(-1), dcode.reshape(-1))
+        else:
+            acc.scatter_add_(1, raw, dcode)
+        dbook = acc.to(book.dtype)
+    return dscales, dbook
+
+
 class QMatmul(torch.autograd.Function):
     """``y = x2 @ w`` with the gradient of the dequantize-and-dot path that
     the JAX package differentiates (``koifish_tpu/ops/matmul.py``):
-    ``dx = dy · deq(w)ᵀ``, a plain product on the dequantized bf16 weight.
-    The forward is ``_forward`` (the kernel on the card, the plain version
-    on the CPU); the codes, scales and book get no gradient here."""
+    ``dx = dy · deq(w)ᵀ``, a plain product on the dequantized bf16 weight,
+    and, where ``scales`` or ``book`` (``w``'s own tensors, passed so that
+    autograd sees them) need one, ``weight_grads``. The forward is
+    ``_forward`` (the kernel on the card, the plain version on the CPU);
+    the codes get no gradient."""
 
     @staticmethod
-    def forward(ctx, x2, w):
+    def forward(ctx, x2, scales, book, w):
         ctx.w = w
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            ctx.save_for_backward(x2)
         return _forward(x2, w)
 
     @staticmethod
     def backward(ctx, dy):
-        wd = ctx.w.dequantize(dy.dtype)
-        return torch.matmul(dy, wd.t()), None
+        w = ctx.w
+        dx = dscales = dbook = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(dy, w.dequantize(dy.dtype).t())
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            (x2,) = ctx.saved_tensors
+            dscales, dbook = weight_grads(x2, dy, w, ctx.needs_input_grad[1],
+                                          ctx.needs_input_grad[2])
+        return dx, dscales, dbook, None
+
+
+def _weight_grad(w: QTensor) -> bool:
+    return w.scales.requires_grad or (w.codebook is not None
+                                      and w.codebook.requires_grad)
 
 
 def qmatmul(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
@@ -215,22 +275,13 @@ def qmatmul(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
     A CPU tensor takes the plain version; a CUDA tensor launches the GEMV
     shape (m <= 32) or the GEMM shape (m > 32).
 
-    Under autograd the product goes through ``QMatmul`` (dx = dy·deq(w)ᵀ)
-    on both devices. A gradient for the scales or the book exists only on
-    the CPU, through the plain version; on the card it raises: the scale
-    gradient comes with gama training (ROADMAP queue 1, gama training)."""
-    if torch.is_grad_enabled() and (
-            w.scales.requires_grad
-            or (w.codebook is not None and w.codebook.requires_grad)):
-        if x2.device.type == "cpu":
+    Under autograd the product goes through ``QMatmul`` on both devices,
+    except that on the CPU a weight gradient (scales or book: gama
+    training) keeps the plain version's own autograd."""
+    if torch.is_grad_enabled() and (x2.requires_grad or _weight_grad(w)):
+        if x2.device.type == "cpu" and _weight_grad(w):
             return _forward(x2, w)
-        raise NotImplementedError(
-            f"qmatmul: the scales or the codebook of w{tuple(w.shape)} "
-            f"{w.fmt.name} require a gradient; the kernel's backward gives "
-            f"dx only. The scale gradient comes with gama training "
-            f"(ROADMAP queue 1, gama training)")
-    if torch.is_grad_enabled() and x2.requires_grad:
-        return QMatmul.apply(x2, w)
+        return QMatmul.apply(x2, w.scales, w.codebook, w)
     return _forward(x2, w)
 
 

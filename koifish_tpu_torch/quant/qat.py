@@ -2,7 +2,9 @@
 JAX package's ``quant/qat.py``; the reference's in-path ``CU_FQUANT_128_``,
 quantizer.cu:195-247). The bf16 parameter is the master copy: the forward
 sees ``ste_fake_quant(w)`` and the gradient passes straight through to w.
-Scale-only ("gama") training is not ported yet.
+Scale-only ("gama") training needs no fake quantization: the params are
+QTensors already (``quantize_params``), their codes frozen and their scales
+trained through ``ops/kernels/matmul.QMatmul`` (``train/trainer.py``).
 """
 from __future__ import annotations
 

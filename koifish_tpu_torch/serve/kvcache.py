@@ -1,9 +1,12 @@
-"""Ring-buffer KV cache with StreamingLLM attention sinks + INT8/INT4 KV.
+"""Ring-buffer KV cache with StreamingLLM attention sinks + INT8/INT4/QJL KV.
 
 The layout and slot policy of the JAX package's ``serve/kvcache.py``:
 head-major ``[L, B, H, S, D]`` buffers, per-(position, head) f32 scales,
 INT4 packed two codes per byte along D (byte i = element i low nibble,
-element i + D/2 high nibble). Positions ``0..sinks-1`` are pinned; later
+element i + D/2 high nibble). A QJL cache keeps each key as the signs of
+its JL sketch (m = ``QJL_SKETCH_RATIO``·D bits packed to uint8) with the
+key's norm in ``k_scale``, and INT8 values (``ops/qjl.py``). Positions
+``0..sinks-1`` are pinned; later
 positions map to ``sinks + (pos - sinks) % (size - sinks)``. Keys are
 stored RoPE'd at their absolute position.
 
@@ -24,9 +27,13 @@ import torch
 from koifish_tpu_torch.dtypes import QFormat
 from koifish_tpu_torch.ops.kernels.decode_attn import quant_kv, unpack_int4
 from koifish_tpu_torch.ops.kernels.slotwrite import slot_write_many
+from koifish_tpu_torch.ops.qjl import qjl_encode_keys, qjl_projection
 from koifish_tpu_torch.utils.device import resolve_device
 
 _unpack_int4 = unpack_int4
+
+QJL_SKETCH_RATIO = 2   # sketch dim m = ratio * head_dim (QJL accuracy knob)
+QJL_SEED = 20260713    # fixed projection seed (XI_CARD mask_seed default)
 
 
 @dataclasses.dataclass
@@ -68,9 +75,15 @@ def _buffers(kshape, vshape, fmt: QFormat, dev):
                         device=dev)
         v = torch.zeros(vshape[:-1] + (vshape[-1] // 2,), dtype=torch.uint8,
                         device=dev)
+    elif fmt is QFormat.QJL:
+        # keys: sign bits of the JL sketch + per-key norms in k_scale;
+        # values INT8 (ops/qjl.py)
+        m = QJL_SKETCH_RATIO * kshape[-1]
+        k = torch.zeros(kshape[:-1] + (m // 8,), dtype=torch.uint8,
+                        device=dev)
+        v = torch.zeros(vshape, dtype=torch.int8, device=dev)
     else:
-        raise ValueError(f"unsupported KV format {fmt} (QJL is not ported "
-                         f"yet)")
+        raise ValueError(f"unsupported KV format {fmt}")
     return (k, v, torch.zeros(kshape[:-1], dtype=torch.float32, device=dev),
             torch.zeros(vshape[:-1], dtype=torch.float32, device=dev))
 
@@ -125,15 +138,35 @@ def ring_write(buf: torch.Tensor, val: torch.Tensor,
     return buf
 
 
+def qjl_keys(k_new: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keys [..., D] -> (packed sketch signs, norms) under the cache's
+    fixed projection (m = ``QJL_SKETCH_RATIO``·D, seed ``QJL_SEED``)."""
+    d = k_new.shape[-1]
+    return qjl_encode_keys(k_new, qjl_projection(
+        d, QJL_SKETCH_RATIO * d, QJL_SEED, device=k_new.device))
+
+
+def _quant_pair(k_new, v_new, fmt: QFormat):
+    """(kq, k_scale, vq, v_scale) of new K/V in a quantized cache format:
+    codes and per-(token, head) scales; a QJL cache's key sketch and norm
+    with INT8 values."""
+    if fmt is QFormat.QJL:
+        kq, ksc = qjl_keys(k_new)
+        vq, vsc = _quant_kv(v_new, QFormat.INT8)
+    elif fmt in (QFormat.INT8, QFormat.INT4):
+        kq, ksc = _quant_kv(k_new, fmt)
+        vq, vsc = _quant_kv(v_new, fmt)
+    else:
+        raise ValueError(f"unsupported KV format {fmt}")
+    return kq, ksc, vq, vsc
+
+
 def _token_pairs(k_l, v_l, ks_l, vs_l, fmt: QFormat, k_new, v_new):
     """(buffer, value) pairs of one token's K/V write in a cache format:
     quantized formats write codes and per-(token, head) scales."""
     if fmt is QFormat.BF16:
         return [(k_l, k_new), (v_l, v_new)]
-    if fmt not in (QFormat.INT8, QFormat.INT4):
-        raise ValueError(f"unsupported KV format {fmt}")
-    kq, ksc = _quant_kv(k_new, fmt)
-    vq, vsc = _quant_kv(v_new, fmt)
+    kq, ksc, vq, vsc = _quant_pair(k_new, v_new, fmt)
     return [(k_l, kq), (v_l, vq), (ks_l, ksc), (vs_l, vsc)]
 
 
@@ -181,8 +214,10 @@ def rotate_sink_keys_layer(k_l: torch.Tensor, k_scale_l, fmt: QFormat,
     dequant -> rotate -> requant. Updates ``k_l`` / ``k_scale_l`` in place
     and returns them. The JAX package skips the rewrite with a ``lax.cond``
     on ``any(mask)``; here the caller only asks for it in the streaming
-    regime and the rows are selected with ``torch.where`` (no host sync)."""
-    if sinks <= 0 or inv_freq is None:
+    regime and the rows are selected with ``torch.where`` (no host sync).
+    QJL keys are sign sketches, which a rope rotation cannot act on: they
+    keep their absolute angles past the window (as in the JAX package)."""
+    if sinks <= 0 or fmt is QFormat.QJL or inv_freq is None:
         return k_l, k_scale_l
     m = mask[:, None, None, None]
     sl = k_l[:, :, :sinks]                               # [B, H, sinks, Dc]
@@ -217,15 +252,12 @@ def write_prefill(cache, layer: int, k_new: torch.Tensor,
     if cache.fmt is QFormat.BF16:
         upd(cache.k, k_new)
         upd(cache.v, v_new)
-    elif cache.fmt in (QFormat.INT8, QFormat.INT4):
-        kq, ksc = _quant_kv(k_new, cache.fmt)
-        vq, vsc = _quant_kv(v_new, cache.fmt)
+    else:
+        kq, ksc, vq, vsc = _quant_pair(k_new, v_new, cache.fmt)
         upd(cache.k, kq)
         upd(cache.v, vq)
         upd(cache.k_scale, ksc)
         upd(cache.v_scale, vsc)
-    else:
-        raise ValueError(f"unsupported KV format {cache.fmt}")
     return cache
 
 
@@ -233,7 +265,11 @@ def read_layer(cache, layer: int, extra: int = 0
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(k, v, valid_mask) for a layer: k/v [B,S,H,D] bf16, mask [B,S].
     ``extra`` counts tokens written this step but not yet in ``pos``.
-    Quantized caches are dequantized here (plain path)."""
+    Quantized caches are dequantized here (plain path); QJL keys cannot
+    be (``ops/qjl.qjl_decode_attention`` reads them)."""
+    if cache.fmt is QFormat.QJL:
+        raise ValueError("QJL keys are sign sketches — not reconstructible; "
+                         "use ops.qjl.qjl_decode_attention")
     S = cache.size
     valid = (torch.arange(S, device=cache.pos.device)[None, :]
              < torch.clamp(cache.pos + extra, max=S)[:, None])

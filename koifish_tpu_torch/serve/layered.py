@@ -12,7 +12,10 @@ BF16 cache keeps the two steps of ``layered.py:133-142`` of the JAX
 package: a uniform batch writes its one slot with an in-place
 ``index_copy_``; per-lane slots (the continuous batcher's pool, and
 ``KVCache`` views for ``engine.decode_step``) go through the slot-write
-kernel.
+kernel. A QJL cache writes the same way (key sketch, norm, INT8 value and
+its scale) and attends with the estimated scores of
+``ops/qjl.qjl_decode_attention``, plain PyTorch as in the JAX package
+(``layered.py:205-222``).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from koifish_tpu_torch.models.transformer import (
 from koifish_tpu_torch.ops.attention import decode_attention
 from koifish_tpu_torch.ops.kernels.decode_attn import decode_attention_write
 from koifish_tpu_torch.ops.kernels.slotwrite import slot_write_many
+from koifish_tpu_torch.ops.qjl import qjl_decode_attention, qjl_projection
 from koifish_tpu_torch.ops.rope import rope_cos_sin_at, rope_inv_freq
 from koifish_tpu_torch.serve import kvcache as kvc
 from koifish_tpu_torch.serve.kvcache import KVCache
@@ -143,7 +147,19 @@ def decode_step_layered(card: ModelCard, params: Params, token: torch.Tensor,
                                        stream_rows, inv_freq)
         h = _norm(card, x, lp["ln1"], lp.get("ln1_b"))
         q, k, v = qkv_project(card, lp, h, cos, sin, None)
-        if quant:
+        if lc.fmt is QFormat.QJL:
+            vsl = lc.v_scale[li]
+            _write(kvc._token_pairs(kl, vl, ksl, vsl, lc.fmt, k[:, 0],
+                                    v[:, 0]), slots, lc.uniform)
+            vlf = (vl.to(torch.float32) * vsl[..., None]).to(torch.bfloat16)
+            valid = (torch.arange(lc.size, device=dev)[None, :]
+                     < lengths[:, None])
+            proj = qjl_projection(card.head_dim,
+                                  kvc.QJL_SKETCH_RATIO * card.head_dim,
+                                  kvc.QJL_SEED, device=dev)
+            a = qjl_decode_attention(q[:, 0], kl, ksl, vlf, valid, proj,
+                                     att_scale)
+        elif quant:
             # one launch: quantize and write the new K/V, then attend over
             # the INT8 / packed-INT4 codes
             a = decode_attention_write(q[:, 0], k[:, 0], v[:, 0], kl, vl,

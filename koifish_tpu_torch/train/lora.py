@@ -15,6 +15,7 @@ import torch
 
 from koifish_tpu_torch.config import SFTCard
 from koifish_tpu_torch.quant.qtensor import QTensor
+from koifish_tpu_torch.utils.tree import tree_map
 
 _KEY_TO_TARGET = {"q": "wq", "k": "wk", "v": "wv", "o": "wo",
                   "gate": "wgate", "up": "wup", "down": "wdown",
@@ -97,15 +98,13 @@ def _leaf_mask(method: str, name: str, in_layer: bool) -> bool:
 
 def trainable_mask(params: Dict[str, Any], method: str) -> Any:
     """A tree of bools of the params' structure: which leaves the optimizer
-    updates (SFT_CARD::isFixWeight). A QTensor is one leaf here; an adapter
-    dict gets one flag for each of its tensors."""
+    updates (SFT_CARD::isFixWeight): one flag for each leaf of a weight (a
+    QTensor's tensor fields, an adapter dict's tensors)."""
     method = method.lower()
 
     def expand(name, in_layer, w):
         flag = _leaf_mask(method, name, in_layer)
-        if isinstance(w, dict):
-            return {k: flag for k in w}
-        return flag
+        return tree_map(lambda _: flag, w)
 
     out = {}
     for k, v in params.items():

@@ -42,12 +42,10 @@ def compute_loss(card: ModelCard, params, tokens, loss_mask=None,
     """Next-token CE over [B, T+1] tokens (targets = tokens shifted):
     (mean_loss, per_token [B, T]). ``fused_ce``: None = auto (the logits-
     free fused classifier for vocab >= 64k), True/False force it.
-    ``qcard`` with rules: fake-quant QAT (straight-through) in the forward;
-    scale-only ("gama") training is not ported yet."""
-    if qcard is not None and qcard.rules:
-        if qcard.train_target == "gama":
-            raise NotImplementedError(
-                "gama (scale-only) training is not ported yet")
+    ``qcard`` with rules: fake-quant QAT (straight-through) in the forward,
+    except for scale-only ("gama") training, where the params already hold
+    QTensors whose scales take the gradient (``ops/kernels/matmul.py``)."""
+    if qcard is not None and qcard.rules and qcard.train_target != "gama":
         from koifish_tpu_torch.quant.qat import apply_qat
         params = apply_qat(params, qcard, card)
     if card.arch in ("SALMON", "GUPPY"):
@@ -80,8 +78,12 @@ def make_train_step(card: ModelCard, tcard: TrainCard, total_steps: int,
     """The (state, batch) -> (state, metrics) step. ``batch["tokens"]`` is
     [A, B, T+1] (A micro-batches), ``batch.get("loss_mask")`` likewise.
 
+    qcard:     a QuantCard: fake-quant QAT, or gama training when the params
+               already hold QTensors and ``train_target == "gama"``
     trainable: a tree of bools of the params' structure; frozen leaves get
                empty-stub grads and are left untouched by the optimizer.
+    Only float leaves take gradients: a QTensor's packed codes stay frozen
+    and the optimizer keeps size-0 stubs for them.
     Metrics: ``loss``, ``lr``, ``grad_norm``, ``spikes`` and, with
     ``check_tensor_norm``, ``leaf_norms`` (per-leaf grad norms).
 

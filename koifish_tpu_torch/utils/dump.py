@@ -5,13 +5,12 @@ reference's DUMP_SWITCH, CLI_params.hpp:720-726).
 is the param tree, so the dump is one line per leaf with its shape, dtype
 and bytes, layer 0 in full and the others collapsed to "... x N layers".
 A QTensor shows its tensor fields as the JAX package's pytree leaves do
-(``layers.0.q..codes``).
+(``layers.0.q..codes``: ``utils.tree`` keys them ``".codes"``).
 """
 from __future__ import annotations
 
 from typing import Any, List
 
-from koifish_tpu_torch.quant.qtensor import TENSOR_FIELDS, QTensor
 from koifish_tpu_torch.utils.tree import flatten_with_path
 
 
@@ -31,27 +30,14 @@ def _leaf_line(path: str, leaf: Any) -> str:
            f"{nbytes / 1e6:8.2f} MB"
 
 
-def _tensor_leaves(params: Any):
-    """(path string, tensor) in the JAX package's leaf order, a QTensor's
-    fields as leaves of their own."""
-    for path, leaf in flatten_with_path(params):
-        ps = _path_str(path)
-        if isinstance(leaf, QTensor):
-            for f in TENSOR_FIELDS:
-                t = getattr(leaf, f)
-                if t is not None:
-                    yield f"{ps}..{f}", t
-        else:
-            yield ps, leaf
-
-
 def model_structure(params: Any) -> str:
     """Param-tree structure dump: layer 0 in full, layers 1.. collapsed."""
     lines: List[str] = []
     n_layers = 0
     total_bytes = 0
     total_params = 0
-    for ps, leaf in _tensor_leaves(params):
+    for path, leaf in flatten_with_path(params):
+        ps = _path_str(path)
         size = leaf.numel() if leaf.dim() else 0   # as the JAX package counts
         total_params += size
         total_bytes += size * leaf.element_size()

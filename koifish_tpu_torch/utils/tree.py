@@ -1,15 +1,27 @@
 """Parameter trees: nested dicts and lists of tensors, flattened in the JAX
 package's leaf order (dict keys sorted, lists in order), so leaf indices,
-paths and per-leaf metrics line up with ``jax.tree_util``."""
+paths and per-leaf metrics line up with ``jax.tree_util``. A QTensor is a
+node, as its JAX pytree is: its tensor fields that are set are leaves, in
+field order, each under the path key ``".<field>"`` (the string of JAX's
+``GetAttrKey``), so scales train and codes take size-0 stubs."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, List, Tuple
+
+from koifish_tpu_torch.quant.qtensor import TENSOR_FIELDS, QTensor
 
 Path = Tuple[Any, ...]
 
 
+def _fields(q: QTensor) -> List[str]:
+    return [f for f in TENSOR_FIELDS if getattr(q, f) is not None]
+
+
 def flatten_with_path(tree: Any, prefix: Path = ()) -> List[Tuple[Path, Any]]:
     """[(path, leaf)] in ``jax.tree_util.tree_flatten_with_path`` order."""
+    if isinstance(tree, QTensor):
+        return [(prefix + ("." + f,), getattr(tree, f)) for f in _fields(tree)]
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
@@ -32,6 +44,8 @@ def unflatten_like(tree: Any, new_leaves: List[Any]) -> Any:
     it = iter(new_leaves)
 
     def build(t):
+        if isinstance(t, QTensor):
+            return dataclasses.replace(t, **{f: next(it) for f in _fields(t)})
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
         if isinstance(t, (list, tuple)):

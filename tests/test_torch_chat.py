@@ -190,9 +190,39 @@ def test_load_hf_model_matches_jax(tmp_path, kind):
         assert isinstance(q, QTensor) and q.zeros is not None and q.group == 64
 
 
-def test_load_kun_model_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="io/kun.py"):
-        thf.load_kun_model("model.kun", device="cpu")
+def test_load_kun_model_raises_until_ported(tmp_path):
+    """``load_kun_model`` is ported: a ``.kun`` of a tiny folder's tensors
+    (the port's writer, an embedded config) loads the folder's params bit
+    for bit; a file without the config still raises, as in the JAX
+    package."""
+    from koifish_tpu_torch.io import kun as tkun
+    card = JModelCard.from_arch("QWEN3", **TINY)
+    make_hf_qwen3_dir(tmp_path, card)
+    tensors, _ = tst.read_safetensors(str(tmp_path / "model.safetensors"))
+    cfg = {"model": {"arch": "QWEN3", "vocab_size": card.vocab_size,
+                     "parameter": {"Layer": card.n_layer,
+                                   "tie_word_embeddings": True,
+                                   "max_pos_embeddings": card.max_pos,
+                                   "transformer": {
+                                       "Ctx": card.n_ctx, "Embed": card.n_embd,
+                                       "Head": card.n_head,
+                                       "KVHead": card.n_kv_head,
+                                       "head_dim": card.head_dim,
+                                       "Ffn": card.n_ffn}}}}
+    kun = str(tmp_path / "model.kun")
+    tkun.write_kun(kun, cfg, tensors)
+    kcard, kp, kcfg = thf.load_kun_model(kun, device="cpu")
+    _, hp = thf.load_hf_model(str(tmp_path), device="cpu")
+    assert kcfg == cfg and kcard.n_layer == card.n_layer
+    for a, b in zip(_flat(kp), _flat(hp)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="__koifish__config__"):
+        thf.load_kun_model(str(tmp_path / "model.safetensors"), device="cpu")
+
+
+def _flat(tree):
+    from koifish_tpu_torch.utils.tree import leaves
+    return leaves(tree)
 
 
 CORPUS = [
@@ -339,7 +369,11 @@ def test_bubble_cli_matches_jax_generate(tmp_path):
 
 
 def test_bubble_refuses_what_is_not_ported(tmp_path):
+    """--tp > 1 names the parallelism item; a ``.kun`` path is taken (the
+    format is ported), and one without an embedded config is refused as
+    the JAX package refuses it."""
     with pytest.raises(NotImplementedError, match="parallelism"):
         bubble.main(["--hf", str(tmp_path), "--tp", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="io/kun.py"):
+    tst.write_safetensors(str(tmp_path / "m.kun"), {"x": torch.zeros(2)})
+    with pytest.raises(ValueError, match="__koifish__config__"):
         bubble.main(["--hf", str(tmp_path / "m.kun"), "--device", "cpu"])

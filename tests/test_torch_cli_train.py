@@ -332,16 +332,31 @@ def test_koifish_gpt2_uint16_shards_cli(tmp_path, capsys, monkeypatch):
     (["--pp", "2"], "parallelism on torch.distributed"),
     (["--fsdp"], "parallelism on torch.distributed"),
     ([], "gama training")])
-def test_koifish_unported_paths_raise(tmp_path, flags, item):
-    """The parallelism flags and gama (scale-only) QAT name their queue."""
+def test_koifish_unported_paths_raise(tmp_path, flags, item, capsys):
+    """The parallelism flags name their queue. Gama (scale-only) QAT, the
+    last case, is ported: the CLI prints its mode, trains the scales of
+    the quantized params with every code frozen, and returns 0
+    (``tests/test_torch_gama_distill.py`` holds its curve to JAX's)."""
     pat = _pattern_shard(tmp_path, 3000)
     over = {} if flags else {"quantizer": {
         "self_attn": {"bits": 4}, "mlp": {"bits": 4}, "group_size": 32,
-        "train_target": "gama"}}
+        "train_target": "gama"}, "debug": {"most_iter": 2}}
     cfgp = _cfg(tmp_path, "c", pat, **over)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1, {item}"):
-        koifish.main([cfgp, "--device", "cpu", *flags])
+    if flags:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md queue 1, {item}"):
+            koifish.main([cfgp, "--device", "cpu", *flags])
+        return
+    res = {}
+    assert koifish.main([cfgp, "--device", "cpu", "--out-dir",
+                         str(tmp_path)], result=res) == 0
+    assert "QAT enabled: gama" in capsys.readouterr().out
+    from koifish_tpu_torch.quant.qtensor import QTensor
+    qs = [w for lp in res["state"].params["layers"] for w in lp.values()
+          if isinstance(w, QTensor)]
+    assert len(qs) == 2 * 7 and len(res["infos"].losses) == 2
+    assert all(not q.codes.is_floating_point() and q.scales.requires_grad
+               for q in qs)
 
 
 def test_koifish_needs_the_card_unless_asked(tmp_path, monkeypatch):

@@ -117,9 +117,12 @@ def _meta(t):
 
 
 @pytest.mark.parametrize("which", ["scales", "codebook"])
-def test_cuda_branch_raises_for_a_weight_gradient(which):
+def test_cuda_branch_raises_for_a_weight_gradient(which, monkeypatch):
     """Off the CPU (the "meta" device takes the card's branch) scales or a
-    book that require a gradient raise, naming the gama item."""
+    book that require a gradient (gama training) take ``QMatmul``: its
+    forward is the kernel's (whose checks raise here, on no CUDA device),
+    and with the kernel replaced by a recorder the backward gives the
+    weight a gradient of its own shape, on its device."""
     _, tw = _weights("kmeans" if which == "codebook" else "int4", seed=6)
     import dataclasses
     mw = dataclasses.replace(tw, codes=_meta(tw.codes),
@@ -127,8 +130,19 @@ def test_cuda_branch_raises_for_a_weight_gradient(which):
                              codebook=_meta(tw.codebook))
     getattr(mw, which).requires_grad_(True)
     x = torch.empty((40, K), dtype=torch.bfloat16, device="meta")
-    with pytest.raises(NotImplementedError, match="queue 1, gama training"):
+    with pytest.raises(ValueError, match="lies on meta"):
         km.qmatmul(x, mw)
+    calls = []
+    monkeypatch.setattr(km, "_forward", lambda a, w: (calls.append(
+        tuple(a.shape)), torch.empty((a.shape[0], w.out_features),
+                                     dtype=torch.bfloat16, device=a.device))[1])
+    y = km.qmatmul(x, mw)
+    assert calls == [(40, K)] and type(y.grad_fn).__name__.startswith(
+        "QMatmul")
+    y.backward(torch.empty_like(y))
+    g = getattr(mw, which).grad
+    assert g is not None and g.shape == getattr(mw, which).shape
+    assert g.device.type == "meta"
 
 
 def test_cuda_branch_goes_through_the_function():

@@ -283,8 +283,10 @@ def test_remat_gives_the_same_grads(remat):
 
 def test_compute_loss_raises_for_unported_paths():
     """What the port still refuses, each message naming its ROADMAP queue 1
-    subject: sequence-parallel steps (parallelism), SALMON / GUPPY training
-    (the model zoo) and scale-only (gama) QAT."""
+    subject: sequence-parallel steps (parallelism) and SALMON / GUPPY
+    training (the model zoo). Scale-only (gama) QAT is ported: its
+    QuantCard applies no fake quantization, so the loss of plain params is
+    the loss without a QuantCard, bit for bit."""
     card = ModelCard.from_arch("QWEN3", n_kv_head=1, **TINY)
     params = init_params(card, device="cpu")
     tok = torch.zeros((1, 5), dtype=torch.long)
@@ -297,8 +299,8 @@ def test_compute_loss_raises_for_unported_paths():
             ttrainer.compute_loss(zoo, params, tok)
     gama = QuantCard.from_json({"self_attn": {"bits": 4},
                                 "train_target": "gama"})
-    with pytest.raises(NotImplementedError, match="gama"):
-        ttrainer.compute_loss(card, params, tok, qcard=gama)
+    loss, _ = ttrainer.compute_loss(card, params, tok, qcard=gama)
+    assert torch.equal(loss, ttrainer.compute_loss(card, params, tok)[0])
 
 
 # ---------------------------------------------------------------------------
