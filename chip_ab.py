@@ -2,7 +2,7 @@
 """A/B one change of the port on one GPU: old, new, new, old in one call.
 
     python3 chip_ab.py OLD_TREE PHASE[,PHASE...] [--train] [--host] [--shapes]
-                       [--decode] [--paged]
+                       [--decode] [--paged] [--sp]
 
 OLD_TREE is a copy of the repository at the old version
 (``koifish_tpu_torch/``, ``chip_smoke.py`` and ``configs/``, for example
@@ -13,7 +13,8 @@ tree's kernels (none is built inside a timed call), then calls one kernel
 phase of ``chip_smoke.py`` (``flash_bwd_phase``, ``fused_ce_phase``, ...;
 several, comma-separated; ``-`` for none), printing each kernel's
 ``ms`` (for a phase that returns one flat result, as ``flash_phase`` does,
-every number of it whose key ends in ``ms``); with ``--train`` the second and
+or a result and its launches, as ``ring_phase`` does, every number of it
+whose key ends in ``ms``); with ``--train`` the second and
 fourth runs also train Qwen3-0.6B (B=8) and GPT2-124M (B=32) for 6 steps, and
 GPT2-774M as shipped (``configs/gpt2_774m.json``: int8 matmuls and the int8
 fused CE, B=16, warmup 10) for 12 steps (the median of steps 2-11: its
@@ -45,7 +46,13 @@ the tree has it, else ``page_write_many`` and the gather
 and as the host µs of one eager call; then builds Qwen3-0.6B with k-means
 NF4 weights, runs ``chip_smoke.paged_phase`` (its tok/s) and profiles one
 paged decode chunk (8 decode + sample steps at B 32) for its device
-launches a step. Compare the
+launches a step. With ``--sp`` every run whose tree has the
+sequence-parallel path profiles one warm step of ``koifish --sp 4``'s
+train step on the config of ``chip_smoke.sp_train_phase``
+(``configs/qwen3_0.6b.json`` as shipped, its QAT rules too, B 16 x 1024,
+params from its seed, its first batch): device time by kernel (the ten
+largest) and the idle share, under the profiler (~65 s for its ~80,000
+launches). Compare the
 two versions only within one call: two calls may land on two cards or on a
 busier host. The first line printed is the card's name and power limit.
 """
@@ -87,6 +94,8 @@ def launches_a_step(torch, label, fn, steps=1):
           f"{wall * 1e3 / steps:.3f} ms/step", flush=True)
 for phase in sys.argv[1].split(",") if sys.argv[1] != "-" else []:
     r = getattr(cs, phase)(torch, g)
+    if isinstance(r, tuple):   # (result, launches): ring_phase
+        r = r[0]
     if "ms" in r:   # one flat result (flash_phase)
         r = {phase: r} | {f"{phase}.{k}": {"ms": v} for k, v in r.items()
                           if k.endswith("ms") and k != "ms"}
@@ -235,10 +244,42 @@ if "paged" in sys.argv[2:]:
             logits, c = P.decode_step_paged(card, qp, t, c)
             t = sample_logits(g, logits, 0.6, 50, 0.95)
     launches_a_step(torch, "paged decode chunk (8 steps, B=32)", chunk, 8)
+if "sp" in sys.argv[2:] and not hasattr(cs, "sp_train_phase"):
+    print("P sp: this tree has no sequence-parallel path", flush=True)
+elif "sp" in sys.argv[2:]:
+    import os, shutil
+    from koifish_tpu_torch.data import TokenDataset
+    from koifish_tpu_torch.ops.tracectx import SPPolicy
+    from koifish_tpu_torch.parallel import make_mesh
+    from koifish_tpu_torch.train import init_train_state, make_train_step
+    root = os.path.join("build", "ab_sp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    _, cfg, p = cs._sp_config(os.path.abspath(root))
+    card, tcard = p.model, p.train
+    b = next(TokenDataset(cfg["datasets"]["train"]["glob"]).batches(
+        tcard.batch, card.n_ctx))
+    batch = {"tokens": torch.from_numpy(b["tokens"]).to("cuda", torch.int64)}
+    state = init_train_state(card, tcard)
+    policy = SPPolicy("sp", make_mesh({"dp": 1, "tp": 1, "sp": cs.SP_WAYS},
+                                      devices="cuda"))
+    step = make_train_step(card, tcard, total_steps=cs.SP_STEPS,
+                           qcard=p.quant if p.quant.rules else None,
+                           sp=policy)
+
+    def one():
+        global state
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+    cs.profile_window(torch, f"Qwen3-0.6B --sp {cs.SP_WAYS} step "
+                      f"(B={tcard.batch}, T={card.n_ctx}, remat="
+                      f"{tcard.remat}, QAT)", one)
+    shutil.rmtree(root)
 '''
 
 KEEP = ("K ", "H ", "S ", "D ", "P ", "G ", "  check", "  time", "  host",
-        "  median", "  losses", "  aggregate", "  completed", "chip_smoke")
+        "  median", "  losses", "  aggregate", "  completed", "chip_smoke",
+        "[profile] Qwen3-0.6B --sp", "  device busy")
 
 
 def main() -> None:
@@ -250,6 +291,7 @@ def main() -> None:
     ap.add_argument("--shapes", action="store_true")
     ap.add_argument("--decode", action="store_true")
     ap.add_argument("--paged", action="store_true")
+    ap.add_argument("--sp", action="store_true")
     args = ap.parse_args()
     old = os.path.abspath(args.old_tree)
     if not os.path.exists(os.path.join(old, "chip_smoke.py")):
@@ -264,14 +306,16 @@ def main() -> None:
             + (["host"] if args.host else []) \
             + (["shapes"] if args.shapes else []) \
             + (["decode"] if args.decode else []) \
-            + (["paged"] if args.paged else [])
+            + (["paged"] if args.paged else []) \
+            + (["sp"] if args.sp else [])
         t0 = time.perf_counter()
         out = subprocess.run([sys.executable, "-c", RUN, args.phase] + extra,
                              cwd=tree, capture_output=True, text=True)
         print(f"=== run {i} {name} rc={out.returncode} "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         print("\n".join(ln for ln in out.stdout.splitlines()
-                        if ln.startswith(KEEP) or "paged steps at" in ln),
+                        if ln.startswith(KEEP) or "paged steps at" in ln
+                        or " launches/step  " in ln),
               flush=True)
         if out.returncode:
             failed = True

@@ -171,6 +171,26 @@ Phases, in order; any failed check exits non-zero before the last line:
              cache: TTFT and decode tok/s, rows 1a, 3, 4 launched and no
              row 7; a profiled decode chunk; a tiny QJL model card vs CPU
              (logits 5e-2, greedy tokens 75 %).
+   slice14 — sequence parallelism, its ranks virtual ranks of the one
+             card (they share its SMs; a chunk copy goes through HBM, not
+             NVLink). (a) ``ring_phase``: row 13, the kernel ring
+             (``csrc/ring_attn.cu``) through
+             ``parallel.ring_attention_pallas_sharded``, at Qwen3-0.6B's
+             attention and the SFT config's context (B 1 x T 8192, Hq 16,
+             Hkv 8, D 128, bf16) at sp 4 (the main run, its launches
+             counted: sp(sp+1)/2), 2 and 8, and at four smaller shapes
+             (ragged Tl, f32 q, g 1-8); each against the kernel's plain
+             version entry by entry and one-piece attention (2e-2), a
+             repeat bit for bit, and a planted fault (ranks sending to the
+             wrong neighbour) rejected; the ring timed by graph replay and
+             eagerly (CUDA events around all ranks), beside its plain
+             version and SDPA on the whole sequence. (b) ``sp_train_phase``:
+             ``koifish.main --sp 4`` on configs/qwen3_0.6b.json as shipped
+             (paths changed; fake-quant INT4, remat, B 16 x 1024) for 4
+             steps on a seeded shard: the mesh line, finite falling losses,
+             step 0 within 1e-2 of ``--sp 1``'s, no flash forward (the ring
+             takes the attention); ms a step and peak memory; a tiny sp-2
+             step card vs CPU. (``chip_ab.py --sp`` profiles an sp step.)
 6. result  — one JSON line with every kernel's numbers (launches from its
              path's run: the serving run for the slice-1 kernels and the
              decode attention's fused K/V write (``decode_attn_write``,
@@ -182,9 +202,11 @@ Phases, in order; any failed check exits non-zero before the last line:
              launches plus the fused ones), GPT2-774M run (a) for the
              int8 fused CE and the quantizers, run (b) for qdgrad (its
              quantize pass and its GEMM, each line timing its own launch),
-             the plain bubble run for the int8 GEMV; each row's
+             the plain bubble run for the int8 GEMV, the sp-4 ring for
+             row 13 (with its ``eager_ms`` and ``by_sp``); each row's
              ``launches_by_path`` gives slice 13's runs: gama, distill,
-             kun_bubble, qjl), then the last line
+             kun_bubble, qjl, and slice 14's ``koifish_sp4``), then the
+             last line
              ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the repository around it; without either it
@@ -773,19 +795,20 @@ PAGED_TIMED = 3
 PAGED_ULP, PAGED_ABS = 2.0 ** -7, 1e-4
 
 
-def paged_rel(a, ref) -> float:
-    """max over entries of |a − ref| / (2^-7·|ref| + PAGED_ABS): ≤ 1 within
+def paged_rel(a, ref, floor: float = PAGED_ABS) -> float:
+    """max over entries of |a − ref| / (2^-7·|ref| + floor): ≤ 1 within
     the limit."""
     r = ref.float()
-    return float(((a.float() - r).abs() / (PAGED_ULP * r.abs() + PAGED_ABS)
+    return float(((a.float() - r).abs() / (PAGED_ULP * r.abs() + floor)
                   ).max())
 
 
-def _paged_gate(name: str, a, ref) -> float:
-    """``paged_rel(a, ref)`` ≤ 1, or fail; returns the max abs error."""
-    rel, err = paged_rel(a, ref), max_err(a, ref)
+def _paged_gate(name: str, a, ref, floor: float = PAGED_ABS) -> float:
+    """``paged_rel(a, ref, floor)`` ≤ 1, or fail; returns the max abs
+    error."""
+    rel, err = paged_rel(a, ref, floor), max_err(a, ref)
     ok = rel <= 1.0
-    say(f"  check {name}: |Δ|/(2^-7·|plain| + {PAGED_ABS:.0e})="
+    say(f"  check {name}: |Δ|/(2^-7·|plain| + {floor:.0e})="
         f"{rel:.3e} (max_abs_err={err:.3e}) limit 1 {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{name} disagrees with its plain version")
@@ -3045,11 +3068,12 @@ def bubble_phase(torch):
 # ---------------------------------------------------------------------------
 
 def _step_card_vs_cpu(torch, label, card, tcard, vocab, tol_loss, tol_norm,
-                      tol_head, qcard=None, seed=7):
+                      tol_head, qcard=None, seed=7, sp=1):
     """One ``make_train_step`` of ``card`` on the card (kernels) against the
     same step on the CPU (plain versions), SR off: the loss, every
     gradient's norm (the tied head's ``wte`` within ``tol_head``) and the
-    updated parameters."""
+    updated parameters. ``sp`` > 1: sequence-parallel, an ``SPPolicy``
+    over ``sp`` virtual ranks of the step's device."""
     from koifish_tpu_torch.models import init_params
     from koifish_tpu_torch.train import init_train_state, make_train_step
     from koifish_tpu_torch.utils.tree import flatten_with_path, leaves
@@ -3064,7 +3088,13 @@ def _step_card_vs_cpu(torch, label, card, tcard, vocab, tol_loss, tol_norm,
                       else v.to(dev, copy=True))
                   for k, v in base.items()}
         state = init_train_state(card, tcard, params=params)
-        step = make_train_step(card, tcard, total_steps=10, qcard=qcard)
+        policy = None
+        if sp > 1:
+            from koifish_tpu_torch.ops.tracectx import SPPolicy
+            from koifish_tpu_torch.parallel import make_mesh
+            policy = SPPolicy("sp", make_mesh({"sp": sp}, devices=dev))
+        step = make_train_step(card, tcard, total_steps=10, qcard=qcard,
+                               sp=policy)
         state, metrics = step(state, {"tokens": tokens.to(dev)})
         res[dev] = (float(metrics["loss"]), metrics["leaf_norms"].cpu(),
                     [p.detach().float().cpu()
@@ -4335,6 +4365,290 @@ def slice13_phase(torch) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# slice 14: the sequence-parallel ring (row 13) and koifish --sp
+# ---------------------------------------------------------------------------
+
+#: the ring's card shape: Qwen3-0.6B's attention at the SFT config's n_ctx
+RING_SHAPE = (1, 8192, 16, 8, 128)            # B, T, Hq, Hkv, D
+RING_SPS = (4, 2, 8)                          # sp 4 first: the main run
+#: (label, B, T, Hq, Hkv, D, sp, q dtype): ragged Tl (rows and keys past a
+#: tile), f32 q, batch strides, g 1, 3 and 8
+RING_CASES = [
+    ("B2 T1000 Hq8 Hkv1 D64 f32 sp4", 2, 1000, 8, 1, 64, 4, "f32"),
+    ("B3 T384 Hq4 Hkv4 D128 f32 sp3", 3, 384, 4, 4, 128, 3, "f32"),
+    ("B1 T2048 Hq12 Hkv4 D64 bf16 sp8", 1, 2048, 12, 4, 64, 8, "bf16"),
+    ("B2 T640 Hq16 Hkv8 D128 bf16 sp2", 2, 640, 16, 8, 128, 2, "bf16"),
+]
+#: the one-piece attention's gate: the JAX ring test's 2e-2
+RING_FULL_TOL = 2e-2
+#: the gate against the plain version: |Δ| <= 2^-7·|plain| + RING_ABS. The
+#: kernel's exp and its dot's summation order differ from PyTorch's in the
+#: last f32 bits, which now and then flips a p's rounding to bf16; one flip
+#: moves an output by 2^-8·p·|v|/l (measured <= 4.7e-4 in f32 outputs)
+RING_ABS = 2e-3
+
+
+def ring_bound(B, T, Hq, Hkv, D, sp, q_bytes):
+    """(bytes, flops, design bytes) of the ring: q, k, v read and the
+    output written once, and the causal pairs' 4·D flops each, make the
+    bound; the design's own traffic is apart from it: the bf16 slot fill,
+    the chunk copies (read and written) and the carried state (o, m, l in
+    f32, written by a rank's r non-last launches and read by its r
+    non-first ones)."""
+    Tl = T // sp
+    kv = 2 * B * Tl * Hkv * D * 2                  # a chunk's K and V, bf16
+    state = B * Tl * Hq * (D + 2) * 4
+    nbytes = 2 * B * T * Hq * D * q_bytes + 2 * B * T * Hkv * D * 2
+    design = sp * 2 * kv + sp * (sp - 1) * 2 * kv + sp * (sp - 1) * state
+    flops = 4 * D * Hq * B * T * (T + 1) // 2
+    return nbytes, flops, design
+
+
+def _ring_one_piece(torch, q, k, v):
+    """Causal attention over the whole sequence in f32, head by kv head
+    (the [B, g, T, T] logits of one kv head at a time)."""
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    g = Hq // Hkv
+    out = torch.empty((B, T, Hq, D), dtype=torch.float32, device=q.device)
+    mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    for h in range(Hkv):
+        qh = q[:, :, h * g:(h + 1) * g].float().transpose(1, 2)  # [B,g,T,D]
+        kh = k[:, :, h].float()                                  # [B,T,D]
+        s = torch.einsum("bgtd,bsd->bgts", qh, kh) * D ** -0.5
+        s = torch.where(mask, s, -1e30).softmax(-1)
+        out[:, :, h * g:(h + 1) * g] = torch.einsum(
+            "bgts,bsd->btgd", s, v[:, :, h].float())
+        del s
+    return out
+
+
+def ring_phase(torch, gen):
+    """Row 13, the kernel ring (``csrc/ring_attn.cu``), on virtual ranks of
+    the one card: at the card shape (B 1 x T 8192, Hq 16, Hkv 8, D 128) at
+    sp 4 (the main run: launches counted from 0), 2 and 8, and at four
+    smaller shapes (ragged, f32 q, g 1-8); each against the kernel's plain
+    version entry by entry (|Δ| <= 2^-7·|plain| + RING_ABS) and against
+    one-piece causal attention (2e-2, the JAX ring test's); a repeat of the
+    main run bit for bit; a planted fault (each rank sends to the wrong
+    neighbour, so every launch past step 0 reads a chunk from the wrong
+    source) must be rejected. Times the ring (CUDA-graph replay of every
+    rank's launches and copies, and eager with CUDA events around all
+    ranks), its plain version and SDPA on the whole sequence. The ranks
+    share the card's SMs and the chunk copies go through HBM, not NVLink."""
+    from koifish_tpu_torch.ops.kernels import ring_attn as ra
+    from koifish_tpu_torch.parallel import (make_mesh,
+                                            ring_attention_pallas_sharded)
+    from koifish_tpu_torch.parallel.ring_attention import shard_seq
+    from koifish_tpu_torch.utils import kernel_log
+    F = torch.nn.functional
+    say("[kernels] ring_attn (koifish_tpu_torch/csrc/ring_attn.cu): the "
+        "sequence-parallel ring on virtual ranks of one card (they share "
+        "its SMs; the chunk copies go through HBM, not NVLink)")
+
+    def rnd(B, T, H, D, dtype):
+        return torch.randn((B, T, H, D), generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+
+    class Skewed(ra.LocalTransport):
+        def peer(self, r):
+            return (r + 2) % self.n if self.n > 2 else r
+
+    def check_case(label, q, k, v, sp, ring):
+        dev = torch.device("cuda", torch.cuda.current_device())
+        chunks = [shard_seq(x, [dev] * sp) for x in (q, k, v)]
+        plain = torch.cat(ra.ring_plain(*chunks), dim=1)
+        full = _ring_one_piece(torch, q, k, v)
+        err = _paged_gate(f"ring {label} vs its plain version", ring, plain,
+                          RING_ABS)
+        err_full = max_err(ring, full)
+        check(f"ring {label} vs one-piece attention", err_full,
+              RING_FULL_TOL)
+        bad = torch.cat(ra.ring_attention(*chunks, transport=Skewed), dim=1)
+        torch.cuda.synchronize()
+        rel_bad = paged_rel(bad, plain, RING_ABS)
+        say(f"  planted fault (sends to the wrong neighbour): "
+            f"|Δ|/(2^-7·|plain| + {RING_ABS:.0e})={rel_bad:.3e}, must be > 1")
+        if not rel_bad > 1.0:
+            fail(f"ring {label}: the planted fault was not rejected")
+        del plain, full, bad
+        return err
+
+    for label, B, T, Hq, Hkv, D, sp, dt in RING_CASES:
+        dtype = torch.float32 if dt == "f32" else torch.bfloat16
+        q = rnd(B, T, Hq, D, dtype)
+        k, v = rnd(B, T, Hkv, D, dtype), rnd(B, T, Hkv, D, dtype)
+        mesh = make_mesh({"sp": sp}, devices="cuda")
+        ring = ring_attention_pallas_sharded(mesh, "sp")(q, k, v)
+        torch.cuda.synchronize()
+        if ring.dtype != dtype or ring.shape != q.shape:
+            fail(f"ring {label}: out {ring.dtype} {tuple(ring.shape)}")
+        check_case(label, q, k, v, sp, ring)
+
+    B, T, Hq, Hkv, D = RING_SHAPE
+    q = rnd(B, T, Hq, D, torch.bfloat16)
+    k = rnd(B, T, Hkv, D, torch.bfloat16)
+    v = rnd(B, T, Hkv, D, torch.bfloat16)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True), iters=10)
+    res, counts = {}, {}
+    for sp in RING_SPS:
+        mesh = make_mesh({"sp": sp}, devices="cuda")
+        fn = ring_attention_pallas_sharded(mesh, "sp")
+        torch.cuda.synchronize()
+        kernel_log.reset_launches()
+        out = fn(q, k, v)
+        torch.cuda.synchronize()
+        counts[sp] = kernel_log.launches()
+        label = f"B{B} T{T} Hq{Hq} Hkv{Hkv} D{D} bf16 sp{sp}"
+        say(f"  {label}: launches {json.dumps(counts[sp])} "
+            f"(sp(sp+1)/2 = {sp * (sp + 1) // 2})")
+        if counts[sp] != {"ring_attn": sp * (sp + 1) // 2}:
+            fail(f"ring {label}: launches {counts[sp]}")
+        err = check_case(label, q, k, v, sp, out)
+        again = fn(q, k, v)
+        torch.cuda.synchronize()
+        if not torch.equal(again.view(torch.int16), out.view(torch.int16)):
+            fail(f"ring {label}: a repeat differs in "
+                 f"{bits_differ(again, out):.0f} entries")
+        del again
+        ms = time_ms(torch, lambda: fn(q, k, v), iters=10)
+        eager = event_ms(torch, lambda: fn(q, k, v), iters=10)
+        dev = torch.device("cuda", torch.cuda.current_device())
+        chunks = [shard_seq(x, [dev] * sp) for x in (q, k, v)]
+        plain = time_ms(torch, lambda: ra.ring_plain(*chunks), iters=2,
+                        warm=1)
+        nbytes, flops, design = ring_bound(B, T, Hq, Hkv, D, sp, 2)
+        bound, by = bound_ms(nbytes, flops)
+        say(f"  {label}: ring {ms:.4f} ms (graph replay; eager, events "
+            f"around all ranks: {eager:.4f}), plain {plain:.4f}, SDPA on the "
+            f"whole sequence {library:.4f}; bound {bound:.5f} ({by}: "
+            f"{flops:.4e} flops of the causal pairs, {nbytes / 1e6:.2f} MB "
+            f"of q, k, v and the output); the design moves "
+            f"{design / 1e6:.2f} MB more (the fill, the copies and the "
+            f"state), {design / PEAK_BYTES * 1e3:.5f} ms at the memory rate")
+        res[sp] = dict(max_abs_err=err, ms=ms, eager_ms=eager, plain_ms=plain,
+                       bound_ms=bound, bound_by=by, library_ms=library,
+                       launches=counts[sp])
+        del out, chunks
+    torch.cuda.empty_cache()
+    main = dict(res[RING_SPS[0]])
+    main["by_sp"] = {str(sp): {k_: r[k_] for k_ in
+                               ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                "max_abs_err", "launches")}
+                     for sp, r in res.items()}
+    return main, counts[RING_SPS[0]]
+
+
+SP_STEPS = 4
+SP_WAYS = 4
+
+
+def sp_reference_check(torch) -> None:
+    """A tiny QWEN3 step, sequence-parallel over 2 virtual ranks, on the
+    card against the CPU (the bf16 step's tolerances: loss 1e-2, grad
+    norms 2 %, updated params 2·lr + 1 ulp)."""
+    from koifish_tpu_torch.config import ModelCard, TrainCard
+    card = ModelCard.from_arch("QWEN3", vocab_size=512, n_layer=2, n_embd=128,
+                               n_head=2, n_kv_head=1, head_dim=64, n_ffn=256,
+                               n_ctx=64, max_pos=128)
+    tcard = TrainCard(batch=4, lr=1e-3, warmup=0, scheduler="static",
+                      fused_ce=True, stochastic_round=False,
+                      check_tensor_norm=True, remat=True)
+    _step_card_vs_cpu(torch, "tiny QWEN3 sp-2 train step", card, tcard, 512,
+                      1e-2, 2e-2, TOL_HEAD, sp=2)
+
+
+def _sp_config(root: str):
+    """configs/qwen3_0.6b.json as shipped with its train glob on a seeded
+    shard under ``root`` (one 1024-token sequence repeated, so that every
+    batch is the same and the losses move only with the updates): the
+    config's path, its JSON and its ``CLIParams``."""
+    from koifish_tpu_torch.config import CLIParams
+    with open(os.path.join(ROOT, "configs", "qwen3_0.6b.json")) as f:
+        cfg = json.load(f)
+    cfg["datasets"]["train"]["glob"] = os.path.join(root, "*train*.bin")
+    cfgp = os.path.join(root, "qwen3_sp.json")
+    with open(cfgp, "w") as f:
+        json.dump(cfg, f, indent=1)
+    p = CLIParams.load(cfgp)
+    T = p.model.n_ctx
+    write_token_shard(os.path.join(root, "qwen3_train_000.bin"),
+                      p.model.vocab_size, 2 * SP_STEPS * p.train.batch
+                      * (T + 1), seed=41, period=T)
+    return cfgp, cfg, p
+
+
+def sp_train_phase(torch) -> dict:
+    """``koifish --sp 4`` on configs/qwen3_0.6b.json as shipped (fake-quant
+    INT4 g128 QAT, remat, warmup 700, B 16 x 1024), its train glob on a
+    seeded shard (``_sp_config``), at full width and depth for
+    ``SP_STEPS`` steps: four ranks of a dp=1 tp=1 sp=4 mesh on the one
+    card, the model's attention the plain ring over them. Fails unless the
+    mesh line names sp=4, the losses are finite and fall, step 0's loss is
+    within 1e-2 relative of ``--sp 1``'s on the same batch, no flash
+    forward launched (the ring takes the attention) and the fused CE's
+    forward launched once a step. Then the tiny sp-2 step card vs CPU.
+    Returns the sp run's launches."""
+    import math
+    import shutil
+    from koifish_tpu_torch.cli import koifish
+    root = os.path.join(ROOT, "build", "sp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    cfgp, _, p = _sp_config(root)
+    card, tcard = p.model, p.train
+    B, T = tcard.batch, card.n_ctx
+    say(f"[sp] configs/qwen3_0.6b.json, train glob on a seeded shard: "
+        f"{card.n_layer} layers, E {card.n_embd}, V {card.vocab_size}, B {B} "
+        f"x {T}, remat {tcard.remat}, QAT rules {len(p.quant.rules)}")
+    res1, _, _ = run_cli(torch, koifish.main, [
+        cfgp, "--most-iter", "2", "--out-dir", os.path.join(root, "sp1")],
+        "koifish --sp 1 (2 steps)")
+    base, dt1 = res1["infos"].losses[0], res1["infos"].rows[1][3]
+    del res1
+    torch.cuda.empty_cache()
+    res, out, counts = run_cli(torch, koifish.main, [
+        cfgp, "--most-iter", str(SP_STEPS), "--sp", str(SP_WAYS),
+        "--out-dir", os.path.join(root, "sp4")],
+        f"koifish --sp {SP_WAYS} ({SP_STEPS} steps)")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    line = [ln for ln in out.splitlines() if "[koifish] mesh" in ln]
+    say(f"  {line}")
+    if not line or f"sp={SP_WAYS} on 1 device(s)" not in line[0]:
+        fail(f"koifish --sp {SP_WAYS}: no mesh line naming sp={SP_WAYS} on "
+             f"the one card: {line}")
+    infos = res["infos"]
+    losses = infos.losses
+    dts = [r[3] for r in infos.rows]
+    dt = sorted(dts[1:])[len(dts[1:]) // 2]
+    say(f"  losses {[round(x, 6) for x in losses]} (--sp 1 step 0: "
+        f"{base:.6f}); step ms {[round(d * 1e3, 1) for d in dts]}; median "
+        f"of steps 1-{SP_STEPS - 1}: {dt * 1e3:.1f} ms, {B * T / dt:.1f} "
+        f"tok/s (--sp 1 step 1: {dt1 * 1e3:.1f} ms); peak device memory "
+        f"{peak:.2f} GiB; {SP_WAYS} ranks on {torch.cuda.get_device_name(0)}")
+    if len(losses) != SP_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"koifish --sp {SP_WAYS}: losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"koifish --sp {SP_WAYS}: the loss did not fall "
+             f"({losses[0]} -> {losses[-1]})")
+    check(f"koifish --sp {SP_WAYS} step 0 loss vs --sp 1 (relative)",
+          abs(losses[0] - base) / base, 1e-2)
+    if counts.get("flash_fwd", 0) or counts.get("fused_ce_fwd", 0) \
+            != SP_STEPS:
+        fail(f"koifish --sp {SP_WAYS}: launches {counts}: the ring takes "
+             f"the attention (no flash_fwd), the fused CE one forward a step")
+    del res, infos
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    sp_reference_check(torch)
+    say(f"[sp] phase: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4394,6 +4708,10 @@ def main() -> None:
     sft_counts = koifish_phase(torch)
     say(f"[koifish] the SFT run's launches: {json.dumps(sft_counts)}")
     s13 = slice13_phase(torch)
+    g14 = torch.Generator(device="cuda")
+    g14.manual_seed(14)
+    ring, ring_counts = ring_phase(torch, g14)
+    sp_counts = sp_train_phase(torch)
 
     src = "koifish_tpu_torch/csrc/"
     rows = [  # (name, source, TPU kernel, numbers, launches on its path)
@@ -4473,6 +4791,9 @@ def main() -> None:
          i8["colquant"], g774_counts),
         ("qmv_int8", "qmv_int8.cu", "koifish_tpu/ops/pallas/matmul.py:257",
          q8, chat_counts),
+        # the kernel ring at sp 4 on virtual ranks of the one card
+        ("ring_attn", "ring_attn.cu",
+         "koifish_tpu/parallel/ring_pallas.py:152", ring, ring_counts),
     ]
     kernels = [dict(name=n, route="cuda", source=src + f, replaces=r,
                     launches=c.get(n, 0), max_abs_err=m["max_abs_err"],
@@ -4494,11 +4815,14 @@ def main() -> None:
     for k in kernels:
         if k["name"] in folded:
             k["folded_into"], k["folded_launches"] = folded[k["name"]]
-    for k in kernels:   # slice 13's paths: each row's launches in each
+    for k in kernels:   # slices 13 and 14's paths: launches in each
         k["launches_by_path"] = {p: c.get(k["name"], 0) + (
             c.get("kv_write", 0) if k["name"] in ("decode_attn_write",
                                                   "slot_write") else 0)
-            for p, c in s13.items()}
+            for p, c in dict(s13, koifish_sp4=sp_counts).items()}
+        if k["name"] == "ring_attn":   # the ring at sp 2, 4 and 8
+            k["eager_ms"] = ring["eager_ms"]
+            k["by_sp"] = ring["by_sp"]
     for k in kernels:   # the fused writes' own share of their launch
         if k["name"] == "decode_attn_write":
             k["write_ms"] = dec["decode_attn_write"]["write_ms"]

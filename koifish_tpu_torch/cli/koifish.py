@@ -12,7 +12,10 @@ checkpoints and ``--resume``, the in-training perplexity eval with its
 ``Eval.csv``, the ``gpt-every`` sample, the ``nn_structure`` dump and the
 Fuyou swarm, and QAT from the config's quantizer card: fake-quant (STE),
 or gama (scale-only) training, which quantizes the initial params and
-trains their scales with the codes frozen. Parallelism (``--dp/--tp/--sp/
+trains their scales with the codes frozen. ``--sp N`` trains sequence-
+parallel: a dp=1 tp=1 sp=N mesh over the run's devices (its ranks round-
+robin where the devices are fewer, ``parallel/mesh.py``) and the model's
+attention a ring over the sp axis. The rest of parallelism (``--dp/--tp/
 --pp > 1``, ``--fsdp``) is not ported yet and raises.
 """
 from __future__ import annotations
@@ -67,8 +70,8 @@ def main(argv=None, result=None) -> int:
     step's ``metrics`` (``leaf_norms`` among them when the config sets
     ``debug.check_tensor_norm``)."""
     args = build_argparser().parse_args(argv)
-    if args.dp > 1 or args.tp > 1 or args.sp > 1 or args.pp > 1 or args.fsdp:
-        _not_ported("--dp/--tp/--sp/--pp > 1 and --fsdp",
+    if args.dp > 1 or args.tp > 1 or args.pp > 1 or args.fsdp:
+        _not_ported("--dp/--tp/--pp > 1 and --fsdp",
                     "parallelism on torch.distributed")
     import torch
 
@@ -213,6 +216,19 @@ def main(argv=None, result=None) -> int:
         save_train_state(path, st, card, extra_meta={"iter": it})
         print(f"[koifish] saved {tag} checkpoint -> {path}")
 
+    # sequence parallelism: the ring over the sp axis of a dp=1 tp=1 mesh
+    # (JAX cli/koifish.py:213-228; with dp = tp = 1 its state and batch
+    # sharding only replicate, so nothing else moves)
+    sp_policy = None
+    if args.sp > 1:
+        from koifish_tpu_torch.ops.tracectx import SPPolicy
+        from koifish_tpu_torch.parallel import make_mesh
+        mesh = make_mesh({"dp": args.dp, "tp": args.tp, "sp": args.sp},
+                         devices=None if args.device is None else [dev])
+        sp_policy = SPPolicy("sp", mesh)
+        print(f"[koifish] mesh dp={args.dp} tp={args.tp} sp={args.sp} on "
+              f"{mesh.n_devices} device(s)")
+
     if qcard is not None:
         mode = "gama" if qcard.train_target == "gama" else "fake-quant (STE)"
         print(f"[koifish] QAT enabled: {mode}, {len(qcard.rules)} rules")
@@ -293,7 +309,8 @@ def main(argv=None, result=None) -> int:
     state, infos = train_loop(
         card, tcard, state, _on_device(batches, dev),
         total_steps=total_steps, log_fn=log_fn, eval_fn=eval_fn,
-        save_fn=save_fn, qcard=qcard, trainable=trainable, hook_fn=hook_fn)
+        save_fn=save_fn, qcard=qcard, trainable=trainable, hook_fn=hook_fn,
+        sp=sp_policy)
     csv = tcard.train_csv_path or os.path.join(args.out_dir,
                                                "koifish_loss.csv")
     infos.save_csv(csv)

@@ -35,7 +35,8 @@ from koifish_tpu_torch.ops.attention import causal_attention
 from koifish_tpu_torch.ops.matmul import linear, qmatmul
 from koifish_tpu_torch.ops.norms import layernorm, rmsnorm
 from koifish_tpu_torch.ops.rope import apply_rope, rope_freqs
-from koifish_tpu_torch.ops.tracectx import current_int8, int8_scope
+from koifish_tpu_torch.ops.tracectx import (current_int8, current_sp,
+                                            int8_scope, sp_scope)
 from koifish_tpu_torch.quant.packing import unpack_codes
 from koifish_tpu_torch.quant.qtensor import QTensor, codebook_for
 from koifish_tpu_torch.utils.device import resolve_device
@@ -226,18 +227,19 @@ def _remat_block(remat, window: int):
     recomputes the whole block in the backward; ``"dots"`` keeps the
     projections' outputs and recomputes the elementwise chain (norms, rope,
     activations) — the JAX package's ``jax.checkpoint`` policies. The
-    int8 policy in force at the forward is captured and re-entered by the
-    recompute, which autograd runs on its own thread for a CUDA backward."""
+    int8 and sequence-parallel policies in force at the forward are
+    captured and re-entered by the recompute, which autograd runs on its
+    own thread for a CUDA backward."""
     kw = {}
     if remat == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_policy)
 
     def block(card, lp, x, cos, sin, positions):
-        pol = current_int8()
+        pol, sp = current_int8(), current_sp()
 
         def run(*args):
-            with int8_scope(pol):
+            with int8_scope(pol), sp_scope(sp):
                 return layer_forward(*args)
         return checkpoint(run, card, lp, x, cos, sin, positions, window,
                           use_reentrant=False, **kw)

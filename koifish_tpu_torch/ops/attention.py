@@ -6,7 +6,10 @@ no repeated K. ``causal_attention`` sends the self-attention case
 ``FlashAttention`` (``ops/kernels/flash.py``: the flash kernels forward and
 backward on the card), as the JAX package's ``ops/attention.py:79-83``
 sends it to Pallas; every other case runs the plain, autograd-
-differentiated path below.
+differentiated path below. Under a sequence-parallel policy
+(``ops/tracectx.sp_scope``, pushed by ``make_train_step``) the
+self-attention case runs the plain ring over the policy's mesh instead
+(``parallel/ring_attention.py``), as JAX ``ops/attention.py:59-77`` does.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Optional
 import torch
 
 from koifish_tpu_torch.ops.kernels import flash as kflash
+from koifish_tpu_torch.ops.tracectx import current_sp
 
 _NEG_INF = -1e30
 
@@ -41,6 +45,17 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, tq, hq, d = q.shape
     tk = k.shape[1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    sp = current_sp()
+    if (sp is not None and backend != "ref"
+            and mask is None and causal and window == 0 and tq == tk
+            and v.shape[-1] == d
+            and tq % sp.mesh.shape[sp.axis] == 0):
+        # sequence-parallel training: T sharded over the sp axis, the
+        # differentiable plain ring (the kernel ring has no gradient)
+        from koifish_tpu_torch.parallel.ring_attention import (
+            ring_attention_sharded)
+        fn = ring_attention_sharded(sp.mesh, sp.axis, scale)
+        return fn(q, k, v).to(q.dtype)
     if (backend != "ref" and mask is None and causal and tq == tk
             and v.shape[-1] == d and d in kflash.HEAD_DIMS
             and hq % k.shape[2] == 0):

@@ -41,6 +41,7 @@ SOURCES = {
     "qdgrad": "qdgrad.cu",
     "qmv_int8": "qmv_int8.cu",
     "paged_attn": "paged_attn.cu",
+    "ring_attn": "ring_attn.cu",
 }
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

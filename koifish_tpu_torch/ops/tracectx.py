@@ -2,12 +2,13 @@
 
 A policy object is pushed for the duration of one train step, exception-
 safe and thread-local, so concurrent steps or servers do not see each
-other's switches. ``make_train_step`` keeps ``int8_scope`` open for the
-whole step. Autograd runs a CUDA backward on its own device thread, where
-this thread's scope is not visible, so what the backward recomputes (remat
-blocks, checkpointed CE chunks) captures the policy at the forward and
-re-enters it (``models/transformer.py::_remat_block``): the recompute runs
-the same int8 matmuls as the forward.
+other's switches. ``make_train_step`` keeps ``int8_scope`` and
+``sp_scope`` open for the whole step. Autograd runs a CUDA backward on its
+own device thread, where this thread's scope is not visible, so what the
+backward recomputes (remat blocks, checkpointed CE chunks) captures the
+policies at the forward and re-enters them
+(``models/transformer.py::_remat_block``): the recompute runs the same
+int8 matmuls and the same ring attention as the forward.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ class Int8Policy:
 @dataclasses.dataclass(frozen=True)
 class SPPolicy:
     """Sequence-parallel training: full-sequence causal attention runs ring
-    attention with T sharded over ``axis`` of ``mesh`` (not ported yet)."""
+    attention with T sharded over ``axis`` of ``mesh`` (a
+    ``parallel/mesh.Mesh``; untyped: this module imports nothing of it)."""
     axis: str
     mesh: object
 

@@ -1,0 +1,46 @@
+"""The kernel ring's entry on global tensors (the JAX package's
+``parallel/ring_pallas.py``).
+
+``ring_attention_pallas_sharded(mesh, axis)`` takes global [B, T, H, D]
+q, k, v with T sharded over ``axis`` and runs the ring of row 13's kernel
+(``ops/kernels/ring_attn.py``) when the axis has more than one rank: on
+CUDA chunks the kernel ring, on CPU chunks its plain version. One rank
+runs the plain ring (``parallel/ring_attention.py``), as in JAX.
+
+The JAX package also sends a chunk that does not fit the TPU's VMEM
+(``fits_vmem``) to the ``ppermute`` ring. The port's chunks, slots and
+state live in device memory, so its routing has no such guard;
+``fits_vmem`` is kept for parity (ROADMAP.md queue 3).
+"""
+from __future__ import annotations
+
+from koifish_tpu_torch.ops.kernels import ring_attn
+from koifish_tpu_torch.parallel.ring_attention import (gather_seq,
+                                                       ring_attention_sharded,
+                                                       shard_seq)
+
+_VMEM_BUDGET = 100 * 1024 * 1024
+
+
+def fits_vmem(b: int, tl: int, hq: int, hkv: int, d: int) -> bool:
+    """Whether a TPU chunk fits the JAX kernel's VMEM budget."""
+    acc = b * tl * hq * d * (4 + 4 + 2)        # acc_o f32 + o/q bf16-ish
+    comm = 4 * b * tl * hkv * d * 2            # 2 slots x (k, v) bf16
+    return acc + comm + 2 * b * hq * tl * 4 < _VMEM_BUDGET
+
+
+def ring_attention_pallas_sharded(mesh, axis_name: str = "tp"):
+    """(q, k, v) on GLOBAL [B, T, H, D] tensors, T sharded over
+    ``axis_name`` -> out [B, T, Hq, D] in q's dtype on q's device: the
+    kernel ring with more than one rank, else the plain ring."""
+    devices = mesh.axis_devices(axis_name)
+    n = len(devices)
+
+    def fn(q, k, v):
+        if n == 1:
+            return ring_attention_sharded(mesh, axis_name)(q, k, v)
+        qs, ks, vs = (shard_seq(x, devices) for x in (q, k, v))
+        return gather_seq(ring_attn.ring_attention(qs, ks, vs), q.device)
+
+    return fn
+

@@ -21,7 +21,8 @@ from koifish_tpu_torch.config import ModelCard, TrainCard
 from koifish_tpu_torch.models.transformer import model_forward
 from koifish_tpu_torch.ops.cross_entropy import (cross_entropy_loss,
                                                  fused_ce_loss)
-from koifish_tpu_torch.ops.tracectx import Int8Policy, int8_scope
+from koifish_tpu_torch.ops.tracectx import (Int8Policy, SPPolicy, int8_scope,
+                                            sp_scope)
 from koifish_tpu_torch.quant.qtensor import QTensor
 from koifish_tpu_torch.train.optimizer import (OptState, _is_float,
                                                apply_updates, init_opt_state)
@@ -90,14 +91,16 @@ def make_train_step(card: ModelCard, tcard: TrainCard, total_steps: int,
     ``tcard.int8_matmul``: an ``Int8Policy`` (int8_wgrad, int8_dgrad,
     int8_min_kn) is in force for the whole step, forward and backward;
     what the backward recomputes captures it at the forward
-    (``ops/tracectx.py``)."""
+    (``ops/tracectx.py``).
+    sp:        an ``SPPolicy(axis, mesh)``: sequence-parallel training, the
+               model's causal self-attention a ring with T sharded over the
+               axis (``ops/attention.py``), in force for the whole step."""
     int8_pol = (Int8Policy(wgrad=tcard.int8_wgrad, dgrad=tcard.int8_dgrad,
                            min_weight_elems=tcard.int8_min_kn)
                 if tcard.int8_matmul else None)
-    if sp is not None:
-        raise NotImplementedError(
-            "sequence-parallel training is not ported yet (ROADMAP.md "
-            "queue 1, parallelism on torch.distributed)")
+    if sp is not None and not isinstance(sp, SPPolicy):
+        raise TypeError(f"sp must be an SPPolicy or None, got "
+                        f"{type(sp).__name__}")
     if getattr(tcard, "kernel_choices", False):
         kernel_log.set_verbose(True)
     sr_on = _sr_on(tcard)
@@ -105,7 +108,7 @@ def make_train_step(card: ModelCard, tcard: TrainCard, total_steps: int,
               else None)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        with int8_scope(int8_pol):
+        with int8_scope(int8_pol), sp_scope(sp):
             return _step(state, batch)
 
     def _step(state: TrainState, batch: Dict[str, torch.Tensor]):

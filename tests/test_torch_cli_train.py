@@ -328,13 +328,14 @@ def test_koifish_gpt2_uint16_shards_cli(tmp_path, capsys, monkeypatch):
 @pytest.mark.parametrize("flags,item", [
     (["--dp", "2"], "parallelism on torch.distributed"),
     (["--tp", "2"], "parallelism on torch.distributed"),
-    (["--sp", "2"], "parallelism on torch.distributed"),
+    (["--sp", "2", "--dp", "2"], "parallelism on torch.distributed"),
     (["--pp", "2"], "parallelism on torch.distributed"),
     (["--fsdp"], "parallelism on torch.distributed"),
     ([], "gama training")])
 def test_koifish_unported_paths_raise(tmp_path, flags, item, capsys):
-    """The parallelism flags name their queue. Gama (scale-only) QAT, the
-    last case, is ported: the CLI prints its mode, trains the scales of
+    """The parallelism flags name their queue (``--sp`` alone is ported,
+    ``tests/test_torch_sp_train.py``; beside ``--dp 2`` it still raises).
+    Gama (scale-only) QAT, the last case, is ported: the CLI prints its mode, trains the scales of
     the quantized params with every code frozen, and returns 0
     (``tests/test_torch_gama_distill.py`` holds its curve to JAX's)."""
     pat = _pattern_shard(tmp_path, 3000)

@@ -283,15 +283,22 @@ def test_remat_gives_the_same_grads(remat):
 
 def test_compute_loss_raises_for_unported_paths():
     """What the port still refuses, each message naming its ROADMAP queue 1
-    subject: sequence-parallel steps (parallelism) and SALMON / GUPPY
-    training (the model zoo). Scale-only (gama) QAT is ported: its
-    QuantCard applies no fake quantization, so the loss of plain params is
-    the loss without a QuantCard, bit for bit."""
+    subject: SALMON / GUPPY training (the model zoo). Sequence-parallel
+    steps are ported: ``sp`` takes an ``SPPolicy`` (anything else is a
+    TypeError; ``tests/test_torch_sp_train.py`` holds the step to JAX's).
+    Scale-only (gama) QAT is ported: its QuantCard applies no fake
+    quantization, so the loss of plain params is the loss without a
+    QuantCard, bit for bit."""
+    from koifish_tpu_torch.ops.tracectx import SPPolicy
+    from koifish_tpu_torch.parallel import make_mesh
     card = ModelCard.from_arch("QWEN3", n_kv_head=1, **TINY)
     params = init_params(card, device="cpu")
     tok = torch.zeros((1, 5), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="queue 1, parallelism"):
+    with pytest.raises(TypeError, match="SPPolicy"):
         ttrainer.make_train_step(card, TrainCard(), 10, sp=object())
+    assert callable(ttrainer.make_train_step(
+        card, TrainCard(), 10,
+        sp=SPPolicy("sp", make_mesh({"sp": 2}, devices="cpu"))))
     for arch in ("SALMON", "GUPPY"):
         zoo = dataclasses.replace(card, arch=arch)
         with pytest.raises(NotImplementedError,
