@@ -2,7 +2,7 @@
 """A/B one change of the port on one GPU: old, new, new, old in one call.
 
     python3 chip_ab.py OLD_TREE PHASE[,PHASE...] [--train] [--host] [--shapes]
-                       [--decode] [--paged] [--sp]
+                       [--decode] [--paged] [--sp] [--ring-steps]
 
 OLD_TREE is a copy of the repository at the old version
 (``koifish_tpu_torch/``, ``chip_smoke.py`` and ``configs/``, for example
@@ -14,7 +14,8 @@ phase of ``chip_smoke.py`` (``flash_bwd_phase``, ``fused_ce_phase``, ...;
 several, comma-separated; ``-`` for none), printing each kernel's
 ``ms`` (for a phase that returns one flat result, as ``flash_phase`` does,
 or a result and its launches, as ``ring_phase`` does, every number of it
-whose key ends in ``ms``); with ``--train`` the second and
+whose key ends in ``ms``, and for ``ring_phase`` each sp's graph-replay
+``ms`` and ``eager_ms`` from its ``by_sp``); with ``--train`` the second and
 fourth runs also train Qwen3-0.6B (B=8) and GPT2-124M (B=32) for 6 steps, and
 GPT2-774M as shipped (``configs/gpt2_774m.json``: int8 matmuls and the int8
 fused CE, B=16, warmup 10) for 12 steps (the median of steps 2-11: its
@@ -52,7 +53,11 @@ train step on the config of ``chip_smoke.sp_train_phase``
 (``configs/qwen3_0.6b.json`` as shipped, its QAT rules too, B 16 x 1024,
 params from its seed, its first batch): device time by kernel (the ten
 largest) and the idle share, under the profiler (~65 s for its ~80,000
-launches). Compare the
+launches). With ``--ring-steps`` every run profiles one call of the
+kernel ring (``parallel.ring_attention_pallas_sharded``) at
+``chip_smoke.RING_SHAPE`` and sp 4, 2 and 8: each device kernel's µs in
+launch order (the slot fill's copies, then one ring step a launch) and
+the host's ms a call (20 calls enqueued without a synchronise). Compare the
 two versions only within one call: two calls may land on two cards or on a
 busier host. The first line printed is the card's name and power limit.
 """
@@ -96,9 +101,13 @@ for phase in sys.argv[1].split(",") if sys.argv[1] != "-" else []:
     r = getattr(cs, phase)(torch, g)
     if isinstance(r, tuple):   # (result, launches): ring_phase
         r = r[0]
-    if "ms" in r:   # one flat result (flash_phase)
-        r = {phase: r} | {f"{phase}.{k}": {"ms": v} for k, v in r.items()
-                          if k.endswith("ms") and k != "ms"}
+    if "ms" in r:   # one flat result (flash_phase, ring_phase)
+        flat = {phase: r} | {f"{phase}.{k}": {"ms": v} for k, v in r.items()
+                             if k.endswith("ms") and k != "ms"}
+        for sp, d in r.get("by_sp", {}).items():   # ring_phase: each sp
+            flat |= {f"{phase}.sp{sp}.{k}": {"ms": d[k]}
+                     for k in ("ms", "eager_ms")}
+        r = flat
     print("K", {k: round(v["ms"], 4) for k, v in r.items()
                 if isinstance(v, dict)}, flush=True)
 if "train" in sys.argv[2:]:
@@ -275,9 +284,37 @@ elif "sp" in sys.argv[2:]:
                       f"(B={tcard.batch}, T={card.n_ctx}, remat="
                       f"{tcard.remat}, QAT)", one)
     shutil.rmtree(root)
+if "ring_steps" in sys.argv[2:]:
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    from koifish_tpu_torch.parallel import (make_mesh,
+                                            ring_attention_pallas_sharded)
+    B, T, Hq, Hkv, D = cs.RING_SHAPE
+    q, k, v = rnd(B, T, Hq, D), rnd(B, T, Hkv, D), rnd(B, T, Hkv, D)
+    for sp in (4, 2, 8):
+        fn = ring_attention_pallas_sharded(make_mesh({"sp": sp},
+                                                     devices="cuda"), "sp")
+        for _ in range(3):
+            fn(q, k, v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn(q, k, v)
+        host = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(q, k, v)
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if str(e.device_type).endswith("CUDA")),
+                     key=lambda e: e.time_range.start)
+        print(f"R ring sp {sp}: host {host:.3f} ms a call; kernels us",
+              [(e.name.split("(")[0].split("<")[0][-24:],
+                round(e.time_range.end - e.time_range.start, 1))
+               for e in evs], flush=True)
 '''
 
-KEEP = ("K ", "H ", "S ", "D ", "P ", "G ", "  check", "  time", "  host",
+KEEP = ("K ", "H ", "S ", "D ", "P ", "G ", "R ", "  check", "  time", "  host",
         "  median", "  losses", "  aggregate", "  completed", "chip_smoke",
         "[profile] Qwen3-0.6B --sp", "  device busy")
 
@@ -292,6 +329,7 @@ def main() -> None:
     ap.add_argument("--decode", action="store_true")
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--sp", action="store_true")
+    ap.add_argument("--ring-steps", action="store_true")
     args = ap.parse_args()
     old = os.path.abspath(args.old_tree)
     if not os.path.exists(os.path.join(old, "chip_smoke.py")):
@@ -307,7 +345,8 @@ def main() -> None:
             + (["shapes"] if args.shapes else []) \
             + (["decode"] if args.decode else []) \
             + (["paged"] if args.paged else []) \
-            + (["sp"] if args.sp else [])
+            + (["sp"] if args.sp else []) \
+            + (["ring_steps"] if args.ring_steps else [])
         t0 = time.perf_counter()
         out = subprocess.run([sys.executable, "-c", RUN, args.phase] + extra,
                              cwd=tree, capture_output=True, text=True)

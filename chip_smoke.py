@@ -172,19 +172,23 @@ Phases, in order; any failed check exits non-zero before the last line:
              row 7; a profiled decode chunk; a tiny QJL model card vs CPU
              (logits 5e-2, greedy tokens 75 %).
    slice14 — sequence parallelism, its ranks virtual ranks of the one
-             card (they share its SMs; a chunk copy goes through HBM, not
+             card (they share its SMs; a chunk travels through HBM, not
              NVLink). (a) ``ring_phase``: row 13, the kernel ring
-             (``csrc/ring_attn.cu``) through
+             (``csrc/ring_attn.cu``: one launch a step for all the ranks,
+             each chunk's send in it) through
              ``parallel.ring_attention_pallas_sharded``, at Qwen3-0.6B's
              attention and the SFT config's context (B 1 x T 8192, Hq 16,
              Hkv 8, D 128, bf16) at sp 4 (the main run, its launches
-             counted: sp(sp+1)/2), 2 and 8, and at four smaller shapes
+             counted: sp a ring), 2 and 8, and at four smaller shapes
              (ragged Tl, f32 q, g 1-8); each against the kernel's plain
              version entry by entry and one-piece attention (2e-2), a
-             repeat bit for bit, and a planted fault (ranks sending to the
-             wrong neighbour) rejected; the ring timed by graph replay and
-             eagerly (CUDA events around all ranks), beside its plain
-             version and SDPA on the whole sequence. (b) ``sp_train_phase``:
+             repeat bit for bit, and two planted faults rejected (ranks
+             sending to the wrong neighbour; every launch past the
+             diagonal starting from a fresh state); ptxas's registers and
+             spills of each instantiation (a spill fails); the ring timed
+             by graph replay and eagerly (CUDA events around all ranks),
+             beside its plain version and SDPA on the whole sequence, its
+             TFLOP/s on the causal pairs. (b) ``sp_train_phase``:
              ``koifish.main --sp 4`` on configs/qwen3_0.6b.json as shipped
              (paths changed; fake-quant INT4, remat, B 16 x 1024) for 4
              steps on a seeded shard: the mesh line, finite falling losses,
@@ -4392,17 +4396,45 @@ RING_ABS = 2e-3
 def ring_bound(B, T, Hq, Hkv, D, sp, q_bytes):
     """(bytes, flops, design bytes) of the ring: q, k, v read and the
     output written once, and the causal pairs' 4·D flops each, make the
-    bound; the design's own traffic is apart from it: the bf16 slot fill,
-    the chunk copies (read and written) and the carried state (o, m, l in
-    f32, written by a rank's r non-last launches and read by its r
+    bound; the design's own traffic is apart from it: the bf16 slot fill
+    (read and written), the sp(sp-1)/2 chunks forwarded (written: the
+    sender reads them for its own product) and the carried state (o, m, l
+    in f32, written by a rank's r non-last launches and read by its r
     non-first ones)."""
     Tl = T // sp
     kv = 2 * B * Tl * Hkv * D * 2                  # a chunk's K and V, bf16
     state = B * Tl * Hq * (D + 2) * 4
     nbytes = 2 * B * T * Hq * D * q_bytes + 2 * B * T * Hkv * D * 2
-    design = sp * 2 * kv + sp * (sp - 1) * 2 * kv + sp * (sp - 1) * state
+    design = sp * 2 * kv + sp * (sp - 1) // 2 * kv + sp * (sp - 1) * state
     flops = 4 * D * Hq * B * T * (T + 1) // 2
     return nbytes, flops, design
+
+
+def ring_ptxas(name: str = "ring_attn") -> str:
+    """ptxas's registers and spill bytes of each instantiation of the ring's
+    step kernel (D, f32 q), from the build log; fails on a spill."""
+    from koifish_tpu_torch.ops.kernels import _build
+    rows, fn = [], None
+    for ln in _build.log_path(name).read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and fn and "ring_step_kernel" in fn:
+            spill = (int(m.group(1)), int(m.group(2)))
+            if any(spill):
+                fail(f"ptxas: {fn} spills {spill} bytes (stores, loads)")
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn and "ring_step_kernel" in fn:
+            t = re.search(r"ILi(\d+)ELb([01])E", fn)
+            rows.append(f"D{t.group(1)} {'f32' if t.group(2) == '1' else 'bf16'}"
+                        f" q: {m.group(1)} registers" if t else
+                        f"{fn}: {m.group(1)} registers")
+    if not rows:
+        fail(f"ptxas: no ring_step_kernel in {_build.log_path(name)}")
+    return "; ".join(rows)
 
 
 def _ring_one_piece(torch, q, k, v):
@@ -4431,12 +4463,14 @@ def ring_phase(torch, gen):
     smaller shapes (ragged, f32 q, g 1-8); each against the kernel's plain
     version entry by entry (|Δ| <= 2^-7·|plain| + RING_ABS) and against
     one-piece causal attention (2e-2, the JAX ring test's); a repeat of the
-    main run bit for bit; a planted fault (each rank sends to the wrong
-    neighbour, so every launch past step 0 reads a chunk from the wrong
-    source) must be rejected. Times the ring (CUDA-graph replay of every
-    rank's launches and copies, and eager with CUDA events around all
-    ranks), its plain version and SDPA on the whole sequence. The ranks
-    share the card's SMs and the chunk copies go through HBM, not NVLink."""
+    main run bit for bit; two planted faults must be rejected: each rank
+    sends to the wrong neighbour (every launch past step 0 reads a chunk
+    from the wrong source, or a slot nobody filled: the faulty transport's
+    slots start zeroed), and every launch past the diagonal starts from a
+    fresh state (o = 0, m = -1e30, l = 0). Times the ring (CUDA-graph
+    replay of its launches, and eager with CUDA events around the call),
+    its plain version and SDPA on the whole sequence. The ranks share the
+    card's SMs and the forwarded chunks go through HBM, not NVLink."""
     from koifish_tpu_torch.ops.kernels import ring_attn as ra
     from koifish_tpu_torch.parallel import (make_mesh,
                                             ring_attention_pallas_sharded)
@@ -4445,15 +4479,27 @@ def ring_phase(torch, gen):
     F = torch.nn.functional
     say("[kernels] ring_attn (koifish_tpu_torch/csrc/ring_attn.cu): the "
         "sequence-parallel ring on virtual ranks of one card (they share "
-        "its SMs; the chunk copies go through HBM, not NVLink)")
+        "its SMs; the forwarded chunks go through HBM, not NVLink)")
+    say(f"  ptxas ring_step_kernel: {ring_ptxas()}")
 
     def rnd(B, T, H, D, dtype):
         return torch.randn((B, T, H, D), generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype)
 
     class Skewed(ra.LocalTransport):
+        def __init__(self, *a):
+            super().__init__(*a)
+            for buf in self._buf.values():
+                for x in buf:
+                    x.zero_()
+
         def peer(self, r):
             return (r + 2) % self.n if self.n > 2 else r
+
+    real_desc = ra._desc
+
+    def fresh_desc(ptrs, q_off, k_off, slot, send, first, last):
+        return real_desc(ptrs, q_off, k_off, slot, send, True, last)
 
     def check_case(label, q, k, v, sp, ring):
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -4465,14 +4511,25 @@ def ring_phase(torch, gen):
         err_full = max_err(ring, full)
         check(f"ring {label} vs one-piece attention", err_full,
               RING_FULL_TOL)
-        bad = torch.cat(ra.ring_attention(*chunks, transport=Skewed), dim=1)
-        torch.cuda.synchronize()
-        rel_bad = paged_rel(bad, plain, RING_ABS)
-        say(f"  planted fault (sends to the wrong neighbour): "
-            f"|Δ|/(2^-7·|plain| + {RING_ABS:.0e})={rel_bad:.3e}, must be > 1")
-        if not rel_bad > 1.0:
-            fail(f"ring {label}: the planted fault was not rejected")
-        del plain, full, bad
+        faults = {"sends to the wrong neighbour": lambda: ra.ring_attention(
+            *chunks, transport=Skewed),
+            "each launch past the diagonal from a fresh state":
+            lambda: ra.ring_attention(*chunks)}
+        for what, run in faults.items():
+            ra._desc = fresh_desc if "fresh" in what else real_desc
+            try:
+                bad = torch.cat(run(), dim=1)
+                torch.cuda.synchronize()
+            finally:
+                ra._desc = real_desc
+            rel_bad = paged_rel(bad, plain, RING_ABS)
+            say(f"  planted fault ({what}): |Δ|/(2^-7·|plain| + "
+                f"{RING_ABS:.0e})={rel_bad:.3e}, must be > 1")
+            if not rel_bad > 1.0:
+                fail(f"ring {label}: the planted fault ({what}) was not "
+                     f"rejected")
+            del bad
+        del plain, full
         return err
 
     for label, B, T, Hq, Hkv, D, sp, dt in RING_CASES:
@@ -4503,9 +4560,9 @@ def ring_phase(torch, gen):
         torch.cuda.synchronize()
         counts[sp] = kernel_log.launches()
         label = f"B{B} T{T} Hq{Hq} Hkv{Hkv} D{D} bf16 sp{sp}"
-        say(f"  {label}: launches {json.dumps(counts[sp])} "
-            f"(sp(sp+1)/2 = {sp * (sp + 1) // 2})")
-        if counts[sp] != {"ring_attn": sp * (sp + 1) // 2}:
+        say(f"  {label}: launches {json.dumps(counts[sp])} (sp = {sp}: one "
+            f"a step for all the ranks of the card)")
+        if counts[sp] != {"ring_attn": sp}:
             fail(f"ring {label}: launches {counts[sp]}")
         err = check_case(label, q, k, v, sp, out)
         again = fn(q, k, v)
@@ -4523,12 +4580,14 @@ def ring_phase(torch, gen):
         nbytes, flops, design = ring_bound(B, T, Hq, Hkv, D, sp, 2)
         bound, by = bound_ms(nbytes, flops)
         say(f"  {label}: ring {ms:.4f} ms (graph replay; eager, events "
-            f"around all ranks: {eager:.4f}), plain {plain:.4f}, SDPA on the "
-            f"whole sequence {library:.4f}; bound {bound:.5f} ({by}: "
+            f"around the call: {eager:.4f}), {flops / ms / 1e9:.1f} TFLOP/s "
+            f"on the causal pairs, plain {plain:.4f}, SDPA on the whole "
+            f"sequence {library:.4f}; bound {bound:.5f} ({by}: "
             f"{flops:.4e} flops of the causal pairs, {nbytes / 1e6:.2f} MB "
             f"of q, k, v and the output); the design moves "
-            f"{design / 1e6:.2f} MB more (the fill, the copies and the "
-            f"state), {design / PEAK_BYTES * 1e3:.5f} ms at the memory rate")
+            f"{design / 1e6:.2f} MB more (the fill, the forwarded chunks "
+            f"and the state), {design / PEAK_BYTES * 1e3:.5f} ms at the "
+            f"memory rate")
         res[sp] = dict(max_abs_err=err, ms=ms, eager_ms=eager, plain_ms=plain,
                        bound_ms=bound, bound_by=by, library_ms=library,
                        launches=counts[sp])

@@ -98,6 +98,42 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t
       : "memory");
 }
 
+// TMA: the box at (c0 innermost, c1, c2, c3, c4) of a 5-d tensor map
+__device__ __forceinline__ void tma_load_5d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// TMA store: a shared tile to the box at (c0 innermost, c1, c2, c3) of a 4-d
+// tensor map (elements past the tensor's extent are not written), in this
+// thread's current bulk group
+__device__ __forceinline__ void tma_store_4d(const void* map, const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// until at most N of this thread's bulk groups are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // thread-block clusters
 // ---------------------------------------------------------------------------
@@ -141,6 +177,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ void named_bar_sync(int id, int nthreads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
+}
+
+// arrive at a named barrier without waiting (the other nthreads - 32·warps
+// of its count sync on it)
+__device__ __forceinline__ void named_bar_arrive(int id, int nthreads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
 }
 
 // Registers a thread of a 384-thread block (two consumer warpgroups and a

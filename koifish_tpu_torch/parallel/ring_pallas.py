@@ -4,8 +4,10 @@
 ``ring_attention_pallas_sharded(mesh, axis)`` takes global [B, T, H, D]
 q, k, v with T sharded over ``axis`` and runs the ring of row 13's kernel
 (``ops/kernels/ring_attn.py``) when the axis has more than one rank: on
-CUDA chunks the kernel ring, on CPU chunks its plain version. One rank
-runs the plain ring (``parallel/ring_attention.py``), as in JAX.
+CUDA chunks the kernel ring, on CPU chunks its plain version. The ranks on
+q's device write their rows of the global output in place; only the rows
+of ranks on another device are gathered. One rank runs the plain ring
+(``parallel/ring_attention.py``), as in JAX.
 
 The JAX package also sends a chunk that does not fit the TPU's VMEM
 (``fits_vmem``) to the ``ppermute`` ring. The port's chunks, slots and
@@ -14,9 +16,10 @@ state live in device memory, so its routing has no such guard;
 """
 from __future__ import annotations
 
+import torch
+
 from koifish_tpu_torch.ops.kernels import ring_attn
-from koifish_tpu_torch.parallel.ring_attention import (gather_seq,
-                                                       ring_attention_sharded,
+from koifish_tpu_torch.parallel.ring_attention import (ring_attention_sharded,
                                                        shard_seq)
 
 _VMEM_BUDGET = 100 * 1024 * 1024
@@ -40,7 +43,16 @@ def ring_attention_pallas_sharded(mesh, axis_name: str = "tp"):
         if n == 1:
             return ring_attention_sharded(mesh, axis_name)(q, k, v)
         qs, ks, vs = (shard_seq(x, devices) for x in (q, k, v))
-        return gather_seq(ring_attn.ring_attention(qs, ks, vs), q.device)
+        here = ring_attn._key(q.device)
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        rows = list(out.chunk(n, dim=1))
+        res = ring_attn.ring_attention(
+            qs, ks, vs, outs=[o if ring_attn._key(x.device) == here else None
+                              for o, x in zip(rows, qs)])
+        for o, x in zip(rows, res):           # ranks on another device
+            if x is not o:
+                o.copy_(x)
+        return out
 
     return fn
 
