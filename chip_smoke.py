@@ -195,6 +195,31 @@ Phases, in order; any failed check exits non-zero before the last line:
              step 0 within 1e-2 of ``--sp 1``'s, no flash forward (the ring
              takes the attention); ms a step and peak memory; a tiny sp-2
              step card vs CPU. (``chip_ab.py --sp`` profiles an sp step.)
+   zoo     — the model zoo's MoE and MLA serving paths, each model built
+             from its published config.json values (``QWEN3_30B_A3B``,
+             ``DEEPSEEK_V2_LITE``) through ``ModelCard.from_hf`` with
+             seeded weights drawn on the card, INT4 RTN g128 where the
+             rules match (the 3-D expert stacks stay bf16), an INT8 KV
+             cache, ``generate`` at B 8 x 128-token prompts, 32 greedy new
+             tokens: warm TTFT, decode tok/s, peak memory, a profiled
+             decode step (idle share, top device operations) and the
+             launches of rows 1a, 3, 4 and 7's fused write, each exactly
+             the count the layer count and shapes give. (a) Qwen3-30B-A3B
+             at full width and depth (48 layers, 128 experts, 61 GB of
+             bf16 at init): the (token, expert) assignments the capacity
+             drops, recomputed from the router logits, in the prefill and
+             the decode; then ``bubble.main --bits 4 --kv-bits 8
+             --temperature 0 --max-new 32`` on a seeded 2-layer folder of
+             its width (3.7 GB). (b) DeepSeek-V2-Lite as the JAX package
+             reads it (27 layers, MLA with d 192 / dv 128, a dense FFN: no
+             flash forward, 27 logged fallbacks), then the latent cache
+             (``mla_prefill`` / ``mla_decode_step``): its times, its bytes
+             against the standard cache's, and its greedy tokens fed the
+             standard path's held against them (75 %). Then a 2-layer MoE,
+             a hybrid-backbone MoE and a 2-layer MLA card on the card
+             against the CPU (logits 5e-2, greedy tokens 75 %). Row 7 is
+             also checked and timed at both decode shapes in
+             ``decode_attn_phase``.
 6. result  — one JSON line with every kernel's numbers (launches from its
              path's run: the serving run for the slice-1 kernels and the
              decode attention's fused K/V write (``decode_attn_write``,
@@ -209,7 +234,10 @@ Phases, in order; any failed check exits non-zero before the last line:
              the plain bubble run for the int8 GEMV, the sp-4 ring for
              row 13 (with its ``eager_ms`` and ``by_sp``); each row's
              ``launches_by_path`` gives slice 13's runs: gama, distill,
-             kun_bubble, qjl, and slice 14's ``koifish_sp4``), then the
+             kun_bubble, qjl, slice 14's ``koifish_sp4`` and slice 16's
+             zoo runs; the rows ``decode_attn_write_mla`` and
+             ``decode_attn_write_qwen3_moe`` are row 7's fused entry at the
+             zoo's decode shapes, launched by its generate runs), then the
              last line
              ``{"ok": true, "device": {...}}``.
 
@@ -360,6 +388,8 @@ def flash_phase(torch, gen):
         ("ragged B1 T1500 Hq4 Hkv2 D128 window256", 1, 1500, 4, 2, 128, 256,
          False),
         ("ragged B1 T1 Hq2 Hkv1 D128", 1, 1, 2, 1, 128, 0, False),
+        # zoo_phase's Qwen3-30B-A3B prefill (g 8)
+        ("zoo B8 T128 Hq32 Hkv4 D128", 8, 128, 32, 4, 128, 0, False),
     ]
     slice_err = None
     res = {}
@@ -425,6 +455,12 @@ def flash_phase(torch, gen):
 QWEN3_PROJ = [("q", 1024, 2048), ("k", 1024, 1024), ("v", 1024, 1024),
               ("o", 2048, 1024), ("gate", 1024, 3072), ("up", 1024, 3072),
               ("down", 3072, 1024)]
+# the projections zoo_phase quantizes (INT4 g128): Qwen3-30B-A3B's q, k and
+# v, o, then DeepSeek-V2-Lite's o, gate and up (its down, K 10944, is off
+# the 128-row groups and stays bf16)
+ZOO_PROJ = [("Qwen3-30B-A3B q", 2048, 4096), ("Qwen3-30B-A3B k/v", 2048, 512),
+            ("Qwen3-30B-A3B o", 4096, 2048), ("DeepSeek o", 2048, 2048),
+            ("DeepSeek gate/up", 2048, 10944)]
 
 
 def qmatmul_phase(torch, gen):
@@ -465,6 +501,17 @@ def qmatmul_phase(torch, gen):
             ref = km.qmatmul_plain(x, w.codes, w.scales, w.fmt, w.group)
             torch.cuda.synchronize()
             check(f"qmatmul {fmt.name} m{m} K{K} N{N}", max_err(y, ref),
+                  tol(ref))
+    # the zoo's projections at its prefill's m = B·P and its decode's m = B;
+    # K 4096 gives the GEMV 4 groups a block of its 8-block cluster
+    for pname, K, N in ZOO_PROJ:
+        w = weight(K, N, QFormat.INT4)
+        for m in (ZOO_B * ZOO_P, ZOO_B):
+            x = act(m, K)
+            y = km.qmatmul(x, w)
+            ref = km.qmatmul_plain(x, w.codes, w.scales, w.fmt, w.group)
+            torch.cuda.synchronize()
+            check(f"qmatmul zoo {pname} m{m} K{K} N{N} INT4", max_err(y, ref),
                   tol(ref))
 
     out = {}
@@ -562,8 +609,13 @@ DECODE_CASES = [
     ("B4 Hq28 Hkv4 S256 D256", 4, 28, 4, 256, 256, 256, (200, 257)),
     ("one split B64 Hq8 Hkv8 S512 D64 len1-512", 64, 8, 8, 512, 64, 64,
      (1, 513)),
+    # the zoo's decode shapes (zoo_phase: B 8, 128-token prompts, 32 new)
+    ("zoo MLA B8 Hq16 Hkv16 S256 D192 Dv128 len129-160", 8, 16, 16, 256,
+     192, 128, (129, 161)),
+    ("zoo Qwen3-30B-A3B B8 Hq32 Hkv4 S256 D128 len129-160", 8, 32, 4, 256,
+     128, 128, (129, 161)),
 ]
-DECODE_TIMED = 4
+DECODE_TIMED = 4        # the first four cases, and the zoo's, are timed
 
 
 def _kv_quant_rounding(torch, gen) -> None:
@@ -699,7 +751,8 @@ def decode_attn_phase(torch, gen):
                 if sb == 0 or (vlabel and serr <= tol):
                     fail(f"decode_attn_write {tag}{vlabel}: the checks do "
                          f"not reject the stale row")
-            if fmt is not QFormat.INT8 or i >= DECODE_TIMED:
+            if fmt is not QFormat.INT8 or (i >= DECODE_TIMED
+                                           and not label.startswith("zoo")):
                 continue
             g = Hq // Hkv
             fused = [t.clone() for t in (kc, vc, ks, vs)]
@@ -755,7 +808,9 @@ def decode_attn_phase(torch, gen):
                                fused_ms=wms, cold_ms=kcold,
                                fused_cold_ms=wcold, plain_ms=pms,
                                fused_plain_ms=wpms, library_ms=lms,
-                               bound_ms=bms, fused_bound_ms=wbms))
+                               bound_ms=bms, fused_bound_ms=wbms,
+                               fused_bound_by=wby, max_abs_err=err,
+                               fused_max_abs_err=werr))
             if i == 0:
                 res["decode_attn"] = dict(
                     ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
@@ -1097,6 +1152,8 @@ def flash_bwd_phase(torch, gen):
         ("ragged B2 T77 Hq4 Hkv1 D128", 2, 77, 4, 1, 128, 0, False),
         ("ragged B1 T200 Hq6 Hkv2 D64 window64", 1, 200, 6, 2, 64, 64, False),
         ("ragged B1 T1 Hq2 Hkv1 D128", 1, 1, 2, 1, 128, 0, False),
+        # zoo_phase's Qwen3-30B-A3B prefill (g 8)
+        ("zoo B8 T128 Hq32 Hkv4 D128", 8, 128, 32, 4, 128, 0, False),
     ]
     out = {}
     for label, B, T, Hq, Hkv, D, win, hm in cases:
@@ -2846,7 +2903,6 @@ def write_hf_dir(torch, path: str, card, seed: int) -> float:
     the port's safetensors writer, its ``config.json`` keys and a byte-level
     ``tokenizer.json`` (the 256 bytes, ``BYTE_MERGES`` and the three chat
     specials). Returns the GB written."""
-    from koifish_tpu_torch.data.tokenizer import _bytes_to_unicode
     from koifish_tpu_torch.io.safetensors import write_safetensors
     os.makedirs(path, exist_ok=True)
     ts = qwen3_hf_tensors(torch, card, seed)
@@ -2860,19 +2916,7 @@ def write_hf_dir(torch, path: str, card, seed: int) -> float:
             "intermediate_size": card.n_ffn, "rope_theta": 1e6,
             "rms_norm_eps": 1e-6, "tie_word_embeddings": True,
             "max_position_embeddings": card.max_pos}, f)
-    b2u = _bytes_to_unicode()
-    vocab = {b2u[b]: b for b in range(256)}
-    u = lambda bs: "".join(b2u[c] for c in bs)
-    merges = [(u(a), u(b)) for a, b in BYTE_MERGES]
-    for a, b in merges:
-        vocab[a + b] = len(vocab)
-    added = [{"content": s, "id": len(vocab) + i}
-             for i, s in enumerate(SPECIALS)]
-    with open(os.path.join(path, "tokenizer.json"), "w") as f:
-        json.dump({"model": {"type": "BPE", "vocab": vocab,
-                             "merges": [f"{a} {b}" for a, b in merges]},
-                   "added_tokens": added,
-                   "pre_tokenizer": {"type": "ByteLevel"}}, f)
+    write_tokenizer_json(path)
     return sum(t.numel() * t.element_size() for t in ts.values()) / 1e9
 
 
@@ -4708,6 +4752,489 @@ def sp_train_phase(torch) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# slice 16: the model zoo's MoE and MLA serving paths
+# ---------------------------------------------------------------------------
+
+#: Qwen/Qwen3-30B-A3B's config.json (the keys ModelCard.from_hf reads)
+QWEN3_30B_A3B = {
+    "model_type": "qwen3_moe", "vocab_size": 151936, "hidden_size": 2048,
+    "intermediate_size": 6144, "moe_intermediate_size": 768,
+    "num_hidden_layers": 48, "num_attention_heads": 32,
+    "num_key_value_heads": 4, "head_dim": 128, "num_experts": 128,
+    "num_experts_per_tok": 8, "norm_topk_prob": True,
+    "max_position_embeddings": 40960, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-06, "tie_word_embeddings": False}
+#: deepseek-ai/DeepSeek-V2-Lite's config.json. ModelCard.from_hf reads no
+#: n_routed_experts (the JAX package's reading): MLA attention and a dense
+#: 10944-wide FFN on every layer
+DEEPSEEK_V2_LITE = {
+    "model_type": "deepseek_v2", "vocab_size": 102400, "hidden_size": 2048,
+    "intermediate_size": 10944, "moe_intermediate_size": 1408,
+    "num_hidden_layers": 27, "num_attention_heads": 16,
+    "num_key_value_heads": 16, "n_routed_experts": 64, "n_shared_experts": 2,
+    "num_experts_per_tok": 6, "kv_lora_rank": 512, "q_lora_rank": None,
+    "qk_nope_head_dim": 128, "qk_rope_head_dim": 64, "v_head_dim": 128,
+    "max_position_embeddings": 163840, "rope_theta": 10000,
+    "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40,
+                     "mscale": 0.707, "mscale_all_dim": 0.707,
+                     "original_max_position_embeddings": 4096,
+                     "type": "yarn"},
+    "rms_norm_eps": 1e-06, "tie_word_embeddings": False}
+ZOO_QUANT = {"self_attn": {"bits": 4}, "mlp": {"bits": 4}, "group_size": 128}
+ZOO_B, ZOO_P, ZOO_NEW, ZOO_S = 8, 128, 32, 256
+ZOO_BUBBLE_LAYERS = 2
+
+
+def _nbytes(tree) -> int:
+    from koifish_tpu_torch.utils.tree import leaves
+    return sum(x.numel() * x.element_size() for x in leaves(tree))
+
+
+def _zoo_params(torch, card, seed: int):
+    """Seeded weights drawn on the card layer by layer (``init_params`` on
+    the device), quantized by ZOO_QUANT; prints the bytes before and
+    after. The 3-D expert stacks stay bf16, as the JAX rules leave them."""
+    from koifish_tpu_torch.config import QuantCard
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.quant import quantize_params
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = init_params(card, gen, device="cuda")
+        bf16 = _nbytes(params)
+        qp = quantize_params(params, QuantCard.from_json(ZOO_QUANT), card,
+                             device="cuda")
+    del params
+    torch.cuda.synchronize()
+    experts = sum(lp[k].numel() * 2 for lp in qp["layers"]
+                  for k in ("egate", "eup", "edown") if k in lp)
+    say(f"  weights: {bf16 / 1e9:.2f} GB bf16 drawn on the device, "
+        f"{_nbytes(qp) / 1e9:.2f} GB served ({experts / 1e9:.2f} GB of "
+        f"bf16 expert stacks) in {time.perf_counter() - t0:.1f} s")
+    return qp
+
+
+def _zoo_want(card, qp, new: int) -> dict:
+    """The launches one ``generate`` of ZOO_B x ZOO_P prompts and ``new``
+    tokens makes, from the layer count and shapes: the prefill's flash
+    forward a layer (none where dv != d), one GEMM (row 3, m = B·P) per
+    quantized projection, and per decode step one GEMV (row 4, m = B) per
+    quantized projection and one fused write-and-attend (row 7) a layer."""
+    from koifish_tpu_torch.quant.qtensor import QTensor
+    nq = sum(isinstance(v, QTensor) for lp in qp["layers"]
+             for v in lp.values())
+    steps = new - 1
+    return {"flash_fwd": card.n_layer if card.attn != "mla" else 0,
+            "qmm": nq, "qmv": nq * steps, "decode_attn": card.n_layer * steps,
+            "kv_write": card.n_layer * steps, "slot_write": 0}
+
+
+def _zoo_serve(torch, label, card, qp, gen) -> tuple:
+    """``generate`` at B ZOO_B x ZOO_P-token prompts, ZOO_NEW new tokens,
+    temperature 0, a layered INT8 KV cache of ZOO_S slots: warm TTFT (median
+    of 3), decode tok/s (two runs), peak memory, the launches of the first
+    run against ``_zoo_want`` (exact) and its fallbacks; one decode step
+    profiled. Returns (tokens, launches, prompts, numbers)."""
+    from koifish_tpu_torch.config import SamplerCard
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.serve import cache_for, decode_step_layered
+    from koifish_tpu_torch.serve import generate
+    from koifish_tpu_torch.utils import kernel_log
+    B, P, NEW, S = ZOO_B, ZOO_P, ZOO_NEW, ZOO_S
+    prompts = torch.randint(0, card.vocab_size, (B, P), generator=gen,
+                            device="cuda", dtype=torch.int64)
+    sampler = SamplerCard(temperature=0.0)
+
+    def fresh():
+        return cache_for(card, B, S, fmt=QFormat.INT8, layered=True,
+                         device="cuda")
+
+    generate(card, qp, prompts, fresh(), sampler=sampler, max_new_tokens=3,
+             decode_chunk=8, device="cuda")                     # warm
+    torch.cuda.synchronize()
+    ttfts = []
+    for _ in range(3):
+        c = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate(card, qp, prompts, c, sampler=sampler, max_new_tokens=1,
+                 device="cuda")
+        torch.cuda.synchronize()
+        ttfts.append(time.perf_counter() - t0)
+    ttft = sorted(ttfts)[1]
+    torch.cuda.reset_peak_memory_stats()
+    steps, counts, falls, toks = [], None, None, None
+    for run in range(2):
+        c = fresh()
+        torch.cuda.synchronize()
+        kernel_log.reset_launches()
+        t0 = time.perf_counter()
+        out, c = generate(card, qp, prompts, c, sampler=sampler,
+                          max_new_tokens=NEW, decode_chunk=8,
+                          device="cuda")
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0 - ttft) / (NEW - 1))
+        if run == 0:
+            toks, counts = out, kernel_log.launches()
+            falls = kernel_log.fallbacks()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step = sorted(steps)[0]
+    say(f"  {label}: warm TTFT {ttft * 1e3:.2f} ms (runs "
+        f"{[round(t * 1e3, 2) for t in ttfts]}); decode "
+        f"{step * 1e3:.3f} ms a step, {B / step:.1f} tok/s (runs "
+        f"{[round(B / x, 1) for x in steps]}); peak device memory "
+        f"{peak:.2f} GiB")
+    say(f"  {label} launches {json.dumps(counts)}; fallbacks "
+        f"{json.dumps(falls)}")
+    want = _zoo_want(card, qp, NEW)
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want:
+        fail(f"{label}: launches {got}, the path's shapes give {want}")
+    want_falls = ({"flash_attention": card.n_layer} if card.attn == "mla"
+                  else {})
+    if falls != want_falls:
+        fail(f"{label}: fallbacks {falls}, expected {want_falls}")
+    if tuple(toks.shape) != (B, NEW) or int(toks.min()) < 0 \
+            or int(toks.max()) >= card.vocab_size:
+        fail(f"{label}: generate returned {tuple(toks.shape)} tokens out of "
+             f"range")
+    tok = toks[:, -1].to(torch.int32)
+    profile_window(torch, f"{label} decode step (B={B})",
+                   lambda: decode_step_layered(card, qp, tok, c,
+                                               streaming=False))
+    return toks, counts, prompts, dict(ttft_ms=ttft * 1e3,
+                                       step_ms=step * 1e3,
+                                       tok_s=B / step, peak_gib=peak)
+
+
+def _moe_drops(torch, card, qp, prompts) -> None:
+    """One more greedy ``generate`` with ``models/moe.moe_ffn`` wrapped:
+    each call's routes recomputed from its router logits
+    (``models/moe.route``), the (token, expert) assignments the capacity
+    drops counted apart in the prefill and in the decode steps, and the
+    experts live in each decode step's layer."""
+    from koifish_tpu_torch.config import SamplerCard
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.models import moe as tmoe
+    from koifish_tpu_torch.models import transformer as ttr
+    from koifish_tpu_torch.serve import cache_for, generate
+    tally = {"prefill": [0, 0], "decode": [0, 0]}
+    live, orig = [], ttr.moe_ffn
+
+    def counted(card_, lp, x, *a, **kw):
+        r = tmoe.route(card_, lp["router"], x.reshape(-1, x.shape[-1]))
+        part = tally["prefill" if x.shape[1] > 1 else "decode"]
+        part[0] += int((~r.keep).sum())
+        part[1] += r.keep.numel()
+        if x.shape[1] == 1:
+            live.append(int(torch.unique(r.expert[r.keep]).numel()))
+        return orig(card_, lp, x, *a, **kw)
+    ttr.moe_ffn = counted
+    try:
+        generate(card, qp, prompts,
+                 cache_for(card, ZOO_B, ZOO_S, fmt=QFormat.INT8,
+                           layered=True, device="cuda"),
+                 sampler=SamplerCard(temperature=0.0),
+                 max_new_tokens=ZOO_NEW, decode_chunk=8, device="cuda")
+    finally:
+        ttr.moe_ffn = orig
+    for part, (d, n) in tally.items():
+        say(f"  dropped (token, expert) assignments, {part}: {d} of {n} "
+            f"({100.0 * d / max(n, 1):.3f} %; capacity "
+            f"{tmoe.capacity(card, ZOO_B * (ZOO_P if part == 'prefill' else 1))}"
+            f")")
+    say(f"  live experts a decode layer: min {min(live)}, mean "
+        f"{sum(live) / len(live):.1f}, max {max(live)} of {card.n_experts}")
+
+
+def _moe_hf_tensors(torch, card, seed: int) -> dict:
+    """HF-named bf16 CPU tensors of a Qwen3-MoE model at ``card``'s dims
+    (seeded normal(0.02) drawn on the card, norms 1): the router
+    ``mlp.gate`` and each expert's three projections, an untied head."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    E, D, Fm = card.n_embd, card.head_dim, card.moe_ffn
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda") * 0.02
+                ).to(torch.bfloat16).cpu()
+
+    def ones(n):
+        return torch.ones((n,), dtype=torch.bfloat16)
+
+    ts = {"model.embed_tokens.weight": w(card.vocab_size, E),
+          "model.norm.weight": ones(E),
+          "lm_head.weight": w(card.vocab_size, E)}
+    for i in range(card.n_layer):
+        pre = f"model.layers.{i}."
+        ts.update({
+            pre + "input_layernorm.weight": ones(E),
+            pre + "self_attn.q_proj.weight": w(card.n_head * D, E),
+            pre + "self_attn.k_proj.weight": w(card.n_kv_head * D, E),
+            pre + "self_attn.v_proj.weight": w(card.n_kv_head * D, E),
+            pre + "self_attn.o_proj.weight": w(E, card.n_head * D),
+            pre + "self_attn.q_norm.weight": ones(D),
+            pre + "self_attn.k_norm.weight": ones(D),
+            pre + "post_attention_layernorm.weight": ones(E),
+            pre + "mlp.gate.weight": w(card.n_experts, E)})
+        for e in range(card.n_experts):
+            ex = f"{pre}mlp.experts.{e}."
+            ts.update({ex + "gate_proj.weight": w(Fm, E),
+                       ex + "up_proj.weight": w(Fm, E),
+                       ex + "down_proj.weight": w(E, Fm)})
+    return ts
+
+
+def zoo_bubble(torch) -> dict:
+    """A Qwen3-30B-A3B-width HF folder of ZOO_BUBBLE_LAYERS layers (seeded
+    bf16, the published config.json with its depth cut) through
+    ``bubble.main --bits 4 --kv-bits 8 --temperature 0 --max-new 32``: the
+    loader's MoE branch, the expert stacks bf16, rows 1a, 3, 4 and 7's
+    fused write launched. Returns the launches."""
+    import shutil
+    from koifish_tpu_torch.io.safetensors import write_safetensors
+    from koifish_tpu_torch.config import ModelCard
+    hf = dict(QWEN3_30B_A3B, num_hidden_layers=ZOO_BUBBLE_LAYERS)
+    card = ModelCard.from_hf(hf)
+    path = os.path.join(ROOT, "build", "zoo_qwen3_moe")
+    os.makedirs(path, exist_ok=True)
+    t0 = time.perf_counter()
+    ts = _moe_hf_tensors(torch, card, seed=161)
+    write_safetensors(os.path.join(path, "model.safetensors"), ts)
+    gb = sum(t.numel() * t.element_size() for t in ts.values()) / 1e9
+    del ts
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f)
+    write_tokenizer_json(path)
+    say(f"[zoo] bubble on a Qwen3-30B-A3B-width folder of {card.n_layer} "
+        f"layers: wrote {gb:.2f} GB in {time.perf_counter() - t0:.1f} s")
+    argv = ["--hf", path, "--prompts", *CHAT_PROMPTS, "--bits", "4",
+            "--kv-bits", "8", "--max-new", "32", "--temperature", "0",
+            "--csv", os.path.join(ROOT, "build", "zoo_chat.csv")]
+    turns, counts = _chat(torch, argv, "bubble Qwen3-MoE")
+    shutil.rmtree(path)
+    for name in ("flash_fwd", "qmm", "qmv", "kv_write"):
+        if counts.get(name, 0) <= 0:
+            fail(f"bubble Qwen3-MoE: kernel {name} was not launched")
+    for t in turns:
+        if min(t["tokens"]) < 0 or max(t["tokens"]) >= card.vocab_size:
+            fail("bubble Qwen3-MoE: token ids out of the vocabulary")
+    return counts
+
+
+def _mla_latent(torch, card, qp, prompts, std_toks) -> dict:
+    """The latent-cache path on the same prompts: ``mla_prefill`` and
+    greedy ``mla_decode_step``s (TTFT, ms a step), its cache's bytes
+    against the standard INT8 cache's, and its greedy choice at each step
+    fed the standard path's tokens (teacher-forced) held against them:
+    at least 75 % equal, the tiny gates' bound. Returns the launches."""
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.serve import cache_for
+    from koifish_tpu_torch.serve.mla_cache import (mla_cache_for,
+                                                   mla_decode_step,
+                                                   mla_prefill)
+    from koifish_tpu_torch.utils import kernel_log
+    B, NEW = ZOO_B, ZOO_NEW
+    fresh = lambda: mla_cache_for(card, B, ZOO_S, device="cuda")
+    mla_prefill(card, qp, prompts, fresh())                         # warm
+    torch.cuda.synchronize()
+    ttfts = []
+    for _ in range(3):
+        c = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, c = mla_prefill(card, qp, prompts, c)
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        ttfts.append(time.perf_counter() - t0)
+    kernel_log.reset_launches()
+    free = [tok]
+    t0 = time.perf_counter()
+    for _ in range(NEW - 1):
+        logits, c = mla_decode_step(card, qp, free[-1], c)
+        free.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    step = (time.perf_counter() - t0) / (NEW - 1)
+    counts = kernel_log.launches()
+    free = torch.stack(free, dim=1)
+    # teacher-forced on the standard path's tokens
+    c = fresh()
+    logits, c = mla_prefill(card, qp, prompts, c)
+    choice = [logits.argmax(-1)]
+    for i in range(NEW - 1):
+        logits, c = mla_decode_step(card, qp, std_toks[:, i], c)
+        choice.append(logits.argmax(-1))
+    choice = torch.stack(choice, dim=1)
+    forced = float((choice == std_toks).float().mean())
+    running = float((free == std_toks).float().mean())
+    lat = c.c_kv.numel() * 2 + c.k_rope.numel() * 2
+    std = cache_for(card, B, ZOO_S, fmt=QFormat.INT8, layered=True,
+                    device="cuda")
+    std_b = sum(t.numel() * t.element_size() for part in
+                (std.k, std.v, std.k_scale, std.v_scale) for t in part)
+    ttft = sorted(ttfts)[1]
+    say(f"  latent cache: warm TTFT {ttft * 1e3:.2f} ms (runs "
+        f"{[round(t * 1e3, 2) for t in ttfts]}); decode {step * 1e3:.3f} "
+        f"ms a step, {B / step:.1f} tok/s; launches {json.dumps(counts)}")
+    say(f"  cache bytes at B {B}, S {ZOO_S}: latent (bf16 c_kv + k_rope) "
+        f"{lat / 1e6:.2f} MB, standard INT8 K/V + scales {std_b / 1e6:.2f} "
+        f"MB ({std_b / lat:.2f}x)")
+    say(f"  greedy tokens, latent vs standard path: {forced * 100:.1f}% "
+        f"equal teacher-forced (bound 75%), {running * 100:.1f}% free-"
+        f"running")
+    if forced < 0.75:
+        fail("the latent path's greedy tokens disagree with the standard "
+             "path's")
+    return counts
+
+
+ZOO_TINY_MOE = dict(vocab_size=256, n_layer=2, n_embd=128, n_head=2,
+                    n_kv_head=1, head_dim=64, n_ffn=256, n_ctx=64,
+                    max_pos=128, n_experts=8, n_experts_active=2, moe_ffn=128)
+ZOO_TINY_HYBRID = {
+    "arch": "QWEN3_MOE", "vocab_size": 256,
+    "parameter": {"Layer": 4, "num_experts": 8, "num_experts_per_tok": 2,
+                  "moe_intermediate_size": 128, "max_pos_embeddings": 128,
+                  "transformer": {"Ctx": 64, "Embed": 128, "Head": 2,
+                                  "KVHead": 1, "head_dim": 64, "Ffn": 256}},
+    "backbone": {
+        "embed_tokens": {"Embedding": []},
+        "dense_a *1": {"self_attn": {"QKV": []}, "mlp": {"FFN": []}},
+        "sparse_a *1": {"self_attn": {"QKV": []}, "mlp": {"MOE": []}},
+        "dense_b *1": {"self_attn": {"QKV": []}, "mlp": {"FFN": []}},
+        "sparse_b *1": {"self_attn": {"QKV": []}, "mlp": {"MOE": []}},
+        "norm": {"Normal": []}, "output": {"CLASIFY": []}}}
+ZOO_TINY_MLA = dict(vocab_size=256, n_layer=2, n_embd=128, n_head=2,
+                    n_kv_head=2, n_ffn=256, n_ctx=64, max_pos=128,
+                    attn="mla", q_lora_rank=32, kv_lora_rank=64,
+                    qk_nope_head_dim=128, qk_rope_head_dim=64,
+                    v_head_dim=128, head_dim=192)
+
+
+def zoo_reference_check(torch) -> None:
+    """Tiny cards on the card against the CPU (the same INT4 g128 weights,
+    an INT8 cache): a 2-layer MoE card, a hybrid-backbone card (dense and
+    MoE layers by turns) and a 2-layer MLA card; prefill logits within
+    5e-2 and 12 greedy tokens of ``generate`` at least 75 % equal."""
+    import dataclasses
+    from koifish_tpu_torch.config import ModelCard, QuantCard, SamplerCard
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.quant import quantize_params
+    from koifish_tpu_torch.serve import cache_for, generate, prefill
+    from koifish_tpu_torch.utils.tree import tree_map
+    mla = dataclasses.replace(ModelCard.from_arch("DEEPSEEK"), **ZOO_TINY_MLA)
+    cards = (("2-layer MoE", ModelCard.from_arch("QWEN3_MOE",
+                                                 **ZOO_TINY_MOE)),
+             ("hybrid-backbone MoE", ModelCard.from_json(ZOO_TINY_HYBRID)),
+             ("2-layer MLA", mla))
+    qc = QuantCard.from_json(ZOO_QUANT)
+    for i, (label, card) in enumerate(cards):
+        p_cpu = quantize_params(init_params(card, device="cpu", seed=160 + i),
+                                qc, card, device="cpu")
+        p_dev = tree_map(lambda t: t.to("cuda"), p_cpu)
+        prompt = torch.randint(0, 256, (4, 70),
+                               generator=torch.Generator().manual_seed(165))
+        out = {}
+        for dev, params in (("cpu", p_cpu), ("cuda", p_dev)):
+            c = cache_for(card, 4, 96, fmt=QFormat.INT8, layered=True,
+                          device=dev)
+            logits, _ = prefill(card, params, prompt.to(dev), c, fresh=True,
+                                device=dev)
+            c = cache_for(card, 4, 96, fmt=QFormat.INT8, layered=True,
+                          device=dev)
+            toks, _ = generate(card, params, prompt, c,
+                               sampler=SamplerCard(temperature=0.0),
+                               max_new_tokens=12, decode_chunk=4, device=dev)
+            out[dev] = (logits.cpu(), toks.cpu())
+        check(f"tiny {label} prefill logits, card vs CPU",
+              max_err(out["cpu"][0], out["cuda"][0]), 5e-2)
+        _agree(f"tiny {label} generate", out["cpu"][1], out["cuda"][1])
+
+
+def zoo_phase(torch) -> dict:
+    """Slice 16: (a) Qwen3-30B-A3B at full width and depth from its
+    published config.json (seeded weights, INT4 g128 attention, bf16
+    experts, INT8 KV) through ``generate`` (B 8 x 128, 32 new, greedy),
+    its capacity drops recomputed, then through ``bubble`` on a 2-layer
+    folder; (b) DeepSeek-V2-Lite as the JAX package reads it (27 layers,
+    MLA, a dense FFN) through ``generate`` and the latent cache; the tiny
+    card-vs-CPU gates. Returns each path's launches."""
+    from koifish_tpu_torch.config import ModelCard
+    t0 = time.perf_counter()
+    runs, numbers = {}, {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    say(f"[zoo] device memory free {free / 1e9:.2f} of {total / 1e9:.2f} GB")
+    card = ModelCard.from_hf(QWEN3_30B_A3B)
+    if (card.n_experts, card.n_experts_active, card.moe_ffn) != (128, 8, 768):
+        fail(f"Qwen3-30B-A3B's card: {card}")
+    say(f"[zoo] (a) Qwen3-30B-A3B: L={card.n_layer} E={card.n_embd} "
+        f"Hq={card.n_head} Hkv={card.n_kv_head} D={card.head_dim} "
+        f"experts {card.n_experts} (k {card.n_experts_active}, Fm "
+        f"{card.moe_ffn}) V={card.vocab_size}; INT4 g128 attention, bf16 "
+        f"experts, INT8 KV, B={ZOO_B} P={ZOO_P} new={ZOO_NEW}")
+    qp = _zoo_params(torch, card, seed=162)
+    toks, runs["zoo_qwen3_moe"], prompts, numbers["qwen3_moe"] = _zoo_serve(
+        torch, "Qwen3-30B-A3B", card, qp, gen)
+    _moe_drops(torch, card, qp, prompts)
+    del qp, toks
+    torch.cuda.empty_cache()
+    runs["zoo_bubble_moe"] = zoo_bubble(torch)
+
+    card = ModelCard.from_hf(DEEPSEEK_V2_LITE)
+    if card.attn != "mla" or card.n_experts or card.head_dim != 192:
+        fail(f"DeepSeek-V2-Lite's card: {card}")
+    say(f"[zoo] (b) DeepSeek-V2-Lite as the JAX package reads it: "
+        f"L={card.n_layer} E={card.n_embd} H={card.n_head} MLA (kv_lora "
+        f"{card.kv_lora_rank}, q_lora {card.q_lora_rank}, d "
+        f"{card.head_dim}, dv {card.v_head_dim}), dense FFN {card.n_ffn} "
+        f"(n_routed_experts unread), V={card.vocab_size}")
+    qp = _zoo_params(torch, card, seed=163)
+    toks, runs["zoo_mla"], prompts, numbers["mla"] = _zoo_serve(
+        torch, "DeepSeek-V2-Lite (JAX reading)", card, qp, gen)
+    runs["zoo_mla_latent"] = _mla_latent(torch, card, qp, prompts, toks)
+    del qp, toks
+    torch.cuda.empty_cache()
+    zoo_reference_check(torch)
+    say(f"[zoo] phase: {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(runs)}")
+    return runs
+
+
+def write_tokenizer_json(path: str) -> None:
+    """A byte-level ``tokenizer.json`` in ``path``: the 256 bytes,
+    ``BYTE_MERGES`` and the three chat specials."""
+    from koifish_tpu_torch.data.tokenizer import _bytes_to_unicode
+    b2u = _bytes_to_unicode()
+    vocab = {b2u[b]: b for b in range(256)}
+    u = lambda bs: "".join(b2u[c] for c in bs)
+    merges = [(u(a), u(b)) for a, b in BYTE_MERGES]
+    for a, b in merges:
+        vocab[a + b] = len(vocab)
+    added = [{"content": s, "id": len(vocab) + i}
+             for i, s in enumerate(SPECIALS)]
+    with open(os.path.join(path, "tokenizer.json"), "w") as f:
+        json.dump({"model": {"type": "BPE", "vocab": vocab,
+                             "merges": [f"{a} {b}" for a, b in merges]},
+                   "added_tokens": added,
+                   "pre_tokenizer": {"type": "ByteLevel"}}, f)
+
+
+def _zoo_row7(dec, prefix: str) -> dict:
+    """Row 7's fused entry's numbers at the zoo shape ``prefix`` names
+    (``decode_attn_phase``'s timed case)."""
+    (sh,) = [x for x in dec["shapes"] if x["label"].startswith(prefix)]
+    return dict(ms=sh["fused_ms"], plain_ms=sh["fused_plain_ms"],
+                library_ms=sh["library_ms"], bound_ms=sh["fused_bound_ms"],
+                bound_by=sh["fused_bound_by"],
+                max_abs_err=sh["fused_max_abs_err"])
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4771,6 +5298,7 @@ def main() -> None:
     g14.manual_seed(14)
     ring, ring_counts = ring_phase(torch, g14)
     sp_counts = sp_train_phase(torch)
+    zoo = zoo_phase(torch)
 
     src = "koifish_tpu_torch/csrc/"
     rows = [  # (name, source, TPU kernel, numbers, launches on its path)
@@ -4853,6 +5381,17 @@ def main() -> None:
         # the kernel ring at sp 4 on virtual ranks of the one card
         ("ring_attn", "ring_attn.cu",
          "koifish_tpu/parallel/ring_pallas.py:152", ring, ring_counts),
+        # row 7's fused entry at the zoo's decode shapes, launched by the
+        # zoo's generate runs
+        ("decode_attn_write_mla", "decode_attn.cu",
+         "koifish_tpu/ops/pallas/decode_attn.py:179",
+         _zoo_row7(dec, "zoo MLA"),
+         {"decode_attn_write_mla": zoo["zoo_mla"].get("kv_write", 0)}),
+        ("decode_attn_write_qwen3_moe", "decode_attn.cu",
+         "koifish_tpu/ops/pallas/decode_attn.py:179",
+         _zoo_row7(dec, "zoo Qwen3-30B-A3B"),
+         {"decode_attn_write_qwen3_moe":
+          zoo["zoo_qwen3_moe"].get("kv_write", 0)}),
     ]
     kernels = [dict(name=n, route="cuda", source=src + f, replaces=r,
                     launches=c.get(n, 0), max_abs_err=m["max_abs_err"],
@@ -4874,11 +5413,19 @@ def main() -> None:
     for k in kernels:
         if k["name"] in folded:
             k["folded_into"], k["folded_launches"] = folded[k["name"]]
-    for k in kernels:   # slices 13 and 14's paths: launches in each
+    # the zoo's shape rows of row 7's fused entry: their own generate run
+    own_path = {"decode_attn_write_mla": "zoo_mla",
+                "decode_attn_write_qwen3_moe": "zoo_qwen3_moe"}
+    for k in kernels:   # slices 13, 14 and 16's paths: launches in each
+        if k["name"] in own_path:
+            p = own_path[k["name"]]
+            k["launches_by_path"] = {p: zoo[p].get("kv_write", 0)}
+            continue
         k["launches_by_path"] = {p: c.get(k["name"], 0) + (
-            c.get("kv_write", 0) if k["name"] in ("decode_attn_write",
-                                                  "slot_write") else 0)
-            for p, c in dict(s13, koifish_sp4=sp_counts).items()}
+            c.get("kv_write", 0) if k["name"] in ("slot_write",
+                                                  "decode_attn_write")
+            else 0)
+            for p, c in dict(s13, koifish_sp4=sp_counts, **zoo).items()}
         if k["name"] == "ring_attn":   # the ring at sp 2, 4 and 8
             k["eager_ms"] = ring["eager_ms"]
             k["by_sp"] = ring["by_sp"]

@@ -77,7 +77,8 @@ def _t(a, dtype, dev, transpose: bool = False):
 
 def _map_llama_family(card: ModelCard, raw: Dict[str, Any], dtype, dev
                       ) -> Dict[str, Any]:
-    """Qwen2/Qwen3/LLaMA/Mistral naming: model.layers.N.self_attn.q_proj..."""
+    """Qwen2/Qwen3/Qwen3-MoE/LLaMA/Mistral naming:
+    model.layers.N.self_attn.q_proj..."""
     p: Dict[str, Any] = {
         "wte": _t(raw["model.embed_tokens.weight"], dtype, dev),
         "ln_f": _t(raw["model.norm.weight"], dtype, dev),
@@ -102,13 +103,26 @@ def _map_llama_family(card: ModelCard, raw: Dict[str, Any], dtype, dev
             "o": w("self_attn.o_proj.weight"),
             "ln2": w("post_attention_layernorm.weight", False),
         }
-        if (pre + "mlp.gate.weight") in raw:
-            raise NotImplementedError(
-                "MoE checkpoints need models/moe.py, which is not ported yet "
-                "(ROADMAP.md queue 1, the model zoo)")
-        lp["gate"] = w("mlp.gate_proj.weight")
-        lp["up"] = w("mlp.up_proj.weight")
-        lp["down"] = w("mlp.down_proj.weight")
+        if (pre + "mlp.gate.weight") in raw and card.n_experts <= 0:
+            raise ValueError(
+                f"{pre}mlp.gate.weight is a MoE router, but the card has "
+                f"n_experts {card.n_experts}: its config.json lacks "
+                f"num_experts, the key ModelCard.from_hf reads")
+        if card.n_experts > 0 and (pre + "mlp.gate.weight") in raw:
+            # Qwen3-MoE: the router and each expert's projections, stacked
+            # over the expert axis ([Ne, E, Fm] / [Ne, Fm, E])
+            lp["router"] = w("mlp.gate.weight")
+
+            def stack(part):
+                return torch.stack([w(f"mlp.experts.{e}.{part}.weight")
+                                    for e in range(card.n_experts)])
+            lp["egate"] = stack("gate_proj")
+            lp["eup"] = stack("up_proj")
+            lp["edown"] = stack("down_proj")
+        else:
+            lp["gate"] = w("mlp.gate_proj.weight")
+            lp["up"] = w("mlp.up_proj.weight")
+            lp["down"] = w("mlp.down_proj.weight")
         if card.qkv_bias:
             for key in ("q", "k", "v"):
                 lp[key + "_b"] = w(f"self_attn.{key}_proj.bias", False)

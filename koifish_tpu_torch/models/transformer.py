@@ -13,11 +13,17 @@ names::
       "ln_f", ("ln_f_b"), ("head": [E, V]),
     }
 
+MoE layers (all layers, or ``card.moe_layers``) hold ``router``,
+``egate``, ``eup``, ``edown`` in place of the dense FFN (``models/moe.py``);
+MLA cards (``card.attn == "mla"``) hold the latent projections of
+``models/mla.py`` in place of ``q``, ``k``, ``v``.
+
 Any weight-matrix leaf may be a QTensor; ``ops/matmul`` dispatches.
 Training differentiates ``model_forward`` with autograd (bf16 leaves with
 ``requires_grad``); ``remat`` recomputes blocks in the backward through
-``torch.utils.checkpoint``. The model zoo of the JAX package (MoE, MLA, Mamba, GAU, BROWN, Guppy, EmbedVAE)
-is not ported yet and is refused by ``init_params``.
+``torch.utils.checkpoint``. The rest of the JAX package's model zoo (Mamba,
+GAU, BROWN, Guppy, EmbedVAE) is not ported yet and is refused by
+``init_params`` and ``model_forward``.
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from koifish_tpu_torch.config import ModelCard
 from koifish_tpu_torch.dtypes import QFormat
+from koifish_tpu_torch.models.mla import init_mla_layer, mla_qkv
+from koifish_tpu_torch.models.moe import init_moe_layer, moe_ffn
 from koifish_tpu_torch.ops.attention import causal_attention
 from koifish_tpu_torch.ops.matmul import linear, qmatmul
 from koifish_tpu_torch.ops.norms import layernorm, rmsnorm
@@ -44,14 +52,22 @@ from koifish_tpu_torch.utils.device import resolve_device
 Params = Dict[str, Any]
 
 
-def _check_dense(card: ModelCard) -> None:
-    unported = (card.arch in ("MAMBA", "GUPPY", "LLAMA_VAE")
-                or card.attn == "mla" or card.n_experts > 0
-                or card.gau_layers or card.brown_layers)
+def _check_ported(card: ModelCard) -> None:
+    """Refuse the model-zoo layers that are not ported yet."""
+    unported = [what for what, on in (
+        (card.arch, card.arch in ("MAMBA", "GUPPY", "LLAMA_VAE")),
+        (f"GAU layers {card.gau_layers}", bool(card.gau_layers)),
+        (f"BROWN layers {card.brown_layers}", bool(card.brown_layers)))
+        if on]
     if unported:
         raise NotImplementedError(
-            f"{card.arch} (attn={card.attn}, experts={card.n_experts}) is not "
-            f"ported to koifish_tpu_torch yet: only the dense decoder is")
+            f"{', '.join(unported)}: not ported to koifish_tpu_torch yet "
+            f"(ROADMAP.md queue 1, the model zoo)")
+
+
+def _is_moe_layer(card: ModelCard, li: int) -> bool:
+    return card.n_experts > 0 and (not card.moe_layers
+                                   or li in card.moe_layers)
 
 
 def init_params(card: ModelCard, generator: Optional[torch.Generator] = None,
@@ -59,7 +75,7 @@ def init_params(card: ModelCard, generator: Optional[torch.Generator] = None,
     """GPT2-style init: normal(0.02), residual-out projections scaled by
     1/sqrt(2L). Random weights come from ``generator`` (a torch.Generator on
     ``device``), or from one seeded with ``seed``."""
-    _check_dense(card)
+    _check_ported(card)
     dev = resolve_device(device)
     gen = generator
     if gen is None:
@@ -89,10 +105,14 @@ def init_params(card: ModelCard, generator: Optional[torch.Generator] = None,
         params["head"] = nrm((E, card.vocab_size))
 
     layers: List[Params] = []
-    for _ in range(L):
-        lp = {"ln1": ones(E), "q": nrm((E, Hq * D)), "k": nrm((E, Hkv * D)),
-              "v": nrm((E, Hkv * D)), "o": nrm((Hq * D, E), res_std),
-              "ln2": ones(E)}
+    for li in range(L):
+        if card.attn == "mla":
+            lp = {"ln1": ones(E), "ln2": ones(E)}
+            lp.update(init_mla_layer(card, gen, dtype, dev))
+        else:
+            lp = {"ln1": ones(E), "q": nrm((E, Hq * D)),
+                  "k": nrm((E, Hkv * D)), "v": nrm((E, Hkv * D)),
+                  "o": nrm((Hq * D, E), res_std), "ln2": ones(E)}
         if card.norm == "layernorm":
             lp["ln1_b"] = zeros(E)
             lp["ln2_b"] = zeros(E)
@@ -103,7 +123,9 @@ def init_params(card: ModelCard, generator: Optional[torch.Generator] = None,
         if card.qk_norm:
             lp["qn"] = ones(D)
             lp["kn"] = ones(D)
-        if card.act == "swiglu":
+        if _is_moe_layer(card, li):
+            lp.update(init_moe_layer(card, gen, dtype, dev))
+        elif card.act == "swiglu":
             lp["gate"] = nrm((E, F))
             lp["up"] = nrm((E, F))
             lp["down"] = nrm((F, E), res_std)
@@ -161,7 +183,10 @@ def _linear_l(x: torch.Tensor, lp: Params, key: str) -> torch.Tensor:
 
 def qkv_project(card: ModelCard, lp: Params, x: torch.Tensor, cos, sin,
                 positions) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x -> rotated q, k and v, shaped [B, T, H, D]."""
+    """x -> rotated q, k and v, shaped [B, T, H, D] (v's D is
+    ``v_head_dim`` on an MLA card, which ropes at table ``positions``)."""
+    if card.attn == "mla":
+        return mla_qkv(card, lp, x, positions)
     B, T, _ = x.shape
     D = card.head_dim
     q = _linear_l(x, lp, "q").reshape(B, T, card.n_head, D)
@@ -177,6 +202,8 @@ def qkv_project(card: ModelCard, lp: Params, x: torch.Tensor, cos, sin,
 
 
 def mlp(card: ModelCard, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    if "router" in lp:
+        return moe_ffn(card, lp, x)
     if card.act == "swiglu":
         g = _linear_l(x, lp, "gate")
         u = _linear_l(x, lp, "up")
@@ -254,7 +281,7 @@ def model_forward(card: ModelCard, params: Params, tokens: torch.Tensor,
     ``logits_dtype`` (training takes bf16), or the final-norm hidden states
     [B, T, E] with ``return_hidden``. ``remat``: False, True (recompute
     each block in the backward) or "dots" (keep the matmul outputs)."""
-    _check_dense(card)
+    _check_ported(card)
     B, T = tokens.shape
     dev = tokens.device
     if positions is None:
@@ -264,7 +291,7 @@ def model_forward(card: ModelCard, params: Params, tokens: torch.Tensor,
     if card.pos_embed == "learned":
         x = x + params["wpe"][positions.long()]
     cos = sin = None
-    if card.pos_embed == "rope":
+    if card.pos_embed == "rope" and card.attn != "mla":   # MLA: mla_qkv
         cos, sin = rope_freqs(card.head_dim, card.max_pos, card.rope_theta,
                               card.rope_scaling_dict(), device=dev)
     if remat:

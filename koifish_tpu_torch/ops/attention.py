@@ -10,6 +10,9 @@ differentiated path below. Under a sequence-parallel policy
 (``ops/tracectx.sp_scope``, pushed by ``make_train_step``) the
 self-attention case runs the plain ring over the policy's mesh instead
 (``parallel/ring_attention.py``), as JAX ``ops/attention.py:59-77`` does.
+A causal self-attention case the flash kernels do not take (MLA's dv != d,
+other head dims) logs a ``flash_attention`` fallback through
+``utils/kernel_log``, as the JAX package's flash entry does.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 
 from koifish_tpu_torch.ops.kernels import flash as kflash
 from koifish_tpu_torch.ops.tracectx import current_sp
+from koifish_tpu_torch.utils import kernel_log
 
 _NEG_INF = -1e30
 
@@ -56,11 +60,16 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ring_attention_sharded)
         fn = ring_attention_sharded(sp.mesh, sp.axis, scale)
         return fn(q, k, v).to(q.dtype)
-    if (backend != "ref" and mask is None and causal and tq == tk
-            and v.shape[-1] == d and d in kflash.HEAD_DIMS
-            and hq % k.shape[2] == 0):
-        out = kflash.FlashAttention.apply(q, k, v, scale, window)
-        return out.to(q.dtype)
+    if backend != "ref" and mask is None and causal:
+        if (tq == tk and v.shape[-1] == d and d in kflash.HEAD_DIMS
+                and hq % k.shape[2] == 0):
+            out = kflash.FlashAttention.apply(q, k, v, scale, window)
+            return out.to(q.dtype)
+        kernel_log.fallback(
+            "flash_attention",
+            f"q{tuple(q.shape)} k{tuple(k.shape)} dv={v.shape[-1]} "
+            f"window={window}: need tq==tk, d in {kflash.HEAD_DIMS}, dv==d, "
+            f"hq%hkv==0")
 
     logits = _gqa_scores(q, k) * scale              # [B,Hkv,G,Tq,Tk]
     dev = q.device

@@ -540,13 +540,17 @@ def ring_attention(qs: List[torch.Tensor], ks: List[torch.Tensor],
     _fill(tr, groups, ks, vs)
     # each rank's pointers: q, its part of its device's state buffers (o,
     # m, l in f32; rank 0, first and last at its one step, leaves its part
-    # unused), its output rows, and the batch strides
+    # unused), its output rows, and the batch strides. ``states`` holds
+    # every device's buffers until all the launches are enqueued: the
+    # launches see only pointers, and a buffer dropped earlier would go
+    # back to the caching allocator while its device's work is queued
     ptrs = [None] * n
-    for members in groups.values():
-        state = [torch.empty((len(members), B, Hkv, Tl * g) + tail,
-                             dtype=torch.float32,
-                             device=qs[members[0]].device)
-                 for tail in ((D,), (), ())]
+    states = {}
+    for key, members in groups.items():
+        state = states[key] = [
+            torch.empty((len(members), B, Hkv, Tl * g) + tail,
+                        dtype=torch.float32, device=qs[members[0]].device)
+            for tail in ((D,), (), ())]
         for i, r in enumerate(members):
             ptrs[r] = (qs[r].data_ptr(), *(x.data_ptr() + i * x.stride(0) * 4
                                            for x in state),
@@ -577,4 +581,5 @@ def ring_attention(qs: List[torch.Tensor], ks: List[torch.Tensor],
             if send and tr.fold(r, c) is None:
                 tr.send(r, c)
     tr.join()
+    del states     # every launch that reads them is enqueued
     return outs

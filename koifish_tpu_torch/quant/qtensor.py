@@ -29,6 +29,11 @@ NF3_VALUES = (
 )
 
 
+#: the codebooks as f32 CPU tensors (``codebook_for`` places them)
+NF4_CODEBOOK = torch.tensor(NF4_VALUES, dtype=torch.float32)
+NF3_CODEBOOK = torch.tensor(NF3_VALUES, dtype=torch.float32)
+
+
 def codebook_for(fmt: QFormat, device=None) -> torch.Tensor:
     if fmt is QFormat.NF4:
         return torch.tensor(NF4_VALUES, dtype=torch.float32, device=device)

@@ -15,6 +15,8 @@ reciprocal.
 """
 from __future__ import annotations
 
+from typing import Optional, Sequence, Tuple
+
 import torch
 
 from koifish_tpu_torch.dtypes import DEFAULT_GROUP, QFormat
@@ -120,6 +122,30 @@ def _quantize(w, fmt, group, symmetric, scale_dtype, compiled):
         shape=orig_shape if len(orig_shape) == 2 else (w2.shape[0], w2.shape[1]),
         group=group,
     )
+
+
+def quant_error(w: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """Relative L2 dequantization error, an f32 scalar: the reference's
+    quality probe (``T_errQ``, src/CLI_params.hpp:519; GeQuant.cpp:885)."""
+    wf = w.to(torch.float32)
+    wd = qt.dequantize(torch.float32).reshape(w.shape)
+    return torch.linalg.norm(wf - wd) / torch.clamp(torch.linalg.norm(wf),
+                                                     min=1e-12)
+
+
+def quantize_best(w: torch.Tensor, fmts: Sequence[QFormat],
+                  group: int = DEFAULT_GROUP) -> Tuple[QTensor, float]:
+    """Sweep formats and keep the lowest-error one (the reference's
+    ``LowBit_worker`` per-method sweep, GeQuant.cpp:830-905)."""
+    best: Optional[QTensor] = None
+    best_err = float("inf")
+    for fmt in fmts:
+        qt = quantize(w, fmt, group=group)
+        err = float(quant_error(w, qt))
+        if err < best_err:
+            best, best_err = qt, err
+    assert best is not None
+    return best, best_err
 
 
 def fake_quant(w: torch.Tensor, fmt: QFormat, group: int = DEFAULT_GROUP

@@ -8,6 +8,7 @@ from koifish_tpu_torch.serve.layered import (  # noqa: F401
     split_cache)
 from koifish_tpu_torch.serve.stacked import (  # noqa: F401
     decode_step_stacked, stack_layers)
+from koifish_tpu_torch.serve.speculative import speculative_generate  # noqa: F401
 from koifish_tpu_torch.serve.paged import (  # noqa: F401
     PagedKVCache, generate_paged, init_paged_cache)
 from koifish_tpu_torch.serve.batching import (  # noqa: F401

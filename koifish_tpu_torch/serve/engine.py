@@ -35,7 +35,8 @@ from koifish_tpu_torch.utils.device import check_on, resolve_device
 
 
 def _rope_tables(card: ModelCard, device):
-    if card.pos_embed != "rope":
+    # an MLA card ropes its decoupled slice inside models/mla.mla_qkv
+    if card.pos_embed != "rope" or card.attn == "mla":
         return None, None
     return rope_freqs(card.head_dim, card.max_pos, card.rope_theta,
                       card.rope_scaling_dict(), device=device)

@@ -102,17 +102,18 @@ def init_cache(n_layers: int, batch: int, size: int, n_kv_head: int,
 
 def cache_for(card, batch: int, size: int, fmt: QFormat = QFormat.BF16,
               sinks: int = 2, layered: bool = False, device=None):
-    """Cache sized from a ModelCard. ``layered=True`` builds the per-layer
-    form directly (``serve/layered.LayeredKVCache``)."""
-    if card.attn == "mla":
-        raise NotImplementedError("MLA caches are not ported yet")
+    """Cache sized from a ModelCard (an MLA card's V rows are
+    ``v_head_dim`` wide). ``layered=True`` builds the per-layer form
+    directly (``serve/layered.LayeredKVCache``)."""
+    vd = card.v_head_dim if card.attn == "mla" else 0
     if layered:
         from koifish_tpu_torch.serve.layered import init_layered_cache
         return init_layered_cache(card.n_layer, batch, size, card.n_kv_head,
                                   card.head_dim, fmt=fmt, sinks=sinks,
-                                  device=device)
+                                  v_head_dim=vd, device=device)
     return init_cache(card.n_layer, batch, size, card.n_kv_head,
-                      card.head_dim, fmt=fmt, sinks=sinks, device=device)
+                      card.head_dim, fmt=fmt, sinks=sinks, v_head_dim=vd,
+                      device=device)
 
 
 def ring_slot(pos: torch.Tensor, size: int, sinks: int) -> torch.Tensor:

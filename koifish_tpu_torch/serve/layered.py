@@ -119,10 +119,14 @@ def decode_step_layered(card: ModelCard, params: Params, token: torch.Tensor,
     B = token.shape[0]
     dev = token.device
     # unclamped positions with direct rope, so angles keep advancing past
-    # max_pos; inv_freq drives the per-step sink re-rope
+    # max_pos; inv_freq drives the per-step sink re-rope. An MLA card ropes
+    # inside mla_qkv at clamped table positions, with no sink re-rope
+    # (streaming past the window is the standard attention's only)
     positions = lc.pos[:, None]
-    cos = sin = inv_freq = None
-    if card.pos_embed == "rope":
+    cos = sin = inv_freq = rope_pos = None
+    if card.attn == "mla":
+        rope_pos = torch.clamp(positions, max=card.max_pos - 1)
+    elif card.pos_embed == "rope":
         scaling = card.rope_scaling_dict()
         cos, sin = rope_cos_sin_at(card.head_dim, positions, card.rope_theta,
                                    scaling)
@@ -146,7 +150,7 @@ def decode_step_layered(card: ModelCard, params: Params, token: torch.Tensor,
             kvc.rotate_sink_keys_layer(kl, ksl, lc.fmt, lc.sinks,
                                        stream_rows, inv_freq)
         h = _norm(card, x, lp["ln1"], lp.get("ln1_b"))
-        q, k, v = qkv_project(card, lp, h, cos, sin, None)
+        q, k, v = qkv_project(card, lp, h, cos, sin, rope_pos)
         if lc.fmt is QFormat.QJL:
             vsl = lc.v_scale[li]
             _write(kvc._token_pairs(kl, vl, ksl, vsl, lc.fmt, k[:, 0],

@@ -5,6 +5,7 @@ of what the recorded ops read and write: races on a slot (between ops, or
 between two ranks of one launch), launches that read another chunk than
 their k_off names, and ops not joined into a caller's stream."""
 import math
+import weakref
 
 import torch
 
@@ -48,22 +49,32 @@ def run(monkeypatch, devices, transport, mixed=False):
     """The kernel ring on ranks whose chunks (B 1, Tl 64, Hq 4, Hkv 2, D 64,
     bf16) lie on ``devices`` ("meta" or "cpu", rank 0 on "meta"). ``mixed``:
     the ranks span both kinds, which the ring's own check refuses, so it is
-    skipped. Returns (ops, the transport)."""
-    ops, made, registry = [], [], {}
+    skipped. Returns (ops, the transport). Each launch records, under
+    ``f32``, how many f32 tensors the ring had made by ``torch.empty`` (its
+    (o, m, l) state) and, under ``f32_dead``, which of them were already
+    freed (a weak reference taken when each was made no longer resolves)."""
+    ops, made, registry, f32 = [], [], {}, []
     mains = {d: Stream(ops, registry, f"main-{d}", d) for d in set(devices)}
     big = _EMPTY((1 << 40,), dtype=torch.uint8, device="meta")
     off = [1 << 20]
 
     def empty(shape, dtype=torch.float32, device=None, **kw):
         if str(device) != "meta":
-            return _EMPTY(shape, dtype=dtype, device=device, **kw)
-        nb = math.prod(shape) * torch.tensor([], dtype=dtype).element_size()
-        o, off[0] = off[0], off[0] + nb + 256
-        return big[o:o + nb].view(dtype).view(shape)
+            t = _EMPTY(shape, dtype=dtype, device=device, **kw)
+        else:
+            nb = math.prod(shape) * torch.tensor([], dtype=dtype
+                                                 ).element_size()
+            o, off[0] = off[0], off[0] + nb + 256
+            t = big[o:o + nb].view(dtype).view(shape)
+        if dtype == torch.float32:
+            f32.append(weakref.ref(t))
+        return t
 
     def step(ranks, n, kb, vb, n_slots, *args):
         stream = registry[args[-1]]
         stream.op("launch", kb=kb, vb=vb, n_slots=n_slots, args=args[:-1],
+                  f32=len(f32),
+                  f32_dead=[i for i, w in enumerate(f32) if w() is None],
                   ranks=[dict((f, getattr(ranks[i], f)) for f, _ in
                               ra._Rank._fields_) for i in range(n)])
         return 0

@@ -139,6 +139,22 @@ def test_copies_to_another_device_are_event_ordered(monkeypatch, mesh):
                                    for r in range(c, n))
 
 
+@pytest.mark.parametrize("mesh", [
+    ("meta", "cpu", "meta", "cpu"), ("meta", "meta", "cpu", "cpu"),
+    ("meta", "cpu", "cpu")])
+def test_every_groups_state_is_alive_at_its_launches(monkeypatch, mesh):
+    """Each device group's (o, m, l) state is made by ``torch.empty`` and
+    handed to the launches only as pointers: every one of them (three a
+    device) must still be referenced when each launch is enqueued, or a
+    device's buffers could go back to the caching allocator while its work
+    is queued."""
+    ops, _ = rec.run(monkeypatch, list(mesh), ra.LocalTransport, mixed=True)
+    launches = [o for o in ops if o["kind"] == "launch"]
+    assert launches and all(o["f32"] == 3 * len(set(mesh))
+                            for o in launches)
+    assert [o["f32_dead"] for o in launches] == [[]] * len(launches)
+
+
 @pytest.mark.parametrize("g,D", [(1, 64), (3, 128)])
 def test_plain_ring_at_the_kernel_tile(g, D):
     """Chunks of 300 positions (3 tiles of 128 keys, the last ragged) on 3

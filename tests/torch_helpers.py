@@ -42,6 +42,41 @@ def tiny_models():
     return jcard, card, jp, tp
 
 
+# Two packages' bf16 logits differ by about one ulp (<= 5e-3 measured on
+# the tiny zoo cards); a JAX top-2 margin under this is a near-tie that
+# either side may take.
+NEAR_TIE = 1e-2
+
+
+def top2_margin(logits) -> np.ndarray:
+    """[B, V] logits -> each row's gap between its two largest entries."""
+    s = -np.sort(-f32(logits), axis=-1)
+    return s[:, 0] - s[:, 1]
+
+
+def assert_greedy_agrees(tokens, jax_tokens, jax_margins,
+                         tie: float = NEAR_TIE,
+                         min_share: float = 0.5) -> int:
+    """The port's greedy tokens [B, N] equal the JAX package's in each row
+    up to the first step whose JAX top-2 margin (``jax_margins`` [N, B],
+    teacher-forced on the JAX tokens) is under ``tie``; from such a
+    near-tie on either package may take the other token. At least ``min_share``
+    of the B·N tokens must be compared, so that near-ties cannot leave the
+    check empty. Returns the number compared."""
+    tokens, jax_tokens = np.asarray(tokens), np.asarray(jax_tokens)
+    margins = np.asarray(jax_margins)
+    compared = 0
+    for b in range(tokens.shape[0]):
+        for i in range(tokens.shape[1]):
+            if margins[i, b] < tie:
+                break
+            assert tokens[b, i] == jax_tokens[b, i], (b, i)
+            compared += 1
+    print(f"greedy tokens compared: {compared} of {tokens.size}")
+    assert compared >= min_share * tokens.size, (compared, tokens.size)
+    return compared
+
+
 def tiny_prompt(B: int, T: int, seed: int = 1) -> np.ndarray:
     return np.random.default_rng(seed).integers(
         0, TINY_QWEN3["vocab_size"], size=(B, T)).astype(np.int32)
