@@ -2,7 +2,7 @@
 """A/B one change of the port on one GPU: old, new, new, old in one call.
 
     python3 chip_ab.py OLD_TREE PHASE[,PHASE...] [--train] [--host] [--shapes]
-                       [--decode] [--paged] [--sp] [--ring-steps]
+                       [--decode] [--paged] [--sp] [--ring-steps] [--mamba]
 
 OLD_TREE is a copy of the repository at the old version
 (``koifish_tpu_torch/``, ``chip_smoke.py`` and ``configs/``, for example
@@ -57,7 +57,12 @@ launches). With ``--ring-steps`` every run profiles one call of the
 kernel ring (``parallel.ring_attention_pallas_sharded``) at
 ``chip_smoke.RING_SHAPE`` and sp 4, 2 and 8: each device kernel's µs in
 launch order (the slot fill's copies, then one ring step a launch) and
-the host's ms a call (20 calls enqueued without a synchronise). Compare the
+the host's ms a call (20 calls enqueued without a synchronise). With
+``--mamba`` every run whose tree has the Mamba path trains mamba-130m
+(``chip_smoke.MAMBA_130M``: 24 layers, d 768, V 50,280) at B 8 x 1024,
+remat on, from the same seed on the same seeded batch: the median of 5
+steps after 2 warm ones, the peak memory, the losses, then one more step
+profiled (device time by kernel and the idle share). Compare the
 two versions only within one call: two calls may land on two cards or on a
 busier host. The first line printed is the card's name and power limit.
 """
@@ -284,6 +289,44 @@ elif "sp" in sys.argv[2:]:
                       f"(B={tcard.batch}, T={card.n_ctx}, remat="
                       f"{tcard.remat}, QAT)", one)
     shutil.rmtree(root)
+if "mamba" in sys.argv[2:] and not hasattr(cs, "MAMBA_130M"):
+    print("P mamba: this tree has no Mamba path", flush=True)
+elif "mamba" in sys.argv[2:]:
+    import time
+    from koifish_tpu_torch.config import ModelCard, TrainCard
+    from koifish_tpu_torch.train import init_train_state, make_train_step
+    m = cs.MAMBA_130M
+    mult = m["pad_vocab_size_multiple"]
+    card = ModelCard.from_arch(
+        "MAMBA", vocab_size=-(-m["vocab_size"] // mult) * mult,
+        n_layer=m["n_layer"], n_embd=m["d_model"], n_head=12, n_kv_head=12,
+        head_dim=m["d_model"] // 12, n_ffn=4 * m["d_model"], n_ctx=1024,
+        max_pos=1024)
+    tcard = TrainCard(batch=8)
+    state = init_train_state(card, tcard, device="cuda")
+    step = make_train_step(card, tcard, total_steps=10)
+    toks = torch.randint(0, card.vocab_size, (1, 8, card.n_ctx + 1),
+                         device="cuda", generator=g)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, {"tokens": toks})
+        losses.append(round(float(metrics["loss"]), 5))
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    print(f"  median {sorted(times)[2]:.2f} ms/step, mamba-130m B 8 x 1024 "
+          f"remat (runs {[round(t, 2) for t in times]}); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
+          f"{losses}", flush=True)
+
+    def one():
+        global state
+        state, metrics = step(state, {"tokens": toks})
+        float(metrics["loss"])
+    cs.profile_window(torch, "mamba-130m train step (B 8 x 1024)", one)
 if "ring_steps" in sys.argv[2:]:
     import time
     from torch.profiler import ProfilerActivity, profile
@@ -316,7 +359,7 @@ if "ring_steps" in sys.argv[2:]:
 
 KEEP = ("K ", "H ", "S ", "D ", "P ", "G ", "R ", "  check", "  time", "  host",
         "  median", "  losses", "  aggregate", "  completed", "chip_smoke",
-        "[profile] Qwen3-0.6B --sp", "  device busy")
+        "[profile] Qwen3-0.6B --sp", "[profile] mamba", "  device busy")
 
 
 def main() -> None:
@@ -330,6 +373,7 @@ def main() -> None:
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--sp", action="store_true")
     ap.add_argument("--ring-steps", action="store_true")
+    ap.add_argument("--mamba", action="store_true")
     args = ap.parse_args()
     old = os.path.abspath(args.old_tree)
     if not os.path.exists(os.path.join(old, "chip_smoke.py")):
@@ -346,7 +390,8 @@ def main() -> None:
             + (["decode"] if args.decode else []) \
             + (["paged"] if args.paged else []) \
             + (["sp"] if args.sp else []) \
-            + (["ring_steps"] if args.ring_steps else [])
+            + (["ring_steps"] if args.ring_steps else []) \
+            + (["mamba"] if args.mamba else [])
         t0 = time.perf_counter()
         out = subprocess.run([sys.executable, "-c", RUN, args.phase] + extra,
                              cwd=tree, capture_output=True, text=True)

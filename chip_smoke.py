@@ -220,6 +220,26 @@ Phases, in order; any failed check exits non-zero before the last line:
              against the CPU (logits 5e-2, greedy tokens 75 %). Row 7 is
              also checked and timed at both decode shapes in
              ``decode_attn_phase``.
+   slice17 — the rest of the model zoo at published widths, every weight
+             seeded, each training run 3 steps through ``koifish.main``
+             (remat, SR on, as the CLI defaults): (a) GUPPY at Qwen3-0.6B's
+             width and depth (configs/qwen3_0.6b.json, arch changed, bf16,
+             B 8 x 1024), then ``generate`` on its evaluation sample (INT8
+             KV, B 8 x 128, 32 greedy new); (b) LLAMA_VAE likewise with
+             ``token_embeds [192]``; (c) configs/gpt2_124m.json with 12
+             layers cycling QKV FFN, GAU and BROWN FFN (B 16 x 1024; 24
+             logged GAU fallbacks; serving must raise); (d) mamba-130m's
+             published config (24 layers, d 768, V 50,280, B 8 x 1024), a
+             step profiled; (e) SALMON at the qwen2.5-0.5b preset's widths
+             ("SCORE", B 8 x 1024), then greedy ``diffusion_generate`` (B 8,
+             prompt 64, total 128, 16 steps); (f) HotPick on slice 1's INT4
+             g128 Qwen3-0.6B: calibration on 8 x 512 tokens, ``pick_hot
+             (keep=0.5)`` (n_ffn 1536), served as slice 1 serves. Each
+             run's launches must be exactly the counts its shapes give
+             (none for Mamba and Salmon); rows 3 and 4 at the picked
+             down's K 1536 against their plain versions, timed; tiny cards
+             of each family on the card against the CPU (train steps: loss
+             1e-2, grad norms 2 %; logits 5e-2; greedy tokens 75 %).
 6. result  — one JSON line with every kernel's numbers (launches from its
              path's run: the serving run for the slice-1 kernels and the
              decode attention's fused K/V write (``decode_attn_write``,
@@ -235,9 +255,12 @@ Phases, in order; any failed check exits non-zero before the last line:
              row 13 (with its ``eager_ms`` and ``by_sp``); each row's
              ``launches_by_path`` gives slice 13's runs: gama, distill,
              kun_bubble, qjl, slice 14's ``koifish_sp4`` and slice 16's
-             zoo runs; the rows ``decode_attn_write_mla`` and
-             ``decode_attn_write_qwen3_moe`` are row 7's fused entry at the
-             zoo's decode shapes, launched by its generate runs), then the
+             zoo runs and slice 17's runs; the rows ``decode_attn_write_mla``
+             and ``decode_attn_write_qwen3_moe`` are row 7's fused entry at
+             the zoo's decode shapes, launched by its generate runs, and
+             ``qmm_k1536`` / ``qmv_k1536`` rows 3 and 4 at HotPick's picked
+             down, their launches those the wrappers counted at K 1536 in
+             its serving run), then the
              last line
              ``{"ok": true, "device": {...}}``.
 
@@ -3124,17 +3147,15 @@ def _step_card_vs_cpu(torch, label, card, tcard, vocab, tol_loss, tol_norm,
     over ``sp`` virtual ranks of the step's device."""
     from koifish_tpu_torch.models import init_params
     from koifish_tpu_torch.train import init_train_state, make_train_step
-    from koifish_tpu_torch.utils.tree import flatten_with_path, leaves
+    from koifish_tpu_torch.utils.tree import (flatten_with_path, leaves,
+                                              tree_map)
     base = init_params(card, device="cpu", seed=seed)
     tokens = torch.randint(0, vocab, (1, 4, 65),
                            generator=torch.Generator().manual_seed(seed + 1))
     res = {}
     for dev in ("cpu", "cuda"):
         # a fresh copy per device: the step updates its params in place
-        params = {k: ([{n: t.to(dev, copy=True) for n, t in lp.items()}
-                       for lp in v] if k == "layers"
-                      else v.to(dev, copy=True))
-                  for k, v in base.items()}
+        params = tree_map(lambda t: t.to(dev, copy=True), base)
         state = init_train_state(card, tcard, params=params)
         policy = None
         if sp > 1:
@@ -3164,12 +3185,15 @@ def _step_card_vs_cpu(torch, label, card, tcard, vocab, tol_loss, tol_norm,
           float(rel[head]), tol_head)
     # updated params: AdamW's first step moves each weight by about lr times
     # the sign of its gradient, so a gradient entry near 0 may move the
-    # weight either way on the two devices (2·lr), plus one bf16 ulp
+    # weight either way on the two devices (2·lr), plus one bf16 ulp: each
+    # value rounds within half its own ulp (at most 2^-8 of itself), so the
+    # larger of the two sets it (a weight that crosses 0 has |b| >> |a|)
     lr = tcard.lr
     worst, moved = 0.0, 0
     for a, b in zip(res["cpu"][2], res["cuda"][2]):
         d = (a - b).abs()
-        worst = max(worst, float((d - (2 * lr + a.abs() * 2 ** -7)).max()))
+        ulp = torch.maximum(a.abs(), b.abs()) * 2 ** -7
+        worst = max(worst, float((d - (2 * lr + ulp)).max()))
         moved += int((d > 0).sum())
     total = sum(a.numel() for a in res["cpu"][2])
     say(f"  updated params differ in {moved} of {total} entries")
@@ -4831,28 +4855,29 @@ def _zoo_want(card, qp, new: int) -> dict:
             "kv_write": card.n_layer * steps, "slot_write": 0}
 
 
-def _zoo_serve(torch, label, card, qp, gen) -> tuple:
-    """``generate`` at B ZOO_B x ZOO_P-token prompts, ZOO_NEW new tokens,
-    temperature 0, a layered INT8 KV cache of ZOO_S slots: warm TTFT (median
-    of 3), decode tok/s (two runs), peak memory, the launches of the first
-    run against ``_zoo_want`` (exact) and its fallbacks; one decode step
+def _zoo_serve(torch, label, card, qp, gen, B=ZOO_B, P=ZOO_P, NEW=ZOO_NEW,
+               S=ZOO_S, sampler=None, chunk=8) -> tuple:
+    """``generate`` at B x P-token prompts, NEW new tokens (ZOO_B, ZOO_P and
+    ZOO_NEW unless given), temperature 0 (or ``sampler``), a layered INT8
+    KV cache of S slots, ``chunk`` steps a dispatch: warm TTFT (median of
+    3), decode tok/s (two runs), peak memory, the launches of the first run
+    against ``_zoo_want`` (exact) and its fallbacks; one decode step
     profiled. Returns (tokens, launches, prompts, numbers)."""
     from koifish_tpu_torch.config import SamplerCard
     from koifish_tpu_torch.dtypes import QFormat
     from koifish_tpu_torch.serve import cache_for, decode_step_layered
     from koifish_tpu_torch.serve import generate
     from koifish_tpu_torch.utils import kernel_log
-    B, P, NEW, S = ZOO_B, ZOO_P, ZOO_NEW, ZOO_S
     prompts = torch.randint(0, card.vocab_size, (B, P), generator=gen,
                             device="cuda", dtype=torch.int64)
-    sampler = SamplerCard(temperature=0.0)
+    sampler = sampler or SamplerCard(temperature=0.0)
 
     def fresh():
         return cache_for(card, B, S, fmt=QFormat.INT8, layered=True,
                          device="cuda")
 
     generate(card, qp, prompts, fresh(), sampler=sampler, max_new_tokens=3,
-             decode_chunk=8, device="cuda")                     # warm
+             decode_chunk=chunk, device="cuda")                 # warm
     torch.cuda.synchronize()
     ttfts = []
     for _ in range(3):
@@ -4865,20 +4890,20 @@ def _zoo_serve(torch, label, card, qp, gen) -> tuple:
         ttfts.append(time.perf_counter() - t0)
     ttft = sorted(ttfts)[1]
     torch.cuda.reset_peak_memory_stats()
-    steps, counts, falls, toks = [], None, None, None
+    steps, counts, falls, toks, by_k = [], None, None, None, None
     for run in range(2):
         c = fresh()
         torch.cuda.synchronize()
         kernel_log.reset_launches()
         t0 = time.perf_counter()
         out, c = generate(card, qp, prompts, c, sampler=sampler,
-                          max_new_tokens=NEW, decode_chunk=8,
+                          max_new_tokens=NEW, decode_chunk=chunk,
                           device="cuda")
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t0 - ttft) / (NEW - 1))
         if run == 0:
             toks, counts = out, kernel_log.launches()
-            falls = kernel_log.fallbacks()
+            falls, by_k = kernel_log.fallbacks(), kernel_log.launches_by_k()
     peak = torch.cuda.max_memory_allocated() / 2**30
     step = sorted(steps)[0]
     say(f"  {label}: warm TTFT {ttft * 1e3:.2f} ms (runs "
@@ -4906,7 +4931,8 @@ def _zoo_serve(torch, label, card, qp, gen) -> tuple:
                                                streaming=False))
     return toks, counts, prompts, dict(ttft_ms=ttft * 1e3,
                                        step_ms=step * 1e3,
-                                       tok_s=B / step, peak_gib=peak)
+                                       tok_s=B / step, peak_gib=peak,
+                                       by_k=by_k)
 
 
 def _moe_drops(torch, card, qp, prompts) -> None:
@@ -5235,6 +5261,533 @@ def _zoo_row7(dec, prefix: str) -> dict:
                 max_abs_err=sh["fused_max_abs_err"])
 
 
+# --------------------------------------------------------------------------
+# slice 17: the rest of the model zoo
+# --------------------------------------------------------------------------
+
+S17_STEPS = 3
+#: state-spaces/mamba-130m's published config.json (the fields the arch
+#: reads; the vocabulary padded to a multiple of 8 as its
+#: pad_vocab_size_multiple says: 50,277 -> 50,280)
+MAMBA_130M = {"d_model": 768, "n_layer": 24, "vocab_size": 50277,
+              "ssm_cfg": {}, "rms_norm": True, "residual_in_fp32": True,
+              "fused_add_norm": True, "pad_vocab_size_multiple": 8}
+#: GPT2-124M's 12 layers cycling (QKV FFN), GAU, (BROWN FFN), four times,
+#: in the syntax of koifish_tpu/models/backbone.py
+S17_HYBRID_BACKBONE = {
+    "embed_tokens": {"Embedding": []},
+    "cycle *4": {"a": {"self_attn": {"QKV": []}, "mlp": {"FFN": []}},
+                 "g": {"GAU": []},
+                 "b": {"self_attn": {"BROWN": []}, "mlp": {"FFN": []}}},
+    "norm": {"Normal": []}, "output": {"CLASIFY": []}}
+HOT_B, HOT_P, HOT_NEW, HOT_S = 32, 128, 64, 1024   # slice 1's serving
+HOT_CALIB = (8, 512)
+SALMON_GEN = (8, 64, 128, 16)          # B, prompt, total length, steps
+
+
+def s17_train_launches(steps: int, card, remat, m: int) -> dict:
+    """The launches ``steps`` steps of a card whose every layer is QKV
+    (the flash forward a layer, twice with remat, a dK/dV and a dQ) make,
+    and where the vocabulary takes the fused CE (>= 65,536; the tied head
+    trains: dlogits, dx and dW per vocab chunk of the m rows)."""
+    from koifish_tpu_torch.ops.kernels import fused_ce as kc
+    L, r = card.n_layer, 2 if remat else 1
+    out = {"flash_fwd": steps * L * r, "flash_bwd_dkv": steps * L,
+           "flash_bwd_dq": steps * L}
+    if card.vocab_size >= 65536:
+        chunks = len(kc.chunk_plan(m, card.vocab_size)[1])
+        out.update(fused_ce_fwd=steps, fused_ce_dlogits=steps * chunks,
+                   fused_ce_dx=steps * chunks, fused_ce_dw=steps * chunks)
+    return out
+
+
+S17_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "fused_ce_fwd",
+               "fused_ce_dlogits", "fused_ce_dx", "fused_ce_dw", "qmm", "qmv",
+               "decode_attn", "kv_write", "slot_write")
+
+
+def _s17_exact(label: str, counts: dict, want: dict) -> None:
+    """Fail unless every S17_KERNELS count is ``want``'s (0 where absent)."""
+    got = {k: counts.get(k, 0) for k in S17_KERNELS}
+    exp = {k: want.get(k, 0) for k in S17_KERNELS}
+    if got != exp:
+        fail(f"{label}: launches {got}, the shapes give {exp}")
+    say(f"  {label}: launches exactly as the shapes give: "
+        f"{json.dumps({k: v for k, v in got.items() if v})}")
+
+
+def _s17_train(torch, root: str, name: str, cfg: dict, falls_want=None):
+    """``cfg`` written to ``root`` with its train glob on a seeded shard,
+    through ``koifish.main`` for S17_STEPS steps: finite losses, the first
+    within 1.0 of ln V (random weights), step ms, tok/s, peak memory, the
+    fallbacks ``falls_want`` (none unless given). Returns (result,
+    launches, numbers)."""
+    import math
+    from koifish_tpu_torch.cli import koifish
+    from koifish_tpu_torch.config import CLIParams
+    from koifish_tpu_torch.utils import kernel_log
+    from koifish_tpu_torch.utils.tree import leaves
+    cfg = dict(cfg, datasets={"train": {
+        "glob": os.path.join(root, f"{name}_train_*.bin"), "name": name}})
+    cfg["debug"] = dict(cfg.get("debug", {}), most_iter=S17_STEPS)
+    cfgp = os.path.join(root, f"{name}.json")
+    with open(cfgp, "w") as f:
+        json.dump(cfg, f, indent=1)
+    p = CLIParams.load(cfgp)
+    card, tcard = p.model, p.train
+    B, T = tcard.batch, card.n_ctx
+    write_token_shard(os.path.join(root, f"{name}_train_000.bin"),
+                      card.vocab_size, 2 * S17_STEPS * B * (T + 1), seed=171)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # check=False: the fallbacks are held to falls_want below
+    res, _, counts = run_cli(torch, koifish.main, [
+        cfgp, "--out-dir", os.path.join(root, name)],
+        f"koifish {name} ({S17_STEPS} steps)", check=False)
+    torch.cuda.synchronize()
+    falls = kernel_log.fallbacks()
+    if falls != (falls_want or {}):
+        fail(f"{name}: fallbacks {falls}, expected {falls_want or {}}")
+    infos = res["infos"]
+    losses, dts = infos.losses, [r[3] for r in infos.rows]
+    dt = sorted(dts[1:])[len(dts[1:]) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(x.numel() for x in leaves(res["state"].params))
+    say(f"  {name}: arch {card.arch}, {n_params / 1e6:.1f} M parameters, "
+        f"B={B} T={T} remat={tcard.remat}; losses "
+        f"{[round(x, 5) for x in losses]}; step ms "
+        f"{[round(d * 1e3, 1) for d in dts]} (median of steps 1-"
+        f"{S17_STEPS - 1}: {dt * 1e3:.1f} ms, {B * T / dt:.1f} tok/s); "
+        f"peak {peak:.2f} GiB; fallbacks {json.dumps(falls)}")
+    if len(losses) != S17_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"{name}: losses {losses}")
+    if abs(losses[0] - math.log(card.vocab_size)) > 1.0:
+        fail(f"{name}: first loss {losses[0]}, ln V = "
+             f"{math.log(card.vocab_size):.3f}")
+    return res, counts, dict(step_ms=dt * 1e3, tok_s=B * T / dt,
+                             peak_gib=peak, losses=losses,
+                             params_m=n_params / 1e6)
+
+
+def _qwen3_cfg(arch: str, **param) -> dict:
+    """configs/qwen3_0.6b.json with another arch (and ``param`` in its
+    parameter block), bf16 (no quantizer card), B 8."""
+    with open(os.path.join(ROOT, "configs", "qwen3_0.6b.json")) as f:
+        cfg = json.load(f)
+    cfg.pop("quantizer")
+    cfg["model"]["arch"] = arch
+    cfg["model"]["parameter"].update(param)
+    cfg["train"]["batch"] = 8
+    return cfg
+
+
+def s17_guppy(torch, root: str, gen) -> tuple:
+    """(a) GUPPY at Qwen3-0.6B's width and depth through ``koifish``, then
+    ``generate`` on the evaluation sample (the trained params, INT8 KV,
+    B 8 x 128, 32 greedy new). Returns ({path: launches}, numbers)."""
+    from koifish_tpu_torch.models.guppy import sample_ids
+    res, counts, num = _s17_train(torch, root, "guppy", _qwen3_cfg("GUPPY"))
+    card = res["card"]
+    _s17_exact("guppy train", counts,
+               s17_train_launches(S17_STEPS, card, True, 8 * card.n_ctx))
+    samps = sample_ids(card)
+    rows = card.n_layer * card.n_ffn * card.n_embd * 2
+    say(f"  guppy evaluation sample: {samps.shape} ids in [{samps.min()}, "
+        f"{samps.max()}]; injected rows {rows / 1e6:.1f} MB bf16")
+    params = res["state"].params
+    del res
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        _, serve, _, snum = _zoo_serve(torch, "Guppy generate", card, params,
+                                       gen)
+    num.update(serve=snum)
+    del params
+    torch.cuda.empty_cache()
+    return {"guppy_train": counts, "guppy_serve": serve}, num
+
+
+def s17_llama_vae(torch, root: str) -> tuple:
+    """(b) LLAMA_VAE at Qwen3-0.6B's widths, ``token_embeds [192]``."""
+    res, counts, num = _s17_train(torch, root, "llama_vae", _qwen3_cfg(
+        "LLAMA_VAE", token_embeds=[192]))
+    card = res["card"]
+    enc = res["state"].params["evae"]["enc"][0]["w"]
+    if tuple(enc.shape) != (card.n_embd, 192):
+        fail(f"llama_vae: evae enc {tuple(enc.shape)}")
+    _s17_exact("llama_vae train", counts,
+               s17_train_launches(S17_STEPS, card, True, 8 * card.n_ctx))
+    del res
+    torch.cuda.empty_cache()
+    return {"llama_vae_train": counts}, num
+
+
+def s17_hybrid(torch, root: str) -> tuple:
+    """(c) configs/gpt2_124m.json's widths with a backbone cycling QKV FFN,
+    GAU and BROWN FFN: 4 QKV layers take the flash kernels, the 4 GAU
+    layers log a ``flash_attention`` fallback a forward (value width F/H =
+    256 against D 64), twice with remat; serving raises."""
+    import dataclasses
+    from koifish_tpu_torch.serve import cache_for, prefill
+    with open(os.path.join(ROOT, "configs", "gpt2_124m.json")) as f:
+        cfg = json.load(f)
+    cfg["model"]["backbone"] = S17_HYBRID_BACKBONE
+    cfg.pop("datasets")
+    cfg["train"].pop("save-every")         # no checkpoint of a 3-step run
+    res, counts, num = _s17_train(
+        torch, root, "hybrid", cfg,
+        falls_want={"flash_attention": 4 * S17_STEPS * 2})
+    card = res["card"]
+    if (card.gau_layers, card.brown_layers) != ((1, 4, 7, 10),
+                                                (2, 5, 8, 11)):
+        fail(f"hybrid: GAU {card.gau_layers}, BROWN {card.brown_layers}")
+    # the 4 QKV layers' kernels; V 50,304 takes the bf16-logits CE
+    _s17_exact("hybrid train", counts, s17_train_launches(
+        S17_STEPS, dataclasses.replace(card, n_layer=4), True, 0))
+    try:
+        prefill(card, res["state"].params,
+                torch.zeros((1, 8), dtype=torch.int64, device="cuda"),
+                cache_for(card, 1, 16, device="cuda"), fresh=True)
+    except NotImplementedError as e:
+        say(f"  hybrid serving raises NotImplementedError, as the JAX "
+            f"package's prefill: {e}")
+    else:
+        fail("hybrid: serving a GAU/BROWN card did not raise")
+    del res
+    torch.cuda.empty_cache()
+    return {"hybrid_train": counts}, num
+
+
+def s17_mamba(torch, root: str) -> tuple:
+    """(d) state-spaces/mamba-130m's published config (MAMBA_130M): no
+    kernel, as in JAX; the scan's layer profiled over one step."""
+    vocab = -(-MAMBA_130M["vocab_size"] // MAMBA_130M[
+        "pad_vocab_size_multiple"]) * MAMBA_130M["pad_vocab_size_multiple"]
+    cfg = {"model": {"arch": "MAMBA", "vocab_size": vocab, "parameter": {
+        "Layer": MAMBA_130M["n_layer"], "tie_word_embeddings": True,
+        "transformer": {"Ctx": 1024, "Embed": MAMBA_130M["d_model"],
+                        "Head": 12, "Ffn": 4 * MAMBA_130M["d_model"]}}},
+        "train": {"batch": 8, "dump-every": 1, "learning-rate": 0.0006,
+                  "optimizatioin": {"method": "adamw",
+                                    "grad_accumulation": 1}},
+        "seed": 42}
+    res, counts, num = _s17_train(torch, root, "mamba", cfg)
+    if abs(num["params_m"] - 129.1) > 0.5:
+        fail(f"mamba: {num['params_m']:.2f} M parameters, mamba-130m has "
+             f"129.1 M")
+    _s17_exact("mamba train", counts, {})
+    card, state = res["card"], res["state"]
+    del res
+    torch.cuda.empty_cache()
+    profile_train_step(torch, "mamba-130m train step (B 8 x 1024)", card,
+                       state, 8)
+    del state
+    torch.cuda.empty_cache()
+    return {"mamba_train": counts}, num
+
+
+def profile_train_step(torch, label, card, state, B) -> None:
+    """One more ``make_train_step`` on a seeded batch, profiled."""
+    from koifish_tpu_torch.config import TrainCard
+    from koifish_tpu_torch.train import make_train_step
+    step = make_train_step(card, TrainCard(batch=B), total_steps=10)
+    toks = torch.randint(0, card.vocab_size, (1, B, card.n_ctx + 1),
+                         device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(
+                             17))
+    box = [state]
+
+    def run():
+        box[0], _ = step(box[0], {"tokens": toks})
+    profile_window(torch, label, run)
+
+
+def s17_salmon(torch, root: str) -> tuple:
+    """(e) SALMON at the qwen2.5-0.5b preset's widths through ``koifish``
+    (the reference's arch string "SCORE"), then greedy
+    ``diffusion_generate`` (SALMON_GEN). No kernel, as in JAX."""
+    from koifish_tpu_torch.config import ModelCard
+    from koifish_tpu_torch.models.salmon import diffusion_generate, mask_id
+    from koifish_tpu_torch.utils import kernel_log
+    pre = ModelCard.preset("qwen2.5-0.5b")
+    cfg = {"model": {"arch": "SCORE", "vocab_size": pre.vocab_size,
+                     "parameter": {
+                         "Layer": pre.n_layer, "max_pos_embeddings":
+                         pre.max_pos, "rope_theta": pre.rope_theta,
+                         "tie_word_embeddings": True,
+                         "transformer": {"Ctx": 1024, "Embed": pre.n_embd,
+                                         "Head": pre.n_head,
+                                         "KVHead": pre.n_kv_head,
+                                         "head_dim": pre.head_dim,
+                                         "Ffn": pre.n_ffn}}},
+           "train": {"batch": 8, "dump-every": 1, "learning-rate": 0.0006,
+                     "optimizatioin": {"method": "adamw",
+                                       "grad_accumulation": 1}},
+           "seed": 42}
+    res, counts, num = _s17_train(torch, root, "salmon", cfg)
+    card = res["card"]
+    if (card.arch, card.causal, card.qkv_bias, card.n_embd, card.n_head,
+            card.n_kv_head, card.n_ffn, card.rope_theta) != (
+            "SALMON", False, True, pre.n_embd, pre.n_head, pre.n_kv_head,
+            pre.n_ffn, pre.rope_theta):
+        fail(f"salmon: card {card}")
+    _s17_exact("salmon train", counts, {})
+    params = res["state"].params
+    del res
+    torch.cuda.empty_cache()
+    B, P, total, steps = SALMON_GEN
+    prompt = torch.randint(0, card.vocab_size - 1, (B, P), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(172))
+    diffusion_generate(card, params, prompt, total, steps=2)     # warm
+    torch.cuda.synchronize()
+    kernel_log.reset_launches()
+    t0 = time.perf_counter()
+    out = diffusion_generate(card, params, prompt, total, steps=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gcounts = kernel_log.launches()
+    # the last greedy pass may itself pick the mask id (random weights)
+    say(f"  salmon diffusion_generate B {B}, prompt {P}, total {total}, "
+        f"{steps} steps: {wall * 1e3:.1f} ms ({B * (total - P) / wall:.1f} "
+        f"tok/s, {steps + 1} forwards); {int((out == mask_id(card)).sum())} "
+        f"mask ids in the output; launches {json.dumps(gcounts)}")
+    if tuple(out.shape) != (B, total) or int(out.min()) < 0 \
+            or int(out.max()) >= card.vocab_size \
+            or not torch.equal(out[:, :P].long(), prompt):
+        fail("salmon: diffusion_generate's output is out of range or moved "
+             "the prompt")
+    _s17_exact("salmon generate", gcounts, {})
+    num.update(generate_ms=wall * 1e3)
+    del params
+    torch.cuda.empty_cache()
+    return {"salmon_train": counts, "salmon_generate": gcounts}, num
+
+
+def s17_hotpick(torch, gen) -> tuple:
+    """(f) slice 1's model (configs/qwen3_0.6b.json, INT4 RTN g128) at full
+    depth: ``ffn_activation_energy`` on HOT_CALIB seeded tokens,
+    ``pick_hot(keep=0.5)`` (n_ffn 1536; ``down`` requantized at K 1536),
+    then served as slice 1 serves (B 32 x 128, 64 new, T 0.6 / top-k 50 /
+    top-p 0.95, INT8 KV, decode_chunk 16)."""
+    from koifish_tpu_torch.config import CLIParams, SamplerCard
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.models.hotpick import ffn_activation_energy, pick_hot
+    from koifish_tpu_torch.quant import quantize_params
+    from koifish_tpu_torch.utils import kernel_log
+    p = CLIParams.load(os.path.join(ROOT, "configs", "qwen3_0.6b.json"))
+    card = p.model
+    with torch.no_grad():
+        qp = quantize_params(init_params(card, gen, device="cuda"), p.quant,
+                             card, device="cuda")
+    calib = torch.randint(0, card.vocab_size, HOT_CALIB, device="cuda",
+                          generator=gen)
+    torch.cuda.synchronize()
+    kernel_log.reset_launches()
+    t0 = time.perf_counter()
+    energies = ffn_activation_energy(card, qp, calib)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    calib_counts = kernel_log.launches()
+    card2, qp2 = pick_hot(card, qp, energies, keep=0.5)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    say(f"[slice17] (f) HotPick: calibration on {HOT_CALIB} tokens "
+        f"{(t1 - t0) * 1e3:.1f} ms (launches {json.dumps(calib_counts)}), "
+        f"pick_hot {(t2 - t1) * 1e3:.1f} ms: n_ffn {card.n_ffn} -> "
+        f"{card2.n_ffn}, down {qp2['layers'][0]['down'].shape} "
+        f"{qp2['layers'][0]['down'].fmt.name} g{qp2['layers'][0]['down'].group}"
+        f"; {_nbytes(qp) / 1e9:.3f} -> {_nbytes(qp2) / 1e9:.3f} GB")
+    L = card.n_layer
+    _s17_exact("hotpick calibration", calib_counts,
+               {"flash_fwd": L, "qmm": 9 * L})
+    if card2.n_ffn != 1536 or any(tuple(lp["down"].shape) != (1536, 1024)
+                                  for lp in qp2["layers"]):
+        fail(f"hotpick: picked n_ffn {card2.n_ffn}")
+    del qp, energies
+    torch.cuda.empty_cache()
+    _, serve, _, num = _zoo_serve(
+        torch, "HotPick generate", card2, qp2, gen, B=HOT_B, P=HOT_P,
+        NEW=HOT_NEW, S=HOT_S, chunk=16,
+        sampler=SamplerCard(temperature=0.6, top_k=50, top_p=0.95))
+    # rows 3 and 4 count each launch under its K: the counted run's K 1536
+    # launches are the picked down's, one GEMM a layer in the prefill and
+    # one GEMV a layer in each decode step
+    by_k = num.pop("by_k")
+    per_run = {kind: by_k.get((kind, 1536), 0) for kind in ("qmm", "qmv")}
+    say(f"  launches by (kernel, K) in the counted run: "
+        f"{json.dumps({f'{n}@K{k}': c for (n, k), c in sorted(by_k.items())})}")
+    _s17_exact("hotpick serving at K 1536", per_run,
+               {"qmm": L, "qmv": L * (HOT_NEW - 1)})
+    del qp2
+    torch.cuda.empty_cache()
+    return ({"hotpick_calibration": calib_counts, "hotpick_serve": serve},
+            dict(serve=num, calib_ms=(t1 - t0) * 1e3,
+                 pick_ms=(t2 - t1) * 1e3, k1536=per_run))
+
+
+def k1536_phase(torch, gen) -> dict:
+    """Rows 3 and 4 at the picked ``down``'s K 1536 (N 1024, INT4 g128):
+    against their plain versions at the served m (B·P = 4096 and B = 32),
+    timed beside the library's product on the dequantized weight and the
+    bound, 12 layers' weights cycled as ``qmatmul_phase`` times them."""
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.ops.kernels import matmul as km
+    from koifish_tpu_torch.quant.rtn import quantize
+    K, N, n_layers = 1536, 1024, 12
+    out = {}
+    for kind, m in (("qmm", HOT_B * HOT_P), ("qmv", HOT_B)):
+        ws = [quantize(torch.randn((K, N), generator=gen, device="cuda")
+                       * 0.02, QFormat.INT4, group=128)
+              for _ in range(n_layers)]
+        x = torch.randn((m, K), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        y = km.qmatmul(x, ws[0])
+        ref = km.qmatmul_plain(x, ws[0].codes, ws[0].scales, ws[0].fmt,
+                               ws[0].group)
+        torch.cuda.synchronize()
+        err = max_err(y, ref)
+        check(f"{kind} K{K} m{m} N{N} INT4 (HotPick's picked down)", err,
+              1e-2 * float(ref.float().abs().max()) + 1e-3)
+        deq = [w.dequantize(torch.bfloat16) for w in ws[:4]]
+        kms = time_ms(torch, lambda: [km.qmatmul(x, w) for w in ws],
+                      iters=5) / n_layers
+        pms = time_ms(torch, lambda: km.qmatmul_plain(
+            x, ws[0].codes, ws[0].scales, ws[0].fmt, ws[0].group), iters=3)
+        lms = time_ms(torch, lambda: [torch.matmul(x, w) for w in deq],
+                      iters=5) / len(deq)
+        bms, by = bound_ms(m * K * 2 + K * N // 2 + (K // 128) * N * 4
+                           + m * N * 2, 2.0 * m * K * N)
+        say(f"  time {kind} K{K} N{N} m{m} INT4: kernel_ms={kms:.4f} "
+            f"plain_ms={pms:.4f} library_ms(matmul on dequantized bf16)="
+            f"{lms:.4f} bound_ms={bms:.5f} ({by}); max_abs_err {err:.3e}")
+        out[kind] = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                         bound_by=by, max_abs_err=err)
+        del ws, deq
+    return out
+
+
+def s17_reference_check(torch) -> None:
+    """Tiny cards of each family on the card against the CPU (SR off):
+    one train step of GUPPY, LLAMA_VAE, a QKV/GAU/BROWN hybrid, MAMBA and
+    SALMON (loss 1e-2, grad norms 2 %, updated params within 2·lr + 1 ulp);
+    prefill logits 5e-2 and greedy tokens 75 % of a GUPPY model and of a
+    picked (HotPick) INT4 model; SALMON's greedy ``diffusion_generate``
+    75 %."""
+    import dataclasses
+    from koifish_tpu_torch.config import (ModelCard, QuantCard, SamplerCard,
+                                          TrainCard)
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.models.hotpick import ffn_activation_energy, pick_hot
+    from koifish_tpu_torch.models.salmon import diffusion_generate
+    from koifish_tpu_torch.quant import quantize_params
+    from koifish_tpu_torch.serve import cache_for, generate, prefill
+    from koifish_tpu_torch.utils.tree import tree_map
+    tiny = dict(vocab_size=512, n_layer=2, n_embd=128, n_head=2,
+                n_kv_head=1, head_dim=64, n_ffn=256, n_ctx=64, max_pos=128)
+    tcard = TrainCard(batch=4, lr=1e-3, warmup=0, scheduler="static",
+                      stochastic_round=False, check_tensor_norm=True)
+    hybrid = dataclasses.replace(ModelCard.from_arch("QWEN3", **dict(
+        tiny, n_layer=3, n_kv_head=2)), gau_layers=(1,), brown_layers=(2,))
+    cards = [("GUPPY", ModelCard.from_arch("GUPPY", **tiny)),
+             ("LLAMA_VAE", ModelCard.from_arch("LLAMA_VAE", token_embeds=(
+                 32,), **tiny)),
+             ("QKV/GAU/BROWN hybrid", hybrid),
+             ("MAMBA", ModelCard.from_arch("MAMBA", **tiny)),
+             ("SALMON", ModelCard.from_arch("SALMON", **tiny))]
+    for label, card in cards:
+        # wte also feeds Guppy's rows and the VAE: the §2 grad-norm gate
+        _step_card_vs_cpu(torch, f"tiny {label} train step", card, tcard,
+                          511, 1e-2, 2e-2, 2e-2)
+    prompt = torch.randint(0, 511, (4, 40),
+                           generator=torch.Generator().manual_seed(173))
+    qc = QuantCard.from_json({"self_attn": {"bits": 4}, "mlp": {"bits": 4},
+                              "group_size": 128})
+    guppy = cards[0][1]
+    hot = ModelCard.from_arch("QWEN3", **dict(tiny, n_ffn=512))
+    p_hot = quantize_params(init_params(hot, device="cpu", seed=174), qc,
+                            hot, device="cpu")
+    energies = ffn_activation_energy(hot, p_hot, prompt)
+    hot2, p_hot2 = pick_hot(hot, p_hot, energies, keep=0.5)
+    e_dev = ffn_activation_energy(hot, tree_map(lambda t: t.to("cuda"),
+                                                p_hot), prompt.to("cuda"))
+    check("tiny HotPick activation energies, card vs CPU (relative)",
+          max(max_err(a, b.cpu()) / float(a.abs().max())
+              for a, b in zip(energies, e_dev)), 5e-2)
+    for label, card, p_cpu in (
+            ("GUPPY", guppy, init_params(guppy, device="cpu", seed=175)),
+            ("HotPick INT4 (down K 256)", hot2, p_hot2)):
+        p_dev = tree_map(lambda t: t.to("cuda"), p_cpu)
+        out = {}
+        for dev, params in (("cpu", p_cpu), ("cuda", p_dev)):
+            c = cache_for(card, 4, 64, fmt=QFormat.INT8, layered=True,
+                          device=dev)
+            logits, _ = prefill(card, params, prompt.to(dev), c, fresh=True,
+                                device=dev)
+            c = cache_for(card, 4, 64, fmt=QFormat.INT8, layered=True,
+                          device=dev)
+            toks, _ = generate(card, params, prompt, c,
+                               sampler=SamplerCard(temperature=0.0),
+                               max_new_tokens=12, decode_chunk=4, device=dev)
+            out[dev] = (logits.cpu(), toks.cpu())
+        check(f"tiny {label} prefill logits, card vs CPU",
+              max_err(out["cpu"][0], out["cuda"][0]), 5e-2)
+        _agree(f"tiny {label} generate", out["cpu"][1], out["cuda"][1])
+    # untied: a tied head's random embeddings make every masked position
+    # predict the mask id itself, which would leave nothing to compare
+    salmon = dataclasses.replace(cards[4][1], tie_embeddings=False)
+    p_cpu = init_params(salmon, device="cpu", seed=176)
+    out = [diffusion_generate(salmon, p, prompt[:, :16].to(d), 32, steps=4
+                              ).cpu()
+           for d, p in (("cpu", p_cpu),
+                        ("cuda", tree_map(lambda t: t.to("cuda"), p_cpu)))]
+    say(f"  tiny SALMON diffusion_generate: {int((out[0][:, 16:] == 511).sum())}"
+        f" of {out[0][:, 16:].numel()} generated tokens are the mask id")
+    _agree("tiny SALMON diffusion_generate", out[0][:, 16:], out[1][:, 16:])
+
+
+def slice17_phase(torch) -> tuple:
+    """Slice 17: the rest of the model zoo at published widths on the card,
+    every weight seeded: (a) GUPPY (Qwen3-0.6B) trained, then served on its
+    evaluation sample; (b) LLAMA_VAE (Qwen3-0.6B, token_embeds [192]);
+    (c) GPT2-124M's widths with QKV/GAU/BROWN layers (serving raises);
+    (d) mamba-130m; (e) SALMON at qwen2.5-0.5b's widths, trained and
+    diffusion-generated; (f) HotPick on slice 1's INT4 model, served at K
+    1536; rows 3 and 4 at K 1536 against their plain versions; the tiny
+    card-vs-CPU gates. Returns ({path: launches}, k1536 kernel numbers,
+    the K 1536 launches of the HotPick serving run)."""
+    root = os.path.join(ROOT, "build", "slice17")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    runs, numbers = {}, {}
+    say("[slice17] (a) GUPPY: configs/qwen3_0.6b.json with arch GUPPY, bf16")
+    r, numbers["guppy"] = s17_guppy(torch, root, gen)
+    runs.update(r)
+    say("[slice17] (b) LLAMA_VAE: configs/qwen3_0.6b.json, token_embeds [192]")
+    r, numbers["llama_vae"] = s17_llama_vae(torch, root)
+    runs.update(r)
+    say("[slice17] (c) configs/gpt2_124m.json with QKV FFN / GAU / BROWN FFN "
+        "layers")
+    r, numbers["hybrid"] = s17_hybrid(torch, root)
+    runs.update(r)
+    say(f"[slice17] (d) mamba-130m (published config {json.dumps(MAMBA_130M)})")
+    r, numbers["mamba"] = s17_mamba(torch, root)
+    runs.update(r)
+    say("[slice17] (e) SALMON at the qwen2.5-0.5b preset's widths")
+    r, numbers["salmon"] = s17_salmon(torch, root)
+    runs.update(r)
+    r, numbers["hotpick"] = s17_hotpick(torch, gen)
+    runs.update(r)
+    k1536 = k1536_phase(torch, gen)
+    s17_reference_check(torch)
+    say(f"[slice17] phase: {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(runs)}")
+    return runs, k1536, numbers["hotpick"]["k1536"]
+
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5299,6 +5852,7 @@ def main() -> None:
     ring, ring_counts = ring_phase(torch, g14)
     sp_counts = sp_train_phase(torch)
     zoo = zoo_phase(torch)
+    s17, k1536, k1536_launches = slice17_phase(torch)
 
     src = "koifish_tpu_torch/csrc/"
     rows = [  # (name, source, TPU kernel, numbers, launches on its path)
@@ -5392,6 +5946,12 @@ def main() -> None:
          _zoo_row7(dec, "zoo Qwen3-30B-A3B"),
          {"decode_attn_write_qwen3_moe":
           zoo["zoo_qwen3_moe"].get("kv_write", 0)}),
+        # rows 3 and 4 at HotPick's picked down (K 1536), launched by its
+        # serving run
+        ("qmm_k1536", "qmm.cu", "koifish_tpu/ops/pallas/matmul.py:305",
+         k1536["qmm"], {"qmm_k1536": k1536_launches["qmm"]}),
+        ("qmv_k1536", "qmatmul.cu", "koifish_tpu/ops/pallas/matmul.py:201",
+         k1536["qmv"], {"qmv_k1536": k1536_launches["qmv"]}),
     ]
     kernels = [dict(name=n, route="cuda", source=src + f, replaces=r,
                     launches=c.get(n, 0), max_abs_err=m["max_abs_err"],
@@ -5416,16 +5976,20 @@ def main() -> None:
     # the zoo's shape rows of row 7's fused entry: their own generate run
     own_path = {"decode_attn_write_mla": "zoo_mla",
                 "decode_attn_write_qwen3_moe": "zoo_qwen3_moe"}
-    for k in kernels:   # slices 13, 14 and 16's paths: launches in each
+    for k in kernels:   # slices 13, 14, 16 and 17's paths: launches in each
         if k["name"] in own_path:
             p = own_path[k["name"]]
             k["launches_by_path"] = {p: zoo[p].get("kv_write", 0)}
+            continue
+        if k["name"].endswith("_k1536"):
+            k["launches_by_path"] = {"hotpick_serve": k["launches"]}
             continue
         k["launches_by_path"] = {p: c.get(k["name"], 0) + (
             c.get("kv_write", 0) if k["name"] in ("slot_write",
                                                   "decode_attn_write")
             else 0)
-            for p, c in dict(s13, koifish_sp4=sp_counts, **zoo).items()}
+            for p, c in dict(s13, koifish_sp4=sp_counts, **zoo,
+                             **s17).items()}
         if k["name"] == "ring_attn":   # the ring at sp 2, 4 and 8
             k["eager_ms"] = ring["eager_ms"]
             k["by_sp"] = ring["by_sp"]

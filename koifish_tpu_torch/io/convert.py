@@ -26,12 +26,15 @@ from koifish_tpu_torch.utils.tree import leaves as _leaves
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
-    """One numpy array (bf16 as ml_dtypes.bfloat16) -> tensor on device."""
+    """One numpy array (bf16 as ml_dtypes.bfloat16) -> tensor on device, of
+    the array's shape (a 0-d leaf, such as Guppy's ``guppy_gain``, stays
+    0-d: ``np.ascontiguousarray`` alone would give it one dimension)."""
     a = np.asarray(a)
+    c = np.ascontiguousarray(a).reshape(a.shape)
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+        return torch.from_numpy(c.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(c.copy()).to(device)
 
 
 def _fmt(f) -> QFormat:

@@ -18,12 +18,19 @@ MoE layers (all layers, or ``card.moe_layers``) hold ``router``,
 MLA cards (``card.attn == "mla"``) hold the latent projections of
 ``models/mla.py`` in place of ``q``, ``k``, ``v``.
 
+The rest of the zoo: a MAMBA card's layers hold ``ln1`` and the selective-
+SSM leaves of ``models/mamba.py``; GAU layers (``card.gau_layers``) hold
+``ln1`` and ``models/gau.py``'s leaves in place of the attention and FFN;
+BROWN layers (``card.brown_layers``) ``models/brown.py``'s learned table in
+place of the attention, with the FFN kept; a GUPPY card's FFN is
+``guppy_gain`` over sampled wte rows (``models/guppy.py``, injected as
+``guppy_rows`` by ``model_forward``); a LLAMA_VAE card's embedding goes
+through the ``evae`` latent stack (``models/embed_vae.py``).
+
 Any weight-matrix leaf may be a QTensor; ``ops/matmul`` dispatches.
 Training differentiates ``model_forward`` with autograd (bf16 leaves with
 ``requires_grad``); ``remat`` recomputes blocks in the backward through
-``torch.utils.checkpoint``. The rest of the JAX package's model zoo (Mamba,
-GAU, BROWN, Guppy, EmbedVAE) is not ported yet and is refused by
-``init_params`` and ``model_forward``.
+``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
@@ -37,6 +44,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from koifish_tpu_torch.config import ModelCard
 from koifish_tpu_torch.dtypes import QFormat
+from koifish_tpu_torch.models.brown import brown_attn, init_brown_layer
+from koifish_tpu_torch.models.embed_vae import decode, encode, init_embed_vae
+from koifish_tpu_torch.models.gau import gau_block, init_gau_layer
+from koifish_tpu_torch.models.guppy import guppy_ffn, inject_rows
+from koifish_tpu_torch.models.mamba import (init_mamba_layer, mamba_block,
+                                            mamba_in, mamba_out,
+                                            selective_scan)
 from koifish_tpu_torch.models.mla import init_mla_layer, mla_qkv
 from koifish_tpu_torch.models.moe import init_moe_layer, moe_ffn
 from koifish_tpu_torch.ops.attention import causal_attention
@@ -52,19 +66,6 @@ from koifish_tpu_torch.utils.device import resolve_device
 Params = Dict[str, Any]
 
 
-def _check_ported(card: ModelCard) -> None:
-    """Refuse the model-zoo layers that are not ported yet."""
-    unported = [what for what, on in (
-        (card.arch, card.arch in ("MAMBA", "GUPPY", "LLAMA_VAE")),
-        (f"GAU layers {card.gau_layers}", bool(card.gau_layers)),
-        (f"BROWN layers {card.brown_layers}", bool(card.brown_layers)))
-        if on]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)}: not ported to koifish_tpu_torch yet "
-            f"(ROADMAP.md queue 1, the model zoo)")
-
-
 def _is_moe_layer(card: ModelCard, li: int) -> bool:
     return card.n_experts > 0 and (not card.moe_layers
                                    or li in card.moe_layers)
@@ -75,7 +76,6 @@ def init_params(card: ModelCard, generator: Optional[torch.Generator] = None,
     """GPT2-style init: normal(0.02), residual-out projections scaled by
     1/sqrt(2L). Random weights come from ``generator`` (a torch.Generator on
     ``device``), or from one seeded with ``seed``."""
-    _check_ported(card)
     dev = resolve_device(device)
     gen = generator
     if gen is None:
@@ -104,9 +104,31 @@ def init_params(card: ModelCard, generator: Optional[torch.Generator] = None,
     if not card.tie_embeddings:
         params["head"] = nrm((E, card.vocab_size))
 
+    if card.arch == "LLAMA_VAE":
+        # the token embedding factored through the EmbedVAE latent stack
+        # (reference LLAMA_VAE, gLLM.hpp:163-182; latent_dim default 192)
+        params["evae"] = init_embed_vae(
+            gen, [E] + list(card.token_embeds or (192,)), dtype=dtype,
+            device=dev)
+
     layers: List[Params] = []
     for li in range(L):
-        if card.attn == "mla":
+        if card.arch == "MAMBA":
+            lp = {"ln1": ones(E)}
+            lp.update(init_mamba_layer(card, gen, dtype, dev))
+            layers.append(lp)
+            continue
+        if li in card.gau_layers:
+            # a GAU block replaces the whole (attention, FFN) pair
+            lp = {"ln1": ones(E)}
+            lp.update(init_gau_layer(card, gen, dtype, dev))
+            layers.append(lp)
+            continue
+        if li in card.brown_layers:
+            # BROWN replaces the attention; the FFN stays
+            lp = {"ln1": ones(E), "ln2": ones(E)}
+            lp.update(init_brown_layer(card, gen, dtype, dev))
+        elif card.attn == "mla":
             lp = {"ln1": ones(E), "ln2": ones(E)}
             lp.update(init_mla_layer(card, gen, dtype, dev))
         else:
@@ -116,15 +138,19 @@ def init_params(card: ModelCard, generator: Optional[torch.Generator] = None,
         if card.norm == "layernorm":
             lp["ln1_b"] = zeros(E)
             lp["ln2_b"] = zeros(E)
-        if card.qkv_bias:
+        if card.qkv_bias and "brown_w" not in lp:
             lp["q_b"] = zeros(Hq * D)
             lp["k_b"] = zeros(Hkv * D)
             lp["v_b"] = zeros(Hkv * D)
-        if card.qk_norm:
+        if card.qk_norm and "brown_w" not in lp:
             lp["qn"] = ones(D)
             lp["kn"] = ones(D)
         if _is_moe_layer(card, li):
             lp.update(init_moe_layer(card, gen, dtype, dev))
+        elif card.arch == "GUPPY":
+            # the vocab-memory FFN: sampled wte rows (models/guppy.py),
+            # only a gain is learned here
+            lp["guppy_gain"] = torch.ones((), dtype=dtype, device=dev)
         elif card.act == "swiglu":
             lp["gate"] = nrm((E, F))
             lp["up"] = nrm((E, F))
@@ -163,7 +189,12 @@ def gather_embed(wte, tokens: torch.Tensor) -> torch.Tensor:
 
 def embed_tokens(card: ModelCard, params: Params, tokens: torch.Tensor
                  ) -> torch.Tensor:
-    return gather_embed(params["wte"], tokens)
+    """The token embedding, through the LLAMA_VAE latent stack where the
+    params hold one: the training forward's and the prefill's entry."""
+    x = gather_embed(params["wte"], tokens)
+    if "evae" in params:
+        x = decode(params["evae"], encode(params["evae"], x))
+    return x
 
 
 def _norm(card: ModelCard, x, w, b=None, residual=None):
@@ -204,6 +235,8 @@ def qkv_project(card: ModelCard, lp: Params, x: torch.Tensor, cos, sin,
 def mlp(card: ModelCard, lp: Params, x: torch.Tensor) -> torch.Tensor:
     if "router" in lp:
         return moe_ffn(card, lp, x)
+    if "guppy_gain" in lp:
+        return guppy_ffn(lp, x)
     if card.act == "swiglu":
         g = _linear_l(x, lp, "gate")
         u = _linear_l(x, lp, "up")
@@ -218,6 +251,15 @@ def mlp(card: ModelCard, lp: Params, x: torch.Tensor) -> torch.Tensor:
 def layer_forward(card: ModelCard, lp: Params, x: torch.Tensor, cos, sin,
                   positions, window: int = 0) -> torch.Tensor:
     """One transformer block over a full sequence (prefill / forward)."""
+    if card.arch == "MAMBA":
+        return x + mamba_block(card, lp, _norm(card, x, lp["ln1"],
+                                               lp.get("ln1_b")))
+    if "upU" in lp:      # a GAU block: no separate FFN
+        return gau_block(card, lp, x, cos, sin, positions)
+    if "brown_w" in lp:  # BROWN learned attention, then the FFN
+        x = brown_attn(card, lp, x, cos, sin, positions)
+        h = _norm(card, x, lp["ln2"], lp.get("ln2_b"))
+        return x + mlp(card, lp, h)
     h = _norm(card, x, lp["ln1"], lp.get("ln1_b"))
     q, k, v = qkv_project(card, lp, h, cos, sin, positions)
     a = causal_attention(q, k, v, window=window, causal=card.causal)
@@ -263,6 +305,8 @@ def _remat_block(remat, window: int):
             create_selective_checkpoint_contexts, _dots_policy)
 
     def block(card, lp, x, cos, sin, positions):
+        if card.arch == "MAMBA":
+            return _mamba_remat(card, lp, x, kw)
         pol, sp = current_int8(), current_sp()
 
         def run(*args):
@@ -273,20 +317,36 @@ def _remat_block(remat, window: int):
     return block
 
 
+def _mamba_remat(card: ModelCard, lp: Params, x: torch.Tensor, kw: dict
+                 ) -> torch.Tensor:
+    """A Mamba layer under remat: the norm and projections before the scan
+    and the gate and projection after it are recomputed in the backward;
+    the scan is not, since it keeps only its inputs and its backward
+    rebuilds its state (``mamba.SelectiveScan``)."""
+    def pre(lp, x):
+        return mamba_in(card, lp, _norm(card, x, lp["ln1"], lp.get("ln1_b")))
+    u, dt, A, Bm, Cm, z = checkpoint(pre, lp, x, use_reentrant=False, **kw)
+    y = selective_scan(u, dt, A, Bm, Cm)
+    return x + checkpoint(mamba_out, lp, y, u, z, use_reentrant=False, **kw)
+
+
 def model_forward(card: ModelCard, params: Params, tokens: torch.Tensor,
                   positions: Optional[torch.Tensor] = None, window: int = 0,
                   return_hidden: bool = False, remat=False,
-                  logits_dtype=torch.float32) -> torch.Tensor:
+                  logits_dtype=torch.float32,
+                  guppy_samps=None) -> torch.Tensor:
     """Full-sequence forward: tokens [B, T] -> logits [B, T, V] in
     ``logits_dtype`` (training takes bf16), or the final-norm hidden states
     [B, T, E] with ``return_hidden``. ``remat``: False, True (recompute
-    each block in the backward) or "dots" (keep the matmul outputs)."""
-    _check_ported(card)
+    each block in the backward) or "dots" (keep the matmul outputs).
+    ``guppy_samps`` [L, F]: a GUPPY card's FFN rows (None: the evaluation
+    sample), unless the params already hold them."""
     B, T = tokens.shape
     dev = tokens.device
     if positions is None:
         positions = torch.arange(T, dtype=torch.int64, device=dev)
     window = window or card.window
+    params = inject_rows(card, params, guppy_samps)
     x = embed_tokens(card, params, tokens)
     if card.pos_embed == "learned":
         x = x + params["wpe"][positions.long()]

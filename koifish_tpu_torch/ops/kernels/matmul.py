@@ -315,5 +315,5 @@ def _forward(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
                 else work.data_ptr(), m, K, N, *fmt, gps, stream)
         name = GEMM if book is None else BOOK_GEMM
     _build.check(lib, rc, f"{name} x{tuple(x2.shape)} {w.fmt.name}")
-    kernel_log.count(name)
+    kernel_log.count(name, k=K)
     return out

@@ -14,9 +14,9 @@ Keys cost m/8 bytes + 4 norm bytes instead of 2D bytes (D = 128, m = 256:
 package's is ``jnp``.
 
 The projection is the JAX package's ``jax.random.normal(PRNGKey(seed),
-(D, m), float32)``, drawn here without JAX (``_jax_normal``): threefry2x32
-over the flat element index (JAX's partitionable bits, the default), the
-same uniform map bit for bit, then ``sqrt(2)·erfinv(u)`` through the
+(D, m), float32)``, drawn here without JAX (``_jax_normal``): the threefry
+bits and uniform of ``utils/prng.py`` over the flat element index (JAX's
+partitionable bits, the default), then ``sqrt(2)·erfinv(u)`` through the
 polynomial XLA lowers ``erf_inv`` to (Giles' single-precision one), its
 products and sums fused as FMAs are. The uint32 bits and the uniforms equal
 JAX's exactly; the normals lie within a few f32 ulps of JAX's (XLA's CPU
@@ -31,6 +31,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from koifish_tpu_torch.utils import prng
+
 _SQRT_PI_OVER_2 = 1.2533141373155003
 
 # Giles' erfinv for f32 (the constants XLA's ErfInv32 uses): w < 5 and
@@ -43,48 +45,24 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                0.00943887047, 1.00167406, 2.83297682)
 
 
-def _rotl(x: np.ndarray, r: int) -> np.ndarray:
-    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
-
-
-def threefry2x32(k0: int, k1: int, x0: np.ndarray, x1: np.ndarray
-                 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Threefry-2x32 (20 rounds, JAX's ``threefry2x32_p``) of the counter
-    words ``x0``, ``x1`` (uint32 arrays) under the key (k0, k1)."""
-    ks = (np.uint32(k0), np.uint32(k1), np.uint32(k0 ^ k1 ^ 0x1BD11BDA))
-    rots = ((13, 15, 26, 6), (17, 29, 16, 24))
-    x0, x1 = x0 + ks[0], x1 + ks[1]
-    for i in range(5):
-        for r in rots[i % 2]:
-            x0 = x0 + x1
-            x1 = _rotl(x1, r) ^ x0
-        x0 = x0 + ks[(i + 1) % 3]
-        x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
-    return x0, x1
-
-
 def jax_random_bits(seed: int, shape) -> np.ndarray:
     """``jax.random.bits(PRNGKey(seed), shape, uint32)``: the key is (hi,
-    lo) of the seed; element i hashes the 64-bit counter i (hi, lo words)
-    and keeps the xor of the two output words."""
-    n = int(np.prod(shape))
-    i = np.arange(n, dtype=np.uint64)
-    hi = (i >> np.uint64(32)).astype(np.uint32)
-    lo = (i & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    y0, y1 = threefry2x32((seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF, hi, lo)
-    return (y0 ^ y1).reshape(shape)
+    lo) of the seed (``utils/prng.random_bits``)."""
+    return prng.random_bits(_key(seed), shape)
 
 
 def jax_uniform(seed: int, shape) -> np.ndarray:
     """``jax.random.uniform(PRNGKey(seed), shape, float32, nextafter(-1,
-    0), 1)``, the draw under ``jax.random.normal``: 23 mantissa bits into
-    [1, 2), minus one, scaled to the range in f32."""
-    bits = jax_random_bits(seed, shape)
-    f = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32)
-    f = f - np.float32(1.0)
-    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
-    hi = np.float32(1.0)
-    return np.maximum(lo, f * (hi - lo) + lo)
+    0), 1)``, the draw under ``jax.random.normal`` (``utils/prng.uniform``).
+    Over this range the span rounds to 2 in f32, so the scale is exact and
+    the fused and the unfused scale-and-shift round alike."""
+    return prng.uniform(_key(seed), shape,
+                        np.nextafter(np.float32(-1.0), np.float32(0.0)), 1.0)
+
+
+def _key(seed: int) -> np.ndarray:
+    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                    dtype=np.uint32)
 
 
 def _erfinv_f32(x: np.ndarray) -> np.ndarray:

@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from koifish_tpu_torch.config import ModelCard, SamplerCard
+from koifish_tpu_torch.models.guppy import inject_rows
 from koifish_tpu_torch.models.transformer import (
     Params, _linear_l, _norm, embed_tokens, lm_head, mlp, qkv_project)
 from koifish_tpu_torch.ops.attention import causal_attention
@@ -65,6 +66,18 @@ def prefill(card: ModelCard, params: Params, tokens: torch.Tensor, cache,
     — attention runs in-chunk through the flash kernel."""
     dev = resolve_device(device)
     _check_inputs(params, tokens, cache, dev)
+    # a GUPPY card serves its fixed evaluation sample; a no-op where the
+    # caller injected the rows already
+    params = inject_rows(card, params, None)
+    if card.gau_layers:
+        raise NotImplementedError(
+            "GAU blocks are train/forward only: serving needs a v-gate "
+            "cache (the reference cannot build GAU at all — models/gau.py)")
+    if card.brown_layers:
+        raise NotImplementedError(
+            "BROWN layers are train/forward only: the learned attention "
+            "is bounded at n_ctx and the reference never serves it "
+            "(models/brown.py)")
     B, T = tokens.shape
     start = int(cache.pos[0])                  # uniform-start batch
     if start + T > cache.size:
@@ -231,6 +244,11 @@ def generate(card: ModelCard, params: Params, prompt: torch.Tensor, cache,
     seeded with ``sampler.seed``). ``decode_params``: params for the decode
     steps, e.g. layer-stacked (``serve/stacked.stack_layers``)."""
     dev = resolve_device(device)
+    if card.arch == "GUPPY":
+        # inject the evaluation sample's rows once, for every step
+        params = inject_rows(card, params, None)
+        if decode_params is None:
+            decode_params = params
     dparams = unstack_layers(card, decode_params if decode_params is not None
                              else params)
     sampler = sampler or SamplerCard()

@@ -26,6 +26,7 @@ import torch
 
 from koifish_tpu_torch.config import ModelCard
 from koifish_tpu_torch.dtypes import QFormat
+from koifish_tpu_torch.models.guppy import inject_rows
 from koifish_tpu_torch.models.transformer import (
     Params, _linear_l, _norm, gather_embed, lm_head, mlp, qkv_project)
 from koifish_tpu_torch.ops.attention import decode_attention
@@ -115,7 +116,7 @@ def decode_step_layered(card: ModelCard, params: Params, token: torch.Tensor,
     or layer-stacked leaves (``serve/stacked.py``), which are taken apart
     here. ``streaming=False`` skips the per-step sink re-rope — sound
     whenever no row's pos can reach the window in this step."""
-    params = unstack_layers(card, params)
+    params = unstack_layers(card, inject_rows(card, params, None))
     B = token.shape[0]
     dev = token.device
     # unclamped positions with direct rope, so angles keep advancing past

@@ -15,9 +15,12 @@ import dataclasses
 import time
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 
 from koifish_tpu_torch.config import ModelCard, TrainCard
+from koifish_tpu_torch.models.guppy import sample_ids
+from koifish_tpu_torch.models.salmon import diffusion_loss
 from koifish_tpu_torch.models.transformer import model_forward
 from koifish_tpu_torch.ops.cross_entropy import (cross_entropy_loss,
                                                  fused_ce_loss)
@@ -27,7 +30,7 @@ from koifish_tpu_torch.quant.qtensor import QTensor
 from koifish_tpu_torch.train.optimizer import (OptState, _is_float,
                                                apply_updates, init_opt_state)
 from koifish_tpu_torch.train.schedule import lr_at
-from koifish_tpu_torch.utils import kernel_log
+from koifish_tpu_torch.utils import kernel_log, prng
 from koifish_tpu_torch.utils.tree import leaves, unflatten_like
 
 
@@ -39,32 +42,59 @@ class TrainState:
 
 
 def compute_loss(card: ModelCard, params, tokens, loss_mask=None,
-                 remat=False, qcard=None, fused_ce=None):
+                 remat=False, qcard=None, fused_ce=None, rng=None):
     """Next-token CE over [B, T+1] tokens (targets = tokens shifted):
     (mean_loss, per_token [B, T]). ``fused_ce``: None = auto (the logits-
     free fused classifier for vocab >= 64k), True/False force it.
     ``qcard`` with rules: fake-quant QAT (straight-through) in the forward,
     except for scale-only ("gama") training, where the params already hold
-    QTensors whose scales take the gradient (``ops/kernels/matmul.py``)."""
+    QTensors whose scales take the gradient (``ops/kernels/matmul.py``).
+    SALMON (the diffusion LM) takes the masked-reconstruction loss instead,
+    its t and mask drawn from ``rng``; GUPPY resamples its FFN rows from
+    ``rng`` (a uint32 [2] threefry key, ``utils/prng.py``; None:
+    PRNGKey(0), as in the JAX package)."""
     if qcard is not None and qcard.rules and qcard.train_target != "gama":
         from koifish_tpu_torch.quant.qat import apply_qat
         params = apply_qat(params, qcard, card)
-    if card.arch in ("SALMON", "GUPPY"):
-        raise NotImplementedError(
-            f"{card.arch} training is not ported yet (ROADMAP.md queue 1, "
-            f"the model zoo)")
+    key = rng if rng is not None else prng.prng_key(0)
+    if card.arch == "SALMON":
+        return diffusion_loss(card, params, tokens[:, :-1], key,
+                              loss_mask=loss_mask[:, :-1]
+                              if loss_mask is not None else None)
     targets = tokens[:, 1:]
     mask = loss_mask[:, 1:] if loss_mask is not None else None
+    guppy_samps = None
+    if card.arch == "GUPPY":
+        # resample the vocab-memory FFN rows every step (the reference's
+        # Guppy::BeforeNextStep / FFN::UpdateSamps(iter*nLayer+l))
+        guppy_samps = sample_ids(card, key)
     head = params.get("head", params["wte"])
     use_fused = fused_ce if fused_ce is not None else card.vocab_size >= 65536
     if use_fused and not isinstance(head, QTensor):
         hidden = model_forward(card, params, tokens[:, :-1], remat=remat,
-                               return_hidden=True)
+                               return_hidden=True, guppy_samps=guppy_samps)
         head_w = head if "head" in params else head.T
         return fused_ce_loss(hidden, head_w, targets, mask)
     logits = model_forward(card, params, tokens[:, :-1], remat=remat,
-                           logits_dtype=torch.bfloat16)
+                           logits_dtype=torch.bfloat16,
+                           guppy_samps=guppy_samps)
     return cross_entropy_loss(logits, targets, mask)
+
+
+def step_key(seed: int, step: int, memo: Optional[dict] = None
+             ) -> np.ndarray:
+    """The JAX train step's key at ``step``: fold_in(rng_n, n) with rng_n
+    the state's key after n steps from ``init_train_state`` (PRNGKey(seed),
+    split once a step, its first half kept). ``memo`` carries the last
+    (n, rng_n) so a loop advances one split a step."""
+    memo = {} if memo is None else memo
+    n, key = memo.get("at", (0, prng.prng_key(seed)))
+    if step < n:
+        n, key = 0, prng.prng_key(seed)
+    while n < step:
+        key, n = prng.split(key)[0], n + 1
+    memo["at"] = (n, key)
+    return prng.fold_in(key, step)
 
 
 def _sr_on(tcard: TrainCard) -> bool:
@@ -106,6 +136,9 @@ def make_train_step(card: ModelCard, tcard: TrainCard, total_steps: int,
     sr_on = _sr_on(tcard)
     frozen = ([not t for t in leaves(trainable)] if trainable is not None
               else None)
+    # GUPPY and SALMON draw from the JAX package's step keys
+    draws = card.arch in ("GUPPY", "SALMON")
+    key_memo: dict = {}
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         with int8_scope(int8_pol), sp_scope(sp):
@@ -128,12 +161,17 @@ def make_train_step(card: ModelCard, tcard: TrainCard, total_steps: int,
                 p.requires_grad_(i in want)
         acc = None
         loss_sum = 0.0
+        step_rng = (step_key(tcard.seed, int(state.opt.step), key_memo)
+                    if draws else None)
         for a in range(accum):
+            rng = step_rng
+            if draws and accum > 1:
+                rng = prng.fold_in(step_rng, a)
             loss, _ = compute_loss(
                 card, state.params, tokens[a],
                 loss_mask[a] if loss_mask is not None else None,
                 remat=tcard.remat, qcard=qcard,
-                fused_ce=getattr(tcard, "fused_ce", None))
+                fused_ce=getattr(tcard, "fused_ce", None), rng=rng)
             gs = torch.autograd.grad(loss, [flat[i] for i in diff],
                                      allow_unused=True)
             gs = [torch.zeros_like(flat[i]) if g is None else g

@@ -23,7 +23,10 @@ launch that also wrote the new token's K/V rows into their pages),
 ``fused_ce_dlogits_int8``, ``fused_ce_dx_int8``, ``fused_ce_dw_int8``,
 ``qdgrad_quant`` (the per-tile dgrad's quantize pass), ``qdgrad_int8_tile``
 (its GEMM), ``rowquant``, ``colquant`` and ``qmv_int8``. ``fallbacks`` counts the fallbacks of each kernel since the
-same reset, whether or not they were printed.
+same reset, whether or not they were printed. A wrapper whose kernel takes
+many reduction depths also passes ``k`` to ``count``, and
+``launches_by_k`` gives the launches of each (kernel, K) since the reset,
+so a run can show which of its launches had a given shape.
 """
 from __future__ import annotations
 
@@ -36,6 +39,8 @@ _verbose: Optional[bool] = None   # None = read env lazily
 
 #: kernel name -> launches since the last reset (plain ints)
 LAUNCHES: Dict[str, int] = {}
+#: (kernel name, reduction depth K) -> launches since the last reset
+LAUNCHES_BY_K: Dict[Tuple[str, int], int] = {}
 #: kernel name -> fallbacks to the plain path since the last reset
 FALLBACKS: Dict[str, int] = {}
 
@@ -92,18 +97,27 @@ def choice(kernel: str, desc: str) -> None:
     _emit("kernel choice", kernel, f"({desc})")
 
 
-def count(kernel: str) -> None:
-    """One launch of ``kernel`` (called by its wrapper at the launch)."""
+def count(kernel: str, k: Optional[int] = None) -> None:
+    """One launch of ``kernel`` (called by its wrapper at the launch), of
+    reduction depth ``k`` where the wrapper gives it."""
     LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1
+    if k is not None:
+        key = (kernel, int(k))
+        LAUNCHES_BY_K[key] = LAUNCHES_BY_K.get(key, 0) + 1
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    LAUNCHES_BY_K.clear()
     FALLBACKS.clear()
 
 
 def launches() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def launches_by_k() -> Dict[Tuple[str, int], int]:
+    return dict(LAUNCHES_BY_K)
 
 
 def fallbacks() -> Dict[str, int]:

@@ -97,7 +97,7 @@ def _meta_weight(K, N, book=False):
 
 @pytest.mark.parametrize("m, K, N, book", [
     (1, 1024, 1024, False), (32, 3072, 1024, False), (5, 256, 132, False),
-    (32, 1024, 2048, True),
+    (32, 1024, 2048, True), (32, 1536, 1024, False),
 ])
 def test_gemv_launch_takes_no_workspace(monkeypatch, m, K, N, book):
     """The GEMV (m <= 32) is one launch that allocates its bf16 output and
@@ -107,6 +107,7 @@ def test_gemv_launch_takes_no_workspace(monkeypatch, m, K, N, book):
     x = torch.empty((m, K), dtype=torch.bfloat16, device="meta")
     calls, allocs = _fake_launch(monkeypatch)
     before = dict(km.kernel_log.LAUNCHES)
+    before_k = km.kernel_log.launches_by_k()
     y = km._forward(x, w)
     _, gps, splits = km._plan(m, K, N)
     assert y.shape == (m, N) and y.dtype == torch.bfloat16
@@ -119,6 +120,10 @@ def test_gemv_launch_takes_no_workspace(monkeypatch, m, K, N, book):
     assert len(calls[0]) == (5 if book else 4) + len(tail)
     name = km.BOOK_GEMV if book else km.GEMV
     assert km.kernel_log.LAUNCHES.get(name, 0) == before.get(name, 0) + 1
+    # the launch is also counted under its K, and under no other K
+    after_k = km.kernel_log.launches_by_k()
+    assert {key: n - before_k.get(key, 0) for key, n in after_k.items()
+            if n != before_k.get(key, 0)} == {(name, K): 1}
 
 
 def test_gemm_launch_keeps_its_workspace(monkeypatch):

@@ -282,11 +282,13 @@ def test_remat_gives_the_same_grads(remat):
 
 
 def test_compute_loss_raises_for_unported_paths():
-    """What the port still refuses, each message naming its ROADMAP queue 1
-    subject: SALMON / GUPPY training (the model zoo). Sequence-parallel
-    steps are ported: ``sp`` takes an ``SPPolicy`` (anything else is a
-    TypeError; ``tests/test_torch_sp_train.py`` holds the step to JAX's).
-    Scale-only (gama) QAT is ported: its QuantCard applies no fake
+    """``compute_loss`` refuses nothing the JAX package takes any more.
+    Sequence-parallel steps are ported: ``sp`` takes an ``SPPolicy``
+    (anything else is a TypeError; ``tests/test_torch_sp_train.py`` holds
+    the step to JAX's). SALMON and GUPPY training are ported (the model
+    zoo): each gives a finite loss, SALMON's the diffusion ELBO and not
+    the next-token CE (``tests/test_torch_zoo_guppy_salmon.py`` holds both
+    to JAX). Scale-only (gama) QAT is ported: its QuantCard applies no fake
     quantization, so the loss of plain params is the loss without a
     QuantCard, bit for bit."""
     from koifish_tpu_torch.ops.tracectx import SPPolicy
@@ -299,11 +301,12 @@ def test_compute_loss_raises_for_unported_paths():
     assert callable(ttrainer.make_train_step(
         card, TrainCard(), 10,
         sp=SPPolicy("sp", make_mesh({"sp": 2}, devices="cpu"))))
+    ce = ttrainer.compute_loss(card, params, tok)[0]
     for arch in ("SALMON", "GUPPY"):
         zoo = dataclasses.replace(card, arch=arch)
-        with pytest.raises(NotImplementedError,
-                           match="queue 1, the model zoo"):
-            ttrainer.compute_loss(zoo, params, tok)
+        loss = ttrainer.compute_loss(zoo, params, tok)[0]
+        assert bool(torch.isfinite(loss))
+        assert (float(loss) != float(ce)) == (arch == "SALMON")
     gama = QuantCard.from_json({"self_attn": {"bits": 4},
                                 "train_target": "gama"})
     loss, _ = ttrainer.compute_loss(card, params, tok, qcard=gama)

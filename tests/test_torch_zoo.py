@@ -188,18 +188,29 @@ def test_from_json_backbone_matches_jax(name, jm):
 
 @pytest.mark.parametrize("jm", [GAU_JM, BROWN_JM], ids=["gau", "brown"])
 def test_gau_and_brown_models_name_the_zoo(jm):
-    """GAU and BROWN cards parse (as in JAX); building or running a model
-    of them raises and names the roadmap's item."""
+    """GAU and BROWN cards parse (as in JAX) and, since their layers are
+    ported, build the JAX package's leaves and run forward; serving one
+    raises ``NotImplementedError`` naming the zoo module, as the JAX
+    package's ``prefill`` does (``tests/test_torch_zoo_gau_brown.py``
+    holds them to JAX)."""
     card = ModelCard.from_json(jm)
     assert card.gau_layers or card.brown_layers
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, the model zoo"):
-        init_params(card, device="cpu")
-    dense = dataclasses.replace(card, gau_layers=(), brown_layers=())
-    params = init_params(dense, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, the model zoo"):
-        model_forward(card, params, torch.zeros((1, 4), dtype=torch.long))
+    with torch_threads(1):
+        params = init_params(card, device="cpu")
+        jparams = j_init_params(JModelCard.from_json(jm),
+                                jax.random.PRNGKey(0))
+        assert [sorted(lp) for lp in params["layers"]] == \
+            [sorted(lp) for lp in jparams["layers"]]
+        logits = model_forward(card, params,
+                               torch.zeros((1, 4), dtype=torch.long))
+        assert logits.shape == (1, 4, card.vocab_size)
+        assert bool(torch.isfinite(logits).all())
+        cache = cache_for(card, 1, 16, device="cpu")
+        name = "gau" if card.gau_layers else "brown"
+        with pytest.raises(NotImplementedError,
+                           match=f"models/{name}.py"):
+            prefill(card, params, torch.zeros((1, 4), dtype=torch.long),
+                    cache, fresh=True, device="cpu")
 
 
 # ---------------------------------------------------------------------------

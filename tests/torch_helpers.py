@@ -156,3 +156,69 @@ def torch_threads(n: int):
         yield
     finally:
         torch.set_num_threads(before)
+
+
+def zoo_cli_losses(tmp_path, monkeypatch, arch: str, extra_p=None,
+                   steps: int = 6, vocab: int = 300):
+    """The JAX ``koifish`` CLI and the port's on one tiny config of
+    ``tests/test_cli.py:482-520``'s shape (2 layers, E 64, a +1-pattern
+    shard) with stochastic rounding off, for ``steps`` steps: (JAX losses,
+    port losses, the port's ``result``). The port starts from the JAX
+    init: ``koifish_tpu_torch.models.init_params`` is patched to carry the
+    JAX package's ``init_params(card, PRNGKey(seed))`` across, the weights
+    JAX's ``init_train_state`` draws."""
+    import csv
+    import dataclasses
+    import json
+    import os
+
+    import jax
+    from koifish_tpu.cli import koifish as jkoifish
+    from koifish_tpu.config import ModelCard as JModelCard
+    from koifish_tpu.models import init_params as j_init_params
+
+    import koifish_tpu_torch.models as tmodels
+    from koifish_tpu_torch.cli import koifish
+    from koifish_tpu_torch.data import MAGIC_QWEN3, write_shard
+    from koifish_tpu_torch.io.convert import params_from_numpy
+
+    write_shard(str(tmp_path / "p_train_0.bin"),
+                (np.arange(40000) % 64).astype(np.uint32), MAGIC_QWEN3, vocab)
+    cfg = {
+        "model": {"arch": arch, "vocab_size": vocab, "parameter": dict(
+            {"Layer": 2, "transformer": {"Ctx": 32, "Embed": 64, "Ffn": 96,
+                                         "Head": 4, "KVHead": 4,
+                                         "head_dim": 16}},
+            **(extra_p or {}))},
+        "train": {"batch": 8, "learning-rate": 0.01, "dump-every": 5,
+                  "warmup": 3,
+                  "optimizatioin": {"method": "adamw", "grad_accumulation": 1,
+                                    "stochastic_round": False}},
+        "datasets": {"train": {"glob": str(tmp_path / "p_train_*.bin"),
+                               "name": "pattern"}},
+        "debug": {"most_iter": steps},
+        "seed": 42,
+    }
+    cfgp = str(tmp_path / f"cfg_{arch}.json")
+    with open(cfgp, "w") as f:
+        json.dump(cfg, f)
+
+    def jax_init(card, generator=None, dtype=None, device=None, seed=0):
+        jcard = JModelCard(**{f.name: getattr(card, f.name)
+                              for f in dataclasses.fields(card)})
+        return params_from_numpy(jax_tree_to_numpy(
+            j_init_params(jcard, jax.random.PRNGKey(seed))), device=device)
+
+    monkeypatch.setattr(tmodels, "init_params", jax_init)
+    losses, result = {}, {}
+    for tag, main, kw in (("jax", jkoifish.main, {}),
+                          ("port", koifish.main, {"result": result})):
+        out = tmp_path / tag
+        out.mkdir()
+        with torch_threads(1):
+            assert main([cfgp, "--device", "cpu", "--out-dir", str(out)],
+                        **kw) == 0, tag
+        with open(os.path.join(out, "koifish_loss.csv")) as f:
+            losses[tag] = np.array([float(r["loss"])
+                                    for r in csv.DictReader(f)])
+    return losses["jax"], losses["port"], result
