@@ -240,6 +240,42 @@ Phases, in order; any failed check exits non-zero before the last line:
              down's K 1536 against their plain versions, timed; tiny cards
              of each family on the card against the CPU (train steps: loss
              1e-2, grad norms 2 %; logits 5e-2; greedy tokens 75 %).
+   parallel — data, tensor, FSDP and pipeline parallelism, one rank a
+             process (``parallel_phase``): two ranks started by
+             ``parallel/multihost.spawn`` share the one card over gloo
+             (NCCL refuses two ranks on one GPU), so the phase shows the
+             sharded paths right with the kernels at shard shapes and
+             measures no interconnect. The ranks try on CUDA tensors the
+             collectives the comm layer hands gloo unstaged (it fails if
+             gloo refuses one), then (a) ``bubble --tp 2 --bits 4
+             --kv-bits 8`` through the streamed load on a seeded
+             full-width, full-depth Qwen3-0.6B folder: prefill logits
+             against one process's run of the tp-2 arithmetic (each
+             product through the kernels as its two halves, the K halves'
+             f32 outputs summed and rounded once) allclose at rtol and
+             atol 2e-2, as the JAX package holds its sharded serving, and
+             against the one-rank run within ``PAR_TP_GAP`` (0.1 over
+             atol: 28 random layers amplify any change of f32 order, the
+             one-rank run through the plain versions reads as far), a
+             limit a wrong shard (the K halves paired with the other
+             rank's weights) must exceed; greedy agreement with the
+             one-rank run, tok/s, TTFT, launches a rank a step; (b) the
+             streamed load at Qwen3-32B's widths, 2 layers, written from
+             a seed and deleted after: every shard bit for bit the
+             one-rank ``quantize_params``'s slice, the bytes each rank
+             read (at most 0.505 of the checkpoint: its half and the
+             norms), peak host RssAnon and device bytes a rank, a prefill
+             (the same gates); (c) ``koifish`` on
+             configs/qwen3_0.6b.json at full width (B 4 x 1024, every row
+             its own tokens, QAT rules off): ``--dp 2``, ``--tp 2`` (28
+             layers), ``--dp 2 --fsdp``, ``--pp 2`` with 1f1b and gpipe
+             (4 layers), 3 steps each, every step's loss within 1e-3 and
+             grad norm within 1e-2 relative of one rank's, and a
+             one-rank run at learning rate 0 that these limits must
+             refuse. A logged fallback or any rank's failure fails the
+             run. Then rows 3 and 4 at Qwen3-32B's tp-2 shard shapes
+             (``down`` K 13824) against their plain versions, bf16 and
+             f32 out, timed.
 6. result  — one JSON line with every kernel's numbers (launches from its
              path's run: the serving run for the slice-1 kernels and the
              decode attention's fused K/V write (``decode_attn_write``,
@@ -260,7 +296,12 @@ Phases, in order; any failed check exits non-zero before the last line:
              the zoo's decode shapes, launched by its generate runs, and
              ``qmm_k1536`` / ``qmv_k1536`` rows 3 and 4 at HotPick's picked
              down, their launches those the wrappers counted at K 1536 in
-             its serving run), then the
+             its serving run; ``qmm_k13824`` / ``qmv_k13824`` rows 3 and 4
+             at Qwen3-32B's tp-2 ``down``, launched by the streamed model
+             on rank 0; ``launches_by_path`` also gives rank 0's launches
+             in each parallel run: ``tp2_bubble``, ``tp2_stream32b``,
+             ``koifish_dp2``, ``koifish_tp2``, ``koifish_dp2_fsdp``,
+             ``koifish_pp2_1f1b``, ``koifish_pp2_gpipe``), then the
              last line
              ``{"ok": true, "device": {...}}``.
 
@@ -5787,6 +5828,744 @@ def slice17_phase(torch) -> tuple:
     return runs, k1536, numbers["hotpick"]["k1536"]
 
 
+# ---------------------------------------------------------------------------
+# slice 18: data, tensor, FSDP and pipeline parallelism, one rank a process
+# ---------------------------------------------------------------------------
+
+#: Qwen/Qwen3-32B's widths (its config.json), cut to 2 layers for the
+#: streamed load's rehearsal (the JAX package's tests/test_stream_load.py:190)
+QWEN3_32B = dict(vocab_size=151936, n_layer=2, n_embd=5120, n_head=64,
+                 n_kv_head=8, head_dim=128, n_ffn=27648, n_ctx=1024,
+                 max_pos=40960)
+#: the 32B serving recipe of the JAX package's rehearsal: INT4 linears,
+#: INT8 embedding / tied head, g128
+PAR_32B_QC = {"self_attn": {"bits": 4}, "mlp": {"bits": 4},
+              "embed_tokens": {"bits": 8}, "group_size": 128}
+PAR_NEW = 32            # bubble --tp 2's greedy tokens
+PAR_STEPS = 3           # steps of each koifish run
+PAR_B = 4               # the koifish runs' global batch (x 1024 tokens)
+PAR_DEPTH = 4           # layers of the cut koifish runs
+PAR_TP_DEPTH = 28       # koifish --tp 2 at full depth
+PAR_RUNS = (("koifish_dp2", ["--dp", "2"], PAR_DEPTH),
+            ("koifish_tp2", ["--tp", "2"], PAR_TP_DEPTH),
+            ("koifish_dp2_fsdp", ["--dp", "2", "--fsdp"], PAR_DEPTH),
+            ("koifish_pp2_1f1b", ["--pp", "2", "--pp-schedule", "1f1b"],
+             PAR_DEPTH),
+            ("koifish_pp2_gpipe", ["--pp", "2", "--pp-schedule", "gpipe"],
+             PAR_DEPTH))
+#: the ops the comm layer (``parallel/comm.py``) hands gloo unstaged on
+#: CUDA tensors, each tried by the ranks on the card. Not ``send``/``recv``:
+#: gloo hands their CUDA pointer to the socket and the process aborts
+#: (``gloo::IoException ... writev: Bad address``, seen on the H100), so the
+#: comm layer stages them through host memory
+GLOO_PROBE = ("all_reduce", "broadcast", "all_gather", "reduce_scatter")
+#: the koifish runs against one rank at the same global batch, each step's
+#: relative gap: the loss, and the global gradient norm (which a missing or
+#: halved dp sum moves even where AdamW's normalised update hides it). On
+#: the H100 the sound runs read at most 2.5e-5 and 1.7e-3, a one-rank run
+#: at learning rate 0 a loss gap of 6.0e-3; on the CPU at a tiny width a
+#: skipped or halved dp sum reads grad-norm gaps of 0.43 and 0.50
+PAR_LOSS_RTOL = 1e-3
+PAR_GNORM_RTOL = 1e-2
+
+
+def _rss_anon_mb() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("RssAnon"):
+                return int(line.split()[1]) / 1024.0
+    return 0.0
+
+
+def _par_probe(torch, dist, rank: int) -> dict:
+    """Which collectives gloo runs on CUDA tensors here: each op tried
+    directly on a card tensor (no staging) and its result checked."""
+    out = {}
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    for op in GLOO_PROBE:
+        try:
+            if op == "all_reduce":
+                y = x.clone()
+                dist.all_reduce(y)
+                ok = float(y[0]) == 3.0
+            elif op == "broadcast":
+                y = x.clone()
+                dist.broadcast(y, 0)
+                ok = float(y[0]) == 1.0
+            elif op == "all_gather":
+                parts = [torch.empty_like(x) for _ in range(2)]
+                dist.all_gather(parts, x)
+                ok = float(parts[1][0]) == 2.0
+            else:
+                y = torch.empty(2, device="cuda")
+                dist.reduce_scatter(y, [x[:2].clone(), x[2:].clone()])
+                ok = float(y[0]) == 3.0
+            out[op] = "ok" if ok else "wrong result"
+        except Exception as e:      # an op gloo refuses on CUDA tensors
+            out[op] = f"{type(e).__name__}: {str(e).splitlines()[0][:80]}"
+        dist.barrier()
+    return out
+
+
+#: the JAX package's logit tolerance for its sharded serving
+#: (tests/test_sharding.py:188: rtol 2e-2, atol 2e-2)
+PAR_RTOL = PAR_ATOL = 2e-2
+#: the limit of the tp-2 prefill logits' allclose excess over atol (at
+#: rtol 2e-2) against the one-rank run. Random layers amplify any change
+#: of f32 order: on the H100 the ranks read 3.07e-2 (Qwen3-0.6B, 28
+#: layers) and 4.58e-2 (32B widths, 2 layers), the one-rank run through
+#: rows 3 and 4's plain versions 3.10e-2 and 5.33e-2 from the kernels',
+#: and a wrong shard 4.41 and 13.3
+PAR_TP_GAP = 0.1
+
+
+def allclose_excess(a, b, rtol: float) -> float:
+    """max(|a - b| - rtol·|b|): what ``assert_allclose(a, b, rtol, atol)``
+    holds to atol."""
+    a, b = a.float(), b.float()
+    return float(((a - b).abs() - rtol * b.abs()).max())
+
+
+def tp_gates(label: str, got, ref, var: dict) -> None:
+    """The tp-2 prefill logits ``got`` (rank 0's) against the one-rank run
+    ``ref`` and ``prefill_variant``'s runs ``var``: within JAX's allclose
+    (rtol, atol 2e-2) of the tp-2 arithmetic in one process, and within
+    ``PAR_TP_GAP`` (the allclose excess over atol at rtol 2e-2) of the
+    one-rank run, a limit a wrong shard must exceed."""
+    gap = PAR_TP_GAP
+    ref = ref.float().cpu()
+    ex = {m: allclose_excess(v.float().cpu(), ref, PAR_RTOL)
+          for m, v in var.items()}
+    say(f"  {label} prefill logits (max |logit| "
+        f"{float(ref.abs().max()):.3f}), allclose excess over atol at rtol "
+        f"2e-2 against the one-rank run: the ranks "
+        f"{allclose_excess(got, ref, PAR_RTOL):.4e} (max |Δ| "
+        f"{max_err(got, ref):.4e}); one process's tp-2 arithmetic "
+        f"{ex['tp2']:.4e}; the one-rank run through rows 3 and 4's plain "
+        f"versions {ex['plain']:.4e}; a wrong shard {ex['tp2_wrong']:.4e}")
+    check(f"{label} prefill logits vs one process's tp-2 arithmetic "
+          f"(allclose excess over atol 2e-2)",
+          allclose_excess(got, var["tp2"].float().cpu(), PAR_RTOL), PAR_ATOL)
+    check(f"{label} prefill logits vs the one-rank run (allclose excess)",
+          allclose_excess(got, ref, PAR_RTOL), gap)
+    if ex["tp2_wrong"] <= gap:
+        fail(f"{label}: a wrong shard passes the gate against the one-rank "
+             f"run ({ex['tp2_wrong']:.4e} <= {gap:g})")
+
+
+class _TpRank:
+    """Rank ``r`` of a tp-2 layout, for ``parallel/sharding`` without a
+    process group."""
+
+    def __init__(self, r: int):
+        self.r = r
+
+    def size(self, axis: str) -> int:
+        return 2 if axis == "tp" else 1
+
+    def index(self, axis: str) -> int:
+        return self.r if axis == "tp" else 0
+
+
+def prefill_variant(torch, card, params, ids, cache, mode: str,
+                    fresh=True):
+    """One process's prefill with the layers' products computed another
+    way. ``"tp2"``: the tp-2 arithmetic, each column-parallel product as
+    its two N halves and each row-parallel one as its two K halves through
+    the kernels, the K halves' f32 outputs summed and rounded once, as the
+    two ranks sum them (``models/transformer._linear_l``); ``"tp2_wrong"``:
+    the same with each row-parallel product's input halves paired with the
+    other rank's weight shard (a wrong shard, which the gates must
+    refuse); ``"plain"``: one rank, every quantized product through rows 3
+    and 4's plain versions instead of the kernels (the same sums in
+    another f32 order: what the one-rank arithmetic itself moves)."""
+    from koifish_tpu_torch.models import transformer as tr
+    from koifish_tpu_torch.ops.kernels import matmul as km
+    from koifish_tpu_torch.ops.matmul import qmatmul
+    from koifish_tpu_torch.parallel.sharding import shard_params
+    from koifish_tpu_torch.quant.qtensor import QTensor
+    from koifish_tpu_torch.serve import engine, prefill
+    halves, real = {}, tr._linear_l
+
+    def parts(key, w):
+        if id(w) not in halves:
+            halves[id(w)] = [shard_params({"layers": [{key: w}]}, _TpRank(r))[
+                "layers"][0][key] for r in (0, 1)]
+        return halves[id(w)]
+
+    def split(x, lp, key):
+        if key + "_b" in lp or key + "_lora" in lp:
+            return real(x, lp, key)
+        w = lp[key]
+        if mode == "plain":
+            if not isinstance(w, QTensor) or not km.takes(w):
+                return real(x, lp, key)
+            y = km.qmatmul_plain(x.reshape(-1, x.shape[-1]), w.codes,
+                                 w.scales, w.fmt, w.group)
+            return y.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
+        if key in ("q", "k", "v", "gate", "up"):
+            a, b = parts(key, w)
+            return torch.cat([qmatmul(x, a), qmatmul(x, b)], -1)
+        if key in ("o", "down"):
+            a, b = parts(key, w)
+            if mode == "tp2_wrong":
+                a, b = b, a
+            k2 = x.shape[-1] // 2
+            f32 = torch.float32
+            return (qmatmul(x[..., :k2], a, out_dtype=f32)
+                    + qmatmul(x[..., k2:], b, out_dtype=f32)).to(x.dtype)
+        return real(x, lp, key)
+    tr._linear_l = engine._linear_l = split
+    try:
+        with torch.no_grad():
+            logits, _ = prefill(card, params, ids, cache, fresh=fresh)
+    finally:
+        tr._linear_l = engine._linear_l = real
+    return logits
+
+
+def _par_counts(kernel_log) -> tuple:
+    return kernel_log.launches(), kernel_log.fallbacks()
+
+
+def par_rank(root: str) -> None:
+    """One rank of ``parallel_phase``'s 2-rank gloo group on the one card
+    (started by ``parallel/multihost.spawn``): the probe, (a) ``bubble --tp
+    2`` and its TP prefill, (b) the 32B streamed load, (c) the koifish
+    runs. Writes ``rank{r}.json`` (and rank 0's logits) under ``root``."""
+    import threading
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from koifish_tpu_torch.cli import bubble, koifish
+    from koifish_tpu_torch.config import QuantCard
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.io import stream_load
+    from koifish_tpu_torch.io.stream_load import load_hf_sharded_quantized
+    from koifish_tpu_torch.ops.tracectx import TPPolicy, tp_scope
+    from koifish_tpu_torch.parallel import make_process_mesh, multihost
+    from koifish_tpu_torch.parallel.sharding import (leaf_shards, local_card,
+                                                     take)
+    from koifish_tpu_torch.serve import cache_for, decode_step, prefill
+    from koifish_tpu_torch.utils import kernel_log
+    from koifish_tpu_torch.utils.tree import leaves
+    multihost.init_distributed(timeout_s=600)
+    rank = dist.get_rank()
+    rec = {"backend": multihost.backend_choice(),
+           "probe": _par_probe(torch, dist, rank)}
+
+    def dump():
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    dump()
+    print(f"[parallel] rank {rank}: {json.dumps(rec)}", flush=True)
+    mesh = make_process_mesh({"tp": 2})
+    pol = TPPolicy(group=mesh.group("tp"), rank=mesh.index("tp"), size=2,
+                   vocab=151936, src=mesh.ranks("tp")[0])
+
+    # (a) bubble --tp 2 --bits 4 --kv-bits 8 through the streamed load
+    hf = os.path.join(root, "qwen3_0.6b")
+    argv = ["--hf", hf, "--tp", "2", "--bits", "4", "--kv-bits", "8",
+            "--temperature", "0", "--max-new", str(PAR_NEW), "--ctx", "512",
+            "--prompts", CHAT_PROMPTS[0], "--csv", ""]
+    turns = []
+    torch.cuda.synchronize()
+    kernel_log.reset_launches()
+    t0 = time.perf_counter()
+    bubble.main(argv, turns)
+    torch.cuda.synchronize()
+    counts, falls = _par_counts(kernel_log)
+    rec["bubble"] = dict(wall=time.perf_counter() - t0, counts=counts,
+                         falls=falls, ids=turns[0]["prompt_ids"],
+                         tokens=turns[0]["tokens"], tk_s=turns[0]["tk_s"])
+    qc = QuantCard.from_json({"self_attn": {"bits": 4}, "mlp": {"bits": 4}})
+    card, params = load_hf_sharded_quantized(hf, mesh, qc)
+    lc = local_card(card, 2)
+    prompt = torch.tensor([turns[0]["prompt_ids"]], device="cuda")
+    ttft = []
+    with tp_scope(pol), torch.no_grad():
+        for _ in range(3):          # the first warms the allocator
+            cache = cache_for(lc, 1, 512, fmt=QFormat.INT8, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(lc, params, prompt, cache, fresh=True)
+            int(torch.argmax(logits[0]))
+            ttft.append(time.perf_counter() - t0)
+    rec["bubble"]["ttft"] = ttft
+    rec["bubble"]["device_bytes"] = torch.cuda.memory_allocated()
+    dump()
+    if rank == 0:
+        torch.save(logits.float().cpu(), os.path.join(root, "logits06.pt"))
+    del params, cache, logits
+    torch.cuda.empty_cache()
+
+    # (b) the streamed load at Qwen3-32B's widths, 2 layers
+    folder = os.path.join(root, "qwen3_32b_2l")
+    peak, stop = [_rss_anon_mb()], [False]
+
+    def track():
+        while not stop[0]:
+            peak[0] = max(peak[0], _rss_anon_mb())
+            time.sleep(0.01)
+    base = _rss_anon_mb()
+    th = threading.Thread(target=track, daemon=True)
+    th.start()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    read0 = stream_load.bytes_read()
+    card32, p32 = load_hf_sharded_quantized(
+        folder, mesh, QuantCard.from_json(PAR_32B_QC))
+    torch.cuda.synchronize()
+    stop[0] = True
+    th.join()
+    s32 = dict(load_s=time.perf_counter() - t0, peak_rss_mb=peak[0] - base,
+               read_bytes=stream_load.bytes_read() - read0,
+               device_bytes=torch.cuda.memory_allocated())
+    lc32 = local_card(card32, 2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(32)
+    toks = torch.randint(0, 512, (1, 64), generator=gen, device="cuda")
+    pol32 = TPPolicy(group=mesh.group("tp"), rank=mesh.index("tp"), size=2,
+                     vocab=card32.vocab_size, src=mesh.ranks("tp")[0])
+    kernel_log.reset_launches()
+    with tp_scope(pol32), torch.no_grad():
+        cache = cache_for(lc32, 1, 128, fmt=QFormat.INT8, device="cuda")
+        lg32, cache = prefill(lc32, p32, toks, cache)
+        for t in range(2):
+            _, cache = decode_step(lc32, p32, torch.full(
+                (1,), 7 + t, dtype=torch.int32, device="cuda"), cache)
+    torch.cuda.synchronize()
+    s32["counts"], s32["falls"] = _par_counts(kernel_log)
+    s32["by_k"] = {f"{k}@{K}": n for (k, K), n in
+                   kernel_log.launches_by_k().items()}
+    if rank == 0:
+        torch.save(lg32.float().cpu(), os.path.join(root, "logits32.pt"))
+    # the shards against the one-rank quantize_params, bit for bit
+    from koifish_tpu_torch.io.hf_loader import load_hf_model
+    from koifish_tpu_torch.quant.apply import quantize_params
+    _, whole = load_hf_model(folder, device="cuda")
+    whole = quantize_params(whole, QuantCard.from_json(PAR_32B_QC), card32)
+    shards = leaf_shards(whole, mesh)
+    n_bad, n_all = 0, 0
+    for w, s, mine in zip(leaves(whole), shards, leaves(p32)):
+        n_all += 1
+        n_bad += int(not torch.equal(take(w, s), mine))
+    s32["leaves"], s32["leaves_differ"] = n_all, n_bad
+    rec["stream32b"] = s32
+    dump()
+    del whole, p32, cache
+    torch.cuda.empty_cache()
+
+    # (c) koifish on configs/qwen3_0.6b.json, full width
+    rec["koifish"] = {}
+    for name, flags, depth in PAR_RUNS:
+        cfg = os.path.join(root, f"qwen3_{depth}l.json")
+        res = {}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernel_log.reset_launches()
+        t0 = time.perf_counter()
+        rc = koifish.main([cfg, "--most-iter", str(PAR_STEPS), "--out-dir",
+                           os.path.join(root, name), *flags], res)
+        torch.cuda.synchronize()
+        counts, falls = _par_counts(kernel_log)
+        rec["koifish"][name] = dict(
+            rc=rc, wall=time.perf_counter() - t0, counts=counts, falls=falls,
+            losses=res["infos"].losses, gnorms=res["infos"].grad_norms,
+            step_s=[r[3] for r in res["infos"].rows],
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            slack_gib=(torch.cuda.max_memory_reserved()
+                       - torch.cuda.max_memory_allocated()) / 2 ** 30)
+        dump()
+        del res
+        torch.cuda.empty_cache()
+
+
+def _smi_used_mib() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def par_context(root: str) -> None:
+    """A fresh process's CUDA context on the card: the card's used memory
+    (nvidia-smi) before and after the context and one 1-element tensor,
+    less what the caching allocator reserved for the tensor. Writes
+    ``context.json`` under ``root``."""
+    import torch
+    before = _smi_used_mib()
+    torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    after = _smi_used_mib()
+    with open(os.path.join(root, "context.json"), "w") as f:
+        json.dump({"context_mib": after - before
+                   - torch.cuda.memory_reserved() / 2 ** 20}, f)
+
+
+def _par_config(root: str, depth: int, lr=None) -> str:
+    """configs/qwen3_0.6b.json at full width, ``depth`` layers, B
+    ``PAR_B`` x 1024, no QAT rules (the pipeline step takes no QAT, as the
+    JAX package's), its train glob on a seeded shard in which every
+    1024-token row differs (so each dp rank's rows differ); ``lr``: its
+    learning rate instead of the config's."""
+    with open(os.path.join(ROOT, "configs", "qwen3_0.6b.json")) as f:
+        cfg = json.load(f)
+    cfg["model"]["parameter"]["Layer"] = depth
+    cfg["train"]["batch"] = PAR_B
+    if lr is not None:
+        cfg["train"]["learning-rate"] = lr
+    cfg.pop("quantizer", None)
+    cfg["datasets"]["train"]["glob"] = os.path.join(root, "*train*.bin")
+    path = os.path.join(root, f"qwen3_{depth}l"
+                        f"{'' if lr is None else f'_lr{lr:g}'}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path
+
+
+def _write_32b_dir(torch, path: str) -> float:
+    """A seeded bf16 checkpoint at Qwen3-32B's widths (2 layers): every
+    matrix tiled from one 1024 x 1024 block drawn on the card, as the JAX
+    package's rehearsal builds it. Returns the GB written."""
+    from koifish_tpu_torch.config import ModelCard
+    from koifish_tpu_torch.io.safetensors import write_safetensors
+    card = ModelCard.from_arch("QWEN3", **QWEN3_32B)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3232)
+    blk = (torch.randn((1024, 1024), generator=gen, device="cuda") * 0.02
+           ).to(torch.bfloat16)
+
+    def w(r, c):
+        return blk.repeat(-(-r // 1024), -(-c // 1024))[:r, :c].cpu()
+    E, D, F = card.n_embd, card.head_dim, card.n_ffn
+    one = lambda n: torch.ones((n,), dtype=torch.bfloat16)
+    ts = {"model.embed_tokens.weight": w(card.vocab_size, E),
+          "model.norm.weight": one(E)}
+    for i in range(card.n_layer):
+        pre = f"model.layers.{i}."
+        ts.update({
+            pre + "input_layernorm.weight": one(E),
+            pre + "self_attn.q_proj.weight": w(card.n_head * D, E),
+            pre + "self_attn.k_proj.weight": w(card.n_kv_head * D, E),
+            pre + "self_attn.v_proj.weight": w(card.n_kv_head * D, E),
+            pre + "self_attn.o_proj.weight": w(E, card.n_head * D),
+            pre + "self_attn.q_norm.weight": one(D),
+            pre + "self_attn.k_norm.weight": one(D),
+            pre + "post_attention_layernorm.weight": one(E),
+            pre + "mlp.gate_proj.weight": w(F, E),
+            pre + "mlp.up_proj.weight": w(F, E),
+            pre + "mlp.down_proj.weight": w(E, F)})
+    os.makedirs(path, exist_ok=True)
+    write_safetensors(os.path.join(path, "model.safetensors"), ts)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({
+            "model_type": "qwen3", "vocab_size": card.vocab_size,
+            "num_hidden_layers": card.n_layer, "hidden_size": E,
+            "num_attention_heads": card.n_head,
+            "num_key_value_heads": card.n_kv_head, "head_dim": D,
+            "intermediate_size": F, "rope_theta": 1e6, "rms_norm_eps": 1e-6,
+            "tie_word_embeddings": True,
+            "max_position_embeddings": card.max_pos}, f)
+    return sum(t.numel() * 2 for t in ts.values()) / 1e9
+
+
+PAR_32B_SHAPES = (("q", 5120, 4096), ("k/v", 5120, 512), ("o", 4096, 5120),
+                  ("gate/up", 5120, 13824), ("down", 13824, 5120))
+
+
+def k32b_phase(torch, gen) -> dict:
+    """Rows 3 and 4 at Qwen3-32B's tp-2 shard shapes (INT4 g128), ``down``
+    with K 13824 (not a multiple of 1024): each against its plain version
+    at a 1024-token prefill's m and at m 1, in bf16 and with the f32
+    output (rounded, the bf16 output bit for bit); ``down`` timed beside
+    the library's product on the dequantized weight and its bound."""
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.ops.kernels import matmul as km
+    from koifish_tpu_torch.quant.rtn import quantize
+    out = {}
+    for label, K, N in PAR_32B_SHAPES:
+        w = quantize(torch.randn((K, N), generator=gen, device="cuda") * 0.02,
+                     QFormat.INT4, group=128)
+        for kind, m in (("qmm", 1024), ("qmv", 1)):
+            x = torch.randn((m, K), generator=gen, device="cuda"
+                            ).to(torch.bfloat16)
+            y = km.qmatmul(x, w)
+            ref = km.qmatmul_plain(x, w.codes, w.scales, w.fmt, w.group)
+            torch.cuda.synchronize()
+            err = max_err(y, ref)
+            check(f"{kind} Qwen3-32B tp-2 {label} K{K} N{N} m{m} INT4", err,
+                  1e-2 * float(ref.float().abs().max()) + 1e-3)
+            # the f32 output a row-parallel shard's partial takes: the sum
+            # the bf16 output rounds, bit for bit
+            y32 = km.qmatmul(x, w, torch.float32)
+            ref32 = km.qmatmul_plain(x, w.codes, w.scales, w.fmt, w.group,
+                                     torch.float32)
+            check(f"{kind} Qwen3-32B tp-2 {label} K{K} N{N} m{m} INT4 f32 "
+                  f"out", max_err(y32, ref32),
+                  1e-4 * float(ref32.abs().max()))
+            if not torch.equal(y32.to(torch.bfloat16), y):
+                fail(f"{kind} {label} K{K} N{N} m{m}: the f32 output, "
+                     f"rounded, is not the bf16 output")
+            if label != "down":
+                continue
+            deq = w.dequantize(torch.bfloat16)
+            kms = time_ms(torch, lambda: km.qmatmul(x, w), iters=20)
+            pms = time_ms(torch, lambda: km.qmatmul_plain(
+                x, w.codes, w.scales, w.fmt, w.group), iters=3)
+            lms = time_ms(torch, lambda: torch.matmul(x, deq), iters=20)
+            bms, by = bound_ms(m * K * 2 + K * N // 2 + (K // 128) * N * 4
+                               + m * N * 2, 2.0 * m * K * N)
+            say(f"  time {kind} K{K} N{N} m{m} INT4 (32B down, tp 2): "
+                f"kernel_ms={kms:.4f} plain_ms={pms:.4f} library_ms(matmul "
+                f"on dequantized bf16)={lms:.4f} bound_ms={bms:.5f} ({by}); "
+                f"max_abs_err {err:.3e}")
+            out[kind] = dict(ms=kms, plain_ms=pms, library_ms=lms,
+                             bound_ms=bms, bound_by=by, max_abs_err=err)
+        del w
+    return out
+
+
+def parallel_phase(torch) -> tuple:
+    """Slice 18: data, tensor, FSDP and pipeline parallelism, one rank a
+    process: two ranks share the one card over gloo (NCCL refuses two
+    ranks on one GPU), so the run shows the sharded paths computing the
+    right thing with the kernels at shard shapes, and measures no
+    interconnect and no multi-card speed. One spawned 2-rank group
+    (``par_rank``) runs: the gloo probe of CUDA-tensor collectives; (a)
+    ``bubble --tp 2 --bits 4 --kv-bits 8`` through the streamed load on a
+    seeded full-width, full-depth Qwen3-0.6B folder (prefill logits
+    against one process's run of the tp-2 arithmetic at 2e-2 and against
+    the one-rank run within ``PAR_TP_GAP``, which a wrong shard must
+    exceed (``tp_gates``); greedy agreement, tok/s, TTFT, launches a rank
+    a step); (b) the streamed load at Qwen3-32B's widths, 2 layers (every
+    shard bit for bit the one-rank ``quantize_params``'s slice, the bytes
+    each rank read, peak host RSS and device bytes a rank, a prefill
+    under the same gates); (c) ``koifish`` on configs/qwen3_0.6b.json at
+    full width: ``--dp 2``, ``--tp 2`` (full depth), ``--dp 2 --fsdp``,
+    ``--pp 2`` with both schedules, 3 steps each, losses
+    (``PAR_LOSS_RTOL``) and grad norms (``PAR_GNORM_RTOL``) against the
+    one-rank run at the same global batch, limits that a one-rank run at
+    learning rate 0 must fail. Then rows 3 and 4 at the 32B shard shapes.
+    Any rank's failure fails the run; a logged plain fallback on these
+    paths too. Returns ({path: rank 0's launches}, the K 13824 rows'
+    numbers, their launches)."""
+    import math
+    import shutil
+    from koifish_tpu_torch.cli import bubble, koifish
+    from koifish_tpu_torch.config import CLIParams, ModelCard, QuantCard
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.io.hf_loader import load_hf_model
+    from koifish_tpu_torch.parallel import multihost, planner
+    from koifish_tpu_torch.quant.apply import quantize_params
+    from koifish_tpu_torch.serve import cache_for, prefill
+    root = os.path.join(ROOT, "build", "parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    say("[parallel] 2 ranks, one process each, on the one card: "
+        f"{torch.cuda.get_device_name(0)}; ranks sharing one card, no "
+        f"interconnect measured")
+    free, total = torch.cuda.mem_get_info()
+    card06 = CLIParams.load(os.path.join(ROOT, "configs",
+                                         "qwen3_0.6b.json")).model
+    card06 = ModelCard.from_arch("QWEN3", **dict(
+        vocab_size=card06.vocab_size, n_layer=card06.n_layer,
+        n_embd=card06.n_embd, n_head=card06.n_head,
+        n_kv_head=card06.n_kv_head, head_dim=card06.head_dim,
+        n_ffn=card06.n_ffn, n_ctx=1024, max_pos=QWEN3_MAX_POS))
+    gb06 = write_hf_dir(torch, os.path.join(root, "qwen3_0.6b"), card06, 18)
+    gb32 = _write_32b_dir(torch, os.path.join(root, "qwen3_32b_2l"))
+    for d in sorted({PAR_DEPTH, PAR_TP_DEPTH}):
+        _par_config(root, d)
+    cfg_lr0 = _par_config(root, PAR_DEPTH, lr=0.0)
+    T = 1024
+    write_token_shard(os.path.join(root, "qwen3_train_000.bin"),
+                      card06.vocab_size, 2 * PAR_STEPS * PAR_B * (T + 1),
+                      seed=18)
+    say(f"  wrote a {gb06:.2f} GB Qwen3-0.6B folder, a {gb32:.2f} GB "
+        f"Qwen3-32B-width 2-layer folder, configs of {PAR_DEPTH} and "
+        f"{PAR_TP_DEPTH} layers ({time.perf_counter() - t_phase:.1f} s)")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    multihost.spawn(par_context, 1, (root,))
+    with open(os.path.join(root, "context.json")) as f:
+        ctx_mib = json.load(f)["context_mib"]
+    t0 = time.perf_counter()
+    multihost.spawn(par_rank, 2, (root,))
+    say(f"  the 2-rank group ran in {time.perf_counter() - t0:.1f} s")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    say(f"  backend: {r0['backend']}")
+    say(f"  gloo on CUDA tensors (each op tried unstaged): "
+        f"{json.dumps(r0['probe'])}")
+    bad = [op for op in GLOO_PROBE if r0["probe"].get(op) != "ok"]
+    if bad:
+        fail(f"gloo refused {bad} on CUDA tensors, which the comm layer "
+             f"sends unstaged")
+    for r, rec in enumerate(ranks):
+        for name, run in [("bubble", rec["bubble"]),
+                          ("stream32b", rec["stream32b"])] + list(
+                              rec["koifish"].items()):
+            if run["falls"]:
+                fail(f"rank {r} {name}: a plain fallback was logged: "
+                     f"{run['falls']}")
+
+    # (a) against the one-rank run
+    b = r0["bubble"]
+    turns = []
+    bubble.main(["--hf", os.path.join(root, "qwen3_0.6b"), "--bits", "4",
+                 "--kv-bits", "8", "--temperature", "0", "--max-new",
+                 str(PAR_NEW), "--ctx", "512", "--prompts", CHAT_PROMPTS[0],
+                 "--csv", ""], turns)
+    agree = _agreement(turns[0]["tokens"], b["tokens"])
+    _, p06 = load_hf_model(os.path.join(root, "qwen3_0.6b"))
+    p06 = quantize_params(p06, QuantCard.from_json(
+        {"self_attn": {"bits": 4}, "mlp": {"bits": 4}}), card06)
+    with torch.no_grad():
+        ref06, _ = prefill(card06, p06, torch.tensor([b["ids"]],
+                                                     device="cuda"),
+                           cache_for(card06, 1, 512, fmt=QFormat.INT8),
+                           fresh=True)
+    var06 = {m: prefill_variant(
+        torch, card06, p06, torch.tensor([b["ids"]], device="cuda"),
+        cache_for(card06, 1, 512, fmt=QFormat.INT8), m)
+        for m in ("tp2", "tp2_wrong", "plain")}
+    del p06
+    got06 = torch.load(os.path.join(root, "logits06.pt"))
+    n_steps = len(b["tokens"])
+    per_step = {k: round(v / n_steps, 2) for k, v in b["counts"].items()}
+    say(f"  (a) bubble --tp 2 --bits 4 --kv-bits 8: {b['tk_s']:.2f} tok/s "
+        f"(rank 0; the one-rank run {turns[0]['tk_s']:.2f}), TTFT "
+        f"{min(b['ttft']) * 1e3:.1f} ms warm ({len(b['ids'])}-token "
+        f"prompt); greedy agreement with the one-rank run "
+        f"{agree:.3f} over {n_steps} tokens; launches a rank a step "
+        f"{json.dumps(per_step)} (rank 1: "
+        f"{json.dumps(ranks[1]['bubble']['counts'])} in all); device bytes "
+        f"a rank {b['device_bytes'] / 1e9:.3f} GB")
+    tp_gates("(a) bubble --tp 2 (Qwen3-0.6B, 28 layers)", got06, ref06,
+             var06)
+
+    # (b) the 32B streamed load: every tensor of the 32B widths splits
+    # over tp 2 but the 1-D norms, so a rank reads half the checkpoint
+    for r, rec in enumerate(ranks):
+        s = rec["stream32b"]
+        share = s["read_bytes"] / (gb32 * 1e9)
+        say(f"  (b) rank {r}: streamed load {s['load_s']:.1f} s, read "
+            f"{s['read_bytes'] / 1e9:.4f} GB of the {gb32:.4f} GB bf16 "
+            f"checkpoint ({share:.4f}); peak host RssAnon "
+            f"+{s['peak_rss_mb']:.0f} MB over the load (the file's pages, "
+            f"mapped, not counted); device bytes "
+            f"{s['device_bytes'] / 1e9:.3f} GB; {s['leaves']} leaves, "
+            f"{s['leaves_differ']} differ from the one-rank "
+            f"quantize_params's slice; launches {json.dumps(s['counts'])}")
+        if s["leaves_differ"]:
+            fail(f"rank {r}: {s['leaves_differ']} streamed shards differ "
+                 f"from the one-rank quantize_params's")
+        check(f"rank {r}: the streamed load's share of the checkpoint read "
+              f"(its tp-2 shards: 0.5 and the replicated norms)", share,
+              0.505)
+    card32 = ModelCard.from_arch("QWEN3", **QWEN3_32B)
+    _, w32 = load_hf_model(os.path.join(root, "qwen3_32b_2l"))
+    w32 = quantize_params(w32, QuantCard.from_json(PAR_32B_QC), card32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(32)
+    toks = torch.randint(0, 512, (1, 64), generator=gen, device="cuda")
+    with torch.no_grad():
+        ref32, _ = prefill(card32, w32, toks, cache_for(
+            card32, 1, 128, fmt=QFormat.INT8))
+    var32 = {m: prefill_variant(torch, card32, w32, toks, cache_for(
+        card32, 1, 128, fmt=QFormat.INT8), m, fresh=False)
+        for m in ("tp2", "tp2_wrong", "plain")}
+    del w32
+    torch.cuda.empty_cache()
+    got32 = torch.load(os.path.join(root, "logits32.pt"))
+    tp_gates("(b) the 32B-width streamed TP prefill (2 layers)", got32,
+             ref32, var32)
+    shutil.rmtree(os.path.join(root, "qwen3_32b_2l"))
+
+    # (c) the koifish runs against one rank at the same global batch
+    def one_rank(cfg, label):
+        res, _, _ = run_cli(torch, koifish.main, [
+            cfg, "--most-iter", str(PAR_STEPS), "--out-dir",
+            os.path.join(root, "one_" + os.path.basename(cfg))],
+            f"koifish, one rank, {label} ({PAR_STEPS} steps)")
+        out = dict(losses=res["infos"].losses,
+                   gnorms=res["infos"].grad_norms)
+        del res
+        torch.cuda.empty_cache()
+        return out
+
+    def gaps(run, ref):
+        """The largest relative gap of the losses and of the grad norms."""
+        return tuple(max(abs(a - c) / abs(c) for a, c in zip(run[k], ref[k]))
+                     for k in ("losses", "gnorms"))
+    refs = {d: one_rank(os.path.join(root, f"qwen3_{d}l.json"),
+                        f"{d} layers")
+            for d in sorted({PAR_DEPTH, PAR_TP_DEPTH})}
+    # the gates' own check: a run that trains nothing (learning rate 0)
+    # must fail them
+    lr0 = one_rank(cfg_lr0, f"{PAR_DEPTH} layers, learning rate 0")
+    gl, gg = gaps(lr0, refs[PAR_DEPTH])
+    say(f"  (c) control, learning rate 0: losses "
+        f"{[round(x, 6) for x in lr0['losses']]} grad norms "
+        f"{[round(x, 5) for x in lr0['gnorms']]}; gaps to the one-rank run "
+        f"loss {gl:.3e} (limit {PAR_LOSS_RTOL:g}), grad norm {gg:.3e} "
+        f"(limit {PAR_GNORM_RTOL:g})")
+    if gl <= PAR_LOSS_RTOL and gg <= PAR_GNORM_RTOL:
+        fail("the koifish gates pass a run that trains nothing")
+    paths = {"tp2_bubble": b["counts"], "tp2_stream32b": r0["stream32b"][
+        "counts"]}
+    for name, flags, depth in PAR_RUNS:
+        runs = [rec["koifish"][name] for rec in ranks]
+        k0 = runs[0]
+        say(f"  (c) koifish {' '.join(flags)} ({depth} layers, B {PAR_B} x "
+            f"1024): losses {[round(x, 6) for x in k0['losses']]} (one "
+            f"rank {[round(x, 6) for x in refs[depth]['losses']]}); grad "
+            f"norms {[round(x, 5) for x in k0['gnorms']]} (one rank "
+            f"{[round(x, 5) for x in refs[depth]['gnorms']]}); step s "
+            f"{[round(x, 3) for x in k0['step_s']]}; peak "
+            f"{[round(r['peak_gib'], 2) for r in runs]} GiB a rank; rank 0 "
+            f"launches {json.dumps(k0['counts'])}")
+        if any(r["rc"] for r in runs) or any(
+                len(r["losses"]) != PAR_STEPS for r in runs):
+            fail(f"koifish {flags}: rc {[r['rc'] for r in runs]}, losses "
+                 f"{[r['losses'] for r in runs]}")
+        if not all(math.isfinite(x) for x in k0["losses"]):
+            fail(f"koifish {flags}: losses {k0['losses']}")
+        if "--pp" not in flags and (runs[1]["losses"] != k0["losses"]
+                                    or runs[1]["gnorms"] != k0["gnorms"]):
+            fail(f"koifish {flags}: the ranks report different losses or "
+                 f"grad norms")
+        gl, gg = gaps(k0, refs[depth])
+        check(f"koifish {' '.join(flags)} losses vs one rank (largest "
+              f"relative gap)", gl, PAR_LOSS_RTOL)
+        check(f"koifish {' '.join(flags)} grad norms vs one rank (largest "
+              f"relative gap)", gg, PAR_GNORM_RTOL)
+        paths[name] = k0["counts"]
+    slack = max(r["slack_gib"] for rec in ranks
+                for r in rec["koifish"].values())
+    say(f"  the planner's reserve (parallel/planner.RESERVE "
+        f"{planner.RESERVE / 2**30:.2f} GiB): a fresh process's CUDA "
+        f"context {ctx_mib:.0f} MiB + the caching allocator's largest "
+        f"slack at a koifish run's peak (reserved - allocated) "
+        f"{slack:.2f} GiB = {ctx_mib / 1024 + slack:.2f} GiB")
+    k32 = k32b_phase(torch, gen)
+    by_k = r0["stream32b"]["by_k"]
+    k32_launches = {"qmm": by_k.get("qmm@13824", 0),
+                    "qmv": by_k.get("qmv@13824", 0)}
+    say(f"  the 32B path's K 13824 launches (rank 0): "
+        f"{json.dumps(k32_launches)}")
+    shutil.rmtree(root)
+    say(f"[parallel] phase: {time.perf_counter() - t_phase:.1f} s; card "
+        f"memory before it: {free / 2**30:.2f} of {total / 2**30:.2f} GiB "
+        f"free")
+    return paths, k32, k32_launches
+
 
 def main() -> None:
     import torch
@@ -5853,6 +6632,7 @@ def main() -> None:
     sp_counts = sp_train_phase(torch)
     zoo = zoo_phase(torch)
     s17, k1536, k1536_launches = slice17_phase(torch)
+    par, k13824, k13824_launches = parallel_phase(torch)
 
     src = "koifish_tpu_torch/csrc/"
     rows = [  # (name, source, TPU kernel, numbers, launches on its path)
@@ -5952,6 +6732,12 @@ def main() -> None:
          k1536["qmm"], {"qmm_k1536": k1536_launches["qmm"]}),
         ("qmv_k1536", "qmatmul.cu", "koifish_tpu/ops/pallas/matmul.py:201",
          k1536["qmv"], {"qmv_k1536": k1536_launches["qmv"]}),
+        # rows 3 and 4 at Qwen3-32B's tp-2 down (K 13824), launched by the
+        # streamed 32B-width model's prefill and decode on rank 0
+        ("qmm_k13824", "qmm.cu", "koifish_tpu/ops/pallas/matmul.py:305",
+         k13824["qmm"], {"qmm_k13824": k13824_launches["qmm"]}),
+        ("qmv_k13824", "qmatmul.cu", "koifish_tpu/ops/pallas/matmul.py:201",
+         k13824["qmv"], {"qmv_k13824": k13824_launches["qmv"]}),
     ]
     kernels = [dict(name=n, route="cuda", source=src + f, replaces=r,
                     launches=c.get(n, 0), max_abs_err=m["max_abs_err"],
@@ -5984,12 +6770,15 @@ def main() -> None:
         if k["name"].endswith("_k1536"):
             k["launches_by_path"] = {"hotpick_serve": k["launches"]}
             continue
+        if k["name"].endswith("_k13824"):
+            k["launches_by_path"] = {"tp2_stream32b": k["launches"]}
+            continue
         k["launches_by_path"] = {p: c.get(k["name"], 0) + (
             c.get("kv_write", 0) if k["name"] in ("slot_write",
                                                   "decode_attn_write")
             else 0)
             for p, c in dict(s13, koifish_sp4=sp_counts, **zoo,
-                             **s17).items()}
+                             **s17, **par).items()}
         if k["name"] == "ring_attn":   # the ring at sp 2, 4 and 8
             k["eager_ms"] = ring["eager_ms"]
             k["by_sp"] = ring["by_sp"]

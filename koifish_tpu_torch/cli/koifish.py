@@ -15,8 +15,19 @@ or gama (scale-only) training, which quantizes the initial params and
 trains their scales with the codes frozen. ``--sp N`` trains sequence-
 parallel: a dp=1 tp=1 sp=N mesh over the run's devices (its ranks round-
 robin where the devices are fewer, ``parallel/mesh.py``) and the model's
-attention a ring over the sp axis. The rest of parallelism (``--dp/--tp/
---pp > 1``, ``--fsdp``) is not ported yet and raises.
+attention a ring over the sp axis.
+
+``--dp/--tp/--pp > 1`` and ``--fsdp`` train on a process mesh, one rank a
+process (``parallel/multihost.py``): the run joins a group set up by a
+launcher, or starts its dp·tp·pp local ranks itself, round-robin over the
+cards (all on the CPU under ``--device cpu``). Each rank builds the whole
+initial state from the seed and keeps its shard
+(``train/sharded.shard_train_state``) and its rows of every batch; rank 0
+does the run's I/O (prints, CSVs, evals, checkpoints of the gathered
+state, the same file a one-rank run writes). ``--pp N`` runs the pipeline
+alone (``parallel/pipeline.py``; ``--n-micro``, ``--pp-schedule``).
+``--sp`` with a process mesh raises: the ring's process transport is not
+ported.
 """
 from __future__ import annotations
 
@@ -25,6 +36,8 @@ import dataclasses
 import os
 import sys
 import time
+
+import numpy as np
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -40,7 +53,14 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ways")
     ap.add_argument("--sp", type=int, default=1,
                     help="sequence-parallel ways")
-    ap.add_argument("--pp", type=int, default=1, help="pipeline stages")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages (one process a stage)")
+    ap.add_argument("--n-micro", type=int, default=0,
+                    help="pipeline microbatches (default: 2*pp)")
+    ap.add_argument("--pp-schedule", default="1f1b",
+                    choices=["1f1b", "gpipe"],
+                    help="pipeline schedule: 1f1b (O(P) activation "
+                         "memory, default) or gpipe")
     ap.add_argument("--fsdp", action="store_true",
                     help="shard params+moments over dp (ZeRO-3 analog)")
     ap.add_argument("--resume", default=None,
@@ -50,16 +70,43 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to koifish_tpu_torch "
-                              f"yet (ROADMAP.md queue 1, {item})")
+#: the kernel libraries a training rank loads (built once, before the
+#: ranks start, so they do not race on ``build/``)
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd", "fused_ce")
 
 
-def _on_device(batches, dev):
-    """Numpy batches -> int64 token / bool mask tensors on ``dev``."""
+def _rank_main(argv) -> None:
+    """One rank of a run whose local ranks this process started."""
+    rc = main(argv)
+    if rc:
+        raise SystemExit(rc)
+
+
+def _parallel_args(args) -> int:
+    """The rank count of the run's process mesh; raises on the
+    combinations the port does not take."""
+    n = args.dp * args.tp * args.pp
+    if args.sp > 1 and (n > 1 or args.fsdp):
+        raise NotImplementedError(
+            "--sp with --dp/--tp/--pp/--fsdp needs the ring's process "
+            "transport, which is not ported (ROADMAP.md queue 1, the ring's "
+            "process transport)")
+    if args.pp > 1 and (args.dp > 1 or args.tp > 1 or args.fsdp):
+        raise ValueError("--pp runs the pipeline alone (as the JAX "
+                         "package's pipeline loop does): drop --dp/--tp/"
+                         "--fsdp")
+    return n
+
+
+def _on_device(batches, dev, mesh=None):
+    """Numpy batches -> int64 token / bool mask tensors on ``dev``; with a
+    process mesh, this rank's rows along ``dp`` only."""
     import torch
     for b in batches:
-        yield {k: torch.from_numpy(v).to(
+        if mesh is not None:
+            from koifish_tpu_torch.train.sharded import shard_batch
+            b = shard_batch(b, mesh)
+        yield {k: torch.from_numpy(np.ascontiguousarray(v)).to(
             dev, torch.int64 if k == "tokens" else torch.bool)
             for k, v in b.items()}
 
@@ -70,9 +117,16 @@ def main(argv=None, result=None) -> int:
     step's ``metrics`` (``leaf_norms`` among them when the config sets
     ``debug.check_tensor_norm``)."""
     args = build_argparser().parse_args(argv)
-    if args.dp > 1 or args.tp > 1 or args.pp > 1 or args.fsdp:
-        _not_ported("--dp/--tp/--pp > 1 and --fsdp",
-                    "parallelism on torch.distributed")
+    n_ranks = _parallel_args(args)
+    from koifish_tpu_torch.parallel import multihost
+    if n_ranks > 1 and multihost.env_rank() is None:
+        # no launcher: start this host's ranks here, one command in all
+        if args.device != "cpu":
+            from koifish_tpu_torch.ops.kernels import _build
+            _build.build(TRAIN_KERNELS)
+        multihost.spawn(_rank_main, n_ranks, (argv,), device=args.device)
+        return 0
+    multihost.init_distributed(device=args.device)
     import torch
 
     from koifish_tpu_torch.config import CLIParams
@@ -83,7 +137,20 @@ def main(argv=None, result=None) -> int:
     from koifish_tpu_torch.utils.device import resolve_device
     from koifish_tpu_torch.utils.tree import leaves
 
-    dev = resolve_device(args.device)
+    mesh = None
+    if n_ranks > 1 or args.fsdp:
+        from koifish_tpu_torch.parallel import make_process_mesh
+        mesh = make_process_mesh({"pp": args.pp, "dp": args.dp,
+                                  "tp": args.tp}, args.device)
+        dev = mesh.device
+    else:
+        dev = resolve_device(args.device)
+    main_rank = mesh is None or mesh.is_main
+    say = print if main_rank else (lambda *a, **k: None)
+    if mesh is not None:
+        say(f"[koifish] process mesh dp={args.dp} tp={args.tp} "
+            f"pp={args.pp} fsdp={args.fsdp}: {mesh.world} rank(s), backend "
+            f"{multihost.backend_choice()}")
     p = CLIParams.load(args.config)
     if args.hf:
         p.hf_card = args.hf
@@ -94,7 +161,7 @@ def main(argv=None, result=None) -> int:
 
     params = None
     if p.hf_card:
-        print(f"[koifish] loading HF weights from {p.hf_card}")
+        say(f"[koifish] loading HF weights from {p.hf_card}")
         card, params = load_hf_model(p.hf_card, card, device=dev)
 
     # SFT method wiring (LoRA adapters / trainable masks; SFT_CARD analog)
@@ -106,21 +173,21 @@ def main(argv=None, result=None) -> int:
                               torch.Generator().manual_seed(p.seed))
         if p.sft.method != "full":
             trainable = trainable_mask(params, p.sft.method)
-        print(f"[koifish] SFT method={p.sft.method}")
+        say(f"[koifish] SFT method={p.sft.method}")
 
     state = init_train_state(card, tcard, params=params, device=dev)
     resume_path = args.resume or p.checkpoint_in
     if resume_path:
         from koifish_tpu_torch.io import load_train_state
         state, _ = load_train_state(resume_path, state)
-        print(f"[koifish] resumed from {resume_path} "
-              f"(step {int(state.opt.step)})")
+        say(f"[koifish] resumed from {resume_path} "
+            f"(step {int(state.opt.step)})")
     n_params = sum(x.numel() for x in leaves(state.params))
-    print(f"[koifish] arch={card.arch} layers={card.n_layer} "
-          f"params={n_params/1e6:.1f}M device={dev.type}")
+    say(f"[koifish] arch={card.arch} layers={card.n_layer} "
+        f"params={n_params/1e6:.1f}M device={dev.type}")
     if tcard.nn_structure:    # DUMP_SWITCH.nn_structure
         from koifish_tpu_torch.utils.dump import model_structure
-        print(model_structure(state.params))
+        say(model_structure(state.params))
 
     train_ds = p.datasets.get("train")
     if train_ds is None or not train_ds.glob:
@@ -135,22 +202,33 @@ def main(argv=None, result=None) -> int:
         total_steps = max(len(sds) // tcard.batch, 1) * tcard.epochs
         batches = sds.batches(tcard.batch, seed=p.seed, epochs=tcard.epochs,
                               accum=tcard.grad_accum)
-        print(f"[koifish] SFT: {len(sds)} conversations, {total_steps} steps")
+        say(f"[koifish] SFT: {len(sds)} conversations, {total_steps} steps")
     else:
         ds = TokenDataset(train_ds.glob, most=train_ds.most)
         steps_per_epoch = max(ds.total // (tcard.batch * card.n_ctx), 1)
         total_steps = steps_per_epoch * tcard.epochs
         batches = ds.batches(tcard.batch, card.n_ctx, seed=p.seed,
                              epochs=tcard.epochs, accum=tcard.grad_accum)
-        print(f"[koifish] {ds.total/1e6:.1f}M tokens, {total_steps} steps "
-              f"(B={tcard.batch}, ctx={card.n_ctx}, accum={tcard.grad_accum})")
+        say(f"[koifish] {ds.total/1e6:.1f}M tokens, {total_steps} steps "
+            f"(B={tcard.batch}, ctx={card.n_ctx}, accum={tcard.grad_accum})")
 
     eval_cards = [d for k, d in p.datasets.items() if k.startswith("eval")]
     eval_csv = os.path.join(args.out_dir, "Eval.csv")
     eval_state = {"best": float("inf"), "last": float("inf"),
                   "no_improve": 0}
 
+    def whole(st):
+        """The whole state from the ranks' shards (every rank takes
+        part); the state itself without a mesh."""
+        if mesh is None:
+            return st
+        from koifish_tpu_torch.train.sharded import gather_train_state
+        return gather_train_state(st)
+
     def eval_fn(st, it):
+        st = whole(st)
+        if not main_rank:
+            return {}
         for d in eval_cards:
             if d.kind == "hellaswag":
                 continue  # pangpi handles hellaswag
@@ -194,6 +272,9 @@ def main(argv=None, result=None) -> int:
             print(f"[koifish] gpt-every disabled (no tokenizer): {e}")
 
     def gpt_sample(st, it):
+        st = whole(st)
+        if not main_rank:
+            return
         from koifish_tpu_torch.config import SamplerCard
         from koifish_tpu_torch.serve import generate, init_cache
         prompt_text = (p.prompts[0] if p.prompts else "Once upon a time")
@@ -212,6 +293,10 @@ def main(argv=None, result=None) -> int:
     os.makedirs(ckpt_dir or ".", exist_ok=True)
 
     def save_fn(st, it, tag):
+        # rank 0 writes the gathered state: the file a one-rank run writes
+        st = whole(st)
+        if not main_rank:
+            return
         path = os.path.join(ckpt_dir, f"koifish_{tag}_{it}.safetensors")
         save_train_state(path, st, card, extra_meta={"iter": it})
         print(f"[koifish] saved {tag} checkpoint -> {path}")
@@ -223,21 +308,40 @@ def main(argv=None, result=None) -> int:
     if args.sp > 1:
         from koifish_tpu_torch.ops.tracectx import SPPolicy
         from koifish_tpu_torch.parallel import make_mesh
-        mesh = make_mesh({"dp": args.dp, "tp": args.tp, "sp": args.sp},
-                         devices=None if args.device is None else [dev])
-        sp_policy = SPPolicy("sp", mesh)
+        sp_mesh = make_mesh({"dp": args.dp, "tp": args.tp, "sp": args.sp},
+                            devices=None if args.device is None else [dev])
+        sp_policy = SPPolicy("sp", sp_mesh)
         print(f"[koifish] mesh dp={args.dp} tp={args.tp} sp={args.sp} on "
-              f"{mesh.n_devices} device(s)")
+              f"{sp_mesh.n_devices} device(s)")
 
     if qcard is not None:
         mode = "gama" if qcard.train_target == "gama" else "fake-quant (STE)"
-        print(f"[koifish] QAT enabled: {mode}, {len(qcard.rules)} rules")
+        say(f"[koifish] QAT enabled: {mode}, {len(qcard.rules)} rules")
         if qcard.train_target == "gama":
             from koifish_tpu_torch.quant.apply import quantize_params
             with torch.no_grad():
                 qparams = quantize_params(state.params, qcard, card,
                                           device=dev)
             state = init_train_state(card, tcard, params=qparams, device=dev)
+
+    if mesh is not None and (args.tp > 1 or args.pp > 1):
+        from koifish_tpu_torch.parallel.sharding import check_parallel_card
+        check_parallel_card(card, "tensor parallelism" if args.tp > 1
+                            else "pipeline parallelism")
+    if mesh is not None and args.pp > 1:
+        return _run_pipeline(args, mesh, card, tcard, state,
+                             _on_device(batches, dev), total_steps, say,
+                             result)
+    if mesh is not None:
+        from koifish_tpu_torch.train.sharded import shard_train_state
+        if p.fuyou:
+            raise NotImplementedError("the Fuyou swarm on a process mesh "
+                                      "is not ported")
+        state = shard_train_state(state, mesh,
+                                  fsdp="dp" if args.fsdp else None)
+        sl = multihost.per_host_batch_slice(tcard.batch, mesh)
+        print(f"[koifish] rank {mesh.rank}/{mesh.world}: batch rows "
+              f"{sl.start}:{sl.stop} of {tcard.batch}", flush=True)
 
     hooks = []
     if gpt_tok is not None:
@@ -282,7 +386,7 @@ def main(argv=None, result=None) -> int:
             return st
 
     wandb_run = None
-    if args.wandb:
+    if args.wandb and main_rank:
         try:
             import wandb
             wandb_run = wandb.init(project=args.wandb,
@@ -307,22 +411,80 @@ def main(argv=None, result=None) -> int:
 
     t0 = time.time()
     state, infos = train_loop(
-        card, tcard, state, _on_device(batches, dev),
-        total_steps=total_steps, log_fn=log_fn, eval_fn=eval_fn,
+        card, tcard, state, _on_device(batches, dev, mesh),
+        total_steps=total_steps, log_fn=log_fn if main_rank else None,
+        eval_fn=eval_fn,
         save_fn=save_fn, qcard=qcard, trainable=trainable, hook_fn=hook_fn,
         sp=sp_policy)
     csv = tcard.train_csv_path or os.path.join(args.out_dir,
                                                "koifish_loss.csv")
-    infos.save_csv(csv)
+    if main_rank:
+        infos.save_csv(csv)
     if infos.rows:
-        print(f"[koifish] done: {len(infos.rows)} iters in "
-              f"{time.time()-t0:.0f}s, final loss {infos.losses[-1]:.4f}, "
-              f"curve -> {csv}")
+        say(f"[koifish] done: {len(infos.rows)} iters in "
+            f"{time.time()-t0:.0f}s, final loss {infos.losses[-1]:.4f}, "
+            f"curve -> {csv}")
+        if not main_rank:
+            print(f"[koifish] rank {mesh.rank}/{mesh.world} done: final "
+                  f"loss {infos.losses[-1]:.6f}", flush=True)
     if tcard.save_every or p.checkpoint_out:
         save_fn(state, len(infos.rows), "final")
     if result is not None:
         result.update(card=card, state=state, infos=infos,
                       metrics=infos.metrics)
+    return 0
+
+
+def _run_pipeline(args, mesh, card, tcard, state, batches, total_steps,
+                  say, result) -> int:
+    """The pipeline loop (``koifish --pp N``): this rank is stage
+    ``mesh.index("pp")`` and holds its layers only; rank 0 logs and writes
+    the loss curve."""
+    from koifish_tpu_torch.parallel.pipeline import (make_pp_train_step,
+                                                     stack_for_pipeline)
+    from koifish_tpu_torch.train.optimizer import init_opt_state
+    from koifish_tpu_torch.train.trainer import StepInfo
+
+    n_micro = args.n_micro or 2 * args.pp
+    stage_layers, other = stack_for_pipeline(state.params, args.pp,
+                                             stage=mesh.index("pp"))
+    del state
+    opt = init_opt_state({"stages": stage_layers, "other": other},
+                         tcard.optimizer, tcard.moment_dtype)
+    step = make_pp_train_step(card, tcard, mesh, n_micro, total_steps,
+                              schedule=args.pp_schedule)
+    say(f"[koifish] pipeline: pp={args.pp} n_micro={n_micro} "
+        f"schedule={args.pp_schedule} "
+        f"(bubble {(args.pp - 1) / (n_micro + args.pp - 1):.0%})")
+    infos = StepInfo()
+    for it, batch in enumerate(batches):
+        if 0 <= tcard.most_iter <= it or it >= total_steps:
+            break
+        tokens = batch["tokens"].reshape(-1, batch["tokens"].shape[-1])
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = mask.reshape(-1, mask.shape[-1])
+        t0 = time.perf_counter()
+        stage_layers, other, opt, m = step(stage_layers, other, opt, tokens,
+                                           mask)
+        loss = float(m["loss"])
+        dt = time.perf_counter() - t0
+        infos.add(it, loss, float(m["lr"]), dt, tokens.numel() / dt)
+        infos.metrics = m
+        infos.grad_norms.append(float(m["grad_norm"]))
+        if tcard.dump_every and it % tcard.dump_every == 0:
+            say(f"[{it}] loss={loss:.4f} gnorm={float(m['grad_norm']):.3f} "
+                f"T={dt:.2f}s (pp)")
+    csv = tcard.train_csv_path or os.path.join(args.out_dir,
+                                               "koifish_loss.csv")
+    if mesh.is_main:
+        infos.save_csv(csv)
+    if infos.rows:
+        say(f"[koifish] pp done: {len(infos.rows)} iters, "
+            f"final loss {infos.losses[-1]:.4f}")
+    if result is not None:
+        result.update(card=card, stages=stage_layers, other=other,
+                      infos=infos, metrics=infos.metrics)
     return 0
 
 

@@ -40,8 +40,9 @@
 //     in bytes by the owner's mbarrier: no remote loads and no cluster
 //     barrier at the end, which timed ~0.3 µs a launch slower on an H100);
 //     once its slice has landed each owner sums its slots in rank order
-//     and writes bf16. No workspace, no second launch, no atomics: the
-//     result is the same at every run.
+//     and writes bf16 (with f32_out the f32 sum, for a caller that adds
+//     other partials before it rounds). No workspace, no second launch, no
+//     atomics: the result is the same at every run.
 //   - A 4-stage cp.async ring holds each group's raw code bytes, its x
 //     columns (m rows, rows past m zero), its scale row and (MINI) its 128
 //     book rows; three groups are in flight while one is multiplied, so a
@@ -119,7 +120,7 @@ template <int FMT, bool BOOK, int MT>
 __global__ void __launch_bounds__(NT)
     qmv_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ codes,
                const float* __restrict__ scales, const float* __restrict__ book, int per_row,
-               bf16* __restrict__ out, int m, int K, int N, int gps) {
+               void* __restrict__ out, int f32_out, int m, int K, int N, int gps) {
   using C = Codes<FMT>;
   using LY = GemvLayout<FMT, BOOK, MT>;
   constexpr int NB = LY::NB, SUB = C::SUB, CPB = C::CPB;
@@ -340,8 +341,13 @@ __global__ void __launch_bounds__(NT)
   auto store = [&](int idx, float4 v) {
     const int r = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
     if (n0 + c >= N) return;
+    const size_t at = static_cast<size_t>(r) * N + n0 + c;
+    if (f32_out) {   // the sum as it is, for a caller that adds more partials
+      *reinterpret_cast<float4*>(static_cast<float*>(out) + at) = v;
+      return;
+    }
     __nv_bfloat162 lo2 = __floats2bfloat162_rn(v.x, v.y), hi2 = __floats2bfloat162_rn(v.z, v.w);
-    *reinterpret_cast<uint2*>(out + static_cast<size_t>(r) * N + n0 + c) =
+    *reinterpret_cast<uint2*>(static_cast<bf16*>(out) + at) =
         make_uint2(*reinterpret_cast<uint32_t*>(&lo2), *reinterpret_cast<uint32_t*>(&hi2));
   };
   if (nrank == 1) {   // no K split
@@ -376,8 +382,8 @@ __global__ void __launch_bounds__(NT)
 
 template <int FMT, bool BOOK, int MT>
 cudaError_t launch_mt(const void* x, const void* codes, const void* scales, const void* book,
-                      int per_row, void* out, int m, int K, int N, int gps, int splits,
-                      cudaStream_t stream) {
+                      int per_row, void* out, int f32_out, int m, int K, int N, int gps,
+                      int splits, cudaStream_t stream) {
   using LY = GemvLayout<FMT, BOOK, MT>;
   auto kernel = qmv_kernel<FMT, BOOK, MT>;
   static cudaError_t attr = set_smem(kernel, LY::BYTES);
@@ -397,28 +403,28 @@ cudaError_t launch_mt(const void* x, const void* codes, const void* scales, cons
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const bf16*>(x), static_cast<const uint8_t*>(codes),
       static_cast<const float*>(scales), static_cast<const float*>(book), per_row,
-      static_cast<bf16*>(out), m, K, N, gps);
+      out, f32_out, m, K, N, gps);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // m8 tiles of x: ceil(m / 8)
 template <int FMT, bool BOOK = false>
-cudaError_t launch(const void* x, const void* codes, const void* scales, void* out, int m, int K,
-                   int N, int gps, int splits, cudaStream_t stream, const void* book = nullptr,
-                   int per_row = 0) {
+cudaError_t launch(const void* x, const void* codes, const void* scales, void* out, int f32_out,
+                   int m, int K, int N, int gps, int splits, cudaStream_t stream,
+                   const void* book = nullptr, int per_row = 0) {
   switch ((m + 7) / 8) {
     case 1:
-      return launch_mt<FMT, BOOK, 1>(x, codes, scales, book, per_row, out, m, K, N, gps, splits,
-                                     stream);
+      return launch_mt<FMT, BOOK, 1>(x, codes, scales, book, per_row, out, f32_out, m, K, N,
+                                     gps, splits, stream);
     case 2:
-      return launch_mt<FMT, BOOK, 2>(x, codes, scales, book, per_row, out, m, K, N, gps, splits,
-                                     stream);
+      return launch_mt<FMT, BOOK, 2>(x, codes, scales, book, per_row, out, f32_out, m, K, N,
+                                     gps, splits, stream);
     case 3:
-      return launch_mt<FMT, BOOK, 3>(x, codes, scales, book, per_row, out, m, K, N, gps, splits,
-                                     stream);
+      return launch_mt<FMT, BOOK, 3>(x, codes, scales, book, per_row, out, f32_out, m, K, N,
+                                     gps, splits, stream);
     default:
-      return launch_mt<FMT, BOOK, 4>(x, codes, scales, book, per_row, out, m, K, N, gps, splits,
-                                     stream);
+      return launch_mt<FMT, BOOK, 4>(x, codes, scales, book, per_row, out, f32_out, m, K, N,
+                                     gps, splits, stream);
   }
 }
 
@@ -432,21 +438,23 @@ bool plan_ok(int m, int K, int N, int gps, int splits) {
 
 }  // namespace
 
-// y [m, N] bf16 = x [m, K] bf16 (m <= 32) against the codes; K is split
-// over `splits` blocks of a cluster (at most 8), `gps` groups each.
+// y [m, N] bf16 (f32 with f32_out) = x [m, K] bf16 (m <= 32) against the
+// codes; K is split over `splits` blocks of a cluster (at most 8), `gps`
+// groups each.
 KOIFISH_API int koifish_qmatmul(const void* x, const void* codes, const void* scales, void* out,
-                                int m, int K, int N, int fmt, int gps, int splits, void* stream) {
+                                int f32_out, int m, int K, int N, int fmt, int gps, int splits,
+                                void* stream) {
   if (!plan_ok(m, K, N, gps, splits)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (fmt) {
-    case INT8: return launch<INT8>(x, codes, scales, out, m, K, N, gps, splits, s);
-    case INT4: return launch<INT4>(x, codes, scales, out, m, K, N, gps, splits, s);
-    case NF4: return launch<NF4>(x, codes, scales, out, m, K, N, gps, splits, s);
-    case INT3: return launch<INT3>(x, codes, scales, out, m, K, N, gps, splits, s);
-    case NF3: return launch<NF3>(x, codes, scales, out, m, K, N, gps, splits, s);
-    case INT2: return launch<INT2>(x, codes, scales, out, m, K, N, gps, splits, s);
-    case TERNARY: return launch<TERNARY>(x, codes, scales, out, m, K, N, gps, splits, s);
-    case BINARY: return launch<BINARY>(x, codes, scales, out, m, K, N, gps, splits, s);
+    case INT8: return launch<INT8>(x, codes, scales, out, f32_out, m, K, N, gps, splits, s);
+    case INT4: return launch<INT4>(x, codes, scales, out, f32_out, m, K, N, gps, splits, s);
+    case NF4: return launch<NF4>(x, codes, scales, out, f32_out, m, K, N, gps, splits, s);
+    case INT3: return launch<INT3>(x, codes, scales, out, f32_out, m, K, N, gps, splits, s);
+    case NF3: return launch<NF3>(x, codes, scales, out, f32_out, m, K, N, gps, splits, s);
+    case INT2: return launch<INT2>(x, codes, scales, out, f32_out, m, K, N, gps, splits, s);
+    case TERNARY: return launch<TERNARY>(x, codes, scales, out, f32_out, m, K, N, gps, splits, s);
+    case BINARY: return launch<BINARY>(x, codes, scales, out, f32_out, m, K, N, gps, splits, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -454,15 +462,18 @@ KOIFISH_API int koifish_qmatmul(const void* x, const void* codes, const void* sc
 // Learned-codebook codes (NF4 or NF3 layouts): book is f32 [K, 2^bits]
 // (per_row = 1) or [2^bits] (per_row = 0), contiguous.
 KOIFISH_API int koifish_qmatmul_book(const void* x, const void* codes, const void* scales,
-                                     const void* book, void* out, int m, int K, int N, int fmt,
-                                     int per_row, int gps, int splits, void* stream) {
+                                     const void* book, void* out, int f32_out, int m, int K,
+                                     int N, int fmt, int per_row, int gps, int splits,
+                                     void* stream) {
   if (!plan_ok(m, K, N, gps, splits) || book == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (fmt) {
     case NF4:
-      return launch<NF4, true>(x, codes, scales, out, m, K, N, gps, splits, s, book, per_row);
+      return launch<NF4, true>(x, codes, scales, out, f32_out, m, K, N, gps, splits, s, book,
+                               per_row);
     case NF3:
-      return launch<NF3, true>(x, codes, scales, out, m, K, N, gps, splits, s, book, per_row);
+      return launch<NF3, true>(x, codes, scales, out, f32_out, m, K, N, gps, splits, s, book,
+                               per_row);
     default: return cudaErrorInvalidValue;
   }
 }

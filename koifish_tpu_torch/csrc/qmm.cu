@@ -340,14 +340,18 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// Sum the K-split partials in split order and round to bf16.
-__global__ void splitk_reduce(const float* __restrict__ partial, bf16* __restrict__ out,
-                              int splits, size_t mn) {
+// Sum the K-split partials in split order and round to bf16 (with f32_out,
+// keep the f32 sum).
+__global__ void splitk_reduce(const float* __restrict__ partial, void* __restrict__ out,
+                              int f32_out, int splits, size_t mn) {
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= mn) return;
   float s = 0.f;
   for (int k = 0; k < splits; ++k) s += partial[k * mn + i];
-  out[i] = __float2bfloat16(s);
+  if (f32_out)
+    static_cast<float*>(out)[i] = s;
+  else
+    static_cast<bf16*>(out)[i] = __float2bfloat16(s);
 }
 
 // The TMA map of x [m, K] bf16: boxes of 64 columns x BM rows in the
@@ -368,8 +372,8 @@ cudaError_t x_map(CUtensorMap* map, const void* x, int m, int K) {
 
 template <int FMT, bool BOOK = false>
 cudaError_t launch(const void* x, const void* codes, const void* scales, void* out, void* work,
-                   int m, int K, int N, int gps, cudaStream_t stream, const void* book = nullptr,
-                   int per_row = 0) {
+                   int f32_out, int m, int K, int N, int gps, cudaStream_t stream,
+                   const void* book = nullptr, int per_row = 0) {
   using LY = QmmLayout<FMT, BOOK>;
   static cudaError_t attr = set_smem(qmm_ws_kernel<FMT, BOOK>, LY::ALLOC);
   if (attr != cudaSuccess) return attr;
@@ -377,7 +381,11 @@ cudaError_t launch(const void* x, const void* codes, const void* scales, void* o
   const int splits = (ng + gps - 1) / gps;
   const long long total =
       static_cast<long long>((N + BN - 1) / BN) * ((m + BM - 1) / BM) * splits;
-  float* partial = splits > 1 ? static_cast<float*>(work) : nullptr;
+  // an f32 result without a K split is the one split's partial, written
+  // by the kernel straight into out
+  float* partial = splits > 1 ? static_cast<float*>(work)
+                   : f32_out  ? static_cast<float*>(out)
+                              : nullptr;
   if (splits > 1 && partial == nullptr) return cudaErrorInvalidValue;
   const unsigned grid = static_cast<unsigned>(total < sm_count() ? total : sm_count());
   CUtensorMap xmap;
@@ -390,28 +398,29 @@ cudaError_t launch(const void* x, const void* codes, const void* scales, void* o
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const size_t mn = static_cast<size_t>(m) * N;
-  splitk_reduce<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, stream>>>(
-      partial, static_cast<bf16*>(out), splits, mn);
+  splitk_reduce<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, stream>>>(partial, out,
+                                                                              f32_out, splits, mn);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x [m, K] bf16, codes [K/cpb, N], scales f32 [K/128, N], out [m, N] bf16;
-// work f32 [splits, m, N] when gps < K/128
+// x [m, K] bf16, codes [K/cpb, N], scales f32 [K/128, N], out [m, N] bf16
+// (f32 with f32_out); work f32 [splits, m, N] when gps < K/128
 KOIFISH_API int koifish_qmm(const void* x, const void* codes, const void* scales, void* out,
-                            void* work, int m, int K, int N, int fmt, int gps, void* stream) {
+                            void* work, int f32_out, int m, int K, int N, int fmt, int gps,
+                            void* stream) {
   if (m < 1 || K % GROUP != 0 || N % 4 != 0 || gps < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (fmt) {
-    case INT8: return launch<INT8>(x, codes, scales, out, work, m, K, N, gps, s);
-    case INT4: return launch<INT4>(x, codes, scales, out, work, m, K, N, gps, s);
-    case NF4: return launch<NF4>(x, codes, scales, out, work, m, K, N, gps, s);
-    case INT3: return launch<INT3>(x, codes, scales, out, work, m, K, N, gps, s);
-    case NF3: return launch<NF3>(x, codes, scales, out, work, m, K, N, gps, s);
-    case INT2: return launch<INT2>(x, codes, scales, out, work, m, K, N, gps, s);
-    case TERNARY: return launch<TERNARY>(x, codes, scales, out, work, m, K, N, gps, s);
-    case BINARY: return launch<BINARY>(x, codes, scales, out, work, m, K, N, gps, s);
+    case INT8: return launch<INT8>(x, codes, scales, out, work, f32_out, m, K, N, gps, s);
+    case INT4: return launch<INT4>(x, codes, scales, out, work, f32_out, m, K, N, gps, s);
+    case NF4: return launch<NF4>(x, codes, scales, out, work, f32_out, m, K, N, gps, s);
+    case INT3: return launch<INT3>(x, codes, scales, out, work, f32_out, m, K, N, gps, s);
+    case NF3: return launch<NF3>(x, codes, scales, out, work, f32_out, m, K, N, gps, s);
+    case INT2: return launch<INT2>(x, codes, scales, out, work, f32_out, m, K, N, gps, s);
+    case TERNARY: return launch<TERNARY>(x, codes, scales, out, work, f32_out, m, K, N, gps, s);
+    case BINARY: return launch<BINARY>(x, codes, scales, out, work, f32_out, m, K, N, gps, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -419,14 +428,18 @@ KOIFISH_API int koifish_qmm(const void* x, const void* codes, const void* scales
 // Learned-codebook codes (NF4 or NF3 layouts): book is f32 [K, 2^bits]
 // (per_row = 1) or [2^bits] (per_row = 0), contiguous.
 KOIFISH_API int koifish_qmm_book(const void* x, const void* codes, const void* scales,
-                                 const void* book, void* out, void* work, int m, int K, int N,
-                                 int fmt, int per_row, int gps, void* stream) {
+                                 const void* book, void* out, void* work, int f32_out, int m,
+                                 int K, int N, int fmt, int per_row, int gps, void* stream) {
   if (m < 1 || K % GROUP != 0 || N % 4 != 0 || gps < 1 || book == nullptr)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (fmt) {
-    case NF4: return launch<NF4, true>(x, codes, scales, out, work, m, K, N, gps, s, book, per_row);
-    case NF3: return launch<NF3, true>(x, codes, scales, out, work, m, K, N, gps, s, book, per_row);
+    case NF4:
+      return launch<NF4, true>(x, codes, scales, out, work, f32_out, m, K, N, gps, s, book,
+                               per_row);
+    case NF3:
+      return launch<NF3, true>(x, codes, scales, out, work, f32_out, m, K, N, gps, s, book,
+                               per_row);
     default: return cudaErrorInvalidValue;
   }
 }

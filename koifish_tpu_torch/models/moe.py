@@ -15,6 +15,12 @@ are exact in f32, so only the summation order differs).
 
 Layer params: ``router`` [E, Ne]; ``egate``/``eup`` [Ne, E, Fm];
 ``edown`` [Ne, Fm, E].
+
+Expert parallelism under a ``TPPolicy``: a rank holds ``Ne/tp`` experts of
+the stacks. Every rank routes every token (the router is replicated),
+runs its own experts over their capacity buffers, and combines only the
+assignments to them; the partial combines are summed over the group in
+f32 and rounded once.
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ from typing import Any, Dict, NamedTuple
 import torch
 
 from koifish_tpu_torch.config import ModelCard
+from koifish_tpu_torch.ops.tracectx import current_tp
+from koifish_tpu_torch.parallel import comm
 from koifish_tpu_torch.utils.device import resolve_device
 
 CAPACITY_FACTOR = 1.25
@@ -81,12 +89,24 @@ def moe_ffn(card: ModelCard, lp: Dict[str, Any], x: torch.Tensor,
     S = B * T
     Ne, k = card.n_experts, card.n_experts_active
     x2 = x.reshape(S, E)
-    r = route(card, lp["router"], x2, capacity_factor)
+    tp = current_tp()
+    n_loc = lp["egate"].shape[0]
+    if tp is not None and n_loc != Ne:
+        # a shard of the experts: each rank's router gradient is partial
+        r = route(card, comm.copy_to(lp["router"], tp.group), x2,
+                  capacity_factor)
+    else:
+        tp = None
+        r = route(card, lp["router"], x2, capacity_factor)
 
     # dispatch: scatter the kept assignments into [Ne, C, E]
     xk = x2.repeat_interleave(k, dim=0) * r.keep[:, None].to(x.dtype)
     buf = torch.zeros((Ne, r.capacity, E), dtype=x.dtype, device=x.device)
     buf.index_put_((r.expert, r.slot), xk, accumulate=True)
+
+    e0 = 0 if tp is None else tp.rank * n_loc
+    if tp is not None:
+        buf = buf[e0:e0 + n_loc]
 
     # expert FFNs over the whole buffer, batched over the expert axis
     g = _bmm_f32(buf, lp["egate"].to(x.dtype))
@@ -95,9 +115,15 @@ def moe_ffn(card: ModelCard, lp: Dict[str, Any], x: torch.Tensor,
     y = _bmm_f32(h, lp["edown"].to(x.dtype))                      # [Ne, C, E]
 
     # combine: gather each assignment's result, weight it, sum over k
-    out = y[r.expert, r.slot]
-    out = out * (r.gate * r.keep.to(torch.float32))[:, None]
-    out = out.reshape(S, k, E).sum(1)
+    if tp is None:
+        out = y[r.expert, r.slot]
+        out = out * (r.gate * r.keep.to(torch.float32))[:, None]
+        out = out.reshape(S, k, E).sum(1)
+        return out.reshape(B, T, E).to(x.dtype)
+    mine = (r.expert >= e0) & (r.expert < e0 + n_loc)
+    out = y[(r.expert - e0).clamp(0, n_loc - 1), r.slot]
+    out = out * (r.gate * (r.keep & mine).to(torch.float32))[:, None]
+    out = comm.reduce_from(out.reshape(S, k, E).sum(1), tp.group)
     return out.reshape(B, T, E).to(x.dtype)
 
 

@@ -28,6 +28,13 @@ place of the attention, with the FFN kept; a GUPPY card's FFN is
 through the ``evae`` latent stack (``models/embed_vae.py``).
 
 Any weight-matrix leaf may be a QTensor; ``ops/matmul`` dispatches.
+
+Under a ``TPPolicy`` (``ops/tracectx.py``) each rank runs this code on its
+shard of the params with a card of its local head and FFN counts
+(``parallel/sharding.local_card``): the column-parallel inputs pass
+``comm.copy_to``, the row-parallel outputs (``o``, ``down``, ``proj``) are
+summed over the group in f32 and rounded once, a vocab-sharded embedding
+sums its ranks' rows, and a vocab-sharded head gathers its logits.
 Training differentiates ``model_forward`` with autograd (bf16 leaves with
 ``requires_grad``); ``remat`` recomputes blocks in the backward through
 ``torch.utils.checkpoint``.
@@ -58,7 +65,9 @@ from koifish_tpu_torch.ops.matmul import linear, qmatmul
 from koifish_tpu_torch.ops.norms import layernorm, rmsnorm
 from koifish_tpu_torch.ops.rope import apply_rope, rope_freqs
 from koifish_tpu_torch.ops.tracectx import (current_int8, current_sp,
-                                            int8_scope, sp_scope)
+                                            current_tp, int8_scope, sp_scope,
+                                            tp_scope)
+from koifish_tpu_torch.parallel import comm
 from koifish_tpu_torch.quant.packing import unpack_codes
 from koifish_tpu_torch.quant.qtensor import QTensor, codebook_for
 from koifish_tpu_torch.utils.device import resolve_device
@@ -167,9 +176,35 @@ def init_params(card: ModelCard, generator: Optional[torch.Generator] = None,
     return params
 
 
+def _vocab_rows(w) -> int:
+    """The vocab entries an embedding leaf holds ([V, E], or [E, V] head
+    layout when quantized)."""
+    return w.shape[-1] if isinstance(w, QTensor) else w.shape[0]
+
+
+def _tp_vocab(w):
+    """The TP policy when ``w`` holds a vocab shard, else None."""
+    tp = current_tp()
+    return tp if tp is not None and _vocab_rows(w) != tp.vocab else None
+
+
 def gather_embed(wte, tokens: torch.Tensor) -> torch.Tensor:
     """Token-embedding lookup. Plain [V, E] row gather; quantized embeddings
-    are stored in head layout [E, V] and dequantized per column."""
+    are stored in head layout [E, V] and dequantized per column. A vocab
+    shard under TP looks up the ids it holds, zeros the others, and the
+    ranks' rows are summed."""
+    tp = _tp_vocab(wte)
+    if tp is not None:
+        n = _vocab_rows(wte)
+        local = tokens.long() - tp.rank * n
+        inside = (local >= 0) & (local < n)
+        e = _gather_rows(wte, torch.where(inside, local, 0))
+        e = e * inside[..., None].to(e.dtype)
+        return comm.reduce_from(e, tp.group).to(torch.bfloat16)
+    return _gather_rows(wte, tokens)
+
+
+def _gather_rows(wte, tokens: torch.Tensor) -> torch.Tensor:
     if isinstance(wte, QTensor):
         ids = tokens.reshape(-1).long()
         cols = wte.codes[:, ids]                          # [E_packed, N]
@@ -203,8 +238,41 @@ def _norm(card: ModelCard, x, w, b=None, residual=None):
     return layernorm(x, w, b, eps=card.norm_eps, residual=residual)
 
 
+#: row-parallel projections: their input features are sharded under TP
+ROW_KEYS = ("o", "down", "proj")
+
+
+def _tp_in(x: torch.Tensor) -> torch.Tensor:
+    """A column-parallel region's input: identity, the gradient summed over
+    the TP group."""
+    tp = current_tp()
+    return x if tp is None else comm.copy_to(x, tp.group)
+
+
 def _linear_l(x: torch.Tensor, lp: Params, key: str) -> torch.Tensor:
-    """Linear through ``lp[key]`` + optional LoRA adapter ``lp[key+"_lora"]``."""
+    """Linear through ``lp[key]`` + optional LoRA adapter ``lp[key+"_lora"]``.
+    Under TP a row-parallel product's partials come out in f32 (the
+    kernels' f32 output; a bf16 weight's product in f32), are summed over
+    the group, its bias added once and the sum rounded once; a row-parallel
+    weight left whole (``parallel/sharding.py``) takes the gathered
+    input."""
+    tp = current_tp()
+    if tp is not None and key in ROW_KEYS:
+        if key + "_lora" in lp:
+            raise NotImplementedError("LoRA adapters under tensor "
+                                      "parallelism are not ported")
+        w = lp[key]
+        if w.shape[0] != x.shape[-1]:
+            # a replicated weight (its K split would cut a quantization
+            # group): gather the input and compute the whole product
+            return linear(comm.gather_from(x, tp.group, -1), w,
+                          lp.get(key + "_b"))
+        y = comm.reduce_from(qmatmul(x, w, out_dtype=torch.float32),
+                             tp.group)
+        b = lp.get(key + "_b")
+        if b is not None:
+            y = y + b.to(torch.float32)
+        return y.to(x.dtype)
     y = linear(x, lp[key], lp.get(key + "_b"))
     lora = lp.get(key + "_lora")
     if lora is not None:
@@ -220,12 +288,14 @@ def qkv_project(card: ModelCard, lp: Params, x: torch.Tensor, cos, sin,
         return mla_qkv(card, lp, x, positions)
     B, T, _ = x.shape
     D = card.head_dim
+    x = _tp_in(x)
     q = _linear_l(x, lp, "q").reshape(B, T, card.n_head, D)
     k = _linear_l(x, lp, "k").reshape(B, T, card.n_kv_head, D)
     v = _linear_l(x, lp, "v").reshape(B, T, card.n_kv_head, D)
     if card.qk_norm:  # per-head RMSNorm before RoPE (Qwen3)
-        q = rmsnorm(q, lp["qn"], eps=card.norm_eps)
-        k = rmsnorm(k, lp["kn"], eps=card.norm_eps)
+        # shared by every head: under TP each rank's gradient is partial
+        q = rmsnorm(q, _tp_in(lp["qn"]), eps=card.norm_eps)
+        k = rmsnorm(k, _tp_in(lp["kn"]), eps=card.norm_eps)
     if card.pos_embed == "rope":
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
@@ -233,6 +303,7 @@ def qkv_project(card: ModelCard, lp: Params, x: torch.Tensor, cos, sin,
 
 
 def mlp(card: ModelCard, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    x = _tp_in(x)
     if "router" in lp:
         return moe_ffn(card, lp, x)
     if "guppy_gain" in lp:
@@ -272,13 +343,31 @@ def layer_forward(card: ModelCard, lp: Params, x: torch.Tensor, cos, sin,
 def lm_head(card: ModelCard, params: Params, x: torch.Tensor,
             out_dtype=torch.float32) -> torch.Tensor:
     """Hidden states -> logits (tied or untied head). The tied bf16 head is
-    a plain ``torch.matmul`` against ``wte.T``."""
-    if not card.tie_embeddings:
-        return qmatmul(x, params["head"], out_dtype=out_dtype)
-    wte = params["wte"]
-    if isinstance(wte, QTensor):            # head layout [E, V]
-        return qmatmul(x, wte, out_dtype=out_dtype)
-    return qmatmul(x, wte.T, out_dtype=out_dtype)
+    a plain ``torch.matmul`` against ``wte.T``. A vocab-sharded head under
+    TP computes its columns and gathers every rank's."""
+    w = params["head"] if not card.tie_embeddings else params["wte"]
+    tp = _tp_vocab(w)
+    if tp is not None:
+        x = comm.copy_to(x, tp.group)
+    if not card.tie_embeddings or isinstance(w, QTensor):   # [E, V] layout
+        y = qmatmul(x, w, out_dtype=out_dtype)
+    else:
+        y = qmatmul(x, w.T, out_dtype=out_dtype)
+    return y if tp is None else comm.gather_from(y, tp.group, -1)
+
+
+def head_weight(params: Params) -> torch.Tensor:
+    """The bf16 head as [E, V] (tied: ``wte.T``) for the fused CE; a vocab
+    shard under TP is gathered first, as GSPMD gathers a kernel call's
+    operands (the CE then runs whole on every rank)."""
+    if "head" in params:
+        w, dim = params["head"], 1
+    else:
+        w, dim = params["wte"], 0
+    tp = _tp_vocab(w)
+    if tp is not None:
+        w = comm.gather_from(w, tp.group, dim)
+    return w if dim == 1 else w.T
 
 
 # matmuls without batch dims: the ops ``remat="dots"`` keeps resident, as
@@ -296,8 +385,8 @@ def _remat_block(remat, window: int):
     recomputes the whole block in the backward; ``"dots"`` keeps the
     projections' outputs and recomputes the elementwise chain (norms, rope,
     activations) — the JAX package's ``jax.checkpoint`` policies. The
-    int8 and sequence-parallel policies in force at the forward are
-    captured and re-entered by the recompute, which autograd runs on its
+    int8, sequence- and tensor-parallel policies in force at the forward
+    are captured and re-entered by the recompute, which autograd runs on its
     own thread for a CUDA backward."""
     kw = {}
     if remat == "dots":
@@ -307,10 +396,10 @@ def _remat_block(remat, window: int):
     def block(card, lp, x, cos, sin, positions):
         if card.arch == "MAMBA":
             return _mamba_remat(card, lp, x, kw)
-        pol, sp = current_int8(), current_sp()
+        pol, sp, tp = current_int8(), current_sp(), current_tp()
 
         def run(*args):
-            with int8_scope(pol), sp_scope(sp):
+            with int8_scope(pol), sp_scope(sp), tp_scope(tp):
                 return layer_forward(*args)
         return checkpoint(run, card, lp, x, cos, sin, positions, window,
                           use_reentrant=False, **kw)

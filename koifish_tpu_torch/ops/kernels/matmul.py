@@ -67,22 +67,22 @@ def _kernel(bm: int):
     """(library, plain entry, book entry) of the launch shape ``bm``."""
     if bm not in _fn:
         if bm == 32:
-            # x codes scales out; m K N fmt gps splits; stream (book: + the
-            # book pointer, and per_row after fmt)
+            # x codes scales out; f32_out m K N fmt gps splits; stream
+            # (book: + the book pointer, and per_row after fmt)
             lib = _build.load(NAME)
             fn, book = lib.koifish_qmatmul, lib.koifish_qmatmul_book
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                            + [ctypes.c_void_p])
-            book.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+            book.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                              + [ctypes.c_void_p])
         else:
-            # x codes scales out work; m K N fmt gps; stream (book: + the
-            # book pointer, and per_row after fmt)
+            # x codes scales out work; f32_out m K N fmt gps; stream (book:
+            # + the book pointer, and per_row after fmt)
             lib = _build.load(GEMM_LIB)
             fn, book = lib.koifish_qmm, lib.koifish_qmm_book
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                            + [ctypes.c_void_p])
-            book.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+            book.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                              + [ctypes.c_void_p])
         fn.restype = book.restype = ctypes.c_int
         _fn[bm] = (lib, fn, book)
@@ -106,11 +106,12 @@ def takes(w: QTensor) -> bool:
 
 
 def qmatmul_plain(x2: torch.Tensor, codes: torch.Tensor,
-                  scales: torch.Tensor, fmt: QFormat,
-                  group: int = GROUP) -> torch.Tensor:
-    """Plain PyTorch version: x2 [m, K] -> [m, N] bf16, with the kernel's
-    arithmetic — code values rounded to bf16 (exact for integer codes), one
-    f32 product per group, the group scale on the partial sums."""
+                  scales: torch.Tensor, fmt: QFormat, group: int = GROUP,
+                  out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version: x2 [m, K] -> [m, N] bf16 (or the f32 sum),
+    with the kernel's arithmetic — code values rounded to bf16 (exact for
+    integer codes), one f32 product per group, the group scale on the
+    partial sums."""
     m, K = x2.shape
     N = codes.shape[-1]
     ng = K // group
@@ -119,13 +120,15 @@ def qmatmul_plain(x2: torch.Tensor, codes: torch.Tensor,
     xg = x2.to(torch.bfloat16).to(torch.float32).reshape(m, ng, group)
     part = torch.einsum("mgk,gkn->mgn", xg, wv.reshape(ng, group, N))
     y = (part * scales.to(torch.float32)[None]).sum(dim=1)
-    return y.to(torch.bfloat16)
+    return y.to(out_dtype)
 
 
 def qmatmul_book_plain(x2: torch.Tensor, codes: torch.Tensor,
                        scales: torch.Tensor, book: torch.Tensor, fmt: QFormat,
-                       group: int = GROUP) -> torch.Tensor:
-    """Plain PyTorch version of the book flavour: x2 [m, K] -> [m, N] bf16.
+                       group: int = GROUP, out_dtype=torch.bfloat16
+                       ) -> torch.Tensor:
+    """Plain PyTorch version of the book flavour: x2 [m, K] -> [m, N] bf16
+    (or the f32 sum).
     Code c of row k takes ``bf16(book[k, c])`` (``book[c]`` for a per-tensor
     book), then the arithmetic of ``qmatmul_plain``."""
     m, K = x2.shape
@@ -138,7 +141,7 @@ def qmatmul_book_plain(x2: torch.Tensor, codes: torch.Tensor,
     xg = x2.to(torch.bfloat16).to(torch.float32).reshape(m, ng, group)
     part = torch.einsum("mgk,gkn->mgn", xg, wv.reshape(ng, group, N))
     y = (part * scales.to(torch.float32)[None]).sum(dim=1)
-    return y.to(torch.bfloat16)
+    return y.to(out_dtype)
 
 
 def _plan(m: int, K: int, N: int):
@@ -246,11 +249,11 @@ class QMatmul(torch.autograd.Function):
     the codes get no gradient."""
 
     @staticmethod
-    def forward(ctx, x2, scales, book, w):
+    def forward(ctx, x2, scales, book, w, out_dtype=torch.bfloat16):
         ctx.w = w
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             ctx.save_for_backward(x2)
-        return _forward(x2, w)
+        return _forward(x2, w, out_dtype)
 
     @staticmethod
     def backward(ctx, dy):
@@ -262,7 +265,7 @@ class QMatmul(torch.autograd.Function):
             (x2,) = ctx.saved_tensors
             dscales, dbook = weight_grads(x2, dy, w, ctx.needs_input_grad[1],
                                           ctx.needs_input_grad[2])
-        return dx, dscales, dbook, None
+        return dx, dscales, dbook, None, None
 
 
 def _weight_grad(w: QTensor) -> bool:
@@ -270,33 +273,41 @@ def _weight_grad(w: QTensor) -> bool:
                                       and w.codebook.requires_grad)
 
 
-def qmatmul(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """``x2 [m, K] bf16 @ w`` -> [m, N] bf16 for a kernel-covered QTensor.
-    A CPU tensor takes the plain version; a CUDA tensor launches the GEMV
-    shape (m <= 32) or the GEMM shape (m > 32).
+def qmatmul(x2: torch.Tensor, w: QTensor,
+            out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``x2 [m, K] bf16 @ w`` -> [m, N] bf16 for a kernel-covered QTensor
+    (``out_dtype`` f32: the f32 sum, unrounded, for a caller that adds
+    other partials to it). A CPU tensor takes the plain version; a CUDA
+    tensor launches the GEMV shape (m <= 32) or the GEMM shape (m > 32).
 
     Under autograd the product goes through ``QMatmul`` on both devices,
     except that on the CPU a weight gradient (scales or book: gama
     training) keeps the plain version's own autograd."""
     if torch.is_grad_enabled() and (x2.requires_grad or _weight_grad(w)):
         if x2.device.type == "cpu" and _weight_grad(w):
-            return _forward(x2, w)
-        return QMatmul.apply(x2, w.scales, w.codebook, w)
-    return _forward(x2, w)
+            return _forward(x2, w, out_dtype)
+        return QMatmul.apply(x2, w.scales, w.codebook, w, out_dtype)
+    return _forward(x2, w, out_dtype)
 
 
-def _forward(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
+def _forward(x2: torch.Tensor, w: QTensor,
+             out_dtype=torch.bfloat16) -> torch.Tensor:
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"qmatmul: out_dtype {out_dtype}: the kernels write "
+                         f"bf16 or f32")
     book = w.codebook
     if x2.device.type == "cpu":
         if book is not None:
             return qmatmul_book_plain(x2, w.codes, w.scales, book, w.fmt,
-                                      w.group)
-        return qmatmul_plain(x2, w.codes, w.scales, w.fmt, w.group)
+                                      w.group, out_dtype)
+        return qmatmul_plain(x2, w.codes, w.scales, w.fmt, w.group,
+                             out_dtype)
     _check(x2, w)
     m, K = x2.shape
     N = w.out_features
     bm, gps, splits = _plan(m, K, N)
-    out = torch.empty((m, N), dtype=torch.bfloat16, device=x2.device)
+    out = torch.empty((m, N), dtype=out_dtype, device=x2.device)
+    f32 = int(out_dtype == torch.float32)
     lib, fn, fn_book = _kernel(bm)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     ptrs = (x2.data_ptr(), w.codes.data_ptr(), w.scales.data_ptr())
@@ -306,13 +317,14 @@ def _forward(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
     fmt = ((FORMATS[w.fmt], int(book.dim() == 2)) if book is not None
            else (FORMATS[w.fmt],))
     if bm == 32:   # the cluster's blocks sum the K split: no workspace
-        rc = fn(*ptrs, out.data_ptr(), m, K, N, *fmt, gps, splits, stream)
+        rc = fn(*ptrs, out.data_ptr(), f32, m, K, N, *fmt, gps, splits,
+                stream)
         name = GEMV if book is None else BOOK_GEMV
     else:
         work = (torch.empty((splits, m, N), dtype=torch.float32,
                             device=x2.device) if splits > 1 else None)
         rc = fn(*ptrs, out.data_ptr(), None if work is None
-                else work.data_ptr(), m, K, N, *fmt, gps, stream)
+                else work.data_ptr(), f32, m, K, N, *fmt, gps, stream)
         name = GEMM if book is None else BOOK_GEMM
     _build.check(lib, rc, f"{name} x{tuple(x2.shape)} {w.fmt.name}")
     kernel_log.count(name, k=K)

@@ -67,7 +67,8 @@ def qmatmul(x: torch.Tensor, w: Weight, out_dtype=None) -> torch.Tensor:
                 and kq8.takes(w)):
             y = kq8.qmv_int8(x2, w.codes, w.scales)
         else:
-            y = kmm.qmatmul(x2, w)
+            y = kmm.qmatmul(x2, w, torch.float32 if out_dtype ==
+                            torch.float32 else torch.bfloat16)
         return y.reshape(*lead, w.out_features).to(out_dtype)
     kernel_log.fallback(
         "qmatmul", f"k={w.shape[0]} n={w.shape[-1]} fmt={w.fmt.name} "

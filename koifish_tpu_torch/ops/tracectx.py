@@ -2,8 +2,9 @@
 
 A policy object is pushed for the duration of one train step, exception-
 safe and thread-local, so concurrent steps or servers do not see each
-other's switches. ``make_train_step`` keeps ``int8_scope`` and
-``sp_scope`` open for the whole step. Autograd runs a CUDA backward on its
+other's switches. ``make_train_step`` keeps ``int8_scope``, ``sp_scope``
+and ``tp_scope`` open for the whole step; the serving CLI keeps
+``tp_scope`` open for a tensor-parallel run. Autograd runs a CUDA backward on its
 own device thread, where this thread's scope is not visible, so what the
 backward recomputes (remat blocks, checkpointed CE chunks) captures the
 policies at the forward and re-enters them
@@ -39,10 +40,27 @@ class SPPolicy:
     mesh: object
 
 
+@dataclasses.dataclass(frozen=True)
+class TPPolicy:
+    """Tensor parallelism over a process group: this rank holds
+    ``n_head/size`` heads, ``n_kv_head/size`` KV heads, ``n_ffn/size`` FFN
+    columns, ``n_experts/size`` experts and, where ``vocab`` divides, a
+    vocab shard of the embedding and head (``parallel/sharding.py``). The
+    model code sums the row-parallel outputs over ``group``
+    (``parallel/comm.py``); ``rank`` is this rank's index in the group and
+    ``src`` the global rank of index 0, which samples."""
+    group: object
+    rank: int
+    size: int
+    vocab: int
+    src: int = 0
+
+
 class _TLS(threading.local):
     def __init__(self):
         self.int8: list = []
         self.sp: list = []
+        self.tp: list = []
 
 
 _tls = _TLS()
@@ -73,3 +91,16 @@ def sp_scope(policy: Optional[SPPolicy]):
 
 def current_sp() -> Optional[SPPolicy]:
     return _tls.sp[-1] if _tls.sp else None
+
+
+@contextlib.contextmanager
+def tp_scope(policy: Optional[TPPolicy]):
+    _tls.tp.append(policy)
+    try:
+        yield
+    finally:
+        _tls.tp.pop()
+
+
+def current_tp() -> Optional[TPPolicy]:
+    return _tls.tp[-1] if _tls.tp else None

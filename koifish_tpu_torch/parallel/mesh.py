@@ -12,10 +12,15 @@ i % len(devices). The CPU tests put P ranks on ``"cpu"``, and one card
 can hold the P ranks of a ring, as the JAX tests put theirs on virtual
 CPU devices (``--xla_force_host_platform_device_count``). The JAX
 ``make_mesh`` refuses a mesh larger than its device list.
+
+Data, tensor and pipeline parallelism run one rank a process instead
+(``ProcessMesh``: axes ``pp``, ``dp``, ``tp`` over a ``torch.distributed``
+group), with each collective explicit in the port's code
+(``parallel/comm.py``) where the JAX package leaves them to GSPMD.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -99,3 +104,117 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
     for i in range(n):
         arr[i] = devs[i % len(devs)]
     return Mesh(arr.reshape(tuple(axes.values())), tuple(axes.keys()))
+
+
+# ---------------------------------------------------------------------------
+# process meshes: one rank a process (torch.distributed)
+# ---------------------------------------------------------------------------
+
+#: axis order of a process mesh, outermost first: ``tp`` innermost, so the
+#: ranks of a tensor-parallel group are neighbours (on one host)
+PROCESS_AXES = ("pp", "dp", "tp")
+
+
+def choose_backend(devices: Sequence) -> Tuple[str, str]:
+    """(backend, reason) for ranks on ``devices`` (one entry a rank): NCCL
+    when every rank has a card of its own, gloo on the CPU and when ranks
+    share a card (NCCL refuses two ranks on one GPU)."""
+    devs = [torch.device(d) for d in devices]
+    if any(d.type != "cuda" for d in devs):
+        return "gloo", "ranks on the CPU"
+    idx = [d.index if d.index is not None else 0 for d in devs]
+    if len(set(idx)) < len(idx):
+        return "gloo", (f"{len(idx)} ranks share {len(set(idx))} card(s); "
+                        f"NCCL refuses two ranks on one GPU")
+    import torch.distributed as dist
+    if not dist.is_nccl_available():
+        return "gloo", "this PyTorch has no NCCL"
+    return "nccl", "one card a rank"
+
+
+def rank_device(rank: int, device: Optional[str] = None) -> torch.device:
+    """Rank ``rank``'s device: the CPU under ``device="cpu"``, else the
+    visible cards round-robin (raises without a card)."""
+    if device is not None and torch.device(device).type == "cpu":
+        return torch.device("cpu")
+    resolve_device(None)
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+class ProcessMesh:
+    """Named axes over the processes of a ``torch.distributed`` group, one
+    rank a process: the counterpart of the JAX package's ``Mesh`` once each
+    rank is a process of its own. ``axes`` maps ``pp``/``dp``/``tp`` to
+    sizes (missing axes are 1); rank r sits at the row-major coordinates of
+    r over ``PROCESS_AXES``. Each axis is a process group of the ranks that
+    differ only along it (``torch.distributed.new_group``: every rank
+    builds every group, in the same order). ``shape``, ``size(axis)``,
+    ``index(axis)`` (this rank's coordinate), ``group(axis)`` and
+    ``ranks(axis)`` (the global ranks of this rank's group)."""
+
+    def __init__(self, axes: Dict[str, int], device: torch.device,
+                 backend: str = "gloo"):
+        import torch.distributed as dist
+        bad = set(axes) - set(PROCESS_AXES)
+        if bad:
+            raise ValueError(f"ProcessMesh: unknown axes {sorted(bad)}; "
+                             f"a process mesh has {PROCESS_AXES}")
+        self.shape = {a: int(axes.get(a, 1)) for a in PROCESS_AXES}
+        self.world = int(np.prod(list(self.shape.values())))
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        have = dist.get_world_size() if dist.is_initialized() else 1
+        if have != self.world:
+            raise ValueError(f"ProcessMesh {self.shape} needs {self.world} "
+                             f"ranks; the process group has {have}")
+        self.device = torch.device(device)
+        self.backend = backend
+        #: the group of every rank (None for a mesh of one rank)
+        self.world_group = dist.group.WORLD if self.world > 1 else None
+        dims = tuple(self.shape.values())
+        grid = np.arange(self.world).reshape(dims)
+        self.coords = dict(zip(PROCESS_AXES,
+                               (int(c) for c in np.unravel_index(self.rank,
+                                                                 dims))))
+        self._groups, self._ranks = {}, {}
+        for ai, a in enumerate(PROCESS_AXES):
+            lines = np.moveaxis(grid, ai, -1).reshape(-1, dims[ai])
+            for line in lines:
+                ranks = [int(r) for r in line]
+                # every rank creates every group, in one order
+                g = (dist.new_group(ranks) if self.world > 1
+                     and dims[ai] > 1 else None)
+                if self.rank in ranks:
+                    self._groups[a], self._ranks[a] = g, ranks
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+    def group(self, axis: str):
+        return self._groups.get(axis)
+
+    def ranks(self, axis: str) -> list:
+        return self._ranks.get(axis, [self.rank])
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0: the rank that does the run's I/O."""
+        return self.rank == 0
+
+    def __repr__(self) -> str:
+        axes = " ".join(f"{a}={n}" for a, n in self.shape.items())
+        return (f"ProcessMesh({axes}, rank {self.rank}/{self.world}, "
+                f"{self.backend}, {self.device})")
+
+
+def make_process_mesh(axes: Dict[str, int],
+                      device: Optional[str] = None) -> ProcessMesh:
+    """The process mesh of ``axes`` over the group this process has joined
+    (``parallel/multihost.init_distributed``; a mesh of one rank needs
+    none), on this rank's device (the CPU under ``device="cpu"``)."""
+    import torch.distributed as dist
+    from koifish_tpu_torch.parallel.multihost import local_device
+    backend = dist.get_backend() if dist.is_initialized() else "gloo"
+    return ProcessMesh(axes, local_device(device), backend)

@@ -47,7 +47,9 @@ def quantize_params(params: Dict[str, Any], qcard: QuantCard,
         rule = qcard.rule_for(path)
         if rule is None or not isinstance(w, torch.Tensor) or w.dim() != 2:
             return w
-        mat = w.T if head_layout else w       # embeddings -> head layout [E,V]
+        # embeddings -> head layout [E, V], contiguous: the kernels take
+        # contiguous codes only
+        mat = w.T.contiguous() if head_layout else w
         if mat.shape[0] % rule.group:
             return w
         if rule.method in ("CLUSTER", "KMEANS"):

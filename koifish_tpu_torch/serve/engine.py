@@ -26,6 +26,8 @@ from koifish_tpu_torch.ops.attention import causal_attention
 from koifish_tpu_torch.ops.rope import rope_freqs
 from koifish_tpu_torch.ops.sampling import (_categorical, filtered_probs,
                                              sample_logits)
+from koifish_tpu_torch.ops.tracectx import current_tp
+from koifish_tpu_torch.parallel import comm
 from koifish_tpu_torch.serve import kvcache as kvc
 from koifish_tpu_torch.serve.kvcache import KVCache
 from koifish_tpu_torch.serve.layered import (LayeredKVCache,
@@ -44,9 +46,20 @@ def _rope_tables(card: ModelCard, device):
 
 
 def _sample(gen, logits, sampler: SamplerCard) -> torch.Tensor:
-    return sample_logits(gen, logits, sampler.temperature, sampler.top_k,
-                         sampler.top_p, sampler.min_p, sampler.approx_top_k,
-                         sampler.method)
+    """Sample the next tokens. Under TP every rank holds the whole logits;
+    the group's first rank samples and broadcasts its tokens."""
+    tp = current_tp()
+    if tp is not None and tp.rank != 0:
+        tok = torch.empty(logits.shape[:-1], dtype=torch.int32,
+                          device=logits.device)
+    else:
+        tok = sample_logits(gen, logits, sampler.temperature, sampler.top_k,
+                            sampler.top_p, sampler.min_p,
+                            sampler.approx_top_k, sampler.method)
+    if tp is not None:
+        tok = comm.broadcast_(tok.to(torch.int32).contiguous(), tp.src,
+                              tp.group)
+    return tok
 
 
 def _check_inputs(params: Params, tokens: torch.Tensor, cache, dev):

@@ -12,7 +12,11 @@ JAX package's ``train/optimizer.py``; reference ``PIPE_Adamw`` /
   the JAX package, bit for bit given the same uint32 seed.
 
 Plain PyTorch on tensors: XLA runs this code in the JAX package, so it is
-not a kernel of the repo. ``apply_updates`` writes the new parameters and
+not a kernel of the repo. On a sharded state (``train/sharded.py``) each
+rank updates its shards: the global norm sums the squares of every shard,
+a replicated leaf once; stochastic rounding hashes each element's index
+in the whole leaf; a Muon leaf gathers the whole matrix to orthogonalize
+it. ``apply_updates`` writes the new parameters and
 moments IN PLACE into the tensors it was given (one leaf's temporaries at
 a time), which keeps a step's optimizer memory at one copy of the state.
 """
@@ -56,15 +60,21 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(sq))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, dist=None):
     """(grads scaled to at most ``max_norm`` in f32, their global norm),
     with one ``torch._foreach_*`` launch for the norms and one for the
-    scaling instead of several per leaf."""
+    scaling instead of several per leaf. ``dist``: a sharded state's
+    layout (``train/sharded.ShardedLayout``): the norm of the whole tree
+    over every rank's shards."""
     flat = leaves(grads)
     live = [i for i, g in enumerate(flat) if _real_grad(g)]
     g32 = [flat[i].to(torch.float32) for i in live]
-    gnorm = (torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g32)))
-             if g32 else torch.zeros(()))
+    if dist is not None:
+        gnorm = dist.global_norm(torch._foreach_norm(g32) if g32 else [],
+                                 live)
+    else:
+        gnorm = (torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(g32))) if g32 else torch.zeros(()))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     for i, g in zip(live, torch._foreach_mul(g32, scale)):
         flat[i] = g
@@ -115,26 +125,48 @@ def _i32(u: int) -> int:
 _C1, _C2 = _i32(0x85EBCA6B), _i32(0xC2B2AE35)   # murmur3 finalizer
 
 
-def stochastic_round(x: torch.Tensor, seed: int, out_dtype) -> torch.Tensor:
+def _global_index(a: int, b: int, shard, device) -> torch.Tensor:
+    """The flat indices in the whole leaf of a shard's flat elements
+    [a, b) (int32; a column shard's are not contiguous)."""
+    loc = torch.arange(a, b, dtype=torch.int64, device=device)
+    out = torch.zeros_like(loc)
+    stride_l = stride_g = 1
+    for d in reversed(range(len(shard.local))):
+        c = torch.div(loc, stride_l, rounding_mode="floor") % shard.local[d]
+        out += (c + shard.start[d]) * stride_g
+        stride_l *= shard.local[d]
+        stride_g *= shard.shape[d]
+    return out.to(torch.int32)
+
+
+def stochastic_round(x: torch.Tensor, seed: int, out_dtype,
+                     shard=None) -> torch.Tensor:
     """Round f32 ``x`` to bf16 stochastically (a plain cast to any other
     dtype): add 16 random bits to the f32 bit pattern and keep the high 16.
     The bits are the murmur3 finalizer of (flat element index ^ seed), as
     in the JAX package — bit for bit given the same uint32 ``seed`` (the
-    JAX package draws it with ``jax.random.bits``). The uint32 arithmetic
+    JAX package draws it with ``jax.random.bits``). ``shard``: ``x`` is a
+    rank's shard (``parallel/sharding.Shard``) and each element hashes its
+    index in the whole leaf, as GSPMD's global iota does, so a shard's
+    rounding is the slice of the whole leaf's. The uint32 arithmetic
     runs on int32 bit patterns: multiplication and addition wrap modulo
     2^32 as uint32 ones do, and each right shift is masked to a logical
     one. Chunked to bound the temporaries."""
     if out_dtype != torch.bfloat16:
         return x.to(out_dtype)
-    if x.numel() >= 1 << 31:
-        raise ValueError(f"stochastic_round: {x.numel()} elements: the "
+    whole = math.prod(shard.shape) if shard is not None else x.numel()
+    if whole >= 1 << 31:
+        raise ValueError(f"stochastic_round: {whole} elements: the "
                          f"element index must fit in 31 bits")
+    if shard is not None and not shard.sharded:
+        shard = None
     seed = _i32(int(seed))
     xf = x.to(torch.float32).reshape(-1)
     out = torch.empty(xf.shape, dtype=torch.int16, device=x.device)
     for a in range(0, xf.numel(), _SR_CHUNK):
         b = min(a + _SR_CHUNK, xf.numel())
-        h = torch.arange(a, b, dtype=torch.int32, device=x.device)
+        h = (torch.arange(a, b, dtype=torch.int32, device=x.device)
+             if shard is None else _global_index(a, b, shard, x.device))
         h ^= seed
         h ^= (h >> 16) & 0xFFFF
         h *= _C1
@@ -159,12 +191,12 @@ def _tag_seed(seed: Optional[int], tag: int) -> Optional[int]:
     return (int(seed) + tag * 0x9E3779B9) & _M32
 
 
-def _store(x: torch.Tensor, dtype, seed: Optional[int], tag: int
-           ) -> torch.Tensor:
+def _store(x: torch.Tensor, dtype, seed: Optional[int], tag: int,
+           shard=None) -> torch.Tensor:
     """Writeback to storage ``dtype``: stochastic when a seed is given."""
     if seed is None or dtype == x.dtype:
         return x.to(dtype)
-    return stochastic_round(x, _tag_seed(seed, tag), dtype)
+    return stochastic_round(x, _tag_seed(seed, tag), dtype, shard)
 
 
 # ---------------------------------------------------------------------------
@@ -248,8 +280,11 @@ def chebyshev_orth(G: torch.Tensor, steps: int = 10,
 
 
 def muon_update(p, g, mom, *, lr, momentum, weight_decay, sr_seed=None,
-                ortho: str = "ns"):
-    """One Muon step of one 2D leaf: (new_p, new_mom, spikes)."""
+                ortho: str = "ns", shard=None, whole=None):
+    """One Muon step of one 2D leaf: (new_p, new_mom, spikes). On a shard
+    (``shard``, with ``whole``: a pair of functions, the whole matrix from
+    every rank's shard and this rank's slice of a whole one) the lookahead
+    is gathered, orthogonalized whole and sliced back."""
     mdt = mom.dtype
     pf = p.to(torch.float32)
     mom = momentum * mom.to(torch.float32) + g
@@ -257,12 +292,20 @@ def muon_update(p, g, mom, *, lr, momentum, weight_decay, sr_seed=None,
         raise ValueError(f"muon_ortho={ortho!r}: 'ns' or 'chebyshev' "
                          "('gluon' is declared-only in the reference too)")
     orth = chebyshev_orth if ortho == "chebyshev" else newton_schulz
-    u = orth(momentum * mom + g)              # nesterov-style lookahead
-    u = u * (0.2 * (max(p.shape[0], p.shape[-1]) ** 0.5))   # RMS match
+    look = momentum * mom + g                 # nesterov-style lookahead
+    shape = p.shape
+    if whole is not None:
+        look, shape = whole[0](look), shard.shape
+    u = orth(look)
+    u = u * (0.2 * (max(shape[0], shape[-1]) ** 0.5))       # RMS match
+    if whole is not None:
+        u = whole[1](u)
     spiked = torch.abs(u) > T_SPIKE
     u = torch.clamp(u, -T_SPIKE, T_SPIKE)
-    new_p = _store(pf - lr * (u + weight_decay * pf), p.dtype, sr_seed, 0)
-    return new_p, _store(mom, mdt, sr_seed, 1), spiked.sum(dtype=torch.int32)
+    new_p = _store(pf - lr * (u + weight_decay * pf), p.dtype, sr_seed, 0,
+                   shard)
+    return (new_p, _store(mom, mdt, sr_seed, 1, shard),
+            spiked.sum(dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -280,12 +323,15 @@ _GROUP_ELEMS = 1 << 26   # elements per foreach group (bounds temporaries)
 
 
 def _adamw_foreach(ps, gs, ms, vs, *, lr, beta1, beta2, eps, wds, step,
-                   seeds):
+                   seeds, shards=None, owned=None):
     """``adamw_update`` for a list of leaves at once: the same operations in
     the same order per element (so the same bits), launched as
     ``torch._foreach_*`` launches over all leaves instead of ~30 launches
     per leaf. Writes params and moments in place; returns the spike count.
-    Stochastic rounding (``seeds`` not None) stays per leaf."""
+    Stochastic rounding (``seeds`` not None) stays per leaf. ``shards``:
+    the leaves' layouts on a sharded state; ``owned``: 1 where this rank
+    counts the leaf's spikes, 0 where another rank's copy does."""
+    sh = shards or [None] * len(ps)
     f32 = torch.float32
     pf = [p.to(f32) for p in ps]
     m = torch._foreach_mul([x.to(f32) for x in ms], beta1)
@@ -295,10 +341,10 @@ def _adamw_foreach(ps, gs, ms, vs, *, lr, beta1, beta2, eps, wds, step,
                                               1 - beta2))
     for i, (dst, x) in enumerate(zip(ms, m)):
         dst.copy_(_store(x, dst.dtype, None if seeds is None else seeds[i],
-                         1))
+                         1, sh[i]))
     for i, (dst, x) in enumerate(zip(vs, v)):
         dst.copy_(_store(x, dst.dtype, None if seeds is None else seeds[i],
-                         2))
+                         2, sh[i]))
     torch._foreach_div_(m, 1 - beta1 ** step)            # mhat
     torch._foreach_div_(v, 1 - beta2 ** step)            # vhat
     torch._foreach_sqrt_(v)
@@ -309,7 +355,11 @@ def _adamw_foreach(ps, gs, ms, vs, *, lr, beta1, beta2, eps, wds, step,
     torch._foreach_sub_(over, T_SPIKE)
     torch._foreach_clamp_min_(over, 0.0)
     torch._foreach_sign_(over)
-    spikes = torch.stack(torch._foreach_norm(over, 1)).sum()
+    per_leaf = torch.stack(torch._foreach_norm(over, 1))
+    if owned is not None:
+        per_leaf = per_leaf * torch.tensor(owned, dtype=per_leaf.dtype,
+                                           device=per_leaf.device)
+    spikes = per_leaf.sum()
     del over
     torch._foreach_clamp_min_(m, -T_SPIKE)
     torch._foreach_clamp_max_(m, T_SPIKE)
@@ -318,7 +368,7 @@ def _adamw_foreach(ps, gs, ms, vs, *, lr, beta1, beta2, eps, wds, step,
     new = torch._foreach_sub(pf, m)
     for i, (dst, x) in enumerate(zip(ps, new)):
         dst.copy_(_store(x, dst.dtype, None if seeds is None else seeds[i],
-                         0))
+                         0, sh[i]))
     return spikes.to(torch.int32)
 
 
@@ -342,14 +392,18 @@ def apply_updates(params, grads, opt: OptState, *, optimizer: str, lr,
                   beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1,
                   muon_momentum=0.95, grad_clip=1.0, lars_ratio=0.0,
                   muon_ortho="ns", sr_seeds: Optional[Sequence[int]] = None,
-                  ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
+                  dist=None) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One optimizer step over the whole tree (grads already averaged):
     (params, opt, metrics). Parameters and moments are updated IN PLACE
     (the returned trees hold the same tensors). ``sr_seeds``: one uint32
     seed per leaf (leaf order) for stochastic rounding on every bf16
     writeback, or None for round-to-nearest. AdamW leaves are updated
-    together (``_adamw_foreach``), Muon leaves one by one."""
-    grads, gnorm = clip_by_global_norm(grads, grad_clip)
+    together (``_adamw_foreach``), Muon leaves one by one. ``dist``: the
+    layout of a sharded state (``train/sharded.ShardedLayout``): params,
+    grads and moments are this rank's shards, the norm and the spike count
+    are the whole tree's."""
+    grads, gnorm = clip_by_global_norm(grads, grad_clip, dist)
+    shards = dist.shards if dist is not None else [None] * len(leaves(params))
     step = opt.step + 1
     spikes = torch.zeros((), dtype=torch.int32, device=opt.spikes.device)
     flat = flatten_with_path(params)
@@ -362,18 +416,26 @@ def apply_updates(params, grads, opt: OptState, *, optimizer: str, lr,
             continue       # frozen leaf: untouched, no weight decay
         decay = p.dim() >= 2               # no weight decay on norms/biases
         if lars_ratio > 0.0 and p.dim() >= 2:
+            if dist is not None and shards[i].sharded:
+                raise NotImplementedError("LARS on a sharded state is not "
+                                          "ported")
             g_leaves[i] = g = g * lars_trust_ratio(p, g, lars_ratio)
-        if not _muon_leaf(p, optimizer, _path_str(path)):
+        if not _muon_leaf(p if shards[i] is None else
+                          torch.empty(shards[i].shape, device="meta"),
+                          optimizer, _path_str(path)):
             adam.append(i)
             continue
+        whole = (dist.whole(i) if dist is not None and shards[i].sharded
+                 else None)
         np_, nm, sp = muon_update(
             p, g, m, lr=lr, momentum=muon_momentum,
             weight_decay=weight_decay if decay else 0.0,
             sr_seed=sr_seeds[i] if sr_seeds is not None else None,
-            ortho=muon_ortho)
+            ortho=muon_ortho, shard=shards[i], whole=whole)
         p.copy_(np_)
         m.copy_(nm)
-        spikes += sp
+        if dist is None or dist.owned[i]:
+            spikes += sp
     sizes = [p.numel() for _, p in flat]
     for grp in _groups(adam, sizes):
         spikes += _adamw_foreach(
@@ -383,7 +445,11 @@ def apply_updates(params, grads, opt: OptState, *, optimizer: str, lr,
             wds=[weight_decay if flat[i][1].dim() >= 2 else 0.0
                  for i in grp],
             step=step, seeds=(None if sr_seeds is None
-                              else [sr_seeds[i] for i in grp]))
+                              else [sr_seeds[i] for i in grp]),
+            shards=[shards[i] for i in grp],
+            owned=(None if dist is None else [dist.owned[i] for i in grp]))
+    if dist is not None:
+        spikes = dist.sum_world(spikes).to(torch.int32)
     metrics = {"grad_norm": gnorm, "spikes": spikes}
     return params, OptState(m=opt.m, v=opt.v, step=step,
                             spikes=opt.spikes + spikes), metrics

@@ -21,11 +21,13 @@ import torch
 from koifish_tpu_torch.config import ModelCard, TrainCard
 from koifish_tpu_torch.models.guppy import sample_ids
 from koifish_tpu_torch.models.salmon import diffusion_loss
-from koifish_tpu_torch.models.transformer import model_forward
+from koifish_tpu_torch.models.transformer import head_weight, model_forward
 from koifish_tpu_torch.ops.cross_entropy import (cross_entropy_loss,
                                                  fused_ce_loss)
 from koifish_tpu_torch.ops.tracectx import (Int8Policy, SPPolicy, int8_scope,
-                                            sp_scope)
+                                            sp_scope, tp_scope)
+from koifish_tpu_torch.parallel import comm
+from koifish_tpu_torch.parallel.overlap import GradReducer
 from koifish_tpu_torch.quant.qtensor import QTensor
 from koifish_tpu_torch.train.optimizer import (OptState, _is_float,
                                                apply_updates, init_opt_state)
@@ -39,6 +41,8 @@ class TrainState:
     params: Any
     opt: OptState
     gen: torch.Generator      # host generator: the per-step SR seeds
+    # a sharded state's train/sharded.ShardedLayout (None: whole leaves)
+    layout: Any = None
 
 
 def compute_loss(card: ModelCard, params, tokens, loss_mask=None,
@@ -73,12 +77,21 @@ def compute_loss(card: ModelCard, params, tokens, loss_mask=None,
     if use_fused and not isinstance(head, QTensor):
         hidden = model_forward(card, params, tokens[:, :-1], remat=remat,
                                return_hidden=True, guppy_samps=guppy_samps)
-        head_w = head if "head" in params else head.T
-        return fused_ce_loss(hidden, head_w, targets, mask)
+        return fused_ce_loss(hidden, head_weight(params), targets, mask)
     logits = model_forward(card, params, tokens[:, :-1], remat=remat,
                            logits_dtype=torch.bfloat16,
                            guppy_samps=guppy_samps)
     return cross_entropy_loss(logits, targets, mask)
+
+
+def _average(g: torch.Tensor, prev: Optional[torch.Tensor], accum: int
+             ) -> torch.Tensor:
+    """A leaf's last micro-batch gradient ``g`` folded into the f32 sum of
+    the earlier ones and averaged: the arithmetic of the step's own
+    accumulation, so an overlapped reduction sums the same values."""
+    if accum == 1:
+        return g / accum
+    return (prev + g.to(torch.float32)) / accum
 
 
 def step_key(seed: int, step: int, memo: Optional[dict] = None
@@ -124,7 +137,12 @@ def make_train_step(card: ModelCard, tcard: TrainCard, total_steps: int,
     (``ops/tracectx.py``).
     sp:        an ``SPPolicy(axis, mesh)``: sequence-parallel training, the
                model's causal self-attention a ring with T sharded over the
-               axis (``ops/attention.py``), in force for the whole step."""
+               axis (``ops/attention.py``), in force for the whole step.
+
+    A state with a ``layout`` (``train/sharded.shard_train_state``) trains
+    sharded over its process mesh: ``card`` is the whole model's card and
+    the batch this rank's rows (``train/sharded.shard_batch``); see
+    ``train/sharded.py`` for what each rank does."""
     int8_pol = (Int8Policy(wgrad=tcard.int8_wgrad, dgrad=tcard.int8_dgrad,
                            min_weight_elems=tcard.int8_min_kn)
                 if tcard.int8_matmul else None)
@@ -141,13 +159,17 @@ def make_train_step(card: ModelCard, tcard: TrainCard, total_steps: int,
     key_memo: dict = {}
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        with int8_scope(int8_pol), sp_scope(sp):
+        lay = state.layout
+        tp = lay.tp_policy(card) if lay is not None else None
+        with int8_scope(int8_pol), sp_scope(sp), tp_scope(tp):
             return _step(state, batch)
 
     def _step(state: TrainState, batch: Dict[str, torch.Tensor]):
         tokens = batch["tokens"]
         loss_mask = batch.get("loss_mask")
         accum = tokens.shape[0]
+        lay = state.layout
+        run_card = card if lay is None else lay.run_card(card)
         flat = leaves(state.params)
         diff = [i for i, p in enumerate(flat)
                 if _is_float(p) and (frozen is None or not frozen[i])]
@@ -159,6 +181,22 @@ def make_train_step(card: ModelCard, tcard: TrainCard, total_steps: int,
         for i, p in enumerate(flat):
             if _is_float(p) and p.requires_grad != (i in want):
                 p.requires_grad_(i in want)
+        # the leaves the forward reads: FSDP shards gathered whole
+        cflat = flat
+        if lay is not None and lay.fsdp:
+            cflat = [lay.gather_fsdp(p, i) for i, p in enumerate(flat)]
+            for i in diff:
+                cflat[i].requires_grad_(True)
+        cparams = (state.params if cflat is flat
+                   else unflatten_like(state.params, cflat))
+        weights = reducer = None
+        if lay is not None:
+            weights = lay.loss_weights(tokens, loss_mask)
+            reducer = GradReducer(
+                lay.mesh.group("dp"), diff,
+                {i: lay.fsdp_dim(i) for i in diff if lay.fsdp_dim(i)
+                 is not None})
+        overlap = reducer is not None and reducer.group is not None
         acc = None
         loss_sum = 0.0
         step_rng = (step_key(tcard.seed, int(state.opt.step), key_memo)
@@ -168,28 +206,44 @@ def make_train_step(card: ModelCard, tcard: TrainCard, total_steps: int,
             if draws and accum > 1:
                 rng = prng.fold_in(step_rng, a)
             loss, _ = compute_loss(
-                card, state.params, tokens[a],
+                run_card, cparams, tokens[a],
                 loss_mask[a] if loss_mask is not None else None,
                 remat=tcard.remat, qcard=qcard,
                 fused_ce=getattr(tcard, "fused_ce", None), rng=rng)
-            gs = torch.autograd.grad(loss, [flat[i] for i in diff],
+            if weights is not None:      # this rank's share of the mean
+                loss = loss * weights[a]
+            if overlap and a == accum - 1:
+                prev = dict(zip(diff, acc)) if acc is not None else None
+                reducer.arm({i: cflat[i] for i in diff},
+                            lambda i, g, prev=prev: _average(
+                                g, None if prev is None else prev[i], accum))
+            gs = torch.autograd.grad(loss, [cflat[i] for i in diff],
                                      allow_unused=True)
-            gs = [torch.zeros_like(flat[i]) if g is None else g
+            gs = [torch.zeros_like(cflat[i]) if g is None else g
                   for i, g in zip(diff, gs)]
             loss_sum = loss_sum + loss.detach()
             if accum == 1:
                 acc = gs
             elif acc is None:
                 acc = [g.to(torch.float32) for g in gs]
-            else:
+            elif not (overlap and a == accum - 1):
                 for x, g in zip(acc, gs):
                     x += g.to(torch.float32)
         grads = [torch.zeros((0,), dtype=torch.float32, device=p.device)
                  for p in flat]
-        for i, g in zip(diff, acc):
-            grads[i] = g / accum
+        if overlap:
+            summed = reducer.finish()
+        elif reducer is not None:
+            summed = reducer.reduce({i: g / accum for i, g in zip(diff, acc)})
+        else:
+            summed = {i: g / accum for i, g in zip(diff, acc)}
+        for i in diff:
+            grads[i] = summed[i]
         grads = unflatten_like(state.params, grads)
         loss = loss_sum / accum
+        if lay is not None:
+            loss = comm.all_reduce_(loss.to(torch.float32).clone(),
+                                    lay.mesh.group("dp"))
 
         lr = lr_at(state.opt.step, kind=tcard.scheduler, base_lr=tcard.lr,
                    total_steps=total_steps, warmup=tcard.warmup,
@@ -204,14 +258,18 @@ def make_train_step(card: ModelCard, tcard: TrainCard, total_steps: int,
             weight_decay=tcard.weight_decay, muon_momentum=tcard.muon_momentum,
             grad_clip=tcard.grad_clip,
             lars_ratio=getattr(tcard, "lars_ratio", 0.0),
-            muon_ortho=getattr(tcard, "muon_ortho", "ns"), sr_seeds=seeds)
+            muon_ortho=getattr(tcard, "muon_ortho", "ns"), sr_seeds=seeds,
+            dist=lay)
         metrics = dict(metrics, loss=loss, lr=lr)
         if tcard.check_tensor_norm:
-            metrics["leaf_norms"] = torch.stack([
-                torch.linalg.norm(g.to(torch.float32)) if g.numel()
-                else torch.zeros((), device=g.device)
-                for g in leaves(grads)])
-        return TrainState(params=params, opt=opt, gen=state.gen), metrics
+            metrics["leaf_norms"] = (
+                lay.leaf_norms(leaves(grads)) if lay is not None else
+                torch.stack([
+                    torch.linalg.norm(g.to(torch.float32)) if g.numel()
+                    else torch.zeros((), device=g.device)
+                    for g in leaves(grads)]))
+        return TrainState(params=params, opt=opt, gen=state.gen,
+                          layout=lay), metrics
 
     return step
 
@@ -219,9 +277,11 @@ def make_train_step(card: ModelCard, tcard: TrainCard, total_steps: int,
 @dataclasses.dataclass
 class StepInfo:
     """Loss-curve recorder -> CSV (``StepInfos``, DataLoader.hpp:43-71);
-    ``metrics`` keeps the last step's metrics dict."""
+    ``metrics`` keeps the last step's metrics dict, ``grad_norms`` each
+    step's global gradient norm."""
     rows: list = dataclasses.field(default_factory=list)
     metrics: Optional[dict] = None
+    grad_norms: list = dataclasses.field(default_factory=list)
 
     def add(self, it: int, loss: float, lr: float, dt: float, tps: float):
         self.rows.append((it, loss, lr, dt, tps))
@@ -292,6 +352,7 @@ def train_loop(
         infos.metrics = metrics
 
         gnorm = float(metrics["grad_norm"])
+        infos.grad_norms.append(gnorm)
         if not (0.0 < loss < 100.0) or not torch.isfinite(
                 torch.tensor(gnorm)):
             if save_fn:

@@ -326,27 +326,44 @@ def test_koifish_gpt2_uint16_shards_cli(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--dp", "2"], "parallelism on torch.distributed"),
-    (["--tp", "2"], "parallelism on torch.distributed"),
-    (["--sp", "2", "--dp", "2"], "parallelism on torch.distributed"),
-    (["--pp", "2"], "parallelism on torch.distributed"),
-    (["--fsdp"], "parallelism on torch.distributed"),
+    (["--sp", "2", "--dp", "2"], "the ring's process transport"),
+    (["--sp", "2", "--tp", "2"], "the ring's process transport"),
+    (["--sp", "2", "--pp", "2"], "the ring's process transport"),
+    (["--pp", "2", "--tp", "2"], "pipeline alone"),
+    (["--fsdp"], None),
     ([], "gama training")])
 def test_koifish_unported_paths_raise(tmp_path, flags, item, capsys):
-    """The parallelism flags name their queue (``--sp`` alone is ported,
-    ``tests/test_torch_sp_train.py``; beside ``--dp 2`` it still raises).
-    Gama (scale-only) QAT, the last case, is ported: the CLI prints its mode, trains the scales of
-    the quantized params with every code frozen, and returns 0
+    """What the process mesh does not take raises and names why: ``--sp``
+    beside ``--dp/--tp/--pp`` names its ROADMAP item (the ring's process
+    transport), ``--pp`` beside ``--tp`` asks for the pipeline alone.
+    ``--dp/--tp/--pp`` themselves are ported
+    (``tests/test_torch_parallel_train.py``); ``--fsdp`` alone trains on a
+    one-rank process mesh and returns 0. Gama (scale-only) QAT, the last
+    case, is ported: the CLI prints its mode, trains the scales of the
+    quantized params with every code frozen, and returns 0
     (``tests/test_torch_gama_distill.py`` holds its curve to JAX's)."""
     pat = _pattern_shard(tmp_path, 3000)
-    over = {} if flags else {"quantizer": {
+    over = {} if flags and item else {"quantizer": {
         "self_attn": {"bits": 4}, "mlp": {"bits": 4}, "group_size": 32,
         "train_target": "gama"}, "debug": {"most_iter": 2}}
+    if flags and item is None:
+        over = {"debug": {"most_iter": 2}}
     cfgp = _cfg(tmp_path, "c", pat, **over)
-    if flags:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md queue 1, {item}"):
+    if flags and item:
+        err = ValueError if item == "pipeline alone" else NotImplementedError
+        pat_ = (item if err is ValueError
+                else f"ROADMAP.md queue 1, {item}")
+        with pytest.raises(err, match=pat_):
             koifish.main([cfgp, "--device", "cpu", *flags])
+        return
+    if flags:
+        res = {}
+        assert koifish.main([cfgp, "--device", "cpu", "--out-dir",
+                             str(tmp_path), *flags], result=res) == 0
+        out = capsys.readouterr().out
+        assert "process mesh dp=1 tp=1 pp=1 fsdp=True: 1 rank(s)" in out
+        assert len(res["infos"].losses) == 2
+        assert res["state"].layout is not None
         return
     res = {}
     assert koifish.main([cfgp, "--device", "cpu", "--out-dir",

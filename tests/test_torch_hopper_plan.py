@@ -114,8 +114,9 @@ def test_gemv_launch_takes_no_workspace(monkeypatch, m, K, N, book):
     assert allocs == [((m, N), torch.bfloat16)]
     assert len(calls) == 1
     fmt = km.FORMATS[w.fmt]
-    tail = (m, K, N, fmt, 0, gps, splits, 7) if book \
-        else (m, K, N, fmt, gps, splits, 7)   # k-means: one book, per_row 0
+    # f32_out 0 (a bf16 output); k-means: one book, per_row 0
+    tail = (0, m, K, N, fmt, 0, gps, splits, 7) if book \
+        else (0, m, K, N, fmt, gps, splits, 7)
     assert calls[0][-len(tail):] == tail
     assert len(calls[0]) == (5 if book else 4) + len(tail)
     name = km.BOOK_GEMV if book else km.GEMV
@@ -128,14 +129,22 @@ def test_gemv_launch_takes_no_workspace(monkeypatch, m, K, N, book):
 
 def test_gemm_launch_keeps_its_workspace(monkeypatch):
     """The GEMM (m > 32) still splits K across work items into an f32
-    workspace [splits, m, N] when its tiles cannot fill the card."""
+    workspace [splits, m, N] when its tiles cannot fill the card, with a
+    bf16 output or an f32 one."""
     w = _meta_weight(1024, 1024)
     x = torch.empty((128, 1024), dtype=torch.bfloat16, device="meta")
     calls, allocs = _fake_launch(monkeypatch)
     km._forward(x, w)
     assert allocs == [((128, 1024), torch.bfloat16),
                       ((8, 128, 1024), torch.float32)]
-    assert calls[0][-6:] == (128, 1024, 1024, km.FORMATS[QFormat.INT4], 1, 7)
+    assert calls[0][-7:] == (0, 128, 1024, 1024, km.FORMATS[QFormat.INT4],
+                             1, 7)
+    # an f32 output (a row-parallel partial) keeps the plan and the flag
+    km._forward(x, w, torch.float32)
+    assert allocs[2:] == [((128, 1024), torch.float32),
+                          ((8, 128, 1024), torch.float32)]
+    assert calls[1][-7:] == (1, 128, 1024, 1024, km.FORMATS[QFormat.INT4],
+                             1, 7)
 
 
 def test_gemm_and_gemv_build_from_their_own_sources():

@@ -78,6 +78,29 @@ def test_qmatmul_matches_pallas(interpret, fmt, m):
     assert np.abs(out - ref).max() <= tol, np.abs(out - ref).max()
 
 
+@pytest.mark.parametrize("m", [4, 40])
+def test_qmatmul_f32_out_is_the_unrounded_sum(m):
+    """The f32 output (a row-parallel shard's partial under tensor
+    parallelism) is the sum the bf16 output rounds: rounding it gives the
+    bf16 result bit for bit, and the two K halves' f32 outputs added match
+    the whole product's f32 sum to f32 precision (1e-5 of the largest)."""
+    K, N = 512, 128
+    _, tw = _weights(K, N, "int4", seed=31)
+    xa = np.random.default_rng(32).standard_normal((m, K)).astype(np.float32)
+    _, tx = bf16_pair(xa)
+    y32 = km.qmatmul(tx, tw, torch.float32)
+    assert y32.dtype == torch.float32
+    assert torch.equal(y32.to(torch.bfloat16), km.qmatmul(tx, tw))
+    halves = [quantize(tw.dequantize(torch.float32)[h * 256:(h + 1) * 256],
+                       QFormat.INT4, group=128) for h in (0, 1)]
+    parts = [km.qmatmul(tx[:, h * 256:(h + 1) * 256], halves[h],
+                        torch.float32) for h in (0, 1)]
+    whole = km.qmatmul(tx, quantize(tw.dequantize(torch.float32),
+                                    QFormat.INT4, group=128), torch.float32)
+    err = float((parts[0] + parts[1] - whole).abs().max())
+    assert err <= 1e-5 * float(whole.abs().max()), err
+
+
 @pytest.mark.parametrize("fmt", ["int4", "nf4", "ternary"])
 def test_qmatmul_odd_m_matches_jax_plain_path(fmt):
     """m = 40 and K = 384 are shapes the JAX package never sends to Pallas

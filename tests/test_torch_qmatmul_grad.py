@@ -133,9 +133,10 @@ def test_cuda_branch_raises_for_a_weight_gradient(which, monkeypatch):
     with pytest.raises(ValueError, match="lies on meta"):
         km.qmatmul(x, mw)
     calls = []
-    monkeypatch.setattr(km, "_forward", lambda a, w: (calls.append(
-        tuple(a.shape)), torch.empty((a.shape[0], w.out_features),
-                                     dtype=torch.bfloat16, device=a.device))[1])
+    monkeypatch.setattr(km, "_forward", lambda a, w, out_dtype: (
+        calls.append(tuple(a.shape)), torch.empty(
+            (a.shape[0], w.out_features), dtype=out_dtype,
+            device=a.device))[1])
     y = km.qmatmul(x, mw)
     assert calls == [(40, K)] and type(y.grad_fn).__name__.startswith(
         "QMatmul")

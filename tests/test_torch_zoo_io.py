@@ -173,6 +173,16 @@ def test_ported_names_are_exported():
         np.testing.assert_array_equal(t.numpy(), np.asarray(j.get()))
     from koifish_tpu_torch.serve.speculative import speculative_generate
     assert serve.speculative_generate is speculative_generate
+    # every name koifish_tpu/parallel/__init__.py exports
+    import ast
+    import koifish_tpu.parallel as jpar
+    from koifish_tpu_torch import parallel
+    tree = ast.parse(open(jpar.__file__).read())
+    names = [a.asname or a.name for node in tree.body
+             if isinstance(node, ast.ImportFrom) for a in node.names]
+    assert len(names) >= 9
+    for name in names:
+        assert getattr(parallel, name, None) is not None, name
 
 
 _KEY = jax.random.PRNGKey(0)
