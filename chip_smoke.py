@@ -276,6 +276,30 @@ Phases, in order; any failed check exits non-zero before the last line:
              run. Then rows 3 and 4 at Qwen3-32B's tp-2 shard shapes
              (``down`` K 13824) against their plain versions, bf16 and
              f32 out, timed.
+   slice19 — the zoo and sequence parallelism on the process mesh
+             (``slice19_phase``), the ranks processes sharing the one card
+             over gloo (no interconnect measured), every run 3 steps at 4
+             layers and slice 17's widths, each against one rank (losses
+             1e-3 relative, grad norms 1e-2) with a learning-rate-0
+             control the gates must refuse: (a) row 13 across processes,
+             ``ring_attention_pallas_sharded`` on a ``ProcessMesh`` at sp
+             2 and 4 (B 1 x T 8192, Hq 16, Hkv 8, D 128), each rank's chunk
+             ``torch.equal`` to the in-process kernel ring's, within
+             RING_ABS of the kernel's plain version and RING_FULL_TOL of
+             one-piece attention, a planted transport (the last rank's
+             first chunk its own again) refused by both, launches r + 1
+             on rank r, timed on the host clock and by CUDA events; (b)
+             ``koifish --dp 2 --sp 2`` and ``--tp 2 --sp 2`` (4 ranks,
+             Qwen3-0.6B widths, B 2 x 4096) against ``--sp 1``, row 10's
+             launches exact; (c) ``koifish --tp 2`` on GUPPY, the
+             GPT2-124M QKV/GAU/BROWN hybrid, mamba-130m, SALMON (B cut to
+             4) and the DeepSeek-V2-Lite-width MLA card (through the
+             training API), launches exact; (d) ``--pp 2`` (1F1B) on
+             MAMBA, SALMON, LLAMA_VAE and MLA against the pipeline on one
+             rank (the JAX package's pipeline loss); (e) a Qwen3-0.6B
+             train step captured through ``utils.profiler.trace``, whose
+             ``utils.xprof.op_profile`` top rows must name the flash and
+             fused-CE kernels.
 6. result  — one JSON line with every kernel's numbers (launches from its
              path's run: the serving run for the slice-1 kernels and the
              decode attention's fused K/V write (``decode_attn_write``,
@@ -301,7 +325,11 @@ Phases, in order; any failed check exits non-zero before the last line:
              on rank 0; ``launches_by_path`` also gives rank 0's launches
              in each parallel run: ``tp2_bubble``, ``tp2_stream32b``,
              ``koifish_dp2``, ``koifish_tp2``, ``koifish_dp2_fsdp``,
-             ``koifish_pp2_1f1b``, ``koifish_pp2_gpipe``), then the
+             ``koifish_pp2_1f1b``, ``koifish_pp2_gpipe``), and slice 19's
+             (``koifish_dp2_sp2``, ``koifish_tp2_sp2``, ``koifish_tp2_*``
+             and ``koifish_pp2_*`` of the zoo); row 13's ``process`` path
+             is the launches of every rank of the sp-4 ring across
+             processes, with ``process_by_sp``; then the
              last line
              ``{"ok": true, "device": {...}}``.
 
@@ -6567,6 +6595,656 @@ def parallel_phase(torch) -> tuple:
     return paths, k32, k32_launches
 
 
+# ---------------------------------------------------------------------------
+# slice 19: the zoo and sequence parallelism on the process mesh
+# ---------------------------------------------------------------------------
+
+S19_STEPS = 3           # steps of each training run
+S19_DEPTH = 4           # layers of every run (the widths are slice 17's)
+S19_SP_CTX = 4096       # the sp runs' context (B S19_SP_B)
+S19_SP_B = 2
+S19_SALMON_B = 4        # SALMON's batch, cut from slice 17's 8
+S19_MLA_B = 4           # the MLA card's batch (x 1024)
+S19_RING_REPS = 10      # timed rings a rank
+#: every run's learning rate, without warmup: 6e-4 from the first step
+#: drove GUPPY's and the MLA card's random-init losses up on an H100 (12.0
+#: -> 13.7, 11.9 -> 15.2 in 3 steps), where f32 order differences grow
+#: fastest
+S19_LR = 2e-4
+#: (a) the ring across processes: sp 2 on the 2-rank group, sp 4 on the
+#: 4-rank one
+S19_SP_RUNS = (("koifish_dp2_sp2", ["--dp", "2", "--sp", "2"]),
+               ("koifish_tp2_sp2", ["--tp", "2", "--sp", "2"]))
+#: (c) under --tp 2 and (d) under --pp 2; "mla" through the training API
+#: (the CLI builds an MLA card from a DeepSeek folder only, as the JAX CLI)
+S19_TP_ZOO = ("guppy", "hybrid", "mamba", "salmon", "mla")
+S19_PP_ZOO = ("mamba", "salmon", "llama_vae", "mla")
+#: GPT2-124M's widths, 4 layers: QKV FFN, GAU, BROWN FFN, QKV FFN
+S19_HYBRID_BACKBONE = {
+    "embed_tokens": {"Embedding": []},
+    "a *1": {"self_attn": {"QKV": []}, "mlp": {"FFN": []}},
+    "g *1": {"GAU": []},
+    "b *1": {"self_attn": {"BROWN": []}, "mlp": {"FFN": []}},
+    "c *1": {"self_attn": {"QKV": []}, "mlp": {"FFN": []}},
+    "norm": {"Normal": []}, "output": {"CLASIFY": []}}
+
+
+def _s19_cfg_dicts() -> dict:
+    """Each run's config (slice 17's widths, S19_DEPTH layers; the sp
+    config is configs/qwen3_0.6b.json at n_ctx S19_SP_CTX, B S19_SP_B, no
+    QAT rules; "mla" holds the train and data sections of the MLA card's
+    API runs); no warmup, so that 3 steps move the params at the full
+    learning rate and a learning-rate-0 run reads apart, at S19_LR."""
+    cfgs = {}
+    sp = _qwen3_cfg("QWEN3", Layer=S19_DEPTH)
+    sp["model"]["parameter"]["transformer"]["Ctx"] = S19_SP_CTX
+    sp["train"]["batch"] = S19_SP_B
+    cfgs["sp"] = sp
+    cfgs["guppy"] = _qwen3_cfg("GUPPY", Layer=S19_DEPTH)
+    cfgs["llama_vae"] = _qwen3_cfg("LLAMA_VAE", Layer=S19_DEPTH,
+                                   token_embeds=[192])
+    with open(os.path.join(ROOT, "configs", "gpt2_124m.json")) as f:
+        hyb = json.load(f)
+    hyb["model"]["backbone"] = S19_HYBRID_BACKBONE
+    hyb["model"]["parameter"]["Layer"] = S19_DEPTH
+    hyb.pop("datasets")
+    hyb["train"].pop("save-every")
+    cfgs["hybrid"] = hyb
+    vocab = -(-MAMBA_130M["vocab_size"] // MAMBA_130M[
+        "pad_vocab_size_multiple"]) * MAMBA_130M["pad_vocab_size_multiple"]
+    train = {"batch": 8, "dump-every": 1, "learning-rate": 0.0006,
+             "optimizatioin": {"method": "adamw", "grad_accumulation": 1}}
+    cfgs["mamba"] = {"model": {"arch": "MAMBA", "vocab_size": vocab,
+                               "parameter": {
+        "Layer": S19_DEPTH, "tie_word_embeddings": True,
+        "transformer": {"Ctx": 1024, "Embed": MAMBA_130M["d_model"],
+                        "Head": 12, "Ffn": 4 * MAMBA_130M["d_model"]}}},
+        "train": dict(train), "seed": 42}
+    from koifish_tpu_torch.config import ModelCard
+    pre = ModelCard.preset("qwen2.5-0.5b")
+    cfgs["salmon"] = {"model": {"arch": "SCORE", "vocab_size": pre.vocab_size,
+                                "parameter": {
+        "Layer": S19_DEPTH, "max_pos_embeddings": pre.max_pos,
+        "rope_theta": pre.rope_theta, "tie_word_embeddings": True,
+        "transformer": {"Ctx": 1024, "Embed": pre.n_embd, "Head": pre.n_head,
+                        "KVHead": pre.n_kv_head, "head_dim": pre.head_dim,
+                        "Ffn": pre.n_ffn}}},
+        "train": dict(train, batch=S19_SALMON_B), "seed": 42}
+    # the MLA card comes from DEEPSEEK_V2_LITE (_s19_mla_card); its config
+    # carries the train and data sections only
+    cfgs["mla"] = {"model": {"arch": "QWEN3", "vocab_size": 102400,
+                             "parameter": {"transformer": {"Ctx": 1024}}},
+                   "train": dict(train, batch=S19_MLA_B), "seed": 42}
+    for cfg in cfgs.values():       # the full rate from the first step
+        cfg["train"].update({"warmup": 0, "learning-rate": S19_LR})
+    for name in ("sp", "mamba"):               # the gates' controls
+        cfgs[name + "_lr0"] = json.loads(json.dumps(cfgs[name]))
+        cfgs[name + "_lr0"]["train"]["learning-rate"] = 0.0
+    return cfgs
+
+
+def _s19_write(root: str) -> dict:
+    """Every run's config under ``root`` with its train glob on a seeded
+    shard of its own, every row its own tokens; returns {name: path}."""
+    from koifish_tpu_torch.config import CLIParams
+    paths = {}
+    for name, cfg in _s19_cfg_dicts().items():
+        data = name.replace("_lr0", "")
+        cfg = dict(cfg, datasets={"train": {
+            "glob": os.path.join(root, f"{data}_train_*.bin"), "name": data}})
+        cfg["debug"] = dict(cfg.get("debug", {}), most_iter=S19_STEPS)
+        paths[name] = os.path.join(root, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(cfg, f, indent=1)
+        if name != data:
+            continue
+        p = CLIParams.load(paths[name])
+        write_token_shard(os.path.join(root, f"{name}_train_000.bin"),
+                          p.model.vocab_size, 2 * S19_STEPS * p.train.batch
+                          * (p.model.n_ctx + 1), seed=190)
+    return paths
+
+
+def _s19_mla_card():
+    """DeepSeek-V2-Lite as the JAX package reads it, S19_DEPTH layers,
+    n_ctx 1024."""
+    import dataclasses
+    from koifish_tpu_torch.config import ModelCard
+    return dataclasses.replace(ModelCard.from_hf(DEEPSEEK_V2_LITE),
+                               n_layer=S19_DEPTH, n_ctx=1024)
+
+
+def _s19_data(cfgp: str):
+    """(card, train card, the batches ``koifish.main`` reads from the
+    config's shard, on the card, and the run's total steps as
+    ``koifish.main`` counts them, which set the learning-rate schedule);
+    the MLA config's card is ``_s19_mla_card``."""
+    import torch
+    from koifish_tpu_torch.config import CLIParams
+    from koifish_tpu_torch.data import TokenDataset
+    p = CLIParams.load(cfgp)
+    card, tcard = p.model, p.train
+    if os.path.basename(cfgp).startswith("mla"):
+        card = _s19_mla_card()
+    ds = TokenDataset(p.datasets["train"].glob,
+                      most=p.datasets["train"].most)
+    out = []
+    for b in ds.batches(tcard.batch, card.n_ctx, seed=p.seed,
+                        epochs=tcard.epochs, accum=tcard.grad_accum):
+        out.append(torch.from_numpy(b["tokens"].astype("int64")).cuda())
+        if len(out) == S19_STEPS:
+            break
+    total = max(ds.total // (tcard.batch * card.n_ctx), 1) * tcard.epochs
+    return card, tcard, out, total
+
+
+def _s19_record(torch, kernel_log, t0, losses, gnorms, step_s) -> dict:
+    torch.cuda.synchronize()
+    return dict(wall=time.perf_counter() - t0, losses=losses, gnorms=gnorms,
+                step_s=step_s, counts=kernel_log.launches(),
+                falls=kernel_log.fallbacks(),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _s19_start(torch, kernel_log) -> float:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_log.reset_launches()
+    return time.perf_counter()
+
+
+def s19_cli(torch, cfgp: str, flags, out_dir: str) -> dict:
+    """``koifish.main`` on ``cfgp`` with ``flags`` (in a rank of a group,
+    or alone): losses, grad norms, step seconds, launches, fallbacks, peak
+    memory."""
+    from koifish_tpu_torch.cli import koifish
+    from koifish_tpu_torch.utils import kernel_log
+    t0 = _s19_start(torch, kernel_log)
+    res = {}
+    rc = koifish.main([cfgp, "--most-iter", str(S19_STEPS), "--out-dir",
+                       out_dir, *flags], res)
+    if rc:
+        fail(f"koifish {cfgp} {flags}: returned {rc}")
+    infos = res["infos"]
+    return _s19_record(torch, kernel_log, t0, infos.losses,
+                       infos.grad_norms, [r[3] for r in infos.rows])
+
+
+def s19_api_train(torch, cfgp: str, mesh=None) -> dict:
+    """The MLA card's run through the training API ``koifish.main`` drives
+    (``init_train_state``, ``shard_train_state`` on ``mesh``, the sharded
+    ``make_train_step``) on the config's batches."""
+    from koifish_tpu_torch.train.sharded import shard_train_state
+    from koifish_tpu_torch.train.trainer import (init_train_state,
+                                                 make_train_step)
+    from koifish_tpu_torch.utils import kernel_log
+    card, tcard, batches, total = _s19_data(cfgp)
+    t0 = _s19_start(torch, kernel_log)
+    state = init_train_state(card, tcard, device="cuda")
+    if mesh is not None:
+        state = shard_train_state(state, mesh)
+    step = make_train_step(card, tcard, total_steps=total)
+    losses, gnorms, step_s = [], [], []
+    for toks in batches:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, {"tokens": toks})
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        step_s.append(time.perf_counter() - t1)
+    del state
+    return _s19_record(torch, kernel_log, t0, losses, gnorms, step_s)
+
+
+def s19_api_pp(torch, cfgp: str, mesh, n_micro: int = 4) -> dict:
+    """The pipeline loop of ``koifish --pp`` (``make_pp_train_step``, 1F1B,
+    ``n_micro`` micro-batches) on the config's batches: on a pp-2 mesh the
+    MLA card's run, on a one-rank mesh the reference of every pp run (the
+    same, JAX-mirrored, loss on one rank)."""
+    from koifish_tpu_torch.parallel.pipeline import (make_pp_train_step,
+                                                     stack_for_pipeline)
+    from koifish_tpu_torch.train.optimizer import init_opt_state
+    from koifish_tpu_torch.train.trainer import init_train_state
+    from koifish_tpu_torch.utils import kernel_log
+    card, tcard, batches, total = _s19_data(cfgp)
+    t0 = _s19_start(torch, kernel_log)
+    state = init_train_state(card, tcard, device="cuda")
+    sl, ot = stack_for_pipeline(state.params, mesh.size("pp"),
+                                stage=mesh.index("pp"))
+    del state
+    opt = init_opt_state({"stages": sl, "other": ot}, tcard.optimizer,
+                         tcard.moment_dtype)
+    step = make_pp_train_step(card, tcard, mesh, n_micro, total)
+    losses, gnorms, step_s = [], [], []
+    for toks in batches:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sl, ot, opt, m = step(sl, ot, opt, toks.reshape(-1, toks.shape[-1]))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        step_s.append(time.perf_counter() - t1)
+    del sl, ot, opt
+    return _s19_record(torch, kernel_log, t0, losses, gnorms, step_s)
+
+
+def _s19_rows_one_piece(torch, q, k, v, r0: int, n: int):
+    """Causal attention in f32 of the query rows r0..r0+n against every key
+    (``_ring_one_piece`` for one rank's rows)."""
+    B, T, Hq, D = q.shape
+    g = Hq // k.shape[2]
+    out = torch.empty((B, n, Hq, D), dtype=torch.float32, device=q.device)
+    mask = (torch.arange(T, device=q.device)[None, :]
+            <= torch.arange(r0, r0 + n, device=q.device)[:, None])
+    for h in range(k.shape[2]):
+        qh = q[:, r0:r0 + n, h * g:(h + 1) * g].float().transpose(1, 2)
+        s = torch.einsum("bgtd,bsd->bgts", qh, k[:, :, h].float()) * D ** -0.5
+        s = torch.where(mask, s, -1e30).softmax(-1)
+        out[:, :, h * g:(h + 1) * g] = torch.einsum(
+            "bgts,bsd->btgd", s, v[:, :, h].float())
+        del s
+    return out
+
+
+def s19_ring(torch, dist, n: int) -> dict:
+    """(a) on this rank of an n-rank group: row 13 through
+    ``ring_attention_pallas_sharded`` on a ``ProcessMesh`` (sp n), each
+    rank passing its chunk of one seeded RING_SHAPE q, k, v. The rank's
+    output against the in-process kernel ring's (``LocalTransport``) on
+    the same chunks (``torch.equal``), against the kernel's plain version
+    (|Δ| <= 2^-7·|plain| + RING_ABS) and one-piece attention
+    (RING_FULL_TOL); a planted transport that hands the last rank its own
+    chunk again in place of rank n-2's must fail both; launches; the ring
+    timed S19_RING_REPS times after a barrier, host clock and CUDA events."""
+    from koifish_tpu_torch.ops.kernels import ring_attn as ra
+    from koifish_tpu_torch.parallel import make_process_mesh
+    from koifish_tpu_torch.parallel.ring_pallas import (
+        ring_attention_pallas_sharded)
+    from koifish_tpu_torch.utils import kernel_log
+    B, T, Hq, Hkv, D = RING_SHAPE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    q, k, v = (torch.randn((B, T, h, D), generator=gen, device="cuda",
+                           dtype=torch.float32).to(torch.bfloat16)
+               for h in (Hq, Hkv, Hkv))
+    mesh = make_process_mesh({"sp": n})
+    r, Tl = mesh.index("sp"), T // n
+    mine = [x[:, r * Tl:(r + 1) * Tl] for x in (q, k, v)]
+    fn = ring_attention_pallas_sharded(mesh, "sp")
+    dist.barrier()
+    torch.cuda.synchronize()
+    kernel_log.reset_launches()
+    out = fn(*mine)
+    torch.cuda.synchronize()
+    counts = kernel_log.launches()
+    local = ra.ring_attention(*(list(x.chunk(n, dim=1)) for x in (q, k, v)))
+    equal = torch.equal(out, local[r])
+    del local
+    state = None
+    for s in range(r + 1):           # the kernel's plain version, rank r
+        state = ra.ring_step_plain(mine[0], k[:, (r - s) * Tl:(r - s + 1) * Tl],
+                                   v[:, (r - s) * Tl:(r - s + 1) * Tl], state,
+                                   r * Tl, (r - s) * Tl, D ** -0.5)
+    plain = ra.ring_finish_plain(state, torch.bfloat16)
+    full = _s19_rows_one_piece(torch, q, k, v, r * Tl, Tl)
+    rel = paged_rel(out, plain, RING_ABS)
+    err = max_err(out, plain)
+    err_full = max_err(out, full)
+
+    class Wrong(ra.ProcessTransport):
+        """The last rank's first received chunk replaced by its own."""
+
+        def wait_recv(self, rr, c, stream):
+            super().wait_recv(rr, c, stream)
+            if rr == self.n - 1 and self._chunk[c] == rr - 1:
+                for b in self._buf:
+                    b[c].copy_(b[1 - c])
+    real = ra.ProcessTransport
+    ra.ProcessTransport = Wrong
+    try:
+        bad = fn(*mine)
+        torch.cuda.synchronize()
+    finally:
+        ra.ProcessTransport = real
+    bad_equal = torch.equal(bad, out)
+    bad_rel = paged_rel(bad, plain, RING_ABS)
+    bad_full = max_err(bad, full)
+    del bad, full, plain, state
+    host, dev = [], []
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    for _ in range(2):                # warm
+        fn(*mine)
+    for _ in range(S19_RING_REPS):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        e0.record()
+        fn(*mine)
+        e1.record()
+        e1.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(e0.elapsed_time(e1))
+    med = lambda xs: sorted(xs)[len(xs) // 2]       # noqa: E731
+    return dict(sp=n, rank=r, counts=counts, equal=equal, rel=rel, err=err,
+                err_full=err_full, bad_equal=bad_equal, bad_rel=bad_rel,
+                bad_full=bad_full, host_ms=med(host), event_ms=med(dev),
+                host_all=host)
+
+
+def s19_rank(root: str, group: str) -> None:
+    """One rank of ``slice19_phase``'s groups on the one card (started by
+    ``parallel/multihost.spawn``). ``"two"``: (a) the ring at sp 2, (c)
+    the zoo under --tp 2, (d) the zoo under --pp 2; ``"four"``: (a) the
+    ring at sp 4, (b) koifish --sp 2 beside --dp 2 and --tp 2. Writes
+    ``{group}_rank{r}.json`` under ``root`` after each run."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from koifish_tpu_torch.parallel import make_process_mesh, multihost
+    multihost.init_distributed(timeout_s=600)
+    rank = dist.get_rank()
+    cfgs = json.load(open(os.path.join(root, "cfgs.json")))
+    rec = {"backend": multihost.backend_choice()}
+
+    def dump():
+        with open(os.path.join(root, f"{group}_rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    rec["ring"] = s19_ring(torch, dist, dist.get_world_size())
+    dump()
+    torch.cuda.empty_cache()
+    if group == "four":
+        for name, flags in S19_SP_RUNS:
+            rec[name] = s19_cli(torch, cfgs["sp"], flags,
+                                os.path.join(root, name))
+            dump()
+        return
+    for name in S19_TP_ZOO:
+        label = f"tp2_{name}"
+        rec[label] = (s19_api_train(torch, cfgs[name], make_process_mesh(
+            {"tp": 2})) if name == "mla" else s19_cli(
+                torch, cfgs[name], ["--tp", "2"], os.path.join(root, label)))
+        dump()
+    for name in S19_PP_ZOO:
+        label = f"pp2_{name}"
+        rec[label] = (s19_api_pp(torch, cfgs[name], make_process_mesh(
+            {"pp": 2})) if name == "mla" else s19_cli(
+                torch, cfgs[name], ["--pp", "2", "--pp-schedule", "1f1b"],
+                os.path.join(root, label)))
+        dump()
+
+
+def _s19_tp_want(name: str, cfgp: str) -> tuple:
+    """(launches, fallbacks) a rank's --tp 2 run of ``name`` makes, as its
+    shapes give them (those of one rank: each layer's kernels once, the
+    fused CE whole on every rank over the gathered head)."""
+    import dataclasses
+    from koifish_tpu_torch.config import CLIParams
+    p = CLIParams.load(cfgp)
+    card, tcard = p.model, p.train
+    m = tcard.batch * card.n_ctx
+    r = 2 if tcard.remat else 1
+    if name == "guppy":
+        return s17_train_launches(S19_STEPS, card, tcard.remat, m), {}
+    if name == "hybrid":           # the QKV layers; V 50,304: bf16 logits
+        qkv = card.n_layer - len(card.gau_layers) - len(card.brown_layers)
+        return (s17_train_launches(S19_STEPS, dataclasses.replace(
+            card, n_layer=qkv), tcard.remat, 0),
+            {"flash_attention": len(card.gau_layers) * S19_STEPS * r})
+    if name == "mla":              # dv != d: the logged plain attention
+        card = _s19_mla_card()
+        want = s17_train_launches(S19_STEPS, card, tcard.remat, m)
+        for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+            want.pop(k)
+        return want, {"flash_attention": card.n_layer * S19_STEPS * r}
+    return {}, {}                  # mamba, salmon: no kernel, as in JAX
+
+
+def _s19_gaps(run, ref) -> tuple:
+    return tuple(max(abs(a - c) / abs(c) for a, c in zip(run[k], ref[k]))
+                 for k in ("losses", "gnorms"))
+
+
+def _s19_gate(label: str, runs, ref, want=None, falls=None) -> None:
+    """Every rank's run of ``label`` against the one-rank ``ref``: finite
+    losses, S19_STEPS of them, the same on every rank (a pipeline's stages
+    report one loss too), the gaps within PAR_LOSS_RTOL and
+    PAR_GNORM_RTOL; launches and fallbacks exactly ``want``/``falls``
+    where given."""
+    import math
+    k0 = runs[0]
+    for r, run in enumerate(runs):
+        if len(run["losses"]) != S19_STEPS or not all(
+                math.isfinite(x) for x in run["losses"]):
+            fail(f"{label} rank {r}: losses {run['losses']}")
+        if run["losses"] != k0["losses"] or run["gnorms"] != k0["gnorms"]:
+            fail(f"{label}: ranks report different losses or grad norms")
+    gl, gg = _s19_gaps(k0, ref)
+    say(f"  {label}: losses {[round(x, 6) for x in k0['losses']]} (one rank "
+        f"{[round(x, 6) for x in ref['losses']]}), grad norms "
+        f"{[round(x, 5) for x in k0['gnorms']]} (one rank "
+        f"{[round(x, 5) for x in ref['gnorms']]}); gaps loss {gl:.3e}, grad "
+        f"norm {gg:.3e}; step s {[round(x, 3) for x in k0['step_s']]} (one "
+        f"rank {[round(x, 3) for x in ref['step_s']]}); peak "
+        f"{[round(x['peak_gib'], 2) for x in runs]} GiB a rank; rank 0 "
+        f"launches {json.dumps(k0['counts'])}, fallbacks "
+        f"{json.dumps(k0['falls'])}")
+    check(f"{label} losses vs one rank (largest relative gap)", gl,
+          PAR_LOSS_RTOL)
+    check(f"{label} grad norms vs one rank (largest relative gap)", gg,
+          PAR_GNORM_RTOL)
+    if want is not None:
+        for r, run in enumerate(runs):
+            _s17_exact(f"{label} rank {r}", run["counts"], want)
+    if falls is not None:
+        for r, run in enumerate(runs):
+            if run["falls"] != falls:
+                fail(f"{label} rank {r}: fallbacks {run['falls']}, the "
+                     f"shapes give {falls}")
+
+
+def _s19_control(label: str, lr0, ref) -> None:
+    """The gates' own check: a one-rank run at learning rate 0 must fail
+    them against ``ref``."""
+    gl, gg = _s19_gaps(lr0, ref)
+    say(f"  control ({label}, learning rate 0): gaps to the one-rank run "
+        f"loss {gl:.3e} (limit {PAR_LOSS_RTOL:g}), grad norm {gg:.3e} "
+        f"(limit {PAR_GNORM_RTOL:g})")
+    if gl <= PAR_LOSS_RTOL and gg <= PAR_GNORM_RTOL:
+        fail(f"the gates pass a run that trains nothing ({label})")
+
+
+def s19_tooling(torch, root: str) -> None:
+    """(e) one Qwen3-0.6B train step (configs/qwen3_0.6b.json's widths and
+    depth, B 8 x 1024, the training phase's shape) captured through
+    ``utils.profiler.trace``; fails unless ``utils.xprof.op_profile(...,
+    "CUDA")``'s top rows name the flash forward and backward and the
+    fused-CE kernels."""
+    from koifish_tpu_torch.config import CLIParams, TrainCard
+    from koifish_tpu_torch.train import make_train_step
+    from koifish_tpu_torch.train.trainer import init_train_state
+    from koifish_tpu_torch.utils.profiler import trace
+    from koifish_tpu_torch.utils.xprof import format_profile, op_profile
+    card = CLIParams.load(os.path.join(ROOT, "configs",
+                                       "qwen3_0.6b.json")).model
+    tcard = TrainCard(batch=8)
+    state = init_train_state(card, tcard, device="cuda")
+    step = make_train_step(card, tcard, total_steps=10)
+    toks = torch.randint(0, card.vocab_size, (1, 8, card.n_ctx + 1),
+                         device="cuda", generator=torch.Generator(
+                             device="cuda").manual_seed(195))
+    state, _ = step(state, {"tokens": toks})             # warm
+    torch.cuda.synchronize()
+    d = os.path.join(root, "trace")
+    t0 = time.perf_counter()
+    with trace(d):
+        state, _ = step(state, {"tokens": toks})
+    wall = time.perf_counter() - t0
+    rows = op_profile(d, "CUDA", top=25)
+    say(f"  (e) a Qwen3-0.6B train step (28 layers, B 8 x 1024) under "
+        f"utils.profiler.trace: {wall * 1e3:.1f} ms wall, trace "
+        f"{sorted(os.listdir(d))}; utils.xprof.op_profile(..., 'CUDA'), top "
+        f"{len(rows)}:")
+    for ln in format_profile(rows, width=90).splitlines():
+        say("    " + ln)
+    names = " ".join(r.name for r in rows)
+    for want in ("flash_fwd", "flash_bwd", "fce_"):
+        if want not in names:
+            fail(f"tooling: the profile's top rows name no {want} kernel")
+    del state
+
+
+def slice19_phase(torch, ring_local: dict) -> tuple:
+    """Slice 19: the zoo and sequence parallelism on the process mesh, one
+    rank a process, the ranks sharing the one card over gloo (no
+    interconnect measured). Two spawned groups (``s19_rank``): 2 ranks run
+    (a) row 13 across processes at sp 2, (c) ``koifish --tp 2`` on GUPPY,
+    the GPT2-124M QKV/GAU/BROWN hybrid, mamba-130m, SALMON and the
+    DeepSeek-V2-Lite-width MLA card (through the training API) and (d)
+    ``--pp 2`` (1F1B) on MAMBA, SALMON, LLAMA_VAE and MLA; 4 ranks run (a)
+    at sp 4 and (b) ``koifish --dp 2 --sp 2`` and ``--tp 2 --sp 2``. Every
+    run S19_STEPS steps at S19_DEPTH layers and slice 17's widths, each
+    gated against one rank (PAR_LOSS_RTOL, PAR_GNORM_RTOL), with a
+    learning-rate-0 control for (b), (c) and (d) that the gates must
+    refuse, and launches exact where the shapes give them; (e) a profiled
+    train step through ``utils.profiler`` and ``utils.xprof``. Returns
+    ({path: rank 0's launches}, row 13's process-path numbers)."""
+    import shutil
+    from koifish_tpu_torch.parallel import multihost
+    from koifish_tpu_torch.parallel.mesh import ProcessMesh
+    root = os.path.join(ROOT, "build", "slice19")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    say(f"[slice19] ranks one process each on the one card "
+        f"({torch.cuda.get_device_name(0)}) over gloo: ranks sharing one "
+        f"card, no interconnect measured")
+    cfgs = _s19_write(root)
+    with open(os.path.join(root, "cfgs.json"), "w") as f:
+        json.dump(cfgs, f)
+    torch.cuda.empty_cache()
+    groups = {}
+    for group, n in (("two", 2), ("four", 4)):
+        t0 = time.perf_counter()
+        multihost.spawn(s19_rank, n, (root, group))
+        groups[group] = [json.load(open(os.path.join(
+            root, f"{group}_rank{r}.json"))) for r in range(n)]
+        say(f"  the {n}-rank group ran in {time.perf_counter() - t0:.1f} s "
+            f"(backend {groups[group][0]['backend']})")
+
+    # (a) row 13 across processes
+    B, T, Hq, Hkv, D = RING_SHAPE
+    nbytes, flops, _ = ring_bound(B, T, Hq, Hkv, D, 4, 2)
+    bound, by = bound_ms(nbytes, flops)
+    ring = {}
+    for group in ("two", "four"):
+        rs = [g["ring"] for g in groups[group]]
+        n = rs[0]["sp"]
+        launches = sum(x["counts"].get("ring_attn", 0) for x in rs)
+        for x in rs:
+            say(f"  (a) sp {n} rank {x['rank']}: launches "
+                f"{json.dumps(x['counts'])}; torch.equal to the in-process "
+                f"kernel ring's chunk: {x['equal']}; vs the kernel's plain "
+                f"version |Δ| {x['err']:.3e} (|Δ|/(2^-7·|plain| + "
+                f"{RING_ABS:g}) {x['rel']:.3f}), vs one-piece attention "
+                f"{x['err_full']:.3e}; host {x['host_ms']:.4f} ms, events "
+                f"{x['event_ms']:.4f} ms (medians of {S19_RING_REPS})")
+            if x["counts"] != {"ring_attn": x["rank"] + 1}:
+                fail(f"ring sp {n} rank {x['rank']}: launches {x['counts']}"
+                     f", its steps 0..{x['rank']} give {x['rank'] + 1}")
+            if not x["equal"]:
+                fail(f"ring sp {n} rank {x['rank']}: the process ring's "
+                     f"chunk differs from the in-process kernel ring's")
+            check(f"ring sp {n} rank {x['rank']} vs its plain version "
+                  f"(|Δ|/(2^-7·|plain| + RING_ABS))", x["rel"], 1.0)
+            check(f"ring sp {n} rank {x['rank']} vs one-piece attention",
+                  x["err_full"], RING_FULL_TOL)
+        last = rs[-1]
+        say(f"  (a) sp {n} planted transport (the last rank's first chunk "
+            f"its own again): torch.equal {last['bad_equal']}, "
+            f"|Δ|/(2^-7·|plain| + {RING_ABS:g}) {last['bad_rel']:.3f}, vs "
+            f"one-piece {last['bad_full']:.3e}; must fail both gates")
+        if last["bad_equal"] or last["bad_rel"] <= 1.0 or \
+                last["bad_full"] <= RING_FULL_TOL:
+            fail(f"ring sp {n}: the planted transport passes a gate")
+        host = max(x["host_ms"] for x in rs)
+        event = max(x["event_ms"] for x in rs)
+        loc = ring_local["by_sp"].get(str(n), {})
+        say(f"  (a) sp {n}: the ring across {n} processes {host:.4f} ms host "
+            f"clock (the slowest rank, from a barrier), {event:.4f} ms CUDA "
+            f"events (the slowest rank's stream); {launches} launches "
+            f"(rank r: r + 1); the in-process ring (LocalTransport) in this "
+            f"run: {loc.get('eager_ms', float('nan')):.4f} ms eager, "
+            f"{loc.get('ms', float('nan')):.4f} ms by replay; bound "
+            f"{bound:.5f} ms ({by}); ranks share one card, no interconnect")
+        ring[n] = dict(launches=launches, host_ms=host, event_ms=event,
+                       max_abs_err=max(x["err"] for x in rs),
+                       max_err_full=max(x["err_full"] for x in rs))
+    process = dict(launches=ring[4]["launches"], by_sp={
+        str(n): r for n, r in ring.items()})
+
+    # (b) koifish --sp 2 beside --dp 2 and --tp 2, against --sp 1
+    from koifish_tpu_torch.config import CLIParams
+    from koifish_tpu_torch.ops.kernels import fused_ce as kc
+    ref = s19_cli(torch, cfgs["sp"], [], os.path.join(root, "one_sp"))
+    _s19_control("sp config", s19_cli(torch, cfgs["sp_lr0"], [], os.path.join(
+        root, "one_sp_lr0")), ref)
+    p = CLIParams.load(cfgs["sp"])
+    paths = {}
+    for name, flags in S19_SP_RUNS:
+        runs = [g[name] for g in groups["four"]]
+        rows = p.train.batch // (2 if "--dp" in flags else 1) * p.model.n_ctx
+        chunks = len(kc.chunk_plan(rows, p.model.vocab_size)[1])
+        want = {"fused_ce_fwd": S19_STEPS,
+                "fused_ce_dlogits": S19_STEPS * chunks,
+                "fused_ce_dx": S19_STEPS * chunks,
+                "fused_ce_dw": S19_STEPS * chunks}
+        _s19_gate(f"(b) koifish {' '.join(flags)} (Qwen3-0.6B widths, "
+                  f"{S19_DEPTH} layers, B {S19_SP_B} x {S19_SP_CTX})", runs,
+                  ref, want, {})
+        paths[name] = runs[0]["counts"]
+
+    # (c) the zoo under --tp 2, against one rank
+    two = groups["two"]
+    refs = {}
+    for name in S19_TP_ZOO:
+        refs[name] = (s19_api_train(torch, cfgs[name]) if name == "mla"
+                      else s19_cli(torch, cfgs[name], [],
+                                   os.path.join(root, "one_" + name)))
+        want, falls = _s19_tp_want(name, cfgs[name])
+        _s17_exact(f"(c) {name} one rank", refs[name]["counts"], want)
+        label = f"tp2_{name}"
+        _s19_gate(f"(c) koifish --tp 2 {name}", [g[label] for g in two],
+                  refs[name], want, falls)
+        paths["koifish_" + label] = two[0][label]["counts"]
+    _s19_control("mamba", s19_cli(torch, cfgs["mamba_lr0"], [], os.path.join(
+        root, "one_mamba_lr0")), refs["mamba"])
+
+    # (d) the zoo under --pp 2 (1F1B), against the pipeline on one rank
+    one = ProcessMesh({"pp": 1}, "cuda")
+    prefs = {}
+    for name in S19_PP_ZOO:
+        prefs[name] = s19_api_pp(torch, cfgs[name], one)
+        label = f"pp2_{name}"
+        _s19_gate(f"(d) koifish --pp 2 {name}", [g[label] for g in two],
+                  prefs[name])
+        for r, g in enumerate(two):     # MLA's dv != d: the logged plain
+            if set(g[label]["falls"]) - ({"flash_attention"}   # attention
+                                         if name == "mla" else set()):
+                fail(f"(d) {name} rank {r}: fallbacks {g[label]['falls']}")
+        paths["koifish_" + label] = two[0][label]["counts"]
+    _s19_control("mamba pipeline", s19_api_pp(torch, cfgs["mamba_lr0"], one),
+                 prefs["mamba"])
+
+    # (e) tooling
+    s19_tooling(torch, root)
+    shutil.rmtree(root)
+    say(f"[slice19] phase: {time.perf_counter() - t_phase:.1f} s; rank 0 "
+        f"launches {json.dumps(paths)}")
+    return paths, process
+
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -6633,6 +7311,7 @@ def main() -> None:
     zoo = zoo_phase(torch)
     s17, k1536, k1536_launches = slice17_phase(torch)
     par, k13824, k13824_launches = parallel_phase(torch)
+    s19, ring_process = slice19_phase(torch, ring)
 
     src = "koifish_tpu_torch/csrc/"
     rows = [  # (name, source, TPU kernel, numbers, launches on its path)
@@ -6778,10 +7457,14 @@ def main() -> None:
                                                   "decode_attn_write")
             else 0)
             for p, c in dict(s13, koifish_sp4=sp_counts, **zoo,
-                             **s17, **par).items()}
+                             **s17, **par, **s19).items()}
         if k["name"] == "ring_attn":   # the ring at sp 2, 4 and 8
             k["eager_ms"] = ring["eager_ms"]
             k["by_sp"] = ring["by_sp"]
+            # across processes (slice 19): the launches of all the ranks of
+            # the sp-4 ring, and each sp's numbers
+            k["launches_by_path"]["process"] = ring_process["launches"]
+            k["process_by_sp"] = ring_process["by_sp"]
     for k in kernels:   # the fused writes' own share of their launch
         if k["name"] == "decode_attn_write":
             k["write_ms"] = dec["decode_attn_write"]["write_ms"]

@@ -19,15 +19,20 @@ attention a ring over the sp axis.
 
 ``--dp/--tp/--pp > 1`` and ``--fsdp`` train on a process mesh, one rank a
 process (``parallel/multihost.py``): the run joins a group set up by a
-launcher, or starts its dp·tp·pp local ranks itself, round-robin over the
-cards (all on the CPU under ``--device cpu``). Each rank builds the whole
+launcher, or starts its dp·tp·sp·pp local ranks itself, round-robin over
+the cards (all on the CPU under ``--device cpu``). ``--sp`` beside them
+adds an ``sp`` axis to that mesh, as the JAX CLI's one ``{dp, tp, sp}``
+mesh has: attention is the plain ring over the sp ranks (each a process),
+everything else runs on the whole sequence, and batches are cut over
+``dp`` only. Each rank builds the whole
 initial state from the seed and keeps its shard
 (``train/sharded.shard_train_state``) and its rows of every batch; rank 0
 does the run's I/O (prints, CSVs, evals, checkpoints of the gathered
 state, the same file a one-rank run writes). ``--pp N`` runs the pipeline
-alone (``parallel/pipeline.py``; ``--n-micro``, ``--pp-schedule``).
-``--sp`` with a process mesh raises: the ring's process transport is not
-ported.
+alone (``parallel/pipeline.py``; ``--n-micro``, ``--pp-schedule``). The
+zoo's cards train under ``--tp`` and ``--pp`` where the JAX package's do;
+LLAMA_VAE under ``--tp``, GUPPY and the GAU/BROWN hybrids under ``--pp``
+raise, as they fail in the JAX package (ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -85,17 +90,15 @@ def _rank_main(argv) -> None:
 def _parallel_args(args) -> int:
     """The rank count of the run's process mesh; raises on the
     combinations the port does not take."""
-    n = args.dp * args.tp * args.pp
-    if args.sp > 1 and (n > 1 or args.fsdp):
-        raise NotImplementedError(
-            "--sp with --dp/--tp/--pp/--fsdp needs the ring's process "
-            "transport, which is not ported (ROADMAP.md queue 1, the ring's "
-            "process transport)")
-    if args.pp > 1 and (args.dp > 1 or args.tp > 1 or args.fsdp):
+    if args.pp > 1 and (args.dp > 1 or args.tp > 1 or args.sp > 1
+                        or args.fsdp):
         raise ValueError("--pp runs the pipeline alone (as the JAX "
                          "package's pipeline loop does): drop --dp/--tp/"
-                         "--fsdp")
-    return n
+                         "--sp/--fsdp")
+    n = args.dp * args.tp * args.pp
+    # --sp alone: the ranks of one controller (slice 14's path); beside
+    # --dp/--tp/--fsdp: one more axis of the process mesh
+    return n * args.sp if n > 1 or args.fsdp else n
 
 
 def _on_device(batches, dev, mesh=None):
@@ -141,14 +144,15 @@ def main(argv=None, result=None) -> int:
     if n_ranks > 1 or args.fsdp:
         from koifish_tpu_torch.parallel import make_process_mesh
         mesh = make_process_mesh({"pp": args.pp, "dp": args.dp,
-                                  "tp": args.tp}, args.device)
+                                  "tp": args.tp, "sp": args.sp}, args.device)
         dev = mesh.device
     else:
         dev = resolve_device(args.device)
     main_rank = mesh is None or mesh.is_main
     say = print if main_rank else (lambda *a, **k: None)
     if mesh is not None:
-        say(f"[koifish] process mesh dp={args.dp} tp={args.tp} "
+        sp = f"sp={args.sp} " if args.sp > 1 else ""
+        say(f"[koifish] process mesh dp={args.dp} tp={args.tp} {sp}"
             f"pp={args.pp} fsdp={args.fsdp}: {mesh.world} rank(s), backend "
             f"{multihost.backend_choice()}")
     p = CLIParams.load(args.config)
@@ -301,11 +305,15 @@ def main(argv=None, result=None) -> int:
         save_train_state(path, st, card, extra_meta={"iter": it})
         print(f"[koifish] saved {tag} checkpoint -> {path}")
 
-    # sequence parallelism: the ring over the sp axis of a dp=1 tp=1 mesh
-    # (JAX cli/koifish.py:213-228; with dp = tp = 1 its state and batch
-    # sharding only replicate, so nothing else moves)
+    # sequence parallelism: the ring over the sp axis (JAX
+    # cli/koifish.py:213-239): of the process mesh beside --dp/--tp/--fsdp,
+    # else of a dp=1 tp=1 mesh whose ranks one controller drives (with dp =
+    # tp = 1 the JAX state and batch sharding only replicate)
     sp_policy = None
-    if args.sp > 1:
+    if args.sp > 1 and mesh is not None:
+        from koifish_tpu_torch.ops.tracectx import SPPolicy
+        sp_policy = SPPolicy("sp", mesh)
+    elif args.sp > 1:
         from koifish_tpu_torch.ops.tracectx import SPPolicy
         from koifish_tpu_torch.parallel import make_mesh
         sp_mesh = make_mesh({"dp": args.dp, "tp": args.tp, "sp": args.sp},

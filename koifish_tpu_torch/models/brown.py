@@ -12,7 +12,9 @@ embedding reshaped into heads (and roped), with no V projection::
 followed by the layer's ordinary FFN. The table is [H, n_ctx, n_ctx] f32,
 sliced to the run's T. Plain PyTorch, as the JAX module is XLA: the
 attention is a table, so no attention kernel runs. Train and forward only:
-serving raises (``serve/engine.prefill``), as in JAX.
+serving raises (``serve/engine.prefill``), as in JAX. Under tensor
+parallelism its leaves are replicated (``parallel/sharding.py``): every
+rank computes the whole attention.
 """
 from __future__ import annotations
 
@@ -51,7 +53,9 @@ def brown_attn(card: ModelCard, lp, x: torch.Tensor, cos, sin,
     """x [B, T, E] -> x + the BROWN attention output (pre-FFN residual)."""
     from koifish_tpu_torch.models.transformer import _norm
     B, T, E = x.shape
-    H, D = card.n_head, card.head_dim
+    # the table's head count: a tensor-parallel rank's card holds a share
+    # of n_head, while the table (replicated) runs whole on every rank
+    H, D = lp["brown_w"].shape[0], card.head_dim
     h = _norm(card, x, lp["ln1"], lp.get("ln1_b"))
     v = h.reshape(B, T, H, D)
     if card.pos_embed == "rope":

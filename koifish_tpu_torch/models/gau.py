@@ -24,6 +24,11 @@ from koifish_tpu_torch.config import ModelCard
 from koifish_tpu_torch.ops.attention import causal_attention
 from koifish_tpu_torch.ops.matmul import qmatmul
 from koifish_tpu_torch.ops.rope import apply_rope
+from koifish_tpu_torch.ops.tracectx import current_tp
+from koifish_tpu_torch.parallel import comm
+
+#: the projections that tensor parallelism replicates
+_REPLICATED = ("upU", "upV", "gau_q", "gau_k")
 
 
 def init_gau_layer(card: ModelCard, gen: torch.Generator,
@@ -48,18 +53,37 @@ def init_gau_layer(card: ModelCard, gen: torch.Generator,
 
 def gau_block(card: ModelCard, lp, x: torch.Tensor, cos, sin,
               positions) -> torch.Tensor:
-    """x [B, T, E] -> x + the GAU output."""
-    from koifish_tpu_torch.models.transformer import _norm
+    """x [B, T, E] -> x + the GAU output. Under tensor parallelism (a
+    rank's card holds F/tp and n_kv_head/tp) the replicated projections
+    run whole, the rank keeps its heads and its F columns of u, and the
+    row-parallel ``down``'s partials are summed in f32 and rounded once
+    (``models/transformer._linear_l``)."""
+    from koifish_tpu_torch.models.transformer import _linear_l, _norm
     B, T, _ = x.shape
-    Fn, D, H = card.n_ffn, card.head_dim, card.n_kv_head
+    D = card.head_dim
     h = _norm(card, x, lp["ln1"], lp.get("ln1_b"))
-    u = F.silu(qmatmul(h, lp["upU"]).to(torch.float32)).to(x.dtype)
-    v = F.silu(qmatmul(h, lp["upV"]).to(torch.float32)).to(x.dtype)
-    q = qmatmul(h, lp["gau_q"]).reshape(B, T, H, D)
-    k = qmatmul(h, lp["gau_k"]).reshape(B, T, H, D)
+    tp = current_tp()
+    w = {k: lp[k] for k in _REPLICATED}
+    if tp is not None:
+        # whole products of replicated weights, of which this rank reads
+        # its heads: their gradients and h's are partial, summed over tp
+        h = comm.copy_to(h, tp.group)
+        w = {k: comm.copy_to(v, tp.group) if isinstance(v, torch.Tensor)
+             else v for k, v in w.items()}
+    Fw, Hw = w["upU"].shape[-1], w["gau_q"].shape[-1] // D
+    u = F.silu(qmatmul(h, w["upU"]).to(torch.float32)).to(x.dtype)
+    v = F.silu(qmatmul(h, w["upV"]).to(torch.float32)).to(x.dtype)
+    q = qmatmul(h, w["gau_q"]).reshape(B, T, Hw, D)
+    k = qmatmul(h, w["gau_k"]).reshape(B, T, Hw, D)
     if card.pos_embed == "rope":
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
+    Fn, H = card.n_ffn, card.n_kv_head
+    if tp is not None:                 # this rank's heads and F columns
+        q, k = (t[:, :, tp.rank * H:(tp.rank + 1) * H] for t in (q, k))
+        u, v = (t[..., tp.rank * Fn:(tp.rank + 1) * Fn] for t in (u, v))
     a = causal_attention(q, k, v.reshape(B, T, H, Fn // H),
                          causal=card.causal).reshape(B, T, Fn)
+    if tp is not None:
+        return x + _linear_l(u * a, lp, "down")
     return x + qmatmul(u * a, lp["down"])

@@ -30,7 +30,13 @@ from koifish_tpu_torch.config import ModelCard
 from koifish_tpu_torch.ops.matmul import qmatmul
 from koifish_tpu_torch.ops.norms import rmsnorm
 from koifish_tpu_torch.ops.rope import apply_rope, rope_freqs
+from koifish_tpu_torch.ops.tracectx import current_tp
+from koifish_tpu_torch.parallel import comm
 from koifish_tpu_torch.utils.device import resolve_device
+
+
+#: the latent projections and norms, which tensor parallelism replicates
+_PROJ = ("wq_a", "q_norm_a", "wq_b", "wq", "wkv_a", "kv_norm_a", "wkv_b")
 
 
 def mla_dims(card: ModelCard) -> Tuple[int, int, int, int, int]:
@@ -93,7 +99,7 @@ def mla_queries(card: ModelCard, lp: Dict[str, Any], x: torch.Tensor
         q = qmatmul(qa, lp["wq_b"])
     else:
         q = qmatmul(x, lp["wq"])
-    return q.reshape(*x.shape[:2], card.n_head, dn + dr)
+    return q.reshape(*x.shape[:2], -1, dn + dr)
 
 
 def mla_latents(card: ModelCard, lp: Dict[str, Any], x: torch.Tensor
@@ -111,13 +117,24 @@ def mla_qkv(card: ModelCard, lp: Dict[str, Any], x: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x [B, T, E] -> q, k [B, T, H, dn+dr], v [B, T, H, dv]: rope on the
     decoupled dr slice at table ``positions`` ([T] or [B, T]), k_rope
-    shared across heads."""
+    shared across heads. Under tensor parallelism (a rank's card holds
+    n_head/tp) the replicated projections run whole and the rank keeps its
+    heads, as the rank's rows of the row-parallel ``o`` take them."""
     B, T, _ = x.shape
-    H = card.n_head
     _, _, dn, dr, dv = mla_dims(card)
+    tp = current_tp()
+    if tp is not None:
+        # whole products of replicated weights, of which this rank reads
+        # its heads: their gradients and x's are partial, summed over tp
+        x = comm.copy_to(x, tp.group)
+        lp = {k: comm.copy_to(w, tp.group) if k in _PROJ and
+              isinstance(w, torch.Tensor) else w for k, w in lp.items()}
     q = mla_queries(card, lp, x)
     c_kv, k_rope = mla_latents(card, lp, x)
-    kv = qmatmul(c_kv, lp["wkv_b"]).reshape(B, T, H, dn + dv)
+    kv = qmatmul(c_kv, lp["wkv_b"]).reshape(B, T, -1, dn + dv)
+    H = card.n_head
+    if tp is not None:
+        q, kv = (t[:, :, tp.rank * H:(tp.rank + 1) * H] for t in (q, kv))
     k_nope, v = kv[..., :dn], kv[..., dn:]
 
     cos, sin = mla_rope(card, x.device)

@@ -34,7 +34,10 @@ shard of the params with a card of its local head and FFN counts
 (``parallel/sharding.local_card``): the column-parallel inputs pass
 ``comm.copy_to``, the row-parallel outputs (``o``, ``down``, ``proj``) are
 summed over the group in f32 and rounded once, a vocab-sharded embedding
-sums its ranks' rows, and a vocab-sharded head gathers its logits.
+sums its ranks' rows, and a vocab-sharded head gathers its logits. The
+zoo's replicated layers (Mamba, BROWN's table, Guppy's FFN) run whole on
+every rank; MLA and GAU compute their replicated projections whole and
+keep the rank's heads (``models/mla.py``, ``models/gau.py``).
 Training differentiates ``model_forward`` with autograd (bf16 leaves with
 ``requires_grad``); ``remat`` recomputes blocks in the backward through
 ``torch.utils.checkpoint``.
@@ -303,11 +306,13 @@ def qkv_project(card: ModelCard, lp: Params, x: torch.Tensor, cos, sin,
 
 
 def mlp(card: ModelCard, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    if "guppy_gain" in lp:
+        # its sampled rows are whole on every rank under TP: a replicated
+        # computation, whose input gradient is whole too
+        return guppy_ffn(lp, x)
     x = _tp_in(x)
     if "router" in lp:
         return moe_ffn(card, lp, x)
-    if "guppy_gain" in lp:
-        return guppy_ffn(lp, x)
     if card.act == "swiglu":
         g = _linear_l(x, lp, "gate")
         u = _linear_l(x, lp, "up")

@@ -9,7 +9,9 @@ sends it to Pallas; every other case runs the plain, autograd-
 differentiated path below. Under a sequence-parallel policy
 (``ops/tracectx.sp_scope``, pushed by ``make_train_step``) the
 self-attention case runs the plain ring over the policy's mesh instead
-(``parallel/ring_attention.py``), as JAX ``ops/attention.py:59-77`` does.
+(``parallel/ring_attention.py``: one controller's ranks on a ``Mesh``,
+this process's rank on a ``ProcessMesh``), as JAX
+``ops/attention.py:59-77`` does.
 A causal self-attention case the flash kernels do not take (MLA's dv != d,
 other head dims) logs a ``flash_attention`` fallback through
 ``utils/kernel_log``, as the JAX package's flash entry does.

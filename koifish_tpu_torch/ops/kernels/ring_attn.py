@@ -23,6 +23,13 @@ another card gets the chunk by a copy on the sender's copy stream after the
 launch (``LocalTransport.send``), ordered by CUDA events: after the
 sender's launch and the receiver's previous one, before the receiver's next.
 
+Where each rank is a process (``ring_attention_rank`` with a
+``ProcessTransport``), the process runs only its own rank's launches, one a
+step at steps 0..my, and a chunk goes to the neighbour process by
+``parallel/comm.send``/``recv`` into its slot, staged through host memory
+under gloo. The kernel is the same: ``fold`` is always None there, so no
+launch stores a slot.
+
 Chunks with ``src > my`` lie wholly above the diagonal. Once step 0 (the
 diagonal, always first) has made every row's m finite, their p is exactly 0
 and they change nothing, so rank ``my`` computes only at steps 0..my, and
@@ -295,8 +302,8 @@ class LocalTransport:
     - ``join()``: each sender device's current stream waits for its copies
       (the slots they read are freed with the transport).
 
-    A ``torch.distributed`` transport (NCCL isend/irecv between processes)
-    would offer the same calls with ``fold`` always None."""
+    ``ProcessTransport`` offers the same calls between processes, with
+    ``fold`` always None."""
 
     def __init__(self, devices: Sequence[torch.device], shape):
         self.n = len(devices)
@@ -374,6 +381,78 @@ class LocalTransport:
             ev = _new_event()
             ev.record(s)
             torch.cuda.current_stream(self.devices[r]).wait_event(ev)
+
+
+class ProcessTransport:
+    """The ring's slots and transfers when each rank is a process: this
+    process holds rank ``index``'s two slots only ([2, B, Tl, Hkv, D] bf16
+    buffers of K and V, ``row(index, c) = c``) and passes a chunk to the
+    next rank of ``ranks`` (global ranks in ring order) with
+    ``parallel/comm.send``, receiving the previous rank's with
+    ``comm.recv`` (both staged through pinned host memory under gloo,
+    where ranks share a card). The calls of ``LocalTransport``:
+
+    - ``peer(r)``, ``fold(r, c)`` (always None: the neighbour is another
+      process), ``launched(device, stream)`` (nothing to record: a send
+      is enqueued after the stream's work it reads);
+    - ``send(r, c)``: start sending slot c's K and V to the peer;
+    - ``wait_recv(r, c, stream)``: receive the previous rank's chunk into
+      slot c, on ``stream`` after the launches that read the slot before;
+    - ``join()``: wait for this rank's sends.
+
+    ``log`` records each transfer as (sender, chunk, receiver)."""
+
+    def __init__(self, ranks: Sequence[int], index: int,
+                 device: torch.device, shape):
+        self.ranks, self.rank, self.n = list(ranks), index, len(ranks)
+        self.device = torch.device(device)
+        self._buf = tuple(torch.empty((2, *shape), dtype=torch.bfloat16,
+                                      device=self.device) for _ in "kv")
+        self._chunk = [index, None]        # whose chunk each slot holds
+        self._sends = {0: [], 1: []}       # each slot's sends in flight
+        self.log: list = []
+
+    def peer(self, r: int) -> int:
+        return (r + 1) % self.n
+
+    def row(self, r: int, c: int) -> int:
+        return c
+
+    def buffers(self, device=None):
+        return self._buf
+
+    def fold(self, r: int, c: int) -> Optional[int]:
+        return None
+
+    def launched(self, device, stream) -> None:
+        pass
+
+    def send(self, r: int, c: int) -> None:
+        from koifish_tpu_torch.parallel import comm
+        dst = self.ranks[self.peer(r)]
+        for b in self._buf:
+            self._sends[c].append(comm.send(b[c], dst))
+        self.log.append((r, self._chunk[c], self.peer(r)))
+
+    def wait_recv(self, r: int, c: int, stream) -> None:
+        from koifish_tpu_torch.parallel import comm
+        src = self.ranks[(r - 1) % self.n]
+        self._wait(c)                  # the slot's last send has read it
+        for b in self._buf:
+            x = comm.recv(b.shape[1:], b.dtype, src, self.device)
+            with torch.cuda.stream(stream) if stream is not None \
+                    else contextlib.nullcontext():
+                b[c].copy_(x)
+        self._chunk[c] = (self._chunk[1 - c] - 1) % self.n
+
+    def _wait(self, c: int) -> None:
+        for h in self._sends[c]:
+            h.wait()
+        self._sends[c] = []
+
+    def join(self) -> None:
+        for c in (0, 1):
+            self._wait(c)
 
 
 def _check(qs, ks, vs, scale: float):
@@ -583,3 +662,57 @@ def ring_attention(qs: List[torch.Tensor], ks: List[torch.Tensor],
     tr.join()
     del states     # every launch that reads them is enqueued
     return outs
+
+
+def ring_attention_rank(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        transport: ProcessTransport,
+                        scale: Optional[float] = None,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rank ``transport.rank``'s part of the kernel ring whose other ranks
+    are other processes: its q [B, Tl, Hq, D] and k/v [B, Tl, Hkv, D]
+    chunks; returns its output chunk (``out`` where given). The rank runs
+    ``ring_attention``'s steps for itself: at step s (0..rank) it attends
+    to the chunk of rank (rank - s) in slot s % 2, one launch a step, and
+    forwards that chunk first unless it is the last rank. A CPU chunk takes
+    the plain version, through the same transfers."""
+    tr = transport
+    n, me = tr.n, tr.rank
+    if scale is None:
+        scale = 1.0 / q.shape[3] ** 0.5
+    _check([q], [k], [v], scale)
+    B, Tl, Hq, D = q.shape
+    Hkv = k.shape[2]
+    kb, vb = tr.buffers(q.device)
+    kb[0].copy_(k)
+    vb[0].copy_(v)
+    cpu = q.device.type == "cpu"
+    if not cpu:
+        q = q if _rows_ok(q) else q.contiguous()
+    out = _outs_for([q], None if out is None else [out])[0]
+    g = Hq // Hkv
+    state = None if cpu else [
+        torch.empty((1, B, Hkv, Tl * g) + tail, dtype=torch.float32,
+                    device=q.device) for tail in ((D,), (), ())]
+    stream = None if cpu else torch.cuda.current_stream(q.device)
+    for s in range(me + 1):
+        c = s % 2
+        if s:
+            tr.wait_recv(me, c, stream)
+        if me < n - 1:
+            tr.send(me, c)
+        if cpu:
+            state = ring_step_plain(q, kb[c], vb[c], state, me * Tl,
+                                    (me - s) * Tl, scale)
+            continue
+        ptrs = (q.data_ptr(), *(x.data_ptr() for x in state),
+                out.data_ptr(), q.stride(0), out.stride(0))
+        with _on(q.device):
+            _launch([_desc(ptrs, me * Tl, (me - s) * Tl, tr.row(me, c),
+                           None, s == 0, s == me)], (kb, vb), B, Tl, Hq,
+                    Hkv, D, q.dtype == torch.float32, _sl2(scale), stream)
+        tr.launched(q.device, stream)
+    tr.join()
+    if cpu:
+        out.copy_(ring_finish_plain(state, q.dtype))
+    del state      # every launch that reads it is enqueued
+    return out

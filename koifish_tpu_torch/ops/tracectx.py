@@ -35,7 +35,9 @@ class Int8Policy:
 class SPPolicy:
     """Sequence-parallel training: full-sequence causal attention runs ring
     attention with T sharded over ``axis`` of ``mesh`` (a
-    ``parallel/mesh.Mesh``; untyped: this module imports nothing of it)."""
+    ``parallel/mesh.Mesh`` whose ranks one controller drives, or a
+    ``ProcessMesh`` whose ranks are processes; untyped: this module imports
+    nothing of them)."""
     axis: str
     mesh: object
 

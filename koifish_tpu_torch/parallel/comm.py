@@ -12,7 +12,10 @@ The autograd functions are Megatron's: ``copy_to`` (identity forward,
 all-reduce backward) in front of a column-parallel region, ``reduce_from``
 (all-reduce forward in f32, identity backward) behind a row-parallel one,
 ``gather_from`` (all-gather forward, own slice backward) for a replicated
-computation that reads every shard.
+computation that reads every shard, and its mirror ``split_to`` (own slice
+forward, all-gather backward) into a sharded one. ``permute`` is the JAX
+ring's ``ppermute``: each rank of an axis sends to the next and receives
+from the one before, the reverse permute its backward.
 """
 from __future__ import annotations
 
@@ -80,6 +83,21 @@ def send(t: torch.Tensor, dst: int):
     return dist.isend(src, dst)
 
 
+def exchange(t: torch.Tensor, dst: int, src: int) -> torch.Tensor:
+    """Send ``t`` to global rank ``dst`` while receiving a tensor of its
+    shape and dtype from global rank ``src`` (one step of a ring: both
+    posted together, so no rank waits on another's send)."""
+    dev = t.device
+    staged = _staged(dev)
+    out = _host(t) if staged else t.contiguous()
+    buf = torch.empty(t.shape, dtype=t.dtype, device="cpu" if staged else dev,
+                      pin_memory=staged)
+    for h in dist.batch_isend_irecv([dist.P2POp(dist.isend, out, dst),
+                                     dist.P2POp(dist.irecv, buf, src)]):
+        h.wait()
+    return buf.to(dev) if staged else buf
+
+
 def recv(shape, dtype, src: int, device) -> torch.Tensor:
     """Receive a tensor of ``shape``/``dtype`` from global rank ``src``."""
     dev = torch.device(device)
@@ -127,6 +145,32 @@ class _GatherFrom(torch.autograd.Function):
         return g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
 
 
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n = x.shape[dim] // group_size(group)
+        return x.narrow(dim, group_rank(group) * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_cat(g.contiguous(), ctx.group, ctx.dim), None, None
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ranks, index):
+        ctx.ranks, ctx.index = ranks, index
+        n = len(ranks)
+        return exchange(x, ranks[(index + 1) % n], ranks[(index - 1) % n])
+
+    @staticmethod
+    def backward(ctx, g):
+        n, i = len(ctx.ranks), ctx.index
+        return (exchange(g, ctx.ranks[(i - 1) % n], ctx.ranks[(i + 1) % n]),
+                None, None)
+
+
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     """Identity forward; the gradient is summed over ``group``."""
     if group is None:
@@ -150,3 +194,24 @@ def gather_from(x: torch.Tensor, group, dim: int) -> torch.Tensor:
         return x
     return _GatherFrom.apply(x, group, dim)
 
+
+def split_to(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's slice of a replicated ``x`` along ``dim`` (the ranks of
+    ``group`` in order, equal slices); the gradient of the whole is every
+    rank's slice gradient, all-gathered."""
+    if group is None:
+        return x
+    if x.shape[dim] % group_size(group):
+        raise ValueError(f"split_to: dim {dim} of {tuple(x.shape)} does not "
+                         f"divide over {group_size(group)} ranks")
+    return _SplitTo.apply(x, group, dim)
+
+
+def permute(x: torch.Tensor, ranks: List[int], index: int) -> torch.Tensor:
+    """The ring step of an axis whose global ranks are ``ranks`` (this rank
+    at ``index``): ``x`` goes to ``ranks[index + 1]`` and the result is
+    ``ranks[index - 1]``'s (both mod the ring). Differentiable: the
+    gradient takes the reverse step."""
+    if len(ranks) == 1:
+        return x
+    return _Permute.apply(x, list(ranks), index)

@@ -13,10 +13,10 @@ can hold the P ranks of a ring, as the JAX tests put theirs on virtual
 CPU devices (``--xla_force_host_platform_device_count``). The JAX
 ``make_mesh`` refuses a mesh larger than its device list.
 
-Data, tensor and pipeline parallelism run one rank a process instead
-(``ProcessMesh``: axes ``pp``, ``dp``, ``tp`` over a ``torch.distributed``
-group), with each collective explicit in the port's code
-(``parallel/comm.py``) where the JAX package leaves them to GSPMD.
+Data, tensor, sequence and pipeline parallelism run one rank a process
+instead (``ProcessMesh``: axes ``pp``, ``dp``, ``tp``, ``sp`` over a
+``torch.distributed`` group), with each collective explicit in the port's
+code (``parallel/comm.py``) where the JAX package leaves them to GSPMD.
 """
 from __future__ import annotations
 
@@ -110,9 +110,11 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
 # process meshes: one rank a process (torch.distributed)
 # ---------------------------------------------------------------------------
 
-#: axis order of a process mesh, outermost first: ``tp`` innermost, so the
-#: ranks of a tensor-parallel group are neighbours (on one host)
-PROCESS_AXES = ("pp", "dp", "tp")
+#: axis order of a process mesh, outermost first: ``pp`` alone (the
+#: pipeline takes no other axis), then the JAX CLI's ``dp``, ``tp``, ``sp``
+#: (``koifish_tpu/cli/koifish.py:217-219``), so the ranks of a ring are
+#: neighbours (on one host)
+PROCESS_AXES = ("pp", "dp", "tp", "sp")
 
 
 def choose_backend(devices: Sequence) -> Tuple[str, str]:
@@ -144,8 +146,8 @@ def rank_device(rank: int, device: Optional[str] = None) -> torch.device:
 class ProcessMesh:
     """Named axes over the processes of a ``torch.distributed`` group, one
     rank a process: the counterpart of the JAX package's ``Mesh`` once each
-    rank is a process of its own. ``axes`` maps ``pp``/``dp``/``tp`` to
-    sizes (missing axes are 1); rank r sits at the row-major coordinates of
+    rank is a process of its own. ``axes`` maps ``pp``/``dp``/``tp``/``sp``
+    to sizes (missing axes are 1); rank r sits at the row-major coordinates of
     r over ``PROCESS_AXES``. Each axis is a process group of the ranks that
     differ only along it (``torch.distributed.new_group``: every rank
     builds every group, in the same order). ``shape``, ``size(axis)``,

@@ -20,6 +20,15 @@ Two schedules, as in the JAX package:
 
 The loss is the mean of the micro-batch means; the replicated params'
 gradients are summed over ``pp`` (the JAX package's ``psum``).
+
+The zoo's homogeneous cards (MAMBA, SALMON, MLA, LLAMA_VAE) stack and train
+as the JAX pipeline trains them, losses included (ROADMAP.md queue 3, known
+quirks): every card takes the next-token CE (SALMON's own loss is its
+masked diffusion), and stage 0 embeds with ``gather_embed`` (LLAMA_VAE's
+``evae`` stack is left out, its leaves take zero gradients). Heterogeneous
+layers (GAU and BROWN hybrids) raise the JAX package's ``ValueError``;
+GUPPY, whose JAX pipeline fails on ``guppy_rows``, is refused
+(``sharding.check_parallel_card``).
 """
 from __future__ import annotations
 

@@ -13,17 +13,30 @@ chunks wholly above the diagonal included (their weight is exactly 0
 once step 0, the diagonal, has made m finite). The forward-only kernel
 ring is ``ops/kernels/ring_attn.py``.
 
-One controller drives the ranks, as one JAX program drives the devices of
-a ``shard_map``: rank r's chunks lie on its mesh device and each pass is a
-copy to the neighbour's device (``Tensor.to``, nothing where ranks share
-a device). The ranks run one after the other on each device's current
-stream.
+On a ``parallel/mesh.Mesh`` one controller drives the ranks, as one JAX
+program drives the devices of a ``shard_map``: rank r's chunks lie on its
+mesh device and each pass is a copy to the neighbour's device
+(``Tensor.to``, nothing where ranks share a device). The ranks run one
+after the other on each device's current stream.
+
+On a ``ProcessMesh`` each rank is a process that holds its own chunks
+(``ring_attention_rank``): the same steps and merges in the same order,
+each pass the JAX ring's ``ppermute`` (``comm.permute``, K and V as one
+tensor; its backward the reverse pass). The training path keeps T whole
+outside attention, as the JAX batch spec does, so each rank takes its
+chunk of the whole q, k, v with ``comm.split_to`` (whose backward
+all-gathers the chunks' gradients) and the output is joined with
+``comm.gather_from`` (whose backward takes the rank's slice): every rank
+of the axis then holds the one-rank gradients, and none is summed over
+``sp``.
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
 import torch
+
+from koifish_tpu_torch.parallel import comm
 
 _NEG_INF = -1e30
 
@@ -50,6 +63,31 @@ def _local_block(q, k, v, q_off: int, k_off: int, scale: float):
             l.reshape(b, hq, tq))
 
 
+def _merge(acc, o, m, l):
+    """(o_acc, m_acc, l_acc) with a block's (o, m, l) folded in (f32)."""
+    o_acc, m_acc, l_acc = acc
+    m_new = torch.maximum(m_acc, m)
+    a_old = torch.exp(m_acc - m_new)
+    a_new = torch.exp(m - m_new)
+    return (o_acc * a_old.transpose(1, 2)[..., None]
+            + o * a_new.transpose(1, 2)[..., None],
+            m_new, l_acc * a_old + l * a_new)
+
+
+def _start(q):
+    b, tl, hq, d = q.shape
+    return (torch.zeros((b, tl, hq, d), dtype=torch.float32, device=q.device),
+            torch.full((b, hq, tl), _NEG_INF, dtype=torch.float32,
+                       device=q.device),
+            torch.zeros((b, hq, tl), dtype=torch.float32, device=q.device))
+
+
+def _finish(acc, dtype):
+    o_acc, _, l_acc = acc
+    return (o_acc / l_acc.transpose(1, 2)[..., None].clamp_min(1e-30)
+            ).to(dtype)
+
+
 def ring_attention(qs: List[torch.Tensor], ks: List[torch.Tensor],
                    vs: List[torch.Tensor], scale: Optional[float] = None
                    ) -> List[torch.Tensor]:
@@ -57,33 +95,44 @@ def ring_attention(qs: List[torch.Tensor], ks: List[torch.Tensor],
     ``ks[r]``/``vs[r]`` [B, Tl, Hkv, D] on rank r's device (rank r holds
     positions r·Tl..). Returns each rank's output chunk in q's dtype."""
     sp = len(qs)
-    b, tl, hq, d = qs[0].shape
+    tl, d = qs[0].shape[1], qs[0].shape[3]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     devs = [q.device for q in qs]
-    o_acc = [torch.zeros((b, tl, hq, d), dtype=torch.float32, device=dv)
-             for dv in devs]
-    m_acc = [torch.full((b, hq, tl), _NEG_INF, dtype=torch.float32,
-                        device=dv) for dv in devs]
-    l_acc = [torch.zeros((b, hq, tl), dtype=torch.float32, device=dv)
-             for dv in devs]
+    acc = [_start(q) for q in qs]
     kc, vc = list(ks), list(vs)
     for step in range(sp):
         for my in range(sp):
             src = (my - step) % sp                  # whose chunk we hold
-            o, m, l = _local_block(qs[my], kc[my], vc[my], my * tl,
-                                   src * tl, scale)
-            m_new = torch.maximum(m_acc[my], m)
-            a_old = torch.exp(m_acc[my] - m_new)
-            a_new = torch.exp(m - m_new)
-            l_acc[my] = l_acc[my] * a_old + l * a_new
-            o_acc[my] = (o_acc[my] * a_old.transpose(1, 2)[..., None]
-                         + o * a_new.transpose(1, 2)[..., None])
-            m_acc[my] = m_new
+            acc[my] = _merge(acc[my], *_local_block(
+                qs[my], kc[my], vc[my], my * tl, src * tl, scale))
         if step + 1 < sp:                           # rank r -> rank r + 1
             kc = [kc[(r - 1) % sp].to(devs[r]) for r in range(sp)]
             vc = [vc[(r - 1) % sp].to(devs[r]) for r in range(sp)]
-    return [(o_acc[r] / l_acc[r].transpose(1, 2)[..., None].clamp_min(1e-30)
-             ).to(qs[r].dtype) for r in range(sp)]
+    return [_finish(acc[r], qs[r].dtype) for r in range(sp)]
+
+
+def ring_attention_rank(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        ranks: List[int], index: int,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """One process's part of the ring: this rank's q [B, Tl, Hq, D] and
+    k/v [B, Tl, Hkv, D] chunks (positions index·Tl..), the axis's global
+    ``ranks`` in ring order; returns its output chunk in q's dtype. The
+    steps and merges of ``ring_attention``'s rank ``index``, so given the
+    same chunks the output and gradients are the same bit for bit."""
+    sp = len(ranks)
+    tl, d = q.shape[1], q.shape[3]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    acc = _start(q)
+    kv = torch.stack((k, v)) if sp > 1 else None
+    kc, vc = k, v
+    for step in range(sp):
+        src = (index - step) % sp
+        acc = _merge(acc, *_local_block(q, kc, vc, index * tl, src * tl,
+                                        scale))
+        if step + 1 < sp:                           # to rank index + 1
+            kv = comm.permute(kv, ranks, index)
+            kc, vc = kv.unbind(0)
+    return _finish(acc, q.dtype)
 
 
 def shard_seq(x: torch.Tensor, devices) -> List[torch.Tensor]:
@@ -102,12 +151,32 @@ def gather_seq(chunks: List[torch.Tensor], device) -> torch.Tensor:
     return torch.cat([c.to(device) for c in chunks], dim=1)
 
 
+def _is_process_mesh(mesh) -> bool:
+    from koifish_tpu_torch.parallel.mesh import ProcessMesh
+    return isinstance(mesh, ProcessMesh)
+
+
 def ring_attention_sharded(mesh, axis_name: str = "tp",
                            scale: Optional[float] = None):
     """A function (q, k, v) -> out on GLOBAL [B, T, H, D] tensors with T
-    sharded over ``axis_name`` of ``mesh`` (``parallel/mesh.Mesh``): each
-    rank of the axis takes its chunk on its device, the output is joined
-    on q's device."""
+    sharded over ``axis_name`` of ``mesh``. On a ``parallel/mesh.Mesh``
+    each rank of the axis takes its chunk on its device and the output is
+    joined on q's device; on a ``ProcessMesh`` every rank of the axis holds
+    the whole q, k, v, takes its chunk (``comm.split_to``), runs its part
+    of the ring and gathers every rank's output (``comm.gather_from``)."""
+    if _is_process_mesh(mesh):
+        group, ranks = mesh.group(axis_name), mesh.ranks(axis_name)
+        index = mesh.index(axis_name)
+
+        def fn_process(q, k, v):
+            if len(ranks) > 1 and q.shape[1] % len(ranks):
+                raise ValueError(f"sequence length {q.shape[1]} is not a "
+                                 f"multiple of the {len(ranks)} ranks of "
+                                 f"the axis")
+            ql, kl, vl = (comm.split_to(x, group, 1) for x in (q, k, v))
+            out = ring_attention_rank(ql, kl, vl, ranks, index, scale)
+            return comm.gather_from(out, group, 1)
+        return fn_process
     devices = mesh.axis_devices(axis_name)
 
     def fn(q, k, v):

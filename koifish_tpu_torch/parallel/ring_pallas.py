@@ -9,6 +9,11 @@ q's device write their rows of the global output in place; only the rows
 of ranks on another device are gathered. One rank runs the plain ring
 (``parallel/ring_attention.py``), as in JAX.
 
+On a ``ProcessMesh`` each rank is a process that passes its own chunk, as
+each device of the JAX ``shard_map`` holds its own, and the kernel ring
+runs rank by rank (``ring_attn.ring_attention_rank``), its chunks moving
+between processes (``ring_attn.ProcessTransport``).
+
 The JAX package also sends a chunk that does not fit the TPU's VMEM
 (``fits_vmem``) to the ``ppermute`` ring. The port's chunks, slots and
 state live in device memory, so its routing has no such guard;
@@ -19,7 +24,9 @@ from __future__ import annotations
 import torch
 
 from koifish_tpu_torch.ops.kernels import ring_attn
-from koifish_tpu_torch.parallel.ring_attention import (ring_attention_sharded,
+from koifish_tpu_torch.parallel.ring_attention import (_is_process_mesh,
+                                                       ring_attention_rank,
+                                                       ring_attention_sharded,
                                                        shard_seq)
 
 _VMEM_BUDGET = 100 * 1024 * 1024
@@ -35,7 +42,19 @@ def fits_vmem(b: int, tl: int, hq: int, hkv: int, d: int) -> bool:
 def ring_attention_pallas_sharded(mesh, axis_name: str = "tp"):
     """(q, k, v) on GLOBAL [B, T, H, D] tensors, T sharded over
     ``axis_name`` -> out [B, T, Hq, D] in q's dtype on q's device: the
-    kernel ring with more than one rank, else the plain ring."""
+    kernel ring with more than one rank, else the plain ring. On a
+    ``ProcessMesh``: (q, k, v) are this rank's chunks [B, Tl, H, D] and the
+    result its output chunk."""
+    if _is_process_mesh(mesh):
+        ranks, index = mesh.ranks(axis_name), mesh.index(axis_name)
+
+        def fn_process(q, k, v):
+            if len(ranks) == 1:
+                return ring_attention_rank(q, k, v, ranks, index)
+            tr = ring_attn.ProcessTransport(ranks, index, q.device,
+                                            tuple(k.shape))
+            return ring_attn.ring_attention_rank(q, k, v, tr)
+        return fn_process
     devices = mesh.axis_devices(axis_name)
     n = len(devices)
 

@@ -41,9 +41,6 @@ _ROW = {"o", "down", "proj"}                            # shard axis 0
 _COL_BIAS = {"q_b", "k_b", "v_b", "fc_b"}               # shard axis 0 (out features)
 _EXPERTS = ("egate", "eup", "edown")
 
-ZOO_ITEM = ("the zoo under tensor and pipeline parallelism (ROADMAP.md "
-            "queue 1)")
-
 
 def _spec_for_matrix(name: str, tp: str, fsdp: Optional[str]) -> Spec:
     if name in _COL:
@@ -322,8 +319,28 @@ def constrain_activations(x: torch.Tensor, mesh, dp: str = "dp"
 
 def check_parallel_card(card: ModelCard,
                         what: str = "tensor parallelism") -> None:
-    """Raise for the zoo's layers that tensor and pipeline parallelism do
-    not take yet (MoE is taken)."""
+    """Raise for the zoo cards whose JAX run fails under ``what``, naming
+    the case (ROADMAP.md queue 3, known quirks): LLAMA_VAE under tensor
+    parallelism (the JAX ``shard_params`` reads ``.shape`` of the nested
+    ``evae`` params: AttributeError), GUPPY under pipeline parallelism (the
+    JAX pipeline's layers find no ``guppy_rows``: KeyError). A pipeline
+    over heterogeneous layers raises in ``pipeline.stack_for_pipeline``,
+    as in the JAX package."""
+    if what == "tensor parallelism" and card.arch == "LLAMA_VAE":
+        raise NotImplementedError(
+            "LLAMA_VAE under tensor parallelism: the JAX package's "
+            "shard_params fails on the nested evae params (AttributeError: "
+            "'dict' object has no attribute 'shape'), so the port refuses it")
+    if what == "pipeline parallelism" and card.arch == "GUPPY":
+        raise NotImplementedError(
+            "GUPPY under pipeline parallelism: the JAX package's pipeline "
+            "runs its layers without the sampled rows (KeyError: "
+            "'guppy_rows'), so the port refuses it")
+
+
+def check_serving_card(card: ModelCard) -> None:
+    """Raise for the zoo's layers that serving under tensor parallelism
+    (``bubble --tp``) does not take (MoE is taken)."""
     bad = []
     if card.attn == "mla":
         bad.append("MLA")
@@ -335,24 +352,33 @@ def check_parallel_card(card: ModelCard,
         bad.append("BROWN")
     if bad:
         raise NotImplementedError(
-            f"{what} takes the dense and MoE transformer only, not "
-            f"{', '.join(sorted(set(bad)))}: {ZOO_ITEM}")
+            f"serving under tensor parallelism takes the dense and MoE "
+            f"transformer only, not {', '.join(sorted(set(bad)))}: the zoo "
+            f"served under tensor parallelism (ROADMAP.md queue 1)")
 
 
 def local_card(card: ModelCard, tp: int) -> ModelCard:
     """The card a tensor-parallel rank runs: ``n_head``, ``n_kv_head`` and
     ``n_ffn`` divided by ``tp`` (the vocab and the expert count stay whole;
-    the embedding, head and expert stacks carry the split)."""
+    the embedding, head and expert stacks carry the split). The zoo: an MLA
+    rank keeps its heads of the whole latent projections; a GAU layer its
+    columns of F and its heads; a MAMBA card's layers (all replicated) and
+    a GUPPY card's FFN (its sampled rows, replicated) stay whole, so MAMBA
+    keeps its card and GUPPY its ``n_ffn``; BROWN layers read their whole
+    head count from their table."""
     if tp == 1:
         return card
     check_parallel_card(card)
-    for name in ("n_head", "n_kv_head", "n_ffn"):
+    if card.arch == "MAMBA":
+        return card
+    names = ("n_head", "n_kv_head") + (() if card.arch == "GUPPY"
+                                       else ("n_ffn",))
+    for name in names:
         if getattr(card, name) % tp:
             raise ValueError(f"tensor parallelism over {tp} ranks needs "
                              f"{name}={getattr(card, name)} to divide")
     if card.n_experts and card.n_experts % tp:
         raise ValueError(f"expert parallelism over {tp} ranks needs "
                          f"n_experts={card.n_experts} to divide")
-    return dataclasses.replace(card, n_head=card.n_head // tp,
-                               n_kv_head=card.n_kv_head // tp,
-                               n_ffn=card.n_ffn // tp)
+    return dataclasses.replace(
+        card, **{name: getattr(card, name) // tp for name in names})

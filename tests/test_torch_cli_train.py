@@ -326,22 +326,38 @@ def test_koifish_gpt2_uint16_shards_cli(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--sp", "2", "--dp", "2"], "the ring's process transport"),
-    (["--sp", "2", "--tp", "2"], "the ring's process transport"),
-    (["--sp", "2", "--pp", "2"], "the ring's process transport"),
+    # the first three keep the ids of the refusals they replaced
+    pytest.param(["--sp", "2", "--dp", "2"], 4,
+                 id="flags0-the ring's process transport"),
+    pytest.param(["--sp", "2", "--tp", "2"], 4,
+                 id="flags1-the ring's process transport"),
+    pytest.param(["--sp", "2", "--pp", "2"], "pipeline alone",
+                 id="flags2-the ring's process transport"),
     (["--pp", "2", "--tp", "2"], "pipeline alone"),
     (["--fsdp"], None),
     ([], "gama training")])
-def test_koifish_unported_paths_raise(tmp_path, flags, item, capsys):
-    """What the process mesh does not take raises and names why: ``--sp``
-    beside ``--dp/--tp/--pp`` names its ROADMAP item (the ring's process
-    transport), ``--pp`` beside ``--tp`` asks for the pipeline alone.
-    ``--dp/--tp/--pp`` themselves are ported
-    (``tests/test_torch_parallel_train.py``); ``--fsdp`` alone trains on a
-    one-rank process mesh and returns 0. Gama (scale-only) QAT, the last
-    case, is ported: the CLI prints its mode, trains the scales of the
-    quantized params with every code frozen, and returns 0
+def test_koifish_unported_paths_raise(tmp_path, flags, item, capsys,
+                                      monkeypatch):
+    """What the process mesh does not take raises and names why: ``--pp``
+    beside ``--sp`` or ``--tp`` asks for the pipeline alone. ``--sp``
+    beside ``--dp`` or ``--tp`` is ported: without a launcher the CLI
+    starts dp·tp·sp ranks (the spawn is recorded here; they train in
+    ``tests/test_torch_parallel_sp.py``), as ``--dp/--tp/--pp`` themselves
+    are (``tests/test_torch_parallel_train.py``); ``--fsdp`` alone trains
+    on a one-rank process mesh and returns 0. Gama (scale-only) QAT, the
+    last case, is ported: the CLI prints its mode, trains the scales of
+    the quantized params with every code frozen, and returns 0
     (``tests/test_torch_gama_distill.py`` holds its curve to JAX's)."""
+    if isinstance(item, int):
+        from koifish_tpu_torch.parallel import multihost
+        started = []
+        monkeypatch.setattr(multihost, "spawn", lambda fn, world, args=(),
+                            **kw: started.append((fn, world, args, kw)))
+        assert koifish.main(["cfg.json", "--device", "cpu", *flags]) == 0
+        (fn, world, args, kw), = started
+        assert world == item and kw == {"device": "cpu"}
+        assert fn is koifish._rank_main and args[0][-2:] == flags[-2:]
+        return
     pat = _pattern_shard(tmp_path, 3000)
     over = {} if flags and item else {"quantizer": {
         "self_attn": {"bits": 4}, "mlp": {"bits": 4}, "group_size": 32,

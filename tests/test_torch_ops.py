@@ -221,7 +221,9 @@ def test_port_imports_no_jax():
             " koifish_tpu_torch.cli.pangpi, koifish_tpu_torch.parallel,"
             " koifish_tpu_torch.ops.kernels.ring_attn,"
             " koifish_tpu_torch.models.backbone, koifish_tpu_torch.models.moe,"
-            " koifish_tpu_torch.models.mla, koifish_tpu_torch.serve.mla_cache;"
+            " koifish_tpu_torch.models.mla, koifish_tpu_torch.serve.mla_cache,"
+            " koifish_tpu_torch.utils.logging, koifish_tpu_torch.utils.profiler,"
+            " koifish_tpu_torch.utils.xprof;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'koifish_tpu', 'regex', 'ml_dtypes')];"
             " print(bad); sys.exit(bool(bad))")

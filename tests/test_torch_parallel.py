@@ -6,9 +6,10 @@ stochastic rounding against the slice of the whole leaf's, bit for bit;
 the planner's plans against the JAX planner's at the same capacity and
 reserve; the streamed load on a one-rank mesh against the JAX package's
 (bit for bit, multi-chunk, single file and index); and the refusals: the
-zoo under tensor and pipeline parallelism, ``--sp`` with a process mesh,
-layers that do not divide into stages. The multi-process checks are in
-``tests/test_torch_parallel_{train,serve,pipeline}.py``."""
+zoo served under tensor parallelism, ``--pp`` beside other axes, layers
+that do not divide into stages, and the method combinations the process
+mesh does not take. The multi-process checks are in
+``tests/test_torch_parallel_{train,serve,pipeline,zoo,sp}.py``."""
 import dataclasses
 
 import numpy as np
@@ -284,13 +285,22 @@ def test_stream_load_one_rank_matches_jax(tmp_path, monkeypatch):
 
 
 def test_refusals():
-    """Stream load of GPT2/MoE (as the JAX package), the zoo under TP and
-    PP, ``--sp`` with a process mesh and ``--pp`` with dp/tp, and layers
-    that do not divide into stages raise, each naming its reason."""
-    from koifish_tpu_torch.cli import koifish
+    """Stream load of GPT2/MoE (as the JAX package), the zoo served under
+    ``bubble --tp``, ``--pp`` with dp/tp/sp, layers that do not divide
+    into stages or differ, LoRA under tp, speculative decoding under
+    ``bubble --tp`` and FSDP over gama params raise, each naming its
+    reason. (The zoo's training refusals, which mirror the JAX package's
+    failures, are in ``tests/test_torch_parallel_zoo.py``.)"""
+    from koifish_tpu_torch.cli import bubble, koifish
     from koifish_tpu_torch.io.stream_load import load_hf_sharded_quantized
     from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.models.transformer import _linear_l
+    from koifish_tpu_torch.ops.tracectx import TPPolicy, tp_scope
     from koifish_tpu_torch.parallel.pipeline import stack_for_pipeline
+    from koifish_tpu_torch.quant.apply import quantize_params
+    from koifish_tpu_torch.train.sharded import shard_train_state
+    from koifish_tpu_torch.train.trainer import init_train_state
+    from koifish_tpu_torch.config import TrainCard
     gpt2 = ModelCard.from_arch("GPT2", vocab_size=128, n_layer=1, n_embd=64,
                                n_head=4, n_kv_head=4, head_dim=16,
                                n_ffn=128, n_ctx=32, max_pos=32)
@@ -302,14 +312,9 @@ def test_refusals():
                                               qk_nope_head_dim=16,
                                               qk_rope_head_dim=8,
                                               v_head_dim=16))
-    with pytest.raises(NotImplementedError, match="zoo under tensor and "
-                       "pipeline parallelism"):
-        tsh.local_card(mla, 2)
-    mamba = ModelCard.from_arch("MAMBA", **dict(CARD, n_layer=2))
-    with pytest.raises(NotImplementedError, match="zoo under tensor"):
-        tsh.check_parallel_card(mamba, what="pipeline parallelism")
-    with pytest.raises(NotImplementedError, match="ring's process transport"):
-        koifish.main(["cfg.json", "--sp", "2", "--dp", "2"])
+    with pytest.raises(NotImplementedError, match="zoo served under tensor "
+                       "parallelism"):
+        tsh.check_serving_card(mla)
     with pytest.raises(ValueError, match="pipeline alone"):
         koifish.main(["cfg.json", "--pp", "2", "--tp", "2"])
     card = ModelCard.from_arch("QWEN3", **dict(CARD, n_layer=3))
@@ -319,3 +324,20 @@ def test_refusals():
     hyb["layers"][1]["extra_b"] = torch.zeros(4)
     with pytest.raises(ValueError, match="heterogeneous"):
         stack_for_pipeline(hyb, 2)
+    lp = {"o": torch.zeros(64, 128, dtype=torch.bfloat16),
+          "o_lora": {"a": torch.zeros(64, 4), "b": torch.zeros(4, 128)}}
+    with tp_scope(TPPolicy(group=None, rank=0, size=2, vocab=512)):
+        with pytest.raises(NotImplementedError, match="LoRA adapters under "
+                           "tensor parallelism"):
+            _linear_l(torch.zeros(1, 64, dtype=torch.bfloat16), lp, "o")
+    with pytest.raises(NotImplementedError, match="speculative decoding "
+                       "under --tp"):
+        bubble.main(["--hf", "/nonexistent", "--tp", "2", "--draft-hf",
+                     "/nonexistent"])
+    qcard = ModelCard.from_arch("QWEN3", **CARD)
+    gama = quantize_params(init_params(qcard, device="cpu"),
+                           QuantCard.from_json(QC), qcard, device="cpu")
+    st = init_train_state(qcard, TrainCard(batch=2), params=gama,
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="FSDP over quantized"):
+        shard_train_state(st, ProcessMesh({}, "cpu"), fsdp="dp")

@@ -34,18 +34,27 @@ def _np(t):
     return t.detach().to(torch.float32).numpy()
 
 
-def _curve(mesh, inp, fsdp=False, masks=None):
-    """Train ``inp``'s batches from its init on ``mesh``; (losses, grad
-    norms, the whole params at the end as numpy, the whole state)."""
+def _card(inp):
+    """The run's card: ``inp["model_card"]`` where the test built one (the
+    zoo's), else ``inp["arch"]`` with ``inp["card"]``."""
+    if inp.get("model_card") is not None:
+        return inp["model_card"]
+    return ModelCard.from_arch(inp["arch"], **inp["card"])
+
+
+def _curve(mesh, inp, fsdp=False, masks=None, sp=None):
+    """Train ``inp``'s batches from its init on ``mesh`` (``sp``: the
+    sequence-parallel policy); (losses, grad norms, the whole params at
+    the end as numpy, the whole state)."""
     from koifish_tpu_torch.train.sharded import (gather_train_state,
                                                  shard_batch,
                                                  shard_train_state)
-    card = ModelCard.from_arch(inp["arch"], **inp["card"])
+    card = _card(inp)
     tcard = TrainCard(**inp["tcard"])
     state = trainer.init_train_state(
         card, tcard, params=params_from_numpy(inp["init"], device="cpu"))
     state = shard_train_state(state, mesh, fsdp="dp" if fsdp else None)
-    step = trainer.make_train_step(card, tcard, total_steps=10)
+    step = trainer.make_train_step(card, tcard, total_steps=10, sp=sp)
     losses, gnorms = [], []
     for a, b in enumerate(inp["batches"]):
         batch = {"tokens": torch.from_numpy(b).long()}
@@ -321,6 +330,151 @@ def dp_tp_worker(inp_path: str, out: str) -> None:
                                                      optimizer="muon")),
                           fsdp=True)[:2]}
     res["coords"] = (mesh.index("dp"), mesh.index("tp"))
+    _save(out, mesh, res)
+
+
+# ---------------------------------------------------------------------------
+# the model zoo under tp and pp
+# ---------------------------------------------------------------------------
+
+def zoo_tp_worker(inp_path: str, out: str) -> None:
+    """Every zoo card of ``inp["zoo"]`` trained on one tp-2 mesh: each
+    card's (losses, grad norms)."""
+    inp = torch.load(inp_path, weights_only=False)
+    mesh = _join({"tp": 2})
+    _save(out, mesh, {name: _curve(mesh, z)[:2]
+                      for name, z in inp["zoo"].items()})
+
+
+def zoo_pp_worker(inp_path: str, out: str) -> None:
+    """Every zoo card of ``inp["zoo"]`` trained through the 1F1B pipeline
+    on a pp-2 mesh (4 micro-batches): each card's (losses, grad norms)."""
+    from koifish_tpu_torch.parallel import pipeline as pl
+    from koifish_tpu_torch.train.optimizer import init_opt_state
+    inp = torch.load(inp_path, weights_only=False)
+    mesh = _join({"pp": 2})
+    res = {}
+    for name, z in inp["zoo"].items():
+        card, tcard = _card(z), TrainCard(**z["tcard"])
+        sl, ot = pl.stack_for_pipeline(
+            params_from_numpy(z["init"], device="cpu"), 2,
+            stage=mesh.index("pp"))
+        opt = init_opt_state({"stages": sl, "other": ot}, tcard.optimizer)
+        step = pl.make_pp_train_step(card, tcard, mesh, 4, 10)
+        losses, gnorms = [], []
+        for b in z["batches"]:
+            sl, ot, opt, m = step(sl, ot, opt, torch.from_numpy(b[0]).long())
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        res[name] = (losses, gnorms)
+    _save(out, mesh, res)
+
+
+# ---------------------------------------------------------------------------
+# sp beside dp and tp, the ring across processes
+# ---------------------------------------------------------------------------
+
+def _ring_inputs(seed, B, T, Hq, Hkv, D, grad=False):
+    g = torch.Generator().manual_seed(seed)
+    out = [torch.randn(B, T, h, D, generator=g).to(torch.bfloat16)
+           for h in (Hq, Hkv, Hkv)]
+    dy = torch.randn(B, T, Hq, D, generator=g).to(torch.bfloat16)
+    return [x.requires_grad_(grad) for x in out], dy
+
+
+def _sp_grads(mesh, inp, planted=False):
+    """One step's gradients of the whole loss on this rank's dp rows with
+    attention the ring over ``sp``: through the process ring, and through
+    the one-controller ring of the same sp in this process (the one-rank
+    arithmetic). ``planted``: the chunk taken with a plain slice in place of
+    ``comm.split_to`` (a backward that does not gather)."""
+    from koifish_tpu_torch.ops.tracectx import SPPolicy, sp_scope
+    from koifish_tpu_torch.parallel import comm, make_mesh
+    from koifish_tpu_torch.train.sharded import shard_batch
+    card = _card(inp)
+    tokens = shard_batch({"tokens": torch.from_numpy(
+        inp["batches"][0]).long()}, mesh)["tokens"][0]
+    params = params_from_numpy(inp["init"], device="cpu")
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    sp = mesh.size("sp")
+
+    def grads(policy):
+        with sp_scope(policy):
+            loss, _ = trainer.compute_loss(card, params, tokens)
+        return [g.detach() for g in torch.autograd.grad(loss, flat)]
+    real = comm.split_to
+    if planted:
+        comm.split_to = lambda x, group, dim: x.narrow(
+            dim, comm.group_rank(group) * (x.shape[dim] // sp),
+            x.shape[dim] // sp)
+    try:
+        got = grads(SPPolicy("sp", mesh))
+    finally:
+        comm.split_to = real
+    ref = grads(SPPolicy("sp", make_mesh({"sp": sp}, devices="cpu")))
+    return all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def sp_worker(inp_path: str, out: str) -> None:
+    """Four ranks: dp 2 x sp 2 and tp 2 x sp 2 curves; each sp rank's
+    gradients against the one-controller ring's (and a planted slice in
+    place of ``split_to``); the process rings (plain and kernel) against
+    their one-controller counterparts, with the kernel ring's transfers."""
+    from koifish_tpu_torch.ops.kernels import ring_attn as ra
+    from koifish_tpu_torch.ops.tracectx import SPPolicy
+    from koifish_tpu_torch.parallel import make_mesh
+    from koifish_tpu_torch.parallel.ring_attention import (
+        ring_attention_sharded)
+    from koifish_tpu_torch.parallel.ring_pallas import (
+        ring_attention_pallas_sharded)
+    inp = torch.load(inp_path, weights_only=False)
+    res = {}
+    for name, axes in (("dp_sp", {"dp": 2, "sp": 2}),
+                       ("tp_sp", {"tp": 2, "sp": 2})):
+        mesh = _join(axes) if name == "dp_sp" else make_process_mesh(
+            axes, "cpu")
+        res[name] = _curve(mesh, inp, sp=SPPolicy("sp", mesh))[:2]
+        if name == "dp_sp":
+            res["grads_equal"] = _sp_grads(mesh, inp)
+            res["planted_equal"] = _sp_grads(mesh, inp, planted=True)
+    # the rings over all four ranks: the plain (differentiable) ring on
+    # whole tensors, and the kernel ring's CPU path on each rank's chunk
+    mesh = make_process_mesh({"sp": 4}, "cpu")
+    (q, k, v), dy = _ring_inputs(0, 2, 32, 4, 2, 16, grad=True)
+    o = ring_attention_sharded(mesh, "sp")(q, k, v)
+    got = [o] + list(torch.autograd.grad(o, (q, k, v), dy))
+    o1 = ring_attention_sharded(make_mesh({"sp": 4}, devices="cpu"), "sp")(
+        q, k, v)
+    ref = [o1] + list(torch.autograd.grad(o1, (q, k, v), dy))
+    res["plain_ring_equal"] = [torch.equal(a, b) for a, b in zip(got, ref)]
+    (q, k, v), _ = _ring_inputs(1, 1, 4 * 128, 8, 2, 64)
+    r = mesh.index("sp")
+    made = []
+
+    class Recorded(ra.ProcessTransport):
+        def __init__(self, *a):
+            super().__init__(*a)
+            made.append(self)
+    real, ra.ProcessTransport = ra.ProcessTransport, Recorded
+    try:
+        o = ring_attention_pallas_sharded(mesh, "sp")(
+            *(x.chunk(4, dim=1)[r] for x in (q, k, v)))
+    finally:
+        ra.ProcessTransport = real
+    want = ra.ring_plain(*(list(x.chunk(4, dim=1)) for x in (q, k, v)))[r]
+    res["kernel_ring_equal"] = torch.equal(o, want)
+    res["transfers"] = made[0].log
+
+    # koifish --dp 2 --sp 2 and --tp 2 --sp 2 through the CLI's main
+    from koifish_tpu_torch.cli import koifish
+    for flags in (["--dp", "2"], ["--tp", "2"]):
+        result = {}
+        koifish.main([inp["cfg"], "--device", "cpu", *flags, "--sp", "2",
+                      "--out-dir", os.path.join(out, f"cli{mesh.rank}")],
+                     result)
+        res["cli" + flags[0]] = result["infos"].losses
     _save(out, mesh, res)
 
 
