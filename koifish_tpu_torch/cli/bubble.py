@@ -23,7 +23,11 @@ The model runs on each rank's card of ``n_head/N`` heads with the
 row-parallel sums and the vocab-parallel embedding and head of
 ``ops/tracectx.TPPolicy``; rank 0 samples and broadcasts every token,
 reads the ``--interactive`` input and does the printing and the CSV.
-Speculative decoding under ``--tp`` is not ported and raises.
+With ``--draft-hf`` under ``--tp`` the draft loads whole on every rank
+with its own BF16 cache and runs without collectives; the target's verify
+forwards run on the rank's shard, and every rank takes the same
+accept/reject decisions from the same seeded generators, checked each
+round (``serve/speculative.py``).
 """
 from __future__ import annotations
 
@@ -108,9 +112,6 @@ def main(argv=None, turns: Optional[List[dict]] = None) -> int:
     a draft, the speculative stats."""
     args = build_argparser().parse_args(argv)
     from koifish_tpu_torch.parallel import multihost
-    if args.tp > 1 and args.draft_hf:
-        raise NotImplementedError("speculative decoding under --tp is not "
-                                  "ported")
     if args.tp > 1 and multihost.env_rank() is None:
         # no launcher: start the tp ranks here, one command in all
         if args.device != "cpu":
@@ -181,8 +182,8 @@ def main(argv=None, turns: Optional[List[dict]] = None) -> int:
     draft_card = draft_params = None
     if args.draft_hf:
         draft_card, draft_params = load_hf_model(args.draft_hf, device=dev)
-        print(f"[bubble] draft {draft_card.arch} {draft_card.n_layer}L "
-              f"(k={args.draft_k}, greedy/lossless)")
+        say(f"[bubble] draft {draft_card.arch} {draft_card.n_layer}L "
+            f"(k={args.draft_k}, greedy/lossless)")
 
     if args.bits and not streamed:
         t0 = time.perf_counter()
@@ -227,16 +228,17 @@ def main(argv=None, turns: Optional[List[dict]] = None) -> int:
         stats = None
         t0 = time.perf_counter()
         if args.draft_hf:
-            tc = cache_for(card, 1, size + args.draft_k, fmt=kv_fmt, device=dev)
+            tc = cache_for(card_, 1, size + args.draft_k, fmt=kv_fmt,
+                           device=dev)
             dc = cache_for(draft_card, 1, size + args.draft_k,
                            fmt=QFormat.BF16, device=dev)
             toks, stats = speculative_generate(
-                card, params, draft_card, draft_params, prompt_t, tc, dc,
+                card_, params, draft_card, draft_params, prompt_t, tc, dc,
                 k=args.draft_k, max_new_tokens=args.max_new, eos_id=eos,
-                sampler=sampler, device=dev)
+                sampler=sampler, device=dev, tp=tp)
             cache = None
-            print(f"[bubble] speculative: {stats['rounds']} rounds, "
-                  f"accept_rate={stats['accept_rate']:.2f}")
+            say(f"[bubble] speculative: {stats['rounds']} rounds, "
+                f"accept_rate={stats['accept_rate']:.2f}")
         else:
             if cache is not None and int(cache.pos[0]) + len(ids) > cache.size:
                 # the carried conversation cannot take this prompt: answer

@@ -29,10 +29,14 @@ initial state from the seed and keeps its shard
 (``train/sharded.shard_train_state``) and its rows of every batch; rank 0
 does the run's I/O (prints, CSVs, evals, checkpoints of the gathered
 state, the same file a one-rank run writes). ``--pp N`` runs the pipeline
-alone (``parallel/pipeline.py``; ``--n-micro``, ``--pp-schedule``). The
+alone (``parallel/pipeline.py``; ``--n-micro``, ``--pp-schedule``), fed
+the tokens only as the JAX pipeline loop is (no loss mask, no trainable
+mask). Gama (FSDP over its codes and scales too), LARS and the Fuyou swarm
+(its draws whole, sliced to each rank's shards) train on the mesh. The
 zoo's cards train under ``--tp`` and ``--pp`` where the JAX package's do;
-LLAMA_VAE under ``--tp``, GUPPY and the GAU/BROWN hybrids under ``--pp``
-raise, as they fail in the JAX package (ROADMAP.md queue 3).
+LoRA adapters and LLAMA_VAE on a mesh of dp·tp·sp > 1 ranks, GUPPY and the
+GAU/BROWN hybrids under ``--pp`` raise, as they fail in the JAX package
+(ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -322,6 +326,16 @@ def main(argv=None, result=None) -> int:
         print(f"[koifish] mesh dp={args.dp} tp={args.tp} sp={args.sp} on "
               f"{sp_mesh.n_devices} device(s)")
 
+    if mesh is not None and (args.tp > 1 or args.pp > 1):
+        from koifish_tpu_torch.parallel.sharding import check_parallel_card
+        check_parallel_card(card, "tensor parallelism" if args.tp > 1
+                            else "pipeline parallelism")
+    if mesh is not None and args.pp > 1:
+        # before the QAT block: the JAX CLI's pipeline loop takes no
+        # quantizer card (ROADMAP.md queue 3, known quirks)
+        return _run_pipeline(args, mesh, card, tcard, state,
+                             _on_device(batches, dev), total_steps, say,
+                             result)
     if qcard is not None:
         mode = "gama" if qcard.train_target == "gama" else "fake-quant (STE)"
         say(f"[koifish] QAT enabled: {mode}, {len(qcard.rules)} rules")
@@ -332,19 +346,8 @@ def main(argv=None, result=None) -> int:
                                           device=dev)
             state = init_train_state(card, tcard, params=qparams, device=dev)
 
-    if mesh is not None and (args.tp > 1 or args.pp > 1):
-        from koifish_tpu_torch.parallel.sharding import check_parallel_card
-        check_parallel_card(card, "tensor parallelism" if args.tp > 1
-                            else "pipeline parallelism")
-    if mesh is not None and args.pp > 1:
-        return _run_pipeline(args, mesh, card, tcard, state,
-                             _on_device(batches, dev), total_steps, say,
-                             result)
     if mesh is not None:
         from koifish_tpu_torch.train.sharded import shard_train_state
-        if p.fuyou:
-            raise NotImplementedError("the Fuyou swarm on a process mesh "
-                                      "is not ported")
         state = shard_train_state(state, mesh,
                                   fsdp="dp" if args.fsdp else None)
         sl = multihost.per_host_batch_slice(tcard.batch, mesh)
@@ -364,7 +367,9 @@ def main(argv=None, result=None) -> int:
     if p.fuyou:
         from koifish_tpu_torch.train.fuyou import Fuyou, FuyouConfig
         fcfg = FuyouConfig.from_json(p.fuyou)
-        fy = Fuyou(fcfg, state.params)
+        # on a mesh: this rank's shards of the swarm, each draw taken whole
+        # from a generator seeded alike on every rank
+        fy = Fuyou(fcfg, state.params, layout=state.layout)
         state = dataclasses.replace(state, params=fy.inject(state.params))
         fy_losses = []
         fy_gen = torch.Generator(device=dev)
@@ -377,12 +382,12 @@ def main(argv=None, result=None) -> int:
             recent = (sum(fy_losses[-fcfg.switch:])
                       / min(len(fy_losses), fcfg.switch))
             new_params = fy.rotate(st.params, recent, fy_gen)
-            print(f"[fuyou] iter {it}: rotate -> branch {fy.cur} "
-                  f"(best={fy.best}, score={recent:.4f})")
+            say(f"[fuyou] iter {it}: rotate -> branch {fy.cur} "
+                f"(best={fy.best}, score={recent:.4f})")
             return dataclasses.replace(st, params=new_params)
         hooks.append(fuyou_hook)
-        print(f"[koifish] fuyou swarm: {fcfg.branches} branches, "
-              f"switch={fcfg.switch}, method={fcfg.method}")
+        say(f"[koifish] fuyou swarm: {fcfg.branches} branches, "
+            f"switch={fcfg.switch}, method={fcfg.method}")
 
     hook_fn = None
     if hooks:
@@ -439,7 +444,8 @@ def main(argv=None, result=None) -> int:
         save_fn(state, len(infos.rows), "final")
     if result is not None:
         result.update(card=card, state=state, infos=infos,
-                      metrics=infos.metrics)
+                      metrics=infos.metrics,
+                      fuyou=fy if p.fuyou else None)
     return 0
 
 
@@ -454,6 +460,10 @@ def _run_pipeline(args, mesh, card, tcard, state, batches, total_steps,
     from koifish_tpu_torch.train.trainer import StepInfo
 
     n_micro = args.n_micro or 2 * args.pp
+    if any(k.endswith("_lora") for lp in state.params["layers"] for k in lp):
+        say("[koifish] pipeline: every leaf trains, adapters and base, on "
+            "every token, as the JAX pipeline loop trains them (it takes "
+            "no trainable mask and no loss mask)")
     stage_layers, other = stack_for_pipeline(state.params, args.pp,
                                              stage=mesh.index("pp"))
     del state
@@ -468,13 +478,11 @@ def _run_pipeline(args, mesh, card, tcard, state, batches, total_steps,
     for it, batch in enumerate(batches):
         if 0 <= tcard.most_iter <= it or it >= total_steps:
             break
+        # the tokens only, as the JAX pipeline loop feeds its step: no loss
+        # mask (ROADMAP.md queue 3, known quirks)
         tokens = batch["tokens"].reshape(-1, batch["tokens"].shape[-1])
-        mask = batch.get("loss_mask")
-        if mask is not None:
-            mask = mask.reshape(-1, mask.shape[-1])
         t0 = time.perf_counter()
-        stage_layers, other, opt, m = step(stage_layers, other, opt, tokens,
-                                           mask)
+        stage_layers, other, opt, m = step(stage_layers, other, opt, tokens)
         loss = float(m["loss"])
         dt = time.perf_counter() - t0
         infos.add(it, loss, float(m["lr"]), dt, tokens.numel() / dt)

@@ -144,6 +144,23 @@ class BPETokenizer:
         else:
             self._special_pat = None
         self._cache: Dict[str, List[int]] = {}
+        self._native = None       # the C++ merge engine, built at first use
+        self._native_tried = False
+
+    def _native_engine(self):
+        """``native.NativeBPE`` over this vocab, or None where the library
+        or the engine cannot be made (logged through ``kernel_log``)."""
+        if not self._native_tried:
+            self._native_tried = True
+            try:
+                from koifish_tpu_torch.native import NativeBPE
+                self._native = NativeBPE(self)
+            except (RuntimeError, OSError, KeyError) as e:
+                from koifish_tpu_torch.utils import kernel_log
+                kernel_log.fallback("native_bpe", f"{type(e).__name__}: "
+                                    f"{str(e).splitlines()[0]}")
+                self._native = None
+        return self._native
 
     # -- construction -------------------------------------------------------
 
@@ -224,14 +241,19 @@ class BPETokenizer:
             chunks = self._special_pat.split(text)
         else:
             chunks = [text]
+        native = self._native_engine()
         for chunk in chunks:
             if not chunk:
                 continue
             if chunk in self.special:
                 out.append(self.special[chunk])
                 continue
-            for m in self.pat.finditer(chunk):
-                out.extend(self._bpe(m.group()))
+            pretokens = [m.group() for m in self.pat.finditer(chunk)]
+            if native is not None:
+                out.extend(native.encode_pretokens(pretokens))
+            else:
+                for p in pretokens:
+                    out.extend(self._bpe(p))
         return out
 
     def decode(self, ids: Sequence[int]) -> str:

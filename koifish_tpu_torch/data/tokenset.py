@@ -17,8 +17,11 @@ Shard layout:
 Batches are numpy arrays on the host, drawn in the JAX package's order
 (one ``np.random.default_rng(seed)`` permutation of the windows an epoch),
 so the same shards and seed give the same batches element for element.
-The JAX package first tries its native prefetch server, which replays the
-same permutations; the port takes the pure-Python path only.
+Unmasked shards are served, as in the JAX package, by the native prefetch
+server (``native.NativeBatchServer``: a C++ thread gathers the same
+schedule ahead of the consumer); masked (SFT) shards, or a native library
+that cannot be had (logged through ``utils/kernel_log``), take the Python
+path with the same permutations.
 """
 from __future__ import annotations
 
@@ -115,6 +118,32 @@ class TokenDataset:
             logging.getLogger("koifish_tpu_torch").info(
                 "TokenDataset.batches: dropping %d trailing windows per epoch "
                 "(%d windows %% group %d)", dropped, len(windows), group)
+        if not any(m is not None for _, m in self.shards):
+            try:
+                from koifish_tpu_torch.native import NativeBatchServer
+                warr = np.asarray(windows, np.int64).reshape(-1, 2)
+                scheds = []
+                for _ in range(epochs):
+                    order = rng.permutation(len(windows))
+                    scheds.append(warr[order[:(len(order) // group)
+                                             * group]])
+                sched = np.concatenate(scheds, axis=0)
+                srv = NativeBatchServer(self.files,
+                                        sched[:, 0].astype(np.int32),
+                                        sched[:, 1], group, need)
+            except (RuntimeError, OSError) as e:
+                from koifish_tpu_torch.utils import kernel_log
+                kernel_log.fallback("native_batchserver",
+                                    f"{type(e).__name__}: "
+                                    f"{str(e).splitlines()[0]}")
+                rng = np.random.default_rng(seed)   # replay identically
+            else:
+                try:
+                    for tok in srv:
+                        yield {"tokens": tok.reshape(accum, batch, need)}
+                finally:
+                    srv.close()
+                return
         for _ in range(epochs):
             order = rng.permutation(len(windows))
             for i in range(0, len(order) - group + 1, group):

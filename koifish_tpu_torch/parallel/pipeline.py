@@ -362,18 +362,24 @@ def pipeline_loss_and_grads_1f1b(card: ModelCard, stage_layers, other,
                                    n_micro, axis, loss_mask, "1f1b")
 
 
-def _pp_layout(mesh, stage_layers, other):
-    """The optimizer's view of a stage's params: the stage's leaves differ
-    along ``pp``, the replicated ones are counted once."""
+def _pp_layout(mesh, stage_layers, other, axis: str = "pp"):
+    """The optimizer's view of a stage's params: each stage leaf is the
+    slice of the whole [L, ...] stack along ``axis`` from the stage's first
+    layer (so stochastic rounding hashes every element by its index in the
+    one-rank pipeline's leaf, and LARS takes the whole stack's norms), the
+    replicated ones are counted once."""
     from koifish_tpu_torch.parallel.sharding import Shard
     from koifish_tpu_torch.train.sharded import ShardedLayout
-    tree = {"other": other, "stages": stage_layers}
-    flat = leaves(tree)
-    n_other = len(leaves(other))
+    P, p = mesh.size(axis), mesh.index(axis)
     shards = [Shard(tuple(x.shape), (None,) * x.dim(), (0,) * x.dim(),
-                    tuple(x.shape)) for x in flat]
-    extra = [()] * n_other + [("pp",)] * (len(flat) - n_other)
-    return ShardedLayout(mesh, shards, extra_axes=extra)
+                    tuple(x.shape)) for x in leaves(other)]
+    for x in leaves(stage_layers):
+        n = x.shape[0]
+        shards.append(Shard((n * P,) + tuple(x.shape[1:]),
+                            (axis,) + (None,) * (x.dim() - 1),
+                            (p * n,) + (0,) * (x.dim() - 1),
+                            tuple(x.shape)))
+    return ShardedLayout(mesh, shards)
 
 
 def make_pp_train_step(card: ModelCard, tcard, mesh, n_micro: int,
@@ -406,7 +412,7 @@ def make_pp_train_step(card: ModelCard, tcard, mesh, n_micro: int,
 
     def step(stage_layers, other, opt, tokens, loss_mask=None):
         if "lay" not in layout:
-            layout["lay"] = _pp_layout(mesh, stage_layers, other)
+            layout["lay"] = _pp_layout(mesh, stage_layers, other, axis)
         with int8_scope(int8_pol):
             loss, grads = pipeline_loss_and_grads(
                 card, stage_layers, other, tokens, mesh, n_micro, axis,

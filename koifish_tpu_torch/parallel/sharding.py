@@ -174,7 +174,7 @@ def leaf_shards(params: Dict[str, Any], mesh, tp: str = "tp",
     out: List[Shard] = []
 
     def walk(name, w, spec):
-        if isinstance(w, dict):           # an adapter: replicated
+        if isinstance(w, dict):   # an adapter on a one-rank mesh
             for n in sorted(w):
                 walk(n, w[n], (None,) * getattr(w[n], "ndim", 0))
         elif isinstance(w, QTensor):
@@ -336,6 +336,30 @@ def check_parallel_card(card: ModelCard,
             "GUPPY under pipeline parallelism: the JAX package's pipeline "
             "runs its layers without the sampled rows (KeyError: "
             "'guppy_rows'), so the port refuses it")
+
+
+def check_mesh_params(params: Dict[str, Any], n_ranks: int) -> None:
+    """Raise for a param tree the JAX package cannot shard: its
+    ``shard_params`` (which its CLI calls whenever dp·tp·sp > 1) reads
+    ``.shape`` of every entry, so LoRA adapters (``*_lora`` dicts) and
+    LLAMA_VAE's nested ``evae`` params fail there (AttributeError: 'dict'
+    object has no attribute 'shape'; ROADMAP.md queue 3, known quirks).
+    ``n_ranks``: dp·tp·sp of the mesh; a one-rank mesh shards nothing."""
+    if n_ranks <= 1:
+        return
+    names = sorted({n for lp in params.get("layers", []) for n, w in
+                    lp.items() if isinstance(w, dict)}
+                   | {k for k, w in params.items() if isinstance(w, dict)})
+    if not names:
+        return
+    what = ("LLAMA_VAE" if "evae" in names else
+            "LoRA adapters" if all(n.endswith("_lora") for n in names)
+            else "nested params")
+    raise NotImplementedError(
+        f"{what} on a process mesh of {n_ranks} ranks: the JAX package's "
+        f"shard_params fails on the nested {', '.join(names)} params "
+        f"(AttributeError: 'dict' object has no attribute 'shape'), so the "
+        f"port refuses it")
 
 
 def check_serving_card(card: ModelCard) -> None:

@@ -17,6 +17,14 @@ Rollback is free: attention masks validity by ``pos``, so rejected slots are
 rewritten by later tokens; ``_rollback`` replaces ``pos`` and keeps the
 buffers. Both caches are sized to hold the prompt + max_new + k and never
 wrap, so every speculative dispatch runs with ``streaming=False``.
+
+Under tensor parallelism (``tp``, a ``TPPolicy``) the target's forwards run
+on the rank's shard with the policy's collectives, and every rank reads the
+gathered logits; the draft runs whole on every rank without collectives.
+Each rank draws from the same seeded generators, so all take the same
+decisions: the first token and every round's tokens are checked across
+the group (one small all-gather), and a rank that took other tokens stops
+every rank with a ``RuntimeError`` before the next collective.
 """
 from __future__ import annotations
 
@@ -28,10 +36,30 @@ import torch
 
 from koifish_tpu_torch.config import ModelCard, SamplerCard
 from koifish_tpu_torch.ops.sampling import filtered_probs
+from koifish_tpu_torch.ops.tracectx import tp_scope
 from koifish_tpu_torch.serve.engine import (decode_probs_k,
                                             decode_sample_layered, prefill)
 from koifish_tpu_torch.serve.layered import LayeredKVCache, split_cache
 from koifish_tpu_torch.utils.device import resolve_device
+
+
+_HASH_MOD = (1 << 61) - 1
+
+
+def _agree(tp, seq: List[int], what: str, device) -> None:
+    """Raise on every rank of ``tp.group`` unless all hold ``seq``: its
+    length and a polynomial hash, gathered over the group."""
+    from koifish_tpu_torch.parallel import comm
+    h = 0
+    for t in seq:
+        h = (h * 1000003 + t + 1) % _HASH_MOD
+    every = [x.cpu() for x in comm.all_gather(torch.tensor(
+        [len(seq), h], dtype=torch.int64, device=device), tp.group)]
+    bad = [r for r, x in enumerate(every) if not torch.equal(x, every[0])]
+    if bad:
+        raise RuntimeError(
+            f"speculative decoding under tensor parallelism: rank(s) {bad} "
+            f"of the group took other tokens than rank 0 {what}")
 
 
 def _rollback(cache, pos: int):
@@ -52,10 +80,13 @@ def speculative_generate(
     sampler: Optional[SamplerCard] = None,
     seed: int = 0,
     device=None,
+    tp=None,
 ) -> Tuple[torch.Tensor, dict]:
     """Speculative decoding (B=1). Returns (tokens [1, <=max_new] int32,
     stats). Emitted tokens follow the target's sampling distribution; with
-    temperature 0 they are the target's greedy tokens."""
+    temperature 0 they are the target's greedy tokens. ``tp``: the target's
+    ``TPPolicy`` (``card``, ``params`` and ``cache`` this rank's), or
+    None."""
     if prompt.shape[0] != 1:
         raise ValueError("speculative decoding is single-stream (B=1)")
     dev = resolve_device(device)
@@ -76,10 +107,13 @@ def speculative_generate(
         return torch.tensor(ids, dtype=torch.int32, device=dev)
 
     # prefill both models on the prompt; t0 ~ target distribution
-    logits, cache = prefill(card, params, prompt, cache, fresh=True,
-                            device=dev)
+    with tp_scope(tp):
+        logits, cache = prefill(card, params, prompt, cache, fresh=True,
+                                device=dev)
     p0 = _p_dist(logits)[0]
     t0 = int(host_rng.choice(len(p0), p=p0 / p0.sum()))
+    if tp is not None:
+        _agree(tp, [t0], "at the first token", dev)
     _, draft_cache = prefill(draft_card, draft_params, prompt, draft_cache,
                              fresh=True, device=dev)
     dlc = (draft_cache if isinstance(draft_cache, LayeredKVCache)
@@ -110,8 +144,9 @@ def speculative_generate(
         # --- target: verify [t_last, d1..dk] in one forward ----------------
         feed = torch.tensor([[seq[-1]] + drafts], dtype=torch.int64,
                             device=dev)                     # [1, k+1]
-        all_logits, cache = prefill(card, params, feed, cache,
-                                    return_all_logits=True, device=dev)
+        with tp_scope(tp):
+            all_logits, cache = prefill(card, params, feed, cache,
+                                        return_all_logits=True, device=dev)
         p = _p_dist(all_logits[0])                          # [k+1, V]
 
         # --- rejection sampling (greedy = one-hot special case) ------------
@@ -140,6 +175,8 @@ def speculative_generate(
                 break
         rounds += 1
         accepted_total += a
+        if tp is not None:
+            _agree(tp, seq, f"in round {rounds}", dev)
 
         # --- rollback both models to the accepted prefix -------------------
         cache = _rollback(cache, prompt_len + len_old + a)  # seq + d1..da

@@ -10,6 +10,13 @@ crossover + mutation. The updates are elementwise PyTorch ops on the
 params' device. Their random draws are arguments of ``_pso_step`` and
 ``_ga_step``; ``Fuyou`` makes them with ``pso_draws`` / ``ga_draws`` from a
 ``torch.Generator``, where the JAX package draws from ``jax.random``.
+
+On a sharded state (``train/sharded.py``) each rank keeps its branches and
+velocities as shards of the whole layers: every draw is taken at the whole
+leaf's shape from a generator seeded alike on every rank and sliced to the
+rank's shard, so the swarm is the one-rank swarm's, cut. A QTensor layer's
+leaves (its packed codes too) take the steps as any leaf, as in the JAX
+package (ROADMAP.md queue 3, known quirks).
 """
 from __future__ import annotations
 
@@ -19,8 +26,8 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from koifish_tpu_torch.quant.qtensor import QTensor
-from koifish_tpu_torch.utils.tree import leaves, tree_map, unflatten_like
+from koifish_tpu_torch.utils.tree import (flatten_with_path, leaves,
+                                          tree_map, unflatten_like)
 
 
 @dataclasses.dataclass
@@ -103,15 +110,20 @@ class Fuyou:
         params = fy.rotate(params, recent_loss, gen)
     """
 
-    def __init__(self, cfg: FuyouConfig, params):
+    def __init__(self, cfg: FuyouConfig, params, layout=None):
+        """``layout``: a sharded state's ``ShardedLayout`` (``params`` are
+        this rank's shards), else None."""
         self.cfg = cfg
         n_layers = len(params["layers"])
         self.lo = cfg.layer_lo
         self.hi = cfg.layer_hi if cfg.layer_hi > 0 else n_layers
         base = _slice_layers(params, self.lo, self.hi)
-        if any(isinstance(x, QTensor) for x in leaves(base)):
-            raise NotImplementedError(
-                "Fuyou swarms over quantized (QTensor) layers")
+        self.shards = None
+        if layout is not None:
+            self.shards = [sh for (path, _), sh in
+                           zip(flatten_with_path(params), layout.shards)
+                           if path[0] == "layers"
+                           and self.lo <= path[1] < self.hi]
         self.branches: List[Any] = [_copy_tree(base)
                                     for _ in range(cfg.branches)]
         self.velocity = [tree_map(lambda x: torch.zeros(
@@ -145,6 +157,18 @@ class Fuyou:
         self.cur = (self.cur + 1) % self.cfg.branches
         return self.inject(params)
 
+    def _draws(self, fn, branch, gen: torch.Generator):
+        """``fn(branch, gen)``'s draws; on a sharded state drawn at the
+        whole leaves' shapes and sliced to this rank's shards."""
+        if self.shards is None:
+            return fn(branch, gen)
+        from koifish_tpu_torch.parallel.sharding import take
+        whole = unflatten_like(branch, [
+            torch.empty((), device=x.device).expand(sh.shape)
+            for x, sh in zip(leaves(branch), self.shards)])
+        return [tuple(take(t, sh) for t in d) if isinstance(d, tuple)
+                else take(d, sh) for d, sh in zip(fn(whole, gen), self.shards)]
+
     def _exploit(self, gen: torch.Generator):
         if not np.isfinite(self.scores).any():
             return
@@ -156,9 +180,10 @@ class Fuyou:
             if method in ("pso", "pso_ga", "mix"):
                 self.branches[i], self.velocity[i] = _pso_step(
                     self.branches[i], best, self.velocity[i],
-                    pso_draws(self.branches[i], gen),
+                    self._draws(pso_draws, self.branches[i], gen),
                     inertia=self.cfg.inertia, social=self.cfg.social * 0.01)
             if method in ("ga", "pso_ga", "mix"):
                 self.branches[i] = _ga_step(
-                    self.branches[i], best, ga_draws(self.branches[i], gen),
+                    self.branches[i], best,
+                    self._draws(ga_draws, self.branches[i], gen),
                     crossover=self.cfg.crossover, mutation=self.cfg.mutation)

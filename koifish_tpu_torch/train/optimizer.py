@@ -16,9 +16,10 @@ not a kernel of the repo. On a sharded state (``train/sharded.py``) each
 rank updates its shards: the global norm sums the squares of every shard,
 a replicated leaf once; stochastic rounding hashes each element's index
 in the whole leaf; a Muon leaf gathers the whole matrix to orthogonalize
-it. ``apply_updates`` writes the new parameters and
-moments IN PLACE into the tensors it was given (one leaf's temporaries at
-a time), which keeps a step's optimizer memory at one copy of the state.
+it; LARS takes the whole leaf's norms. ``apply_updates`` writes the new
+parameters and moments IN PLACE into the tensors it was given (one leaf's
+temporaries at a time), which keeps a step's optimizer memory at one copy
+of the state.
 """
 from __future__ import annotations
 
@@ -319,6 +320,23 @@ def lars_trust_ratio(p, g, lars_ratio: float) -> torch.Tensor:
     return torch.clamp(wnorm / (gnorm + 1e-8), max=lars_ratio)
 
 
+def _lars_ratios(idx, ps, gs, lars_ratio: float, dist) -> Dict[int, Any]:
+    """{i: trust ratio} of leaves ``idx``. A sharded leaf's ||w|| and ||g||
+    are the whole leaf's: the squares summed over every axis it is cut on
+    (``dist.sum_over_shards``), then the roots."""
+    out = {i: lars_trust_ratio(ps[i], gs[i], lars_ratio) for i in idx
+           if dist is None or not dist.shards[i].sharded}
+    cut = [i for i in idx if i not in out]
+    if cut:
+        sq = dist.sum_over_shards({i: torch.stack([
+            torch.sum(torch.square(ps[i].to(torch.float32))),
+            torch.sum(torch.square(gs[i].to(torch.float32)))]) for i in cut})
+        for i in cut:
+            wnorm, gnorm = torch.sqrt(sq[i])
+            out[i] = torch.clamp(wnorm / (gnorm + 1e-8), max=lars_ratio)
+    return out
+
+
 _GROUP_ELEMS = 1 << 26   # elements per foreach group (bounds temporaries)
 
 
@@ -409,17 +427,18 @@ def apply_updates(params, grads, opt: OptState, *, optimizer: str, lr,
     flat = flatten_with_path(params)
     g_leaves, m_leaves = leaves(grads), leaves(opt.m)
     v_leaves = leaves(opt.v) if opt.v is not None else [None] * len(flat)
+    live = [i for i, ((_, p), g) in enumerate(zip(flat, g_leaves))
+            if _is_float(p) and _real_grad(g)]
+    if lars_ratio > 0.0:
+        ps = [p for _, p in flat]
+        ratios = _lars_ratios([i for i in live if ps[i].dim() >= 2], ps,
+                              g_leaves, lars_ratio, dist)
+        for i, r in ratios.items():
+            g_leaves[i] = g_leaves[i] * r
     adam = []
-    for i, ((path, p), g, m, v) in enumerate(zip(flat, g_leaves, m_leaves,
-                                                 v_leaves)):
-        if not _is_float(p) or not _real_grad(g):
-            continue       # frozen leaf: untouched, no weight decay
+    for i in live:
+        (path, p), g, m, v = flat[i], g_leaves[i], m_leaves[i], v_leaves[i]
         decay = p.dim() >= 2               # no weight decay on norms/biases
-        if lars_ratio > 0.0 and p.dim() >= 2:
-            if dist is not None and shards[i].sharded:
-                raise NotImplementedError("LARS on a sharded state is not "
-                                          "ported")
-            g_leaves[i] = g = g * lars_trust_ratio(p, g, lars_ratio)
         if not _muon_leaf(p if shards[i] is None else
                           torch.empty(shards[i].shape, device="meta"),
                           optimizer, _path_str(path)):

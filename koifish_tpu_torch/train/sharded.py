@@ -12,28 +12,33 @@ state carries a ``ShardedLayout``:
 - DP: each rank's batch rows (``shard_batch``); the masked loss is the
   global masked mean (each rank's numerator over the global token count),
   and the gradients are summed over ``dp`` (``parallel/overlap.py``);
-- FSDP: params and moments also cut on their other axis over ``dp``; the
+- FSDP: params and moments also cut on their other axis over ``dp`` (a
+  gama QTensor's codes and scales with their parent weight's spec); the
   step gathers the whole (tp-local) params, and the gradients are
   reduce-scattered back to the shards;
-- the optimizer's global norm, spike count, stochastic rounding and Muon
-  see the whole tree (``train/optimizer.py`` with ``dist=``).
+- the optimizer's global norm, spike count, stochastic rounding, Muon and
+  LARS see the whole tree (``train/optimizer.py`` with ``dist=``).
+
+LoRA adapters and LLAMA_VAE's ``evae`` stack are refused on a mesh of more
+than one rank, where the JAX package's ``shard_params`` fails
+(``parallel/sharding.check_mesh_params``).
 
 ``gather_train_state`` rebuilds the whole state (for a checkpoint that is
 the same file as a one-rank run's, written by rank 0).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional
 
 import torch
 
 from koifish_tpu_torch.ops.tracectx import TPPolicy
 from koifish_tpu_torch.parallel import comm
-from koifish_tpu_torch.parallel.sharding import (Shard, gather_leaf,
-                                                 gather_params, leaf_shards,
-                                                 local_card, rebuild,
-                                                 shard_params, take)
-from koifish_tpu_torch.quant.qtensor import QTensor
+from koifish_tpu_torch.parallel.sharding import (Shard, check_mesh_params,
+                                                 gather_leaf, gather_params,
+                                                 leaf_shards, local_card,
+                                                 rebuild, shard_params, take)
 from koifish_tpu_torch.train.optimizer import OptState
 from koifish_tpu_torch.train.trainer import TrainState
 from koifish_tpu_torch.utils.tree import leaves
@@ -41,19 +46,15 @@ from koifish_tpu_torch.utils.tree import leaves
 
 class ShardedLayout:
     """Where every leaf of a sharded state lives: the mesh, each leaf's
-    ``Shard`` and whether FSDP is on. ``extra_axes[i]``: mesh axes along which leaf i
-    differs between ranks without a spec (a pipeline stage's layers on
-    ``pp``). ``owned[i]`` is 1 on the one rank that counts leaf i in a
-    whole-tree sum (norms, spikes) and 0 on the ranks with a copy of the
-    same part."""
+    ``Shard`` and whether FSDP is on. ``owned[i]`` is 1 on the one rank
+    that counts leaf i in a whole-tree sum (norms, spikes) and 0 on the
+    ranks with a copy of the same part."""
 
-    def __init__(self, mesh, shards: List[Shard], fsdp: bool = False,
-                 extra_axes: Optional[List[tuple]] = None):
+    def __init__(self, mesh, shards: List[Shard], fsdp: bool = False):
         self.mesh, self.shards, self.fsdp = mesh, shards, fsdp
-        extra = extra_axes or [()] * len(shards)
         self.owned = []
-        for sh, ex in zip(shards, extra):
-            split = set(sh.axes()) | set(ex)
+        for sh in shards:
+            split = set(sh.axes())
             own = all(mesh.index(a) == 0 for a in mesh.shape
                       if a not in split)
             self.owned.append(1.0 if own else 0.0)
@@ -83,6 +84,16 @@ class ShardedLayout:
         if d is None:
             return x
         return comm.all_gather_cat(x.detach(), self.mesh.group("dp"), d)
+
+    @staticmethod
+    def with_leaves(params, flat: List[torch.Tensor]):
+        """``params`` over the FSDP-gathered leaves ``flat``: a QTensor's
+        logical shape grows with its codes (the scales and codes of a gama
+        weight are gathered as any FSDP leaf)."""
+        def qshape(qt, vals):
+            return tuple(n * (g // c) for n, g, c in
+                         zip(qt.shape, vals["codes"].shape, qt.codes.shape))
+        return rebuild(params, flat, qshape)
 
     def loss_weights(self, tokens: torch.Tensor, loss_mask) -> torch.Tensor:
         """[A] f32: micro-batch a's local mean loss times this weight is
@@ -119,6 +130,22 @@ class ShardedLayout:
             for i, g in enumerate(grads)])
         return torch.sqrt(self.sum_world(sq))
 
+    def sum_over_shards(self, parts: Dict[int, torch.Tensor]
+                        ) -> Dict[int, torch.Tensor]:
+        """{i: x summed over the axes leaf i is cut on}: each leaf's local
+        partial sums made whole-leaf sums, one all-reduce per axis for all
+        the leaves cut on the same axes (a replicated leaf's as it is)."""
+        by_axes: Dict[tuple, List[int]] = {}
+        for i in parts:
+            by_axes.setdefault(tuple(self.shards[i].axes()), []).append(i)
+        out = {}
+        for axes, idx in by_axes.items():
+            x = torch.stack([parts[i].to(torch.float32) for i in idx])
+            for a in axes:
+                x = comm.all_reduce_(x, self.mesh.group(a))
+            out.update(zip(idx, x.unbind(0)))
+        return out
+
     def whole(self, i: int):
         """(whole matrix from every rank's shard, this rank's slice of a
         whole one) for leaf i: the Muon leaf's gather."""
@@ -135,10 +162,8 @@ def shard_train_state(state: TrainState, mesh, tp: str = "tp",
     they are. ``fsdp``: None or ``"dp"``."""
     if fsdp not in (None, "dp"):
         raise ValueError(f"fsdp={fsdp!r}: the FSDP axis is 'dp'")
-    if fsdp and any(isinstance(w, QTensor) for w in
-                    _matrices(state.params)):
-        raise NotImplementedError("FSDP over quantized (gama) params is "
-                                  "not ported")
+    check_mesh_params(state.params, math.prod(
+        mesh.size(a) for a in ("dp", "tp", "sp")))
     shards = leaf_shards(state.params, mesh, tp, fsdp)
     params = shard_params(state.params, mesh, shards=shards)
     for p in leaves(params):
@@ -156,12 +181,6 @@ def shard_train_state(state: TrainState, mesh, tp: str = "tp",
     return TrainState(params=params, opt=opt, gen=state.gen,
                       layout=ShardedLayout(mesh, shards,
                                            fsdp=fsdp is not None))
-
-
-def _matrices(params):
-    yield from (v for k, v in params.items() if k != "layers")
-    for lp in params.get("layers", []):
-        yield from lp.values()
 
 
 def gather_train_state(state: TrainState) -> TrainState:

@@ -188,7 +188,7 @@ def make_train_step(card: ModelCard, tcard: TrainCard, total_steps: int,
             for i in diff:
                 cflat[i].requires_grad_(True)
         cparams = (state.params if cflat is flat
-                   else unflatten_like(state.params, cflat))
+                   else lay.with_leaves(state.params, cflat))
         weights = reducer = None
         if lay is not None:
             weights = lay.loss_weights(tokens, loss_mask)

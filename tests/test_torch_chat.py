@@ -369,15 +369,16 @@ def test_bubble_cli_matches_jax_generate(tmp_path):
 
 
 def test_bubble_refuses_what_is_not_ported(tmp_path):
-    """--tp > 1 with a draft names what is not ported (speculative
-    decoding under tensor parallelism; ``--tp`` itself is ported,
-    ``tests/test_torch_parallel_serve.py``); a ``.kun`` path is taken (the
-    format is ported), and one without an embedded config is refused as
-    the JAX package refuses it."""
+    """Serving under ``--tp`` (with or without a draft: speculative
+    decoding under tensor parallelism is ported,
+    ``tests/test_torch_slice20_tp.py``) names the zoo's layers it does not
+    take; a ``.kun`` path is taken (the format is ported), and one without
+    an embedded config is refused as the JAX package refuses it."""
+    from koifish_tpu_torch.config import ModelCard
+    from koifish_tpu_torch.parallel.sharding import check_serving_card
     with pytest.raises(NotImplementedError,
-                       match="speculative decoding under --tp"):
-        bubble.main(["--hf", str(tmp_path), "--tp", "2", "--device", "cpu",
-                     "--draft-hf", str(tmp_path)])
+                       match="zoo served under tensor parallelism"):
+        check_serving_card(ModelCard.from_arch("MAMBA", **TINY))
     tst.write_safetensors(str(tmp_path / "m.kun"), {"x": torch.zeros(2)})
     with pytest.raises(ValueError, match="__koifish__config__"):
         bubble.main(["--hf", str(tmp_path / "m.kun"), "--device", "cpu"])

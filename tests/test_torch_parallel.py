@@ -287,17 +287,18 @@ def test_stream_load_one_rank_matches_jax(tmp_path, monkeypatch):
 def test_refusals():
     """Stream load of GPT2/MoE (as the JAX package), the zoo served under
     ``bubble --tp``, ``--pp`` with dp/tp/sp, layers that do not divide
-    into stages or differ, LoRA under tp, speculative decoding under
-    ``bubble --tp`` and FSDP over gama params raise, each naming its
+    into stages or differ, LoRA under tp, and LoRA adapters and LLAMA_VAE
+    on any mesh of more than one rank (where the JAX package's
+    ``shard_params`` fails; one rank shards nothing) raise, each naming its
     reason. (The zoo's training refusals, which mirror the JAX package's
-    failures, are in ``tests/test_torch_parallel_zoo.py``.)"""
-    from koifish_tpu_torch.cli import bubble, koifish
+    failures, are in ``tests/test_torch_parallel_zoo.py``; the JAX side of
+    the mesh refusals is in ``tests/test_torch_slice20.py``.)"""
+    from koifish_tpu_torch.cli import koifish
     from koifish_tpu_torch.io.stream_load import load_hf_sharded_quantized
     from koifish_tpu_torch.models import init_params
     from koifish_tpu_torch.models.transformer import _linear_l
     from koifish_tpu_torch.ops.tracectx import TPPolicy, tp_scope
     from koifish_tpu_torch.parallel.pipeline import stack_for_pipeline
-    from koifish_tpu_torch.quant.apply import quantize_params
     from koifish_tpu_torch.train.sharded import shard_train_state
     from koifish_tpu_torch.train.trainer import init_train_state
     from koifish_tpu_torch.config import TrainCard
@@ -330,14 +331,18 @@ def test_refusals():
         with pytest.raises(NotImplementedError, match="LoRA adapters under "
                            "tensor parallelism"):
             _linear_l(torch.zeros(1, 64, dtype=torch.bfloat16), lp, "o")
-    with pytest.raises(NotImplementedError, match="speculative decoding "
-                       "under --tp"):
-        bubble.main(["--hf", "/nonexistent", "--tp", "2", "--draft-hf",
-                     "/nonexistent"])
-    qcard = ModelCard.from_arch("QWEN3", **CARD)
-    gama = quantize_params(init_params(qcard, device="cpu"),
-                           QuantCard.from_json(QC), qcard, device="cpu")
-    st = init_train_state(qcard, TrainCard(batch=2), params=gama,
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="FSDP over quantized"):
-        shard_train_state(st, ProcessMesh({}, "cpu"), fsdp="dp")
+    lora = init_params(ModelCard.from_arch("QWEN3", **CARD), device="cpu")
+    lora["layers"][0]["q_lora"] = {"a": torch.zeros(64, 4),
+                                   "b": torch.zeros(4, 64)}
+    st = init_train_state(ModelCard.from_arch("QWEN3", **CARD),
+                          TrainCard(batch=2), params=lora, device="cpu")
+    for n in (2, 4):        # dp, tp or sp ranks: one check for the product
+        with pytest.raises(NotImplementedError, match="LoRA adapters on a "
+                           "process mesh.*AttributeError"):
+            tsh.check_mesh_params(lora, n)
+    shard_train_state(st, ProcessMesh({}, "cpu"))        # one rank: taken
+    vcard = ModelCard.from_arch("LLAMA_VAE", **dict(CARD,
+                                                    token_embeds=(24,)))
+    with pytest.raises(NotImplementedError, match="LLAMA_VAE on a process "
+                       "mesh.*evae"):
+        tsh.check_mesh_params(init_params(vcard, device="cpu"), 2)
