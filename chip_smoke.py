@@ -2521,45 +2521,13 @@ def qmatmul_grad_phase(torch, gen) -> None:
 # ---------------------------------------------------------------------------
 
 def reference_check(torch):
-    """A tiny QWEN3 card: the card's run (kernels) against the CPU run of
-    the same weights (plain versions) — prefill logits and greedy tokens."""
-    from koifish_tpu_torch.config import ModelCard, QuantCard, SamplerCard
+    """A tiny QWEN3 card with INT4 RTN g128 weights: the card's run
+    (kernels) against the CPU run of the same weights (plain versions) —
+    prefill logits and greedy tokens over an INT8 cache."""
     from koifish_tpu_torch.dtypes import QFormat
-    from koifish_tpu_torch.models import init_params
-    from koifish_tpu_torch.quant import quantize_params
-    from koifish_tpu_torch.serve import cache_for, generate, prefill
-    card = ModelCard.from_arch("QWEN3", vocab_size=256, n_layer=2,
-                               n_embd=128, n_head=2, n_kv_head=1,
-                               head_dim=64, n_ffn=256, n_ctx=64, max_pos=128)
-    qc = QuantCard.from_json({"self_attn": {"bits": 4}, "mlp": {"bits": 4},
-                              "group_size": 128})
-    p_cpu = quantize_params(init_params(card, device="cpu", seed=3), qc,
-                            card, device="cpu")
-    p_gpu = {"wte": p_cpu["wte"].to("cuda"), "ln_f": p_cpu["ln_f"].to("cuda"),
-             "layers": [{k: v.to("cuda") for k, v in lp.items()}
-                        for lp in p_cpu["layers"]]}
-    prompt = torch.randint(0, 256, (4, 70), generator=torch.Generator()
-                           .manual_seed(5))
-    out = {}
-    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
-        c = cache_for(card, 4, 96, fmt=QFormat.INT8, layered=True,
-                      device=dev)
-        logits, _ = prefill(card, params, prompt.to(dev), c, fresh=True,
-                            device=dev)
-        c = cache_for(card, 4, 96, fmt=QFormat.INT8, layered=True,
-                      device=dev)
-        toks, _ = generate(card, params, prompt, c,
-                           sampler=SamplerCard(temperature=0.0),
-                           max_new_tokens=12, decode_chunk=4, device=dev)
-        out[dev] = (logits.cpu(), toks.cpu())
-    # f32 logits of O(1): bf16 activations rounded at other points on the
-    # two devices (cuBLAS vs CPU matmul, kernel sum order)
-    err = max_err(out["cpu"][0], out["cuda"][0])
-    check("tiny QWEN3 prefill logits, card vs CPU", err, 5e-2)
-    agree = float((out["cpu"][1] == out["cuda"][1]).float().mean())
-    say(f"  greedy tokens card vs CPU agree on {agree * 100:.1f}%")
-    if agree < 0.75:
-        fail("greedy tokens of the card and the CPU run diverge")
+    _tiny_serve_check(torch, "tiny QWEN3", {
+        "self_attn": {"bits": 4}, "mlp": {"bits": 4}, "group_size": 128},
+        QFormat.INT8, 96, 4, 70, 12, seed=3, prompt_seed=5)
 
 
 KMEANS_RULES = {"self_attn": {"quant_method": "KMEANS", "bits": 4},
@@ -2578,6 +2546,48 @@ def _agree(label: str, a, b) -> None:
     say(f"  {label}: greedy tokens card vs CPU agree on {agree * 100:.1f}%")
     if agree < 0.75:
         fail(f"{label}: greedy tokens of the card and the CPU run diverge")
+
+
+def _to_card(params):
+    """A serving param tree (bf16 leaves and QTensors) copied to the card."""
+    return {k: ([{n: w.to("cuda") for n, w in lp.items()} for lp in v]
+                if k == "layers" else v.to("cuda"))
+            for k, v in params.items()}
+
+
+def _tiny_serve_check(torch, label: str, rules, kv_fmt, size: int, B: int,
+                      P: int, new: int, seed: int = 21,
+                      prompt_seed: int = 21) -> None:
+    """The tiny QWEN3 card with ``rules`` applied on the CPU, its params
+    copied to the card: prefill logits (f32 logits of O(1): bf16
+    activations rounded at other points on the two devices, 5e-2) and
+    ``generate``'s greedy tokens (75 %) on ``kv_fmt`` caches of ``size``
+    slots, card vs CPU; fails if a ring that should wrap did not."""
+    from koifish_tpu_torch.config import QuantCard, SamplerCard
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.quant import quantize_params
+    from koifish_tpu_torch.serve import cache_for, generate, prefill
+    card = _tiny_card()
+    p_cpu = quantize_params(init_params(card, device="cpu", seed=seed),
+                            QuantCard.from_json(rules), card, device="cpu")
+    prompt = torch.randint(0, card.vocab_size, (B, P),
+                           generator=torch.Generator().manual_seed(
+                               prompt_seed))
+    out = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", _to_card(p_cpu))):
+        c = cache_for(card, B, size, fmt=kv_fmt, layered=True, device=dev)
+        logits, _ = prefill(card, params, prompt.to(dev), c, fresh=True,
+                            device=dev)
+        c = cache_for(card, B, size, fmt=kv_fmt, layered=True, device=dev)
+        toks, c = generate(card, params, prompt, c,
+                           sampler=SamplerCard(temperature=0.0),
+                           max_new_tokens=new, decode_chunk=4, device=dev)
+        out[dev] = (logits.float().cpu(), toks.cpu(), int(c.pos[0]))
+    check(f"{label} prefill logits, card vs CPU",
+          max_err(out["cpu"][0], out["cuda"][0]), 5e-2)
+    _agree(label, out["cpu"][1], out["cuda"][1])
+    if P + new - 1 > size and not out["cuda"][2] > size:
+        fail(f"{label}: the ring did not wrap")
 
 
 def reference_check_slice3(torch):
@@ -2603,9 +2613,7 @@ def reference_check_slice3(torch):
     p_cpu = quantize_params(init_params(card, device="cpu", seed=4),
                             QuantCard.from_json(KMEANS_RULES), card,
                             device="cpu")
-    p_gpu = {"wte": p_cpu["wte"].to("cuda"), "ln_f": p_cpu["ln_f"].to("cuda"),
-             "layers": [{k: v.to("cuda") for k, v in lp.items()}
-                        for lp in p_cpu["layers"]]}
+    p_gpu = _to_card(p_cpu)
     say(f"  tiny k-means card: {type(p_cpu['layers'][0]['q']).__name__} "
         f"{p_cpu['layers'][0]['q'].fmt.name}, book "
         f"{tuple(p_cpu['layers'][0]['q'].codebook.shape)}")
@@ -2826,6 +2834,18 @@ def slice_phase(torch):
     return counts
 
 
+def batcher_requests(torch, card, n: int, seed: int) -> list:
+    """``n`` requests of seeded prompts (16-512 tokens) and lengths (16-128
+    new tokens), no eos."""
+    from koifish_tpu_torch.serve import Request
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(16, 513, (n,), generator=g).tolist()
+    news = torch.randint(16, 129, (n,), generator=g).tolist()
+    return [Request(rid=i, prompt=torch.randint(
+        0, card.vocab_size, (k,), generator=g).tolist(), max_new=m, eos_id=-1)
+        for i, (k, m) in enumerate(zip(lens, news))]
+
+
 def batcher_phase(torch):
     """Slice 3 at full width: Qwen3-0.6B with k-means NF4 weights behind a
     ContinuousBatcher (INT8 KV, 32 slots of 1024, decode_chunk 8) serving
@@ -2853,12 +2873,8 @@ def batcher_phase(torch):
     w = qp["layers"][0]["q"]
     say(f"  init + k-means quantize: {time.perf_counter() - t0:.2f} s; "
         f"{w.fmt.name} codes, book {tuple(w.codebook.shape)} per tensor")
-    g = torch.Generator().manual_seed(p.seed)
-    lens = torch.randint(16, 513, (N_REQ,), generator=g).tolist()
-    news = torch.randint(16, 129, (N_REQ,), generator=g).tolist()
-    reqs = [Request(rid=i, prompt=torch.randint(
-        0, card.vocab_size, (n,), generator=g).tolist(), max_new=m, eos_id=-1)
-        for i, (n, m) in enumerate(zip(lens, news))]
+    reqs = batcher_requests(torch, card, N_REQ, p.seed)
+    lens = [len(r.prompt) for r in reqs]
     sampler = SamplerCard(temperature=0.6, top_k=50, top_p=0.95)
     eng = ContinuousBatcher(card, qp, n_slots=SLOTS, cache_size=S,
                             kv_fmt=QFormat.INT8, sampler=sampler,
@@ -3082,9 +3098,9 @@ def write_hf_dir(torch, path: str, card, seed: int) -> float:
     return sum(t.numel() * t.element_size() for t in ts.values()) / 1e9
 
 
-def _chat(torch, argv, label):
-    """One ``bubble.main`` run, its kernel launches and fallbacks counted
-    from 0; returns (turn records, launches)."""
+def _chat(torch, argv, label, n_turns=len(CHAT_PROMPTS)):
+    """One ``bubble.main`` run of ``n_turns`` turns, its kernel launches and
+    fallbacks counted from 0; returns (turn records, launches)."""
     from koifish_tpu_torch.cli import bubble
     from koifish_tpu_torch.utils import kernel_log
     turns = []
@@ -3097,7 +3113,7 @@ def _chat(torch, argv, label):
     counts, falls = kernel_log.launches(), kernel_log.fallbacks()
     say(f"  {label}: rc={rc}, {wall:.2f} s for {len(turns)} turns; "
         f"launches {json.dumps(counts)}; fallbacks {json.dumps(falls)}")
-    if rc != 0 or len(turns) != len(CHAT_PROMPTS):
+    if rc != 0 or len(turns) != n_turns:
         fail(f"{label}: bubble returned {rc} after {len(turns)} turns")
     for t in turns:
         say(f"    turn: {len(t['prompt_ids'])} prompt tokens, "
@@ -3278,12 +3294,16 @@ def bubble_phase(torch):
 # ---------------------------------------------------------------------------
 
 def _step_card_vs_cpu(torch, label, card, tcard, vocab, tol_loss, tol_norm,
-                      tol_head, qcard=None, seed=7, sp=1):
+                      tol_head, qcard=None, seed=7, sp=1, zero_grad=()):
     """One ``make_train_step`` of ``card`` on the card (kernels) against the
     same step on the CPU (plain versions), SR off: the loss, every
     gradient's norm (the tied head's ``wte`` within ``tol_head``) and the
     updated parameters. ``sp`` > 1: sequence-parallel, an ``SPPolicy``
-    over ``sp`` virtual ranks of the step's device."""
+    over ``sp`` virtual ranks of the step's device. ``zero_grad``: names of
+    leaves whose gradient is 0 in exact arithmetic (k's bias: it shifts a
+    softmax row), so that its norm is rounding noise on both devices: held
+    under 1e-4 of the largest gradient norm instead of to the relative
+    gate."""
     from koifish_tpu_torch.models import init_params
     from koifish_tpu_torch.train import init_train_state, make_train_step
     from koifish_tpu_torch.utils.tree import (flatten_with_path, leaves,
@@ -3311,6 +3331,14 @@ def _step_card_vs_cpu(torch, label, card, tcard, vocab, tol_loss, tol_norm,
           abs(res["cpu"][0] - res["cuda"][0]), tol_loss)
     n_cpu, n_gpu = res["cpu"][1], res["cuda"][1]
     rel = (n_gpu - n_cpu).abs() / n_cpu.clamp_min(1e-6)
+    zero = [i for i, (p, _) in enumerate(flatten_with_path(base))
+            if p[-1] in zero_grad]
+    if zero:
+        noise = float(torch.maximum(n_cpu[zero], n_gpu[zero]).max()
+                      / n_cpu.max())
+        check(f"{label} grad norms of {', '.join(zero_grad)} (0 in exact "
+              f"arithmetic) over the largest", noise, 1e-4)
+        rel[zero] = 0.0
     worst = int(rel.argmax())
     say(f"  worst grad norm: {flatten_with_path(base)[worst][0]} "
         f"(CPU norm {float(n_cpu[worst]):.3e})")
@@ -3397,16 +3425,19 @@ def reference_check_int8(torch):
                       2e-2, 5e-2, TOL_HEAD, qcard=qcard)
 
 
-def train_model(torch, label, config, B, steps=8, profile=False, tcard=None):
+def train_model(torch, label, config, B, steps=8, profile=False, tcard=None,
+                full_depth=False):
     """``train_loop`` for ``steps`` steps of one fixed random batch
     [1, B, 1025] at ``bench.py``'s settings (or ``tcard``); with
-    ``profile`` it also times the optimizer and profiles a step. Returns
-    the losses and the kernel launches."""
-    from koifish_tpu_torch.config import TrainCard
+    ``profile`` it also times the optimizer and profiles a step. The model
+    is cut to DEPTH layers unless ``full_depth``. Returns the losses and
+    the kernel launches."""
+    from koifish_tpu_torch.config import CLIParams, TrainCard
     from koifish_tpu_torch.train import (init_train_state, make_train_step,
                                          train_loop)
     from koifish_tpu_torch.utils import kernel_log, mfu
-    p = load_config(config)
+    p = (CLIParams.load(os.path.join(ROOT, "configs", config)) if full_depth
+         else load_config(config))
     card = p.model
     T = 1024
     say(f"[train] {label}: L={card.n_layer} E={card.n_embd} Hq={card.n_head} "
@@ -5437,19 +5468,15 @@ def s17_train_launches(steps: int, card, remat, m: int) -> dict:
     return out
 
 
-S17_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "fused_ce_fwd",
-               "fused_ce_dlogits", "fused_ce_dx", "fused_ce_dw", "qmm", "qmv",
-               "decode_attn", "kv_write", "slot_write")
-
-
-def _s17_exact(label: str, counts: dict, want: dict) -> None:
-    """Fail unless every S17_KERNELS count is ``want``'s (0 where absent)."""
-    got = {k: counts.get(k, 0) for k in S17_KERNELS}
-    exp = {k: want.get(k, 0) for k in S17_KERNELS}
+def _exact_launches(label: str, counts: dict, want: dict) -> None:
+    """Fail unless the run's launches are exactly ``want``'s: every kernel
+    the shapes give, as often, and no other."""
+    got = {k: v for k, v in counts.items() if v}
+    exp = {k: v for k, v in want.items() if v}
     if got != exp:
-        fail(f"{label}: launches {got}, the shapes give {exp}")
-    say(f"  {label}: launches exactly as the shapes give: "
-        f"{json.dumps({k: v for k, v in got.items() if v})}")
+        fail(f"{label}: launches {json.dumps(got)}, the shapes give "
+             f"{json.dumps(exp)}")
+    say(f"  {label}: launches exactly as the shapes give: {json.dumps(got)}")
 
 
 def _s17_train(torch, root: str, name: str, cfg: dict, falls_want=None):
@@ -5524,7 +5551,7 @@ def s17_guppy(torch, root: str, gen) -> tuple:
     from koifish_tpu_torch.models.guppy import sample_ids
     res, counts, num = _s17_train(torch, root, "guppy", _qwen3_cfg("GUPPY"))
     card = res["card"]
-    _s17_exact("guppy train", counts,
+    _exact_launches("guppy train", counts,
                s17_train_launches(S17_STEPS, card, True, 8 * card.n_ctx))
     samps = sample_ids(card)
     rows = card.n_layer * card.n_ffn * card.n_embd * 2
@@ -5550,7 +5577,7 @@ def s17_llama_vae(torch, root: str) -> tuple:
     enc = res["state"].params["evae"]["enc"][0]["w"]
     if tuple(enc.shape) != (card.n_embd, 192):
         fail(f"llama_vae: evae enc {tuple(enc.shape)}")
-    _s17_exact("llama_vae train", counts,
+    _exact_launches("llama_vae train", counts,
                s17_train_launches(S17_STEPS, card, True, 8 * card.n_ctx))
     del res
     torch.cuda.empty_cache()
@@ -5577,7 +5604,7 @@ def s17_hybrid(torch, root: str) -> tuple:
                                                 (2, 5, 8, 11)):
         fail(f"hybrid: GAU {card.gau_layers}, BROWN {card.brown_layers}")
     # the 4 QKV layers' kernels; V 50,304 takes the bf16-logits CE
-    _s17_exact("hybrid train", counts, s17_train_launches(
+    _exact_launches("hybrid train", counts, s17_train_launches(
         S17_STEPS, dataclasses.replace(card, n_layer=4), True, 0))
     try:
         prefill(card, res["state"].params,
@@ -5610,7 +5637,7 @@ def s17_mamba(torch, root: str) -> tuple:
     if abs(num["params_m"] - 129.1) > 0.5:
         fail(f"mamba: {num['params_m']:.2f} M parameters, mamba-130m has "
              f"129.1 M")
-    _s17_exact("mamba train", counts, {})
+    _exact_launches("mamba train", counts, {})
     card, state = res["card"], res["state"]
     del res
     torch.cuda.empty_cache()
@@ -5666,7 +5693,7 @@ def s17_salmon(torch, root: str) -> tuple:
             "SALMON", False, True, pre.n_embd, pre.n_head, pre.n_kv_head,
             pre.n_ffn, pre.rope_theta):
         fail(f"salmon: card {card}")
-    _s17_exact("salmon train", counts, {})
+    _exact_launches("salmon train", counts, {})
     params = res["state"].params
     del res
     torch.cuda.empty_cache()
@@ -5692,7 +5719,7 @@ def s17_salmon(torch, root: str) -> tuple:
             or not torch.equal(out[:, :P].long(), prompt):
         fail("salmon: diffusion_generate's output is out of range or moved "
              "the prompt")
-    _s17_exact("salmon generate", gcounts, {})
+    _exact_launches("salmon generate", gcounts, {})
     num.update(generate_ms=wall * 1e3)
     del params
     torch.cuda.empty_cache()
@@ -5734,7 +5761,7 @@ def s17_hotpick(torch, gen) -> tuple:
         f"{qp2['layers'][0]['down'].fmt.name} g{qp2['layers'][0]['down'].group}"
         f"; {_nbytes(qp) / 1e9:.3f} -> {_nbytes(qp2) / 1e9:.3f} GB")
     L = card.n_layer
-    _s17_exact("hotpick calibration", calib_counts,
+    _exact_launches("hotpick calibration", calib_counts,
                {"flash_fwd": L, "qmm": 9 * L})
     if card2.n_ffn != 1536 or any(tuple(lp["down"].shape) != (1536, 1024)
                                   for lp in qp2["layers"]):
@@ -5752,7 +5779,7 @@ def s17_hotpick(torch, gen) -> tuple:
     per_run = {kind: by_k.get((kind, 1536), 0) for kind in ("qmm", "qmv")}
     say(f"  launches by (kernel, K) in the counted run: "
         f"{json.dumps({f'{n}@K{k}': c for (n, k), c in sorted(by_k.items())})}")
-    _s17_exact("hotpick serving at K 1536", per_run,
+    _exact_launches("hotpick serving at K 1536", per_run,
                {"qmm": L, "qmv": L * (HOT_NEW - 1)})
     del qp2
     torch.cuda.empty_cache()
@@ -7107,7 +7134,7 @@ def _s19_gate(label: str, runs, ref, want=None, falls=None) -> None:
           PAR_GNORM_RTOL)
     if want is not None:
         for r, run in enumerate(runs):
-            _s17_exact(f"{label} rank {r}", run["counts"], want)
+            _exact_launches(f"{label} rank {r}", run["counts"], want)
     if falls is not None:
         for r, run in enumerate(runs):
             if run["falls"] != falls:
@@ -7283,7 +7310,7 @@ def slice19_phase(torch, ring_local: dict) -> tuple:
                       else s19_cli(torch, cfgs[name], [],
                                    os.path.join(root, "one_" + name)))
         want, falls = _s19_tp_want(name, cfgs[name])
-        _s17_exact(f"(c) {name} one rank", refs[name]["counts"], want)
+        _exact_launches(f"(c) {name} one rank", refs[name]["counts"], want)
         label = f"tp2_{name}"
         _s19_gate(f"(c) koifish --tp 2 {name}", [g[label] for g in two],
                   refs[name], want, falls)
@@ -7640,7 +7667,7 @@ def slice20_phase(torch) -> dict:
                                    os.path.join(root, f"one_{name}_lr0")),
                      refs[name])
     one = ProcessMesh({"pp": 1}, "cuda")
-    for name in ("lars", "sr", "llama_vae"):
+    for name in ("sr", "llama_vae"):
         refs[name + "_pipe"] = s19_api_pp(torch, cfgs[name], one)
     labels = {"gama_dp2_fsdp": "(b) koifish --dp 2 --fsdp, gama",
               "fuyou_dp2": "(c) koifish --dp 2, Fuyou",
@@ -7649,7 +7676,10 @@ def slice20_phase(torch) -> dict:
               "sr_pp2": "(e) koifish --pp 2, SR on",
               "llama_vae_pp2": "(e) koifish --pp 2, SR on, LLAMA_VAE"}
     for name, cfg, _ in S20_RUNS:
-        ref = refs[cfg + "_pipe"] if name.endswith("pp2") else refs[cfg]
+        # (d) under --pp against the unstacked one-rank step: since slice
+        # 21 LARS takes one ratio a layer of a stacked stage leaf
+        ref = (refs[cfg + "_pipe"] if name.endswith("pp2")
+               and cfg != "lars" else refs[cfg])
         runs = [g[name] for g in two]
         _s19_gate(labels[name], runs, ref)
         for r, run in enumerate(runs):
@@ -7689,6 +7719,469 @@ def slice20_phase(torch) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# slice 21: the shipped paths that no card run had taken
+# ---------------------------------------------------------------------------
+
+#: steps of GPT2-1558M as shipped, and of the same card with the fused CE on
+S21_G1558_STEPS = 3
+#: the card-vs-CPU cut of GPT2-1558M's train card: 2 layers at widths the
+#: CPU runs, its int8 gate between the cut's E x E and E x F weights (as
+#: 4,194,304 lies between GPT2-1558M's 2,560,000 and 10,240,000), so that
+#: fc, proj and the tied head run int8 and q, k, v and o bf16 in both
+S21_CUT = dict(vocab_size=2048, n_layer=2, n_embd=128, n_head=2,
+               n_kv_head=2, head_dim=64, n_ffn=512, n_ctx=64, max_pos=128)
+S21_CUT_INT8_MIN_KN = 32768
+S21_B, S21_P, S21_NEW = 32, 128, 64    # generate's batch, prompt, new tokens
+#: the INT4 ring: S21_P + S21_NEW - 1 positions wrap past its 160 slots
+#: (2 sinks), so every lane's sink keys are re-roped
+S21_RING = 160
+S21_BOOK_RULES = {
+    "mini": {"self_attn": {"quant_method": "MINI", "bits": 3},
+             "mlp": {"quant_method": "MINI", "bits": 3}},
+    "sinkhorn": {"self_attn": {"quant_method": "SNQ", "bits": 4},
+                 "mlp": {"quant_method": "SNQ", "bits": 4},
+                 "group_size": 128}}
+#: the zoo cards the JAX package's bubble serves (a .kun of each), under
+#: bubble --tp 2 on the 2-rank group
+S21_TP_ZOO = ("salmon", "llama_vae")
+
+
+def _s21_time(label: str, t0: float) -> None:
+    say(f"[time] slice21 {label}: {time.perf_counter() - t0:.1f} s")
+
+
+def s21_gpt2_launches(steps: int, card, tcard, fused: bool) -> dict:
+    """The launches ``steps`` steps of GPT2 ``card`` under ``tcard`` (full
+    remat, int8 forwards of the weights ``int8_min_kn`` admits, bf16
+    dgrad and wgrad) make at B x 1024 rows: a flash forward a layer twice
+    (the recompute), a dK/dV and a dQ a layer; row 12's rowquant (x) and
+    colquant (w) once for each int8 forward, each layer's twice and the
+    tied head's once; with ``fused`` the int8 fused CE's forward, and its
+    dlogits, dx and dW per vocab chunk."""
+    from koifish_tpu_torch.ops.kernels import fused_ce as kc
+    L, E, F = card.n_layer, card.n_embd, card.n_ffn
+    HD = card.n_head * card.head_dim
+    per_layer = sum(a * b >= tcard.int8_min_kn for a, b in (
+        (E, HD), (E, HD), (E, HD), (HD, E), (E, F), (F, E)))
+    q = steps * (2 * per_layer * L
+                 + (card.vocab_size * E >= tcard.int8_min_kn))
+    out = {"flash_fwd": steps * 2 * L, "flash_bwd_dkv": steps * L,
+           "flash_bwd_dq": steps * L, "rowquant": q, "colquant": q}
+    if fused:
+        chunks = len(kc.chunk_plan(tcard.batch * 1024, card.vocab_size)[1])
+        out.update(fused_ce_fwd_int8=steps,
+                   fused_ce_dlogits_int8=steps * chunks,
+                   fused_ce_dx_int8=steps * chunks,
+                   fused_ce_dw_int8=steps * chunks)
+    return out
+
+
+def s21_gpt2(torch) -> dict:
+    """(1) GPT2-1558M from configs/gpt2_1558m.json at its full width and
+    depth (48 layers, E 1600, 25 heads of D 64, F 6400, V 50,304), B 16 x
+    1024, its train card as shipped (int8 forwards of weights >= 4,194,304
+    elements: fc, proj and the tied head; full remat; bf16 moments; the
+    CE by the auto rule, which V 50,304 < 65,536 keeps off the fused CE)
+    with warmup 10, S21_G1558_STEPS steps; then the same card with the
+    fused CE on (the int8 fused CE at E 1600). Fails unless every loss is
+    in ``bench.py``'s (0, 11.5), the first within 0.5 of ln 50,304, and the
+    launches are exactly the shapes'. Then the card-vs-CPU step of the
+    card's 2-layer cut. Returns {path: launches}."""
+    import dataclasses
+    import math
+    from koifish_tpu_torch.config import CLIParams
+    p = CLIParams.load(os.path.join(ROOT, "configs", "gpt2_1558m.json"))
+    card = p.model
+    base = dataclasses.replace(p.train, warmup=10, dump_every=1, seed=p.seed)
+    say(f"[slice21] (1) GPT2-1558M card from configs/gpt2_1558m.json: "
+        f"L={card.n_layer} int8_matmul={base.int8_matmul} int8_min_kn="
+        f"{base.int8_min_kn} int8_dgrad={base.int8_dgrad} fused_ce="
+        f"{base.fused_ce} moment_dtype={base.moment_dtype} remat="
+        f"{base.remat} batch={base.batch} lr={base.lr}")
+    paths = {}
+    for path, label, over in (
+            ("s21_gpt2_1558m", "GPT2-1558M as shipped", {}),
+            ("s21_gpt2_1558m_fused_ce", "GPT2-1558M, the int8 fused CE on",
+             {"fused_ce": True})):
+        t0 = time.perf_counter()
+        tcard = dataclasses.replace(base, **over)
+        losses, counts = train_model(torch, label, "gpt2_1558m.json",
+                                     tcard.batch, steps=S21_G1558_STEPS,
+                                     tcard=tcard, full_depth=True)
+        if not all(0.0 < x < 11.5 for x in losses):
+            fail(f"{label}: a loss outside bench.py's gate (0, 11.5): "
+                 f"{losses}")
+        if abs(losses[0] - math.log(card.vocab_size)) > 0.5:
+            fail(f"{label}: the first loss {losses[0]} is not within 0.5 of "
+                 f"ln {card.vocab_size} = {math.log(card.vocab_size):.4f}")
+        _exact_launches(label, counts, s21_gpt2_launches(
+            S21_G1558_STEPS, card, tcard, bool(over)))
+        paths[path] = counts
+        _s21_time(path, t0)
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(card, **S21_CUT)
+    tcut = dataclasses.replace(
+        p.train, batch=4, lr=1e-3, warmup=0, scheduler="static",
+        stochastic_round=False, check_tensor_norm=True,
+        int8_min_kn=S21_CUT_INT8_MIN_KN)
+    _step_card_vs_cpu(torch, "GPT2-1558M train card, 2-layer cut", cut, tcut,
+                      cut.vocab_size, 2e-2, 5e-2, TOL_HEAD,
+                      zero_grad=("k_b",))
+    _s21_time("GPT2-1558M card vs CPU", t0)
+    return paths
+
+
+def _s21_generate(torch, label: str, card, qp, gen, fmt, size: int,
+                  want: dict):
+    """``generate`` of S21_NEW tokens (temperature 0.6, decode_chunk 16)
+    from B S21_B x S21_P seeded prompts over a ``fmt`` cache of ``size``
+    slots, its launches counted from 0: fails unless the tokens are in
+    shape and vocabulary and the launches are exactly ``want``. Returns
+    (launches, the cache's last position, its slots)."""
+    from koifish_tpu_torch.config import SamplerCard
+    from koifish_tpu_torch.serve import cache_for, generate
+    from koifish_tpu_torch.utils import kernel_log
+    prompts = torch.randint(0, card.vocab_size, (S21_B, S21_P), generator=gen,
+                            device="cuda", dtype=torch.int64)
+    cache = cache_for(card, S21_B, size, fmt=fmt, layered=True)
+    torch.cuda.synchronize()
+    kernel_log.reset_launches()
+    t0 = time.perf_counter()
+    toks, cache = generate(card, qp, prompts, cache,
+                           sampler=SamplerCard(temperature=0.6, top_k=50,
+                                               top_p=0.95),
+                           max_new_tokens=S21_NEW, decode_chunk=16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_log.launches()
+    say(f"  {wall:.2f} s, {S21_B * S21_NEW / wall:.1f} generated tok/s "
+        f"(prefill included)")
+    if tuple(toks.shape) != (S21_B, S21_NEW) or int(toks.min()) < 0 \
+            or int(toks.max()) >= card.vocab_size:
+        fail(f"{label}: tokens {tuple(toks.shape)} out of shape or range")
+    _exact_launches(label, counts, want)
+    return counts, int(cache.pos[0]), cache.size
+
+
+def s21_int4_wrap(torch) -> dict:
+    """(2) Qwen3-0.6B at its widths, DEPTH layers, INT4 RTN g128 weights,
+    ``_s21_generate`` over an INT4 cache of S21_RING slots with 2 sinks:
+    every lane wraps and its sink keys are re-roped. Fails unless the ring
+    wrapped and the launches are exactly the shapes': the prefill's flash
+    forward and row 3 in 7 projections a layer, then each decode step's
+    row 4 in 7 projections and one row 7-write (the INT4 entry) a layer.
+    Then the tiny card's INT4 ring (S 16, 20 new) card vs CPU."""
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.quant import quantize_params
+    t0 = time.perf_counter()
+    p = load_config("qwen3_0.6b.json")
+    card = p.model
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(p.seed)
+    qp = quantize_params(init_params(card, gen), p.quant, card)
+    say(f"[slice21] (2) Qwen3-0.6B INT4 RTN g128 weights, {card.n_layer} "
+        f"layers, INT4 KV ring of {S21_RING} slots (2 sinks): B={S21_B}, "
+        f"P={S21_P}, {S21_NEW} new")
+    L, steps = card.n_layer, S21_NEW - 1
+    counts, pos, size = _s21_generate(
+        torch, "INT4 KV generate over a wrapping ring", card, qp, gen,
+        QFormat.INT4, S21_RING, {
+            "flash_fwd": L, "qmm": 7 * L, "qmv": 7 * L * steps,
+            "decode_attn": L * steps, "kv_write": L * steps})
+    say(f"  positions {pos} on {size} slots")
+    if pos != S21_P + S21_NEW - 1 or not pos > size:
+        fail(f"INT4 ring: position {pos} did not wrap {size} slots")
+    del qp
+    torch.cuda.empty_cache()
+    _tiny_serve_check(torch, "tiny INT4 ring (S 16, 20 new)", {
+        "self_attn": {"bits": 4}, "mlp": {"bits": 4}, "group_size": 128},
+        QFormat.INT4, 16, 3, 6, 20)
+    _s21_time("int4_wrap", t0)
+    return counts
+
+
+def s21_bf16_batcher(torch, card, qp) -> dict:
+    """(3) ``batcher_phase``'s ContinuousBatcher (``qp``: its k-means NF4
+    Qwen3-0.6B at DEPTH layers, 32 slots of 1024, decode_chunk 8, its 96
+    seeded requests) over a BF16 pool: the decode's per-lane K/V writes
+    take row 8's standalone kernel (one launch a layer a step), its
+    attention plain PyTorch (the JAX package's Pallas decode kernel takes
+    quantized caches only). Fails unless every request completes and the
+    launches are exactly the shapes': each request's bucketed prefill a
+    flash forward a layer and the book GEMM (bucket > 32) or GEMV in 7
+    projections a layer, each decode step the book GEMV in 7 and one slot
+    write a layer. Then the tiny card's BF16 batcher card vs CPU."""
+    from koifish_tpu_torch.config import SamplerCard
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.ops.kernels.matmul import GEMV_MAX_M
+    from koifish_tpu_torch.serve import ContinuousBatcher, Request
+    from koifish_tpu_torch.serve.batching import _bucket
+    from koifish_tpu_torch.utils import kernel_log
+    t0 = time.perf_counter()
+    N_REQ, SLOTS, S, CHUNK = 96, 32, 1024, 8
+    reqs = batcher_requests(torch, card, N_REQ, 42)
+    say(f"[slice21] (3) ContinuousBatcher({SLOTS} slots, S={S}, "
+        f"decode_chunk={CHUNK}) over a BF16 pool, k-means NF4 weights, "
+        f"{card.n_layer} layers, {N_REQ} requests")
+    eng = ContinuousBatcher(card, qp, n_slots=SLOTS, cache_size=S,
+                            kv_fmt=QFormat.BF16,
+                            sampler=SamplerCard(temperature=0.6, top_k=50,
+                                                top_p=0.95),
+                            decode_chunk=CHUNK)
+    for r in reqs:
+        eng.submit(r)
+    eng.warmup()
+    torch.cuda.synchronize()
+    dispatches = [0]
+    decode = eng._decode
+
+    def counted(*args):
+        dispatches[0] += 1
+        return decode(*args)
+    eng._decode = counted
+    kernel_log.reset_launches()
+    t1 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = kernel_log.launches()
+    done = [results[r.rid] for r in reqs if r.rid in results]
+    say(f"  completed {len(done)} of {N_REQ} requests in {wall:.2f} s; "
+        f"aggregate decode {eng.aggregate_tokens_per_sec:.1f} tok/s; "
+        f"{dispatches[0]} decode dispatches")
+    if len(done) != N_REQ or any(len(r.tokens) != r.max_new for r in done):
+        fail("BF16 batcher: a request did not complete its tokens")
+    L, steps = card.n_layer, dispatches[0] * CHUNK
+    small = sum(_bucket(len(r.prompt)) <= GEMV_MAX_M for r in reqs)
+    _exact_launches("BF16 KV batcher", counts, {
+        "flash_fwd": L * N_REQ, "qmm_book": 7 * L * (N_REQ - small),
+        "qmv_book": 7 * L * (small + steps), "slot_write": L * steps})
+    del eng
+    torch.cuda.empty_cache()
+    # the tiny card: the BF16 batcher's greedy tokens, card vs CPU
+    from koifish_tpu_torch.config import QuantCard
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.quant import quantize_params
+    tiny = _tiny_card()
+    p_cpu = quantize_params(init_params(tiny, device="cpu", seed=21),
+                            QuantCard.from_json(KMEANS_RULES), tiny,
+                            device="cpu")
+    g = torch.Generator().manual_seed(21)
+    lens = torch.randint(3, 40, (5,), generator=g).tolist()
+    prompts = [torch.randint(0, 256, (n,), generator=g).tolist()
+               for n in lens]
+    toks = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", _to_card(p_cpu))):
+        e = ContinuousBatcher(tiny, params, n_slots=2, cache_size=96,
+                              kv_fmt=QFormat.BF16,
+                              sampler=SamplerCard(temperature=0.0),
+                              decode_chunk=4, device=dev)
+        for i, ids in enumerate(prompts):
+            e.submit(Request(rid=i, prompt=ids, max_new=10))
+        res = e.run()
+        toks[dev] = torch.tensor([res[i].tokens for i in range(5)])
+    _agree("tiny ContinuousBatcher (k-means, BF16 KV)", toks["cpu"],
+           toks["cuda"])
+    _s21_time("bf16_batcher", t0)
+    return counts
+
+
+def s21_books(torch) -> dict:
+    """(4) Qwen3-0.6B at its widths, DEPTH layers, quantized on the card
+    with MINI NF3 per-row books, then with Sinkhorn INT4 g128 (its row
+    factors fold into the activations before rows 3 and 4):
+    ``_s21_generate`` over an INT8 cache of 1024. Fails unless the
+    launches are exactly the shapes' (MINI: rows 6b at the prefill and 6a
+    at each decode step, 7 a layer; Sinkhorn: rows 3 and 4; both a flash
+    forward a layer at the prefill and one row 7-write a layer a step).
+    Then the tiny card with each rule card vs CPU."""
+    from koifish_tpu_torch.config import QuantCard
+    from koifish_tpu_torch.dtypes import QFormat
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.quant import quantize_params
+    p = load_config("qwen3_0.6b.json")
+    card = p.model
+    L, steps = card.n_layer, S21_NEW - 1
+    paths = {}
+    for name, rules in S21_BOOK_RULES.items():
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(p.seed)
+        qp = quantize_params(init_params(card, gen),
+                             QuantCard.from_json(rules), card)
+        torch.cuda.synchronize()
+        w = qp["layers"][0]["q"]
+        say(f"[slice21] (4) Qwen3-0.6B {name}: {w.fmt.name} codes, book "
+            f"{None if w.codebook is None else tuple(w.codebook.shape)}, row "
+            f"factors {None if w.row_scale is None else tuple(w.row_scale.shape)}"
+            f"; quantized on the card in {time.perf_counter() - t0:.2f} s")
+        gemm, gemv = ("qmm_book", "qmv_book") if name == "mini" else \
+            ("qmm", "qmv")
+        paths[f"s21_{name}"], _, _ = _s21_generate(
+            torch, f"{name} generate", card, qp, gen, QFormat.INT8, 1024, {
+                "flash_fwd": L, gemm: 7 * L, gemv: 7 * L * steps,
+                "decode_attn": L * steps, "kv_write": L * steps})
+        del qp
+        torch.cuda.empty_cache()
+        _tiny_serve_check(torch, f"tiny {name} card", rules, QFormat.INT8, 96,
+                        4, 70, 12)
+        _s21_time(name, t0)
+    return paths
+
+
+def slice21_phase(torch, book_card=None, book_qp=None) -> dict:
+    """Slice 21: the shipped paths that no card run had taken, each with a
+    card-vs-CPU check at a tiny size (logits 5e-2, greedy tokens 75 %, loss
+    2e-2 and grad norms 5 % for int8) and its launches exactly as the
+    shapes give: (1) GPT2-1558M trained as shipped (``s21_gpt2``), (2) INT4
+    KV serving over a wrapping ring (``s21_int4_wrap``), (3) the BF16-KV
+    batcher on ``batcher_phase``'s k-means params (``s21_bf16_batcher``;
+    made here when the phase runs alone), (4) MINI NF3 and Sinkhorn weights
+    served (``s21_books``). Returns {path: launches}."""
+    t0 = time.perf_counter()
+    if book_qp is None:
+        from koifish_tpu_torch.config import QuantCard
+        from koifish_tpu_torch.models import init_params
+        from koifish_tpu_torch.quant import quantize_params
+        p = load_config("qwen3_0.6b.json")
+        book_card = p.model
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(p.seed)
+        book_qp = quantize_params(init_params(book_card, gen),
+                                  QuantCard.from_json(KMEANS_RULES),
+                                  book_card)
+    paths = s21_gpt2(torch)
+    paths["s21_int4_wrap"] = s21_int4_wrap(torch)
+    paths["s21_bf16_batcher"] = s21_bf16_batcher(torch, book_card, book_qp)
+    paths.update(s21_books(torch))
+    say(f"[slice21] phase: {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(paths)}")
+    return paths
+
+
+def _s21_kun(torch, path: str, name: str, seed: int) -> float:
+    """A ``.kun`` of zoo card ``name`` (SALMON at the qwen2.5-0.5b preset's
+    widths, the reference's arch string "SCORE"; LLAMA_VAE at Qwen3-0.6B's
+    with token_embeds [192]), DEPTH layers, its params seeded on the card
+    under the Llama names the loaders map (LLAMA_VAE's evae stack under its
+    tree paths, which they drop), with a byte-level tokenizer.json beside
+    it. Returns the GB written."""
+    from koifish_tpu_torch.config import ModelCard
+    from koifish_tpu_torch.io.kun import write_kun
+    from koifish_tpu_torch.models import init_params
+    from koifish_tpu_torch.utils.tree import flatten_with_path
+    if name == "salmon":
+        model = json.loads(json.dumps(_s19_cfg_dicts()["salmon"]["model"]))
+    else:
+        model = _qwen3_cfg("LLAMA_VAE", token_embeds=[192])["model"]
+    model["parameter"]["Layer"] = DEPTH
+    card = ModelCard.from_json(model)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(card, gen)
+    names = {"ln1": "input_layernorm.weight",
+             "ln2": "post_attention_layernorm.weight",
+             "qn": "self_attn.q_norm.weight", "kn": "self_attn.k_norm.weight",
+             "q": "self_attn.q_proj.weight", "k": "self_attn.k_proj.weight",
+             "v": "self_attn.v_proj.weight", "o": "self_attn.o_proj.weight",
+             "gate": "mlp.gate_proj.weight", "up": "mlp.up_proj.weight",
+             "down": "mlp.down_proj.weight", "q_b": "self_attn.q_proj.bias",
+             "k_b": "self_attn.k_proj.bias", "v_b": "self_attn.v_proj.bias"}
+    ts = {"model.embed_tokens.weight": params["wte"],
+          "model.norm.weight": params["ln_f"]}
+    for i, lp in enumerate(params["layers"]):
+        for k, w in lp.items():     # HF linears store [out, in]
+            ts[f"model.layers.{i}.{names[k]}"] = w.T if w.dim() == 2 else w
+    for pth, w in flatten_with_path(params.get("evae", {})):
+        ts["evae." + ".".join(str(x) for x in pth)] = w
+    ts = {k: w.contiguous().cpu() for k, w in ts.items()}
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_kun(path, {"model": model}, ts)
+    write_tokenizer_json(os.path.dirname(path))
+    return sum(w.numel() * w.element_size() for w in ts.values()) / 1e9
+
+
+def s21_rank(root: str, group: str) -> None:
+    """One rank of ``slice21_tp_phase``'s 2-rank group: ``bubble --tp 2
+    --bits 8 --kv-bits 8`` greedy on each S21_TP_ZOO card's ``.kun``
+    (``_s20_bubble``). Writes ``two_rank{r}.json`` under ``root``."""
+    if group != "two":
+        return
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from koifish_tpu_torch.parallel import multihost
+    multihost.init_distributed(timeout_s=600)
+    rec = {}
+    for name in S21_TP_ZOO:
+        rec[name] = _s20_bubble(torch, os.path.join(root, name, "model.kun"),
+                                draft=False)
+        torch.cuda.empty_cache()
+    with open(os.path.join(root, f"two_rank{dist.get_rank()}.json"),
+              "w") as f:
+        json.dump(rec, f)
+
+
+def slice21_tp_phase(torch) -> dict:
+    """Slice 21's F2 run: SALMON and LLAMA_VAE, the zoo cards the JAX
+    package's ``bubble`` serves, through ``bubble --tp 2 --bits 8 --kv-bits
+    8`` on 2 ranks sharing the card over gloo (``s21_rank``) and through
+    ``bubble`` on one rank in this process, greedy, S20_NEW tokens, on a
+    ``.kun`` of each (``_s21_kun``). A generator that yields its root to
+    ``mesh_groups``. Fails unless both ranks take the same tokens, those
+    meet the one-rank run's at the 75 % greedy gate, and rank 0's launches
+    are exactly the shapes' (the prefill a flash forward a layer, SALMON's
+    too: the serving prefill is causal whatever the card, as in the JAX
+    package; row 3 in the prefill's 7 projections a layer, then row 4 in 7
+    and one row 7-write a layer each decode step). Returns {path: rank 0's
+    launches}."""
+    import shutil
+    root = os.path.join(ROOT, "build", "slice21")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    for i, name in enumerate(S21_TP_ZOO):
+        gb = _s21_kun(torch, os.path.join(root, name, "model.kun"), name,
+                      seed=21 + i)
+        say(f"[slice21] wrote a {gb:.2f} GB .kun of {name.upper()} "
+            f"({DEPTH} layers)")
+    torch.cuda.empty_cache()
+    t_wait = time.perf_counter()
+    yield root
+    t0 += time.perf_counter() - t_wait
+    ranks = [json.load(open(os.path.join(root, f"two_rank{r}.json")))
+             for r in range(2)]
+    paths = {}
+    for name in S21_TP_ZOO:
+        kun = os.path.join(root, name, "model.kun")
+        turns, _ = _chat(torch, ["--hf", kun, "--bits", "8", "--kv-bits",
+                                 "8", "--temperature", "0", "--max-new",
+                                 str(S20_NEW), "--ctx", "512", "--prompts",
+                                 CHAT_PROMPTS[0], "--csv", ""],
+                         f"{name} bubble on one rank", n_turns=1)
+        run = ranks[0][name]
+        if ranks[1][name]["tokens"] != run["tokens"]:
+            fail(f"{name} --tp 2: the ranks took other tokens")
+        agree = _agreement(turns[0]["tokens"], run["tokens"])
+        say(f"  {name} bubble --tp 2 --bits 8 --kv-bits 8: "
+            f"{len(run['ids'])}-token prompt, tokens {run['tokens']} "
+            f"({run['tk_s']:.2f} tok/s), one rank's {turns[0]['tokens']}: "
+            f"{agree * 100:.1f}% agree (gate 75%)")
+        if agree < 0.75:
+            fail(f"{name}: the --tp 2 tokens disagree with one rank's")
+        L, steps = DEPTH, len(run["tokens"]) - 1
+        want = {"flash_fwd": L, "qmm": 7 * L, "qmv": 7 * L * steps,
+                "decode_attn": L * steps, "kv_write": L * steps}
+        _exact_launches(f"{name} bubble --tp 2, rank 0", run["counts"], want)
+        paths[f"s21_{name}_tp2"] = run["counts"]
+    shutil.rmtree(root)
+    _s21_time("the zoo under bubble --tp 2 (the ranks' run not counted)",
+              t0)
+    return paths
+
+
 def mesh_rank(roots: dict, group: str) -> None:
     """One rank of the shared groups (``mesh_groups``): the rank work of
     slices 18, 19 and 20 (those of ``roots``: "parallel", "slice19",
@@ -7710,7 +8203,8 @@ def mesh_rank(roots: dict, group: str) -> None:
                     raise TimeoutError("rank 0 measured no CUDA context")
                 time.sleep(0.05)
         par_rank(roots["parallel"])
-    for name, rank_fn in (("slice19", s19_rank), ("slice20", s20_rank)):
+    for name, rank_fn in (("slice19", s19_rank), ("slice20", s20_rank),
+                          ("slice21", s21_rank)):
         if name in roots:
             gc.collect()
             torch.cuda.empty_cache()
@@ -7729,7 +8223,8 @@ def mesh_groups(torch, roots: dict) -> None:
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     for group, n in (("two", 2), ("four", 4)):
-        names = [k for k in roots if group == "two" or k != "parallel"]
+        names = [k for k in roots
+                 if group == "two" or k not in ("parallel", "slice21")]
         if not names:
             continue
         t0 = time.perf_counter()
@@ -7815,7 +8310,6 @@ def main() -> None:
     serve_counts = timed(slice_phase, torch)
     batch_counts, card, qp = timed(batcher_phase, torch)
     paged_counts = timed(paged_phase, torch, card, qp)
-    del qp
     torch.cuda.empty_cache()
     timed(reference_check_slice3, torch)
     chat_counts = timed(bubble_phase, torch)
@@ -7831,17 +8325,21 @@ def main() -> None:
     sp_counts = timed(sp_train_phase, torch)
     zoo = timed(zoo_phase, torch)
     s17, k1536, k1536_launches = timed(slice17_phase, torch)
-    # slices 18-20: each phase writes its inputs and yields its root, the
-    # ranks of all three run in one 2-rank and one 4-rank group, then each
+    s21 = timed(slice21_phase, torch, card, qp)
+    del qp
+    torch.cuda.empty_cache()
+    # slices 18-21: each phase writes its inputs and yields its root, the
+    # ranks of all four run in one 2-rank and one 4-rank group, then each
     # phase checks what its ranks wrote
     mesh = (parallel_phase(torch), slice19_phase(torch, ring),
-            slice20_phase(torch))
-    roots = dict(zip(("parallel", "slice19", "slice20"),
+            slice20_phase(torch), slice21_tp_phase(torch))
+    roots = dict(zip(("parallel", "slice19", "slice20", "slice21"),
                      (timed(next, m) for m in mesh)))
     timed(mesh_groups, torch, roots)
     par, k13824, k13824_launches = timed(resume, mesh[0])
     s19, ring_process = timed(resume, mesh[1])
     s20 = timed(resume, mesh[2])
+    s21.update(timed(resume, mesh[3]))
 
     src = "koifish_tpu_torch/csrc/"
     rows = [  # (name, source, TPU kernel, numbers, launches on its path)
@@ -7987,7 +8485,7 @@ def main() -> None:
                                                   "decode_attn_write")
             else 0)
             for p, c in dict(s13, koifish_sp4=sp_counts, **zoo,
-                             **s17, **par, **s19, **s20).items()}
+                             **s17, **par, **s19, **s20, **s21).items()}
         if k["name"] == "ring_attn":   # the ring at sp 2, 4 and 8
             k["eager_ms"] = ring["eager_ms"]
             k["by_sp"] = ring["by_sp"]

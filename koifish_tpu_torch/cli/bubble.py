@@ -193,16 +193,14 @@ def main(argv=None, turns: Optional[List[dict]] = None) -> int:
         say(f"[bubble] quantize-at-load {args.bits}-bit in "
             f"{time.perf_counter() - t0:.1f}s")
     if mesh is not None:
-        from koifish_tpu_torch.parallel.sharding import (check_serving_card,
-                                                         local_card,
+        from koifish_tpu_torch.parallel.sharding import (local_card,
                                                          shard_params)
-        check_serving_card(card)
         if not streamed:
             params = shard_params(params, mesh)
         tp = TPPolicy(group=mesh.group("tp"), rank=mesh.index("tp"),
                       size=args.tp, vocab=card.vocab_size,
                       src=mesh.ranks("tp")[0])
-        run_card = local_card(card, args.tp)
+        run_card = local_card(card, args.tp, check=False)
     else:
         run_card = card
 

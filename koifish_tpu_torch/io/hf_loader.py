@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -33,6 +33,7 @@ def load_hf_model(folder: str, card: Optional[ModelCard] = None,
     raw = dict(iter_hf_folder(folder))
     if is_awq_checkpoint(raw):
         raw = convert_awq_weights(raw)
+    refuse_unmapped_zoo(card, raw)
     if card.arch == "GPT2":
         params = _map_gpt2(card, raw, dtype, dev)
     else:
@@ -61,11 +62,84 @@ def load_kun_model(path: str, dtype=torch.bfloat16, device=None):
                 f"rules from the config — dequantize with the reference "
                 f"or export HF-format for now")
         raw[name] = kt.data
+    refuse_unmapped_zoo(card, raw)
     if card.arch == "GPT2":
         params = _map_gpt2(card, raw, dtype, dev)
     else:
         params = _map_llama_family(card, raw, dtype, dev)
     return card, params, config
+
+
+def zoo_layers(card: ModelCard) -> List[str]:
+    """The zoo's layers of ``card`` that have no Llama or GPT2 tensor
+    names: MLA attention, MAMBA and GUPPY layers, GAU and BROWN layers."""
+    out = ["MLA"] if card.attn == "mla" else []
+    if card.arch in ("MAMBA", "GUPPY"):
+        out.append(card.arch)
+    if card.gau_layers:
+        out.append("GAU")
+    if card.brown_layers:
+        out.append("BROWN")
+    return out
+
+
+def _reads(card: ModelCard, raw):
+    """(name, the JAX loader's error where it is missing) of each tensor
+    the JAX package's mapping reads, in its order: a missing name is a
+    KeyError in the Llama mapping; in the GPT2 one ``jnp.asarray`` of the
+    missing tensor's ``None`` is a TypeError, and the q/k/v slices of a
+    missing fused ``c_attn`` an IndexError."""
+    if card.arch != "GPT2":
+        yield from (("model.embed_tokens.weight", "KeyError"),
+                    ("model.norm.weight", "KeyError"))
+        for i in range(card.n_layer):
+            pre = f"model.layers.{i}."
+            names = ["input_layernorm.weight"] + [
+                f"self_attn.{k}_proj.weight" for k in "qkvo"] + [
+                "post_attention_layernorm.weight"]
+            if not (card.n_experts > 0 and pre + "mlp.gate.weight" in raw):
+                names += [f"mlp.{k}_proj.weight"
+                          for k in ("gate", "up", "down")]
+            if card.qkv_bias:
+                names += [f"self_attn.{k}_proj.bias" for k in "qkv"]
+            if card.qk_norm:
+                names += ["self_attn.q_norm.weight", "self_attn.k_norm.weight"]
+            yield from ((pre + n, "KeyError") for n in names)
+        return
+    yield from ((n, "TypeError") for n in ("wte.weight", "wpe.weight",
+                                            "ln_f.weight", "ln_f.bias"))
+    for i in range(card.n_layer):
+        pre = f"h.{i}."
+        yield from ((pre + n, "TypeError") for n in ("ln_1.weight",
+                                                     "ln_1.bias"))
+        yield pre + "attn.c_attn.weight", "IndexError"
+        yield pre + "attn.c_attn.bias", "IndexError"
+        yield from ((pre + n, "TypeError") for n in (
+            "attn.c_proj.weight", "attn.c_proj.bias", "ln_2.weight",
+            "ln_2.bias", "mlp.c_fc.weight", "mlp.c_fc.bias",
+            "mlp.c_proj.weight", "mlp.c_proj.bias"))
+
+
+def refuse_unmapped_zoo(card: ModelCard, raw) -> None:
+    """Raise for a checkpoint of a zoo card that the JAX package's loaders
+    fail on: they map tensors by Llama and GPT2 names only, so an MLA,
+    MAMBA or GUPPY checkpoint, or one with GAU or BROWN layers, lacks a
+    name they read (ROADMAP.md queue 3, known quirks). The port refuses
+    it at load, on one rank and under ``--tp`` alike, naming the JAX
+    error; one that carries every name maps as the JAX package maps it.
+    SALMON and LLAMA_VAE have no such layers: they load and serve."""
+    what = zoo_layers(card)
+    if not what:
+        return
+    for name, err in _reads(card, raw):
+        if name not in raw and (card.arch != "GPT2"
+                                or "transformer." + name not in raw):
+            said = (f"{err}: {name!r}" if err == "KeyError"
+                    else f"{err} on the missing {name!r}")
+            raise NotImplementedError(
+                f"a {'/'.join(what)} checkpoint: the JAX package's loaders "
+                f"map Llama and GPT2 tensor names only and fail on it "
+                f"({said}), so the port refuses it")
 
 
 def _t(a, dtype, dev, transpose: bool = False):

@@ -33,6 +33,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from koifish_tpu_torch.config import ModelCard, QuantCard
+from koifish_tpu_torch.io.hf_loader import refuse_unmapped_zoo
 from koifish_tpu_torch.quant.qtensor import QTensor
 from koifish_tpu_torch.utils.device import resolve_device
 
@@ -123,6 +124,7 @@ def load_hf_sharded_quantized(folder: str, mesh, qcard: Optional[QuantCard]
     dev = resolve_device(mesh.device)
     n, r = mesh.size(tp), mesh.index(tp)
     raw = _lazy_folder(folder)
+    refuse_unmapped_zoo(card, raw)
 
     def part(dim_len: int, ok: bool = True) -> slice:
         """This rank's range of a dim sharded on tp (all when it is not)."""

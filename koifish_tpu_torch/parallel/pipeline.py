@@ -366,8 +366,9 @@ def _pp_layout(mesh, stage_layers, other, axis: str = "pp"):
     """The optimizer's view of a stage's params: each stage leaf is the
     slice of the whole [L, ...] stack along ``axis`` from the stage's first
     layer (so stochastic rounding hashes every element by its index in the
-    one-rank pipeline's leaf, and LARS takes the whole stack's norms), the
-    replicated ones are counted once."""
+    one-rank pipeline's leaf) and a stack of layers (so LARS takes each
+    layer's norms, as the one-rank step does), the replicated ones are
+    counted once."""
     from koifish_tpu_torch.parallel.sharding import Shard
     from koifish_tpu_torch.train.sharded import ShardedLayout
     P, p = mesh.size(axis), mesh.index(axis)
@@ -378,7 +379,7 @@ def _pp_layout(mesh, stage_layers, other, axis: str = "pp"):
         shards.append(Shard((n * P,) + tuple(x.shape[1:]),
                             (axis,) + (None,) * (x.dim() - 1),
                             (p * n,) + (0,) * (x.dim() - 1),
-                            tuple(x.shape)))
+                            tuple(x.shape), stacked=True))
     return ShardedLayout(mesh, shards)
 
 

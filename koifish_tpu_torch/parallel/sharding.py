@@ -113,11 +113,14 @@ def _fit_spec(shape, spec: Spec, mesh) -> Spec:
 @dataclasses.dataclass(frozen=True)
 class Shard:
     """One leaf's layout: its whole ``shape``, the fitted ``spec``, and
-    this rank's ``start`` and ``local`` shape per dim."""
+    this rank's ``start`` and ``local`` shape per dim. ``stacked``: dim 0
+    stacks layers (a pipeline stage's [L/P, ...] leaf), each a leaf of the
+    one-rank model of its own."""
     shape: Tuple[int, ...]
     spec: Spec
     start: Tuple[int, ...]
     local: Tuple[int, ...]
+    stacked: bool = False
 
     @property
     def sharded(self) -> bool:
@@ -362,26 +365,7 @@ def check_mesh_params(params: Dict[str, Any], n_ranks: int) -> None:
         f"port refuses it")
 
 
-def check_serving_card(card: ModelCard) -> None:
-    """Raise for the zoo's layers that serving under tensor parallelism
-    (``bubble --tp``) does not take (MoE is taken)."""
-    bad = []
-    if card.attn == "mla":
-        bad.append("MLA")
-    if card.arch in ("MAMBA", "GUPPY", "SALMON", "LLAMA_VAE"):
-        bad.append(card.arch)
-    if card.gau_layers:
-        bad.append("GAU")
-    if card.brown_layers:
-        bad.append("BROWN")
-    if bad:
-        raise NotImplementedError(
-            f"serving under tensor parallelism takes the dense and MoE "
-            f"transformer only, not {', '.join(sorted(set(bad)))}: the zoo "
-            f"served under tensor parallelism (ROADMAP.md queue 1)")
-
-
-def local_card(card: ModelCard, tp: int) -> ModelCard:
+def local_card(card: ModelCard, tp: int, check: bool = True) -> ModelCard:
     """The card a tensor-parallel rank runs: ``n_head``, ``n_kv_head`` and
     ``n_ffn`` divided by ``tp`` (the vocab and the expert count stay whole;
     the embedding, head and expert stacks carry the split). The zoo: an MLA
@@ -389,10 +373,14 @@ def local_card(card: ModelCard, tp: int) -> ModelCard:
     columns of F and its heads; a MAMBA card's layers (all replicated) and
     a GUPPY card's FFN (its sampled rows, replicated) stay whole, so MAMBA
     keeps its card and GUPPY its ``n_ffn``; BROWN layers read their whole
-    head count from their table."""
+    head count from their table. ``check``: refuse the cards that
+    ``check_parallel_card`` refuses under tensor parallelism; serving
+    passes False (it takes LLAMA_VAE: a loaded checkpoint carries no
+    ``evae`` stack, in either package)."""
     if tp == 1:
         return card
-    check_parallel_card(card)
+    if check:
+        check_parallel_card(card)
     if card.arch == "MAMBA":
         return card
     names = ("n_head", "n_kv_head") + (() if card.arch == "GUPPY"

@@ -313,19 +313,33 @@ def muon_update(p, g, mom, *, lr, momentum, weight_decay, sr_seed=None,
 # combined apply
 # ---------------------------------------------------------------------------
 
-def lars_trust_ratio(p, g, lars_ratio: float) -> torch.Tensor:
-    """min(||w|| / (||g|| + 1e-8), lars_ratio) (GTensor::rLARS)."""
-    wnorm = torch.linalg.norm(p.to(torch.float32))
-    gnorm = torch.linalg.norm(g.to(torch.float32))
+def lars_trust_ratio(p, g, lars_ratio: float, dims=None) -> torch.Tensor:
+    """min(||w|| / (||g|| + 1e-8), lars_ratio) (GTensor::rLARS), the norms
+    over ``dims`` (kept, to scale ``g``) or over every element."""
+    keep = dims is not None
+    wnorm = torch.linalg.vector_norm(p.to(torch.float32), dim=dims,
+                                     keepdim=keep)
+    gnorm = torch.linalg.vector_norm(g.to(torch.float32), dim=dims,
+                                     keepdim=keep)
     return torch.clamp(wnorm / (gnorm + 1e-8), max=lars_ratio)
 
 
 def _lars_ratios(idx, ps, gs, lars_ratio: float, dist) -> Dict[int, Any]:
     """{i: trust ratio} of leaves ``idx``. A sharded leaf's ||w|| and ||g||
     are the whole leaf's: the squares summed over every axis it is cut on
-    (``dist.sum_over_shards``), then the roots."""
+    (``dist.sum_over_shards``), then the roots. A stacked leaf (a pipeline
+    stage's [L/P, ...] leaf, ``Shard.stacked``) takes one ratio a layer,
+    its norms over dims 1.., shaped to scale the leaf layer by layer; its
+    layers lie whole on their stage (the pipeline runs alone), so the
+    norms are the stage's own."""
+    stacked = {i for i in idx
+               if dist is not None and dist.shards[i].stacked}
     out = {i: lars_trust_ratio(ps[i], gs[i], lars_ratio) for i in idx
-           if dist is None or not dist.shards[i].sharded}
+           if i not in stacked
+           and (dist is None or not dist.shards[i].sharded)}
+    for i in stacked:
+        out[i] = lars_trust_ratio(ps[i], gs[i], lars_ratio,
+                                  tuple(range(1, ps[i].dim())))
     cut = [i for i in idx if i not in out]
     if cut:
         sq = dist.sum_over_shards({i: torch.stack([
@@ -431,8 +445,10 @@ def apply_updates(params, grads, opt: OptState, *, optimizer: str, lr,
             if _is_float(p) and _real_grad(g)]
     if lars_ratio > 0.0:
         ps = [p for _, p in flat]
-        ratios = _lars_ratios([i for i in live if ps[i].dim() >= 2], ps,
-                              g_leaves, lars_ratio, dist)
+        # no ratio on norms and biases: a stacked leaf's layer of dim < 2
+        ratios = _lars_ratios([i for i in live if ps[i].dim() - (
+            shards[i] is not None and shards[i].stacked) >= 2], ps,
+            g_leaves, lars_ratio, dist)
         for i, r in ratios.items():
             g_leaves[i] = g_leaves[i] * r
     adam = []

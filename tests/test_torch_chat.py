@@ -369,16 +369,16 @@ def test_bubble_cli_matches_jax_generate(tmp_path):
 
 
 def test_bubble_refuses_what_is_not_ported(tmp_path):
-    """Serving under ``--tp`` (with or without a draft: speculative
-    decoding under tensor parallelism is ported,
-    ``tests/test_torch_slice20_tp.py``) names the zoo's layers it does not
-    take; a ``.kun`` path is taken (the format is ported), and one without
-    an embedded config is refused as the JAX package refuses it."""
+    """A checkpoint of the zoo's layers that the JAX package's loaders
+    cannot map is refused at load, naming the JAX error (with or without
+    ``--tp``: ``tests/test_torch_slice21.py``); a ``.kun`` path is taken
+    (the format is ported), and one without an embedded config is refused
+    as the JAX package refuses it."""
     from koifish_tpu_torch.config import ModelCard
-    from koifish_tpu_torch.parallel.sharding import check_serving_card
+    from koifish_tpu_torch.io.hf_loader import refuse_unmapped_zoo
     with pytest.raises(NotImplementedError,
-                       match="zoo served under tensor parallelism"):
-        check_serving_card(ModelCard.from_arch("MAMBA", **TINY))
+                       match="map Llama and GPT2 tensor names only"):
+        refuse_unmapped_zoo(ModelCard.from_arch("MAMBA", **TINY), {})
     tst.write_safetensors(str(tmp_path / "m.kun"), {"x": torch.zeros(2)})
     with pytest.raises(ValueError, match="__koifish__config__"):
         bubble.main(["--hf", str(tmp_path / "m.kun"), "--device", "cpu"])

@@ -285,8 +285,9 @@ def test_stream_load_one_rank_matches_jax(tmp_path, monkeypatch):
 
 
 def test_refusals():
-    """Stream load of GPT2/MoE (as the JAX package), the zoo served under
-    ``bubble --tp``, ``--pp`` with dp/tp/sp, layers that do not divide
+    """Stream load of GPT2/MoE (as the JAX package), a zoo checkpoint the
+    JAX package's loaders cannot map (refused at load, with or without
+    ``bubble --tp``), ``--pp`` with dp/tp/sp, layers that do not divide
     into stages or differ, LoRA under tp, and LoRA adapters and LLAMA_VAE
     on any mesh of more than one rank (where the JAX package's
     ``shard_params`` fails; one rank shards nothing) raise, each naming its
@@ -294,6 +295,7 @@ def test_refusals():
     failures, are in ``tests/test_torch_parallel_zoo.py``; the JAX side of
     the mesh refusals is in ``tests/test_torch_slice20.py``.)"""
     from koifish_tpu_torch.cli import koifish
+    from koifish_tpu_torch.io.hf_loader import refuse_unmapped_zoo
     from koifish_tpu_torch.io.stream_load import load_hf_sharded_quantized
     from koifish_tpu_torch.models import init_params
     from koifish_tpu_torch.models.transformer import _linear_l
@@ -313,9 +315,9 @@ def test_refusals():
                                               qk_nope_head_dim=16,
                                               qk_rope_head_dim=8,
                                               v_head_dim=16))
-    with pytest.raises(NotImplementedError, match="zoo served under tensor "
-                       "parallelism"):
-        tsh.check_serving_card(mla)
+    with pytest.raises(NotImplementedError, match="map Llama and GPT2 "
+                       "tensor names only"):
+        refuse_unmapped_zoo(mla, {})
     with pytest.raises(ValueError, match="pipeline alone"):
         koifish.main(["cfg.json", "--pp", "2", "--tp", "2"])
     card = ModelCard.from_arch("QWEN3", **dict(CARD, n_layer=3))

@@ -25,7 +25,10 @@ from torch_dist_helpers import _join, _np, _save
 @contextlib.contextmanager
 def planted(fault):
     """A fault of the port, in force for one run: ``"lars_local"`` (LARS
-    takes each shard's own norms), ``"fuyou_shard_draws"`` (the swarm draws
+    takes each shard's own norms), ``"lars_whole_stack"`` (no pipeline
+    stage leaf is marked stacked, so LARS takes one ratio over each whole
+    [L, ...] stack and one on the stacked norms: the layout before slice
+    21), ``"fuyou_shard_draws"`` (the swarm draws
     at the shard's shape), ``"pp_stage_index"`` (the pipeline's stage
     leaves hash their local index), ``"spec_seed"`` (rank 1 seeds its
     speculative generators otherwise)."""
@@ -38,6 +41,18 @@ def planted(fault):
     if fault == "lars_local":
         from koifish_tpu_torch.train.sharded import ShardedLayout
         patch(ShardedLayout, "sum_over_shards", lambda self, parts: parts)
+    elif fault == "lars_whole_stack":
+        import dataclasses
+
+        from koifish_tpu_torch.parallel import pipeline as pl
+        real = pl._pp_layout
+
+        def whole(*a, **k):
+            lay = real(*a, **k)
+            lay.shards = [dataclasses.replace(sh, stacked=False)
+                          for sh in lay.shards]
+            return lay
+        patch(pl, "_pp_layout", whole)
     elif fault == "fuyou_shard_draws":
         from koifish_tpu_torch.train.fuyou import Fuyou
         patch(Fuyou, "_draws", lambda self, fn, branch, gen: fn(branch, gen))
